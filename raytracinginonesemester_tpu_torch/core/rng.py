@@ -1,0 +1,125 @@
+"""Counter-free stateless RNG, bit-compatible with the reference renderer.
+
+PyTorch port of ``raytracinginonesemester_tpu.core.rng``: the reference's
+uint32 LCG + xorshift mix (``GPUandCPU/include/query.h:32-48``), its
+spatial seed hash and its Wang-hash sub-pixel jitter
+(``GPUandCPU/include/antialias.h:30-37``), bit for bit.
+
+torch has no general uint32 arithmetic, and its ``>>`` on int32 is an
+arithmetic shift.  Every uint32 value here therefore lives in an int64
+tensor in ``[0, 2**32)``, and each product or sum is masked back with
+``& 0xFFFFFFFF``.  The largest product (``h * 0x27D4EB2D``) stays below
+2**62, so int64 never overflows.  ``to_u32`` / ``to_i32`` convert from and
+to the int32 bit patterns of the kernels' rng rows.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+__all__ = [
+    "to_u32",
+    "to_i32",
+    "wang_hash_float",
+    "rng_next",
+    "make_rng_seed",
+    "pixel_jitter",
+    "random_unit_vector",
+]
+
+_MASK = 0xFFFFFFFF
+# float32(1) / float32(0xFFFFFFFF): the divisor rounds to 2**32 in f32
+_INV_U32_MAX = 2.0 ** -32
+
+
+def to_u32(x) -> torch.Tensor:
+    """Any integer tensor (int32 bit patterns included) -> int64 in [0, 2**32)."""
+    return torch.as_tensor(x).to(torch.int64) & _MASK
+
+
+def to_i32(h: torch.Tensor) -> torch.Tensor:
+    """int64 uint32 values -> the int32 tensor with the same bit pattern."""
+    h = h & _MASK
+    return torch.where(h >= 2 ** 31, h - 2 ** 32, h).to(torch.int32)
+
+
+def _mix(h: torch.Tensor) -> torch.Tensor:
+    """Wang-hash avalanche shared by ``rng_next`` and ``wang_hash_float``."""
+    h = (h ^ 61) ^ (h >> 16)
+    h = (h * 9) & _MASK
+    h = h ^ (h >> 4)
+    h = (h * 0x27D4EB2D) & _MASK
+    return h ^ (h >> 15)
+
+
+def _u32_to_unit(h: torch.Tensor) -> torch.Tensor:
+    # int64 -> float32 rounds to nearest, as the reference's uitofp does
+    return h.to(torch.float32) * _INV_U32_MAX
+
+
+def _lcg(state: torch.Tensor) -> torch.Tensor:
+    return (state * 1664525 + 1013904223) & _MASK
+
+
+def wang_hash_float(seed) -> torch.Tensor:
+    """uint32 -> float32 in [0, 1) (``antialias.h:30-37``)."""
+    return _u32_to_unit(_mix(to_u32(seed)))
+
+
+def rng_next(state) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Advance the LCG and return (new_state, float32 in [0, 1))
+    (``query.h:32-42``): the output mixes the *new* state."""
+    state = _lcg(to_u32(state))
+    return state, _u32_to_unit(_mix(state))
+
+
+def make_rng_seed(x, y, sample) -> torch.Tensor:
+    """Spatial-hash seed by (pixel_x, pixel_y, sample) (``query.h:44-48``)."""
+    return (((to_u32(x) * 73856093) & _MASK)
+            ^ ((to_u32(y) * 19349663) & _MASK)
+            ^ ((to_u32(sample) * 83492791) & _MASK))
+
+
+def pixel_jitter(x, y, sample) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(pixel, sample) sub-pixel jitter in [-0.5, 0.5)
+    (``GPUandCPU/include/query.cu:36-43``): Wang hash for jx, one LCG
+    step, Wang hash for jy."""
+    h = make_rng_seed(x, y, sample)
+    jx = wang_hash_float(h) - 0.5
+    jy = wang_hash_float(_lcg(h)) - 0.5
+    return jx, jy
+
+
+def random_unit_vector(state, max_rounds: int = 64):
+    """Uniform point on the unit sphere by per-element rejection
+    (``query.h:51-62``).  Each element draws 3 numbers per round until
+    its candidate lands in the unit ball; accepted elements stop
+    advancing, exactly like the scalar loop.  ``max_rounds`` caps the
+    loop as the kernels do (P(64 rejections) ~ 1e-21).
+
+    ``state`` is a uint32 tensor (int64 storage) of any shape; returns
+    (new_state, (..., 3) float32)."""
+    state = to_u32(state)
+    vec = torch.zeros(state.shape + (3,), dtype=torch.float32,
+                      device=state.device)
+    accepted = torch.zeros(state.shape, dtype=torch.bool, device=state.device)
+    for _ in range(max_rounds):
+        s1, x = rng_next(state)
+        s2, y = rng_next(s1)
+        s3, z = rng_next(s2)
+        x = 2.0 * x - 1.0
+        y = 2.0 * y - 1.0
+        z = 2.0 * z - 1.0
+        lensq = x * x + y * y + z * z
+        ok = (lensq > 1e-10) & (lensq <= 1.0)
+        inv = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-10))
+        take = ok & ~accepted
+        cand = torch.stack([x * inv, y * inv, z * inv], dim=-1)
+        vec = torch.where(take[..., None], cand, vec)
+        state = torch.where(accepted, state, s3)
+        accepted = accepted | ok
+        if bool(accepted.all()):
+            break
+    return state, vec

@@ -1,0 +1,540 @@
+// Wavefront path-tracing kernels for Hopper (sm_90a): emit, bounce_step,
+// resume.
+//
+// Replaces the Pallas TPU kernels of raytracinginonesemester_tpu/ops/
+// megakernel.py: _emit_kernel (emit_tiles), _bounce_step_kernel
+// (bounce_step_tiles) and _resume_kernel (resume_tiles), gpu dialect, flat
+// block scan.  The three kernels share the device functions below, as the
+// Pallas kernels share _make_traverse / _make_shade / _make_bounce.
+//
+// Design.  One thread per ray, 128 threads per block.  Thread (tile, lane)
+// reads state row k at tile*16*rt + k*rt + lane, so each row load of a warp
+// is coalesced.  Triangle planes stay in global memory (frog at 512-blocks
+// is ~1.7 MB and lives in L2); block AABBs, lights and materials are staged
+// in shared memory.  Closest hit scans blocks 0..L-1 with a per-ray slab
+// test against the running best t before each block's triangle loop (the
+// per-ray form of the Pallas tile-level gate); the lexicographic
+// (t, global triangle id) take rule makes the winner independent of visit
+// order.  Shadow rays stop at their first hit.  The hemisphere sampler is
+// the reference's scalar rejection loop (query.h:51-71), capped at 64
+// rounds, drawn only by rays that take the diffuse branch.
+//
+// What bounds it on this card: divergent scalar FP32 work (Moller-Trumbore
+// per ray-triangle pair, shadow walks, rejection sampling) and L2-resident
+// triangle reads; there is nothing matrix-shaped for the tensor cores.
+// This first version is deliberately simple: exact and readable, with the
+// JAX kernels' op order (built with -fmad=false and IEEE div/sqrt) so that
+// it can be held against them to the last ulp.  A BVH or the binned camera
+// plan, not wgmma, is what would make it faster.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kStRows = 16;
+constexpr int kThreads = 128;
+constexpr float kF32Max = 3.402823466e+38f;
+constexpr int kIntMax = 2147483647;
+constexpr float kInvPi = 0.31830988618f;
+constexpr float kInv2Pi = 0.15915494309f;
+
+}  // namespace
+
+// Mirrored by raytracinginonesemester_tpu_torch/ops/_native.py:SceneArgs.
+struct SceneArgs {
+  const float* cam;     // (16,) center, pixel00, du, dv, miss rgb, 0
+  const float* lights;  // (NL, 8) pos, color*intensity, radius, 0
+  const float* mats;    // (NO, 16) albedo, kd, specular, ks, shin, kr, emission
+  const float* tri;     // (9, L, B) v0 xyz, e1 xyz, e2 xyz
+  const float* norm;    // (12, L, B) n0 n1 n2 xyz, geometric normal xyz
+  const int* ids;       // (L, B) global triangle id, -1 padding
+  const int* obj;       // (L, B) object id
+  const float* aabb;    // (L, 8) min xyz, max xyz, 0, 0
+  int n_lights;
+  int n_objects;
+  int num_blocks;
+  int block_size;
+  int diffuse_bounce;
+  float det_eps;
+  float tmin;
+  float shadow_eps;
+  float shadow_tmin;
+};
+
+struct Shared {
+  const float* aabb;    // (L, 6)
+  const float* lights;  // (NL, 8)
+  const float* mats;    // (NO, 16)
+};
+
+struct Ray {
+  float bo[3], bd[3], tp[3], rd[3];
+  float alive;
+  uint32_t rng;
+};
+
+// ---- RNG, bit-compatible with core/rng.py (query.h:32-48) ----
+
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+  h = (h ^ 61u) ^ (h >> 16);
+  h *= 9u;
+  h ^= h >> 4;
+  h *= 0x27D4EB2Du;
+  h ^= h >> 15;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t lcg(uint32_t s) {
+  return s * 1664525u + 1013904223u;
+}
+
+__device__ __forceinline__ float wang_float(uint32_t h) {
+  return __uint2float_rn(mix32(h)) * 2.3283064365386963e-10f;  // 2^-32
+}
+
+// ---- geometry ----
+
+// Slab test with the robust far-plane stretch (Ize 2013) of _tile_slab;
+// a NaN slab (0 * inf) opens that axis, as jnp.minimum/maximum + isnan do.
+__device__ __forceinline__ bool slab(const float* a, const float* o,
+                                     const float* inv, float t0, float t1) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float lo = (a[k] - o[k]) * inv[k];
+    float hi = (a[k + 3] - o[k]) * inv[k];
+    float nr, fr;
+    if (isnan(lo) || isnan(hi)) {
+      nr = -INFINITY;
+      fr = INFINITY;
+    } else {
+      nr = fminf(lo, hi);
+      fr = fmaxf(lo, hi) * 1.0000004f;
+    }
+    t0 = fmaxf(t0, nr);
+    t1 = fminf(t1, fr);
+  }
+  return t0 <= t1;
+}
+
+// Moller-Trumbore (query.h:72-132) against triangle k of the planes;
+// returns t, or kF32Max on a miss.
+__device__ __forceinline__ float mt(const SceneArgs& s, size_t plane, int k,
+                                    const float* o, const float* d,
+                                    float tmin, float tmax, float* uo,
+                                    float* vo) {
+  const float* T = s.tri + k;
+  float v0x = T[0], v0y = T[plane], v0z = T[2 * plane];
+  float e1x = T[3 * plane], e1y = T[4 * plane], e1z = T[5 * plane];
+  float e2x = T[6 * plane], e2y = T[7 * plane], e2z = T[8 * plane];
+  float dx = d[0], dy = d[1], dz = d[2];
+  float pvx = dy * e2z - dz * e2y;
+  float pvy = dz * e2x - dx * e2z;
+  float pvz = dx * e2y - dy * e2x;
+  float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  float inv_det = 1.0f / (fabsf(det) < s.det_eps ? 1.0f : det);
+  float tvx = o[0] - v0x;
+  float tvy = o[1] - v0y;
+  float tvz = o[2] - v0z;
+  float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  float qvx = tvy * e1z - tvz * e1y;
+  float qvy = tvz * e1x - tvx * e1z;
+  float qvz = tvx * e1y - tvy * e1x;
+  float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+  float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  *uo = u;
+  *vo = v;
+  bool ok = fabsf(det) >= s.det_eps && u >= 0.0f && u <= 1.0f &&
+            v >= 0.0f && u + v <= 1.0f && t >= tmin && t <= tmax;
+  return ok ? t : kF32Max;
+}
+
+struct Hit {
+  float t, u, v;
+  int id, k;  // global triangle id (-1: none), plane index block*B + lane
+};
+
+__device__ Hit closest(const SceneArgs& s, const Shared& sh, const float* o,
+                       const float* d) {
+  const size_t plane = (size_t)s.num_blocks * s.block_size;
+  float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
+  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
+  for (int b = 0; b < s.num_blocks; ++b) {
+    if (!slab(sh.aabb + 6 * b, o, inv, s.tmin, h.t)) continue;
+    const int base = b * s.block_size;
+    for (int j = 0; j < s.block_size; ++j) {
+      const int id = s.ids[base + j];
+      if (id < 0) continue;
+      float u, v;
+      float t = mt(s, plane, base + j, o, d, s.tmin, h.t, &u, &v);
+      if (t < kF32Max &&
+          (t < h.t || (t == h.t && id < (h.id >= 0 ? h.id : kIntMax)))) {
+        h.t = t;
+        h.u = u;
+        h.v = v;
+        h.id = id;
+        h.k = base + j;
+      }
+    }
+  }
+  return h;
+}
+
+// gpu-dialect shading normal of the winner (query.h:113-126).
+__device__ void shading_normal(const SceneArgs& s, const Hit& h,
+                               const float* d, float* n) {
+  const size_t plane = (size_t)s.num_blocks * s.block_size;
+  const float* N = s.norm + h.k;
+  float nv[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) nv[q] = N[q * plane];
+  float w = 1.0f - h.u - h.v;
+  float snx = w * nv[0] + h.u * nv[3] + h.v * nv[6];
+  float sny = w * nv[1] + h.u * nv[4] + h.v * nv[7];
+  float snz = w * nv[2] + h.u * nv[5] + h.v * nv[8];
+  float gx = nv[9], gy = nv[10], gz = nv[11];
+  float dg = d[0] * gx + d[1] * gy + d[2] * gz;
+  float gsign = dg < 0.0f ? 1.0f : -1.0f;
+  float len_sq = snx * snx + sny * sny + snz * snz;
+  float ogx = gx * gsign, ogy = gy * gsign, ogz = gz * gsign;
+  float inv_len = 1.0f / sqrtf(fmaxf(len_sq, 1e-38f));
+  bool use_geom = len_sq < 1e-12f;
+  snx = use_geom ? ogx : snx * inv_len;
+  sny = use_geom ? ogy : sny * inv_len;
+  snz = use_geom ? ogz : snz * inv_len;
+  float fs = (snx * ogx + sny * ogy + snz * ogz) < 0.0f ? -1.0f : 1.0f;
+  n[0] = snx * fs;
+  n[1] = sny * fs;
+  n[2] = snz * fs;
+}
+
+// IsInShadow: any hit on [shadow_tmin, dist], first hit wins.
+__device__ bool occluded(const SceneArgs& s, const Shared& sh, const float* p,
+                         const float* ld, float dist) {
+  const size_t plane = (size_t)s.num_blocks * s.block_size;
+  float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};
+  for (int b = 0; b < s.num_blocks; ++b) {
+    if (!slab(sh.aabb + 6 * b, p, inv, s.shadow_tmin, dist)) continue;
+    const int base = b * s.block_size;
+    for (int j = 0; j < s.block_size; ++j) {
+      if (s.ids[base + j] < 0) continue;
+      float u, v;
+      if (mt(s, plane, base + j, p, ld, s.shadow_tmin, dist, &u, &v) < kF32Max)
+        return true;
+    }
+  }
+  return false;
+}
+
+// random_on_hemisphere (query.h:51-71): scalar rejection, <= 64 rounds.
+__device__ void hemisphere(uint32_t* rng, const float* n, float* h) {
+  uint32_t st = *rng;
+  for (int k = 0; k < 64; ++k) {
+    uint32_t s1 = lcg(st);
+    float x = 2.0f * wang_float(s1) - 1.0f;
+    uint32_t s2 = lcg(s1);
+    float y = 2.0f * wang_float(s2) - 1.0f;
+    uint32_t s3 = lcg(s2);
+    float z = 2.0f * wang_float(s3) - 1.0f;
+    st = s3;
+    float lensq = x * x + y * y + z * z;
+    if (lensq > 1e-10f && lensq <= 1.0f) {
+      float inv = 1.0f / sqrtf(fmaxf(lensq, 1e-10f));
+      h[0] = x * inv;
+      h[1] = y * inv;
+      h[2] = z * inv;
+      break;
+    }
+  }
+  *rng = st;
+  float dot = h[0] * n[0] + h[1] * n[1] + h[2] * n[2];
+  float fs = dot > 0.0f ? 1.0f : -1.0f;
+  h[0] *= fs;
+  h[1] *= fs;
+  h[2] *= fs;
+}
+
+// One closest hit + direct light + Russian-roulette step on an alive ray
+// (the loop body of TraceRayIterative, query.h:165-216).
+__device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
+                       Ray& r) {
+  const float* o = r.bo;
+  const float* d = r.bd;
+  Hit h = closest(s, sh, o, d);
+  const bool hit = h.t < kF32Max;
+  float n[3] = {0.0f, 0.0f, 1.0f};
+  int obj = 0;
+  if (hit) {
+    shading_normal(s, h, d, n);
+    obj = s.obj[h.k];
+  }
+  const float* m = sh.mats + 16 * obj;
+
+  // ---- direct light (ShadeDirect, shader.h:65-110) ----
+  float p[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    p[c] = hit ? o[c] + h.t * d[c] + n[c] * s.shadow_eps : 1e30f;
+  const float vx = -d[0], vy = -d[1], vz = -d[2];
+  const float ndotv = fmaxf(n[0] * vx + n[1] * vy + n[2] * vz, 0.0f);
+  float lo[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) lo[c] = m[c] * 0.05f + m[10 + c];
+  for (int li = 0; li < s.n_lights; ++li) {
+    const float* L = sh.lights + 8 * li;
+    float tox = L[0] - p[0], toy = L[1] - p[1], toz = L[2] - p[2];
+    float dist = sqrtf(fmaxf(tox * tox + toy * toy + toz * toz, 1e-38f));
+    float inv_dist = 1.0f / dist;
+    float ld[3] = {tox * inv_dist, toy * inv_dist, toz * inv_dist};
+    float ndotl = fmaxf(n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2], 0.0f);
+    bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
+    if (!facing) continue;  // scale == 0: adds exactly 0
+    float vis = occluded(s, sh, p, ld, dist) ? 0.0f : 1.0f;
+    float hx = ld[0] + vx, hy = ld[1] + vy, hz = ld[2] + vz;
+    float hlen = sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-38f));
+    float ndoth = fmaxf((n[0] * hx + n[1] * hy + n[2] * hz) / hlen, 0.0f);
+    float scale = ndotl * vis;  // lit == 1: facing
+    float shin = m[8];
+    float lobe = powf(ndoth, shin) * ((shin + 2.0f) * kInv2Pi * m[7]);
+    float fd = m[3] * kInvPi;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      lo[c] = lo[c] + scale * L[3 + c] * (m[c] * fd + m[4 + c] * lobe);
+  }
+
+  // ---- radiance and the Russian-roulette split (query.h:188-212) ----
+  const float found_f = hit ? 1.0f : 0.0f;
+  const float missed_f = hit ? 0.0f : 1.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    r.rd[c] = r.rd[c] + r.tp[c] * (missed_f * cam[12 + c] + found_f * lo[c]);
+  const float kd = m[3], kr = m[9];
+  const float total = kd + kr;
+  const bool can_bounce = hit && total > 0.0f;
+  const uint32_t s_xi = lcg(r.rng);
+  const float xi = wang_float(s_xi);
+  if (can_bounce) r.rng = s_xi;
+  const float ratio = kd / (total > 0.0f ? total : 1.0f);
+  const bool take_diff = s.diffuse_bounce && can_bounce && xi < ratio;
+  const bool take_mirror = can_bounce && !take_diff;
+  float hm[3] = {0.0f, 0.0f, 0.0f};
+  if (take_diff) hemisphere(&r.rng, n, hm);
+  const float dtp =
+      2.0f * fmaxf(n[0] * hm[0] + n[1] * hm[1] + n[2] * hm[2], 0.0f);
+  const float ddn = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
+  const float td_f = take_diff ? 1.0f : 0.0f;
+  const bool bounced = take_diff || take_mirror;
+  const float b_f = bounced ? 1.0f : 0.0f;
+  float nd[3], tp[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float rf = d[c] - 2.0f * ddn * n[c];
+    nd[c] = b_f * (td_f * hm[c] + (1.0f - td_f) * rf) + (1.0f - b_f) * d[c];
+    float tsc = td_f * (m[c] * dtp) + (1.0f - td_f) * (m[4 + c] * kr);
+    tp[c] = b_f * (r.tp[c] * tsc) + (1.0f - b_f) * r.tp[c];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (bounced) r.bo[c] = p[c];
+    r.bd[c] = nd[c];
+    r.tp[c] = tp[c];
+  }
+  const bool tiny = tp[0] < 1e-4f && tp[1] < 1e-4f && tp[2] < 1e-4f;
+  r.alive = (bounced && !tiny) ? 1.0f : 0.0f;
+}
+
+// ---- kernels ----
+
+__device__ Shared stage_shared(const SceneArgs& s) {
+  extern __shared__ float smem[];
+  float* aabb = smem;
+  float* lights = aabb + 6 * s.num_blocks;
+  float* mats = lights + 8 * s.n_lights;
+  for (int i = threadIdx.x; i < 6 * s.num_blocks; i += blockDim.x)
+    aabb[i] = s.aabb[(i / 6) * 8 + i % 6];
+  for (int i = threadIdx.x; i < 8 * s.n_lights; i += blockDim.x)
+    lights[i] = s.lights[i];
+  for (int i = threadIdx.x; i < 16 * s.n_objects; i += blockDim.x)
+    mats[i] = s.mats[i];
+  __syncthreads();
+  return Shared{aabb, lights, mats};
+}
+
+__device__ __forceinline__ void load_ray(const float* st, const int* rng,
+                                         int rt, Ray& r) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r.bo[c] = st[c * rt];
+    r.bd[c] = st[(3 + c) * rt];
+    r.tp[c] = st[(6 + c) * rt];
+    r.rd[c] = st[(9 + c) * rt];
+  }
+  r.alive = st[12 * rt];
+  r.rng = (uint32_t)rng[0];
+}
+
+__device__ __forceinline__ void store_ray(const Ray& r, int rt, float* st,
+                                          int* rng) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    st[c * rt] = r.bo[c];
+    st[(3 + c) * rt] = r.bd[c];
+    st[(6 + c) * rt] = r.tp[c];
+    st[(9 + c) * rt] = r.rd[c];
+  }
+  st[12 * rt] = r.alive;
+  for (int k = 13; k < kStRows; ++k) st[k * rt] = 0.0f;
+  rng[0] = (int)r.rng;
+  for (int k = 1; k < 8; ++k) rng[k * rt] = 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+emit_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
+            int n_rays, int rt, int sample_offset, float* st_out,
+            int* rng_out) {
+  const Shared sh = stage_shared(s);
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_rays) return;
+  const int tile = gid / rt, lane = gid % rt;
+  float* so = st_out + (size_t)tile * kStRows * rt + lane;
+  int* ro = rng_out + (size_t)tile * 8 * rt + lane;
+  const float* cam = s.cam;
+  Ray r;
+  if (!has_work[tile]) {
+    // no ray of this tile can hit: dead, unit direction, miss radiance
+    for (int c = 0; c < 3; ++c) {
+      r.bo[c] = 0.0f;
+      r.bd[c] = c == 2 ? 1.0f : 0.0f;
+      r.tp[c] = 0.0f;
+      r.rd[c] = cam[12 + c];
+    }
+    r.alive = 0.0f;
+    r.rng = 0u;
+    store_ray(r, rt, so, ro);
+    return;
+  }
+  // jittered pinhole ray (query.cu:36-43, camera.h:49-53)
+  const uint32_t x = (uint32_t)xs[gid], y = (uint32_t)ys[gid];
+  const uint32_t h =
+      (x * 73856093u ^ y * 19349663u) ^ ((uint32_t)sample_offset * 83492791u);
+  const float jx = wang_float(h) - 0.5f;
+  const float jy = wang_float(lcg(h)) - 0.5f;
+  const float px = (float)xs[gid] + jx;
+  const float py = (float)ys[gid] + jy;
+  float rv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    rv[c] = (cam[3 + c] + px * cam[6 + c] + py * cam[9 + c]) - cam[c];
+  const float rlen = sqrtf(rv[0] * rv[0] + rv[1] * rv[1] + rv[2] * rv[2]);
+  for (int c = 0; c < 3; ++c) {
+    r.bo[c] = cam[c];
+    r.bd[c] = rv[c] / rlen;
+    r.tp[c] = 1.0f;
+    r.rd[c] = 0.0f;
+  }
+  r.alive = 1.0f;
+  r.rng = h;
+  bounce(s, sh, cam, r);
+  store_ray(r, rt, so, ro);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
+                   int n_rays, int rt, float* st_out, int* rng_out) {
+  const Shared sh = stage_shared(s);
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_rays) return;
+  const int tile = gid / rt, lane = gid % rt;
+  const size_t so = (size_t)tile * kStRows * rt + lane;
+  const size_t ro = (size_t)tile * 8 * rt + lane;
+  Ray r;
+  load_ray(st_in + so, rng_in + ro, rt, r);
+  if (r.alive > 0.0f) bounce(s, sh, s.cam, r);  // dead rays pass through
+  store_ray(r, rt, st_out + so, rng_out + ro);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resume_kernel(SceneArgs s, const float* st_in, const int* rng_in, int n_rays,
+              int rt, int max_depth, float* r_out, float* g_out,
+              float* b_out) {
+  const Shared sh = stage_shared(s);
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_rays) return;
+  const int tile = gid / rt, lane = gid % rt;
+  Ray r;
+  load_ray(st_in + (size_t)tile * kStRows * rt + lane,
+           rng_in + (size_t)tile * 8 * rt + lane, rt, r);
+  for (int depth = 1; depth < max_depth && r.alive > 0.0f; ++depth)
+    bounce(s, sh, s.cam, r);
+  r_out[gid] = r.rd[0];
+  g_out[gid] = r.rd[1];
+  b_out[gid] = r.rd[2];
+}
+
+// ---- C interface (loaded with ctypes) ----
+
+namespace {
+
+size_t shared_bytes(const SceneArgs& s) {
+  return sizeof(float) *
+         (6 * (size_t)s.num_blocks + 8 * (size_t)s.n_lights +
+          16 * (size_t)s.n_objects);
+}
+
+template <typename K>
+int prepare(K kernel, size_t smem) {
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int rt_emit(const SceneArgs* s, const int* xs, const int* ys,
+            const int* has_work, int n_rays, int rt, int sample_offset,
+            float* st_out, int* rng_out, void* stream) {
+  size_t smem = shared_bytes(*s);
+  int e = prepare(emit_kernel, smem);
+  if (e) return e;
+  int blocks = (n_rays + kThreads - 1) / kThreads;
+  emit_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      *s, xs, ys, has_work, n_rays, rt, sample_offset, st_out, rng_out);
+  return (int)cudaGetLastError();
+}
+
+int rt_bounce_step(const SceneArgs* s, const float* st_in, const int* rng_in,
+                   int n_rays, int rt, float* st_out, int* rng_out,
+                   void* stream) {
+  size_t smem = shared_bytes(*s);
+  int e = prepare(bounce_step_kernel, smem);
+  if (e) return e;
+  int blocks = (n_rays + kThreads - 1) / kThreads;
+  bounce_step_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      *s, st_in, rng_in, n_rays, rt, st_out, rng_out);
+  return (int)cudaGetLastError();
+}
+
+int rt_resume(const SceneArgs* s, const float* st_in, const int* rng_in,
+              int n_rays, int rt, int max_depth, float* r_out, float* g_out,
+              float* b_out, void* stream) {
+  size_t smem = shared_bytes(*s);
+  int e = prepare(resume_kernel, smem);
+  if (e) return e;
+  int blocks = (n_rays + kThreads - 1) / kThreads;
+  resume_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      *s, st_in, rng_in, n_rays, rt, max_depth, r_out, g_out, b_out);
+  return (int)cudaGetLastError();
+}
+
+const char* rt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

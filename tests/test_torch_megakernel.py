@@ -1,0 +1,164 @@
+"""Parity of the port's wavefront kernels (plain versions on the CPU)
+with the JAX package's Pallas kernels in interpret mode, and of the CUDA
+kernels with their plain versions on the card.
+
+Tolerances.  Alive flags and rng rows must match exactly: they carry
+every branch decision.  Float rows agree within 4 ulp or an absolute
+1e-5, except the emit pass's, which agree within 4 ulp or 5e-5: XLA:CPU
+evaluates the JAX kernels with FMA contraction, and the Moller-Trumbore
+barycentrics of a hit are ill-conditioned (products of small cross-
+product terms), so a last-ulp difference there moves u, v and the
+interpolated normal by up to ~1e-5 relative, which the diffuse
+throughput (albedo * 2 N.L) carries into the tp rows (measured max
+2.5e-5 on this scene).  The later stages are fed the JAX emit state, so
+their rows stay within the 1e-5 bound.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from raytracinginonesemester_tpu.ops import megakernel as jmk
+from raytracinginonesemester_tpu.ops.wavefront import bounce_tile_plan
+from raytracinginonesemester_tpu.render.renderer import _swizzled_grid as j_grid
+from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
+from raytracinginonesemester_tpu_torch.render.renderer import _swizzled_grid as t_grid
+
+from _torch_parity import jax_two_frog, torch_from_jax, ulp_close
+
+W, H = 64, 32
+EMIT_ATOL = 5e-5
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    js = jax_two_frog(width=W, height=H, max_bounces=3, diffuse_bounce=True)
+    return js, torch_from_jax(js)
+
+
+@pytest.fixture(scope="module")
+def jax_emit(scenes):
+    js, _ = scenes
+    xs, ys, _ = j_grid(W, H)
+    xs_p, ys_p, _, _ = jmk._pad_tiles(xs, ys)
+    st, rng = jmk.emit_tiles(js, xs_p, ys_p, 0, interpret=True)
+    return np.asarray(st), np.asarray(rng)
+
+
+def _assert_state_close(got_st, got_rng, want_st, want_rng, atol):
+    nt = want_st.shape[0] // 16
+    a = np.asarray(got_st).reshape(nt, 16, -1)
+    b = np.asarray(want_st).reshape(nt, 16, -1)
+    np.testing.assert_array_equal(a[:, 12], b[:, 12])  # alive
+    np.testing.assert_array_equal(np.asarray(got_rng), np.asarray(want_rng))
+    for r in range(16):
+        ok = ulp_close(a[:, r], b[:, r], ulps=4, atol=atol)
+        assert ok.all(), (f"row {r}: {(~ok).sum()} elements, max diff "
+                          f"{np.abs(a[:, r] - b[:, r]).max()}")
+
+
+def test_emit_matches_jax(scenes, jax_emit):
+    _, ts = scenes
+    xs, ys, _ = t_grid(W, H)
+    st, rng = tmk.emit_tiles(ts, xs, ys, 0)
+    want_st, want_rng = jax_emit
+    assert st.shape == want_st.shape and rng.shape == want_rng.shape
+    _assert_state_close(st, rng, want_st, want_rng, EMIT_ATOL)
+    alive = want_st.reshape(-1, 16, tmk.RAY_TILE)[:, 12]
+    assert 0 < alive.sum() < alive.size  # the test frame bounces and dies
+
+
+def test_emit_has_work_matches_jax_plan(scenes):
+    js, ts = scenes
+    xs, ys, _ = j_grid(128, 64)
+    xs_p, ys_p, _, _ = jmk._pad_tiles(xs, ys)
+    _, j_entry = jmk.camera_tile_plan(js.camera, xs_p, ys_p, js.accel,
+                                      jmk.RAY_TILE)
+    txs, tys, _ = t_grid(128, 64)
+    txs_p, tys_p, _, _ = tmk._pad_tiles(txs, tys)
+    _, t_entry = tmk.camera_tile_plan(ts.camera, txs_p, tys_p, ts.accel)
+    j_work = np.isfinite(np.asarray(j_entry)[:, 0])
+    np.testing.assert_array_equal(torch.isfinite(t_entry[:, 0]).numpy(), j_work)
+    assert not j_work.all()  # the frame has sky-only tiles
+
+
+def test_bounce_step_cross_fed_from_jax_emit(scenes, jax_emit):
+    js, ts = scenes
+    st, rng = jax_emit
+    order, entry = bounce_tile_plan(jnp.asarray(st), js.accel)
+    want = jmk.bounce_step_tiles(js, jnp.asarray(st), jnp.asarray(rng),
+                                 order, entry, interpret=True)
+    got = tmk.bounce_step_tiles(ts, torch.from_numpy(st), torch.from_numpy(rng))
+    _assert_state_close(got[0], got[1], want[0], want[1], 1e-5)
+
+
+def test_resume_cross_fed_from_jax_emit(scenes, jax_emit):
+    js, ts = scenes
+    st, rng = jax_emit
+    want = jmk.resume_tiles(js, jnp.asarray(st), jnp.asarray(rng),
+                            interpret=True)
+    got = tmk.resume_tiles(ts, torch.from_numpy(st), torch.from_numpy(rng))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert ulp_close(g.numpy(), np.asarray(w), ulps=4, atol=1e-5).all()
+
+
+def test_cpu_tensors_take_the_plain_version(scenes, jax_emit):
+    """On the CPU a wrapper calls its plain version and counts no launch."""
+    _, ts = scenes
+    st, rng = (torch.from_numpy(a) for a in jax_emit)
+    tmk.reset_launch_counts()
+    got = tmk.bounce_step_tiles(ts, st, rng)
+    rows = tmk._scene_rows(ts, ts.accel)
+    plain = tmk.bounce_step_tiles_plain(rows, st, rng, ts.diffuse_bounce)
+    torch.testing.assert_close(got[0], plain[0], rtol=0, atol=0)
+    assert tmk.launch_counts() == {"emit": 0, "bounce_step": 0, "resume": 0}
+
+
+def test_wrappers_check_their_inputs(scenes, jax_emit):
+    _, ts = scenes
+    st, rng = (torch.from_numpy(a) for a in jax_emit)
+    with pytest.raises(ValueError):
+        tmk.bounce_step_tiles(ts, st.double(), rng)
+    with pytest.raises(ValueError):
+        tmk.resume_tiles(ts, st, rng[:8])
+    with pytest.raises(NotImplementedError):
+        tmk.bounce_step_tiles(ts, st, rng, dialect="cpuonly")
+
+
+# --- on the card: each CUDA kernel against its plain version ---------
+
+
+@pytest.fixture
+def cuda_scene(scenes):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    js, _ = scenes
+    return torch_from_jax(js, device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions(cuda_scene):
+    """Kernel and plain version share their op order (no FMA contraction,
+    IEEE div/sqrt), so states match exactly; the same tolerance as the
+    CPU parity is allowed for library sqrt/pow differences."""
+    ts = cuda_scene
+    rows = tmk._scene_rows(ts, ts.accel)
+    xs, ys, _ = t_grid(W, H, device="cuda")
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    plan = tmk.camera_tile_plan(ts.camera, xs_p, ys_p, ts.accel)
+    has_work = plan[1][:, 0] < float("inf")
+    tmk.reset_launch_counts()
+    st, rng = tmk.emit_tiles(ts, xs_p, ys_p, 0, plan=plan, rows=rows)
+    pst, prng = tmk.emit_tiles_plain(rows, xs_p, ys_p, has_work, 0, True)
+    _assert_state_close(st.cpu(), rng.cpu(), pst.cpu(), prng.cpu(), 1e-5)
+    b = tmk.bounce_step_tiles(ts, st, rng, rows=rows)
+    pb = tmk.bounce_step_tiles_plain(rows, st, rng, True)
+    _assert_state_close(b[0].cpu(), b[1].cpu(), pb[0].cpu(), pb[1].cpu(), 1e-5)
+    r = tmk.resume_tiles(ts, st, rng, rows=rows)
+    pr = tmk.resume_tiles_plain(rows, st, rng, ts.max_bounces, True)
+    for g, w in zip(r, pr):
+        assert ulp_close(g.cpu().numpy(), w.cpu().numpy()).all()
+    assert tmk.launch_counts() == {"emit": 1, "bounce_step": 1, "resume": 1}
