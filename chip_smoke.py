@@ -5,46 +5,80 @@
 Phases, each printed on its own line; any failure raises (exit != 0):
 
 1. the card: ``nvidia-smi`` name and power limit, CUDA and nvcc versions;
-2. build the CUDA kernels from ``raytracinginonesemester_tpu_torch/csrc``;
-3. each kernel (emit, bounce_step, resume) against its plain PyTorch
-   version on the card, on the two-frog test scene at 128x64, block
-   sizes 128 and 512;
-4. a 128x64 render on the card against the reference image that the JAX
-   package rendered (``tests/goldens/torch_two_frog_128x64.npy``, made by
-   ``scripts/make_torch_golden.py``);
+2. build the CUDA kernels from ``raytracinginonesemester_tpu_torch/csrc``
+   (ptxas registers and spills of every kernel);
+3. each kernel against its plain PyTorch version on the card at 128x64:
+   gpu dialect on the two-frog test scene at block sizes 128 and 512
+   (emit flat and binned, bounce_step, resume, render flat and binned,
+   terminal and full loop); cpuonly dialect on ``cpuonly_mirror.json``
+   and an area-light variant with diffuse bounces (emit, bounce_step,
+   resume, render); binned emit against flat emit (here and at 1080p);
+4. reference images: the two-frog 128x64 render on the staged wavefront
+   and with ``RT_WAVEFRONT=0`` (kernel D) against the JAX package's
+   ``tests/goldens/torch_two_frog_128x64.npy``, the terminal two-frog
+   render (D) against ``torch_two_frog_terminal_128x64.npy`` (both made
+   by ``scripts/make_torch_golden.py``), and ``cpuonly_point.json`` and
+   ``cpuonly_mirror.json`` at 160x100 against the C++ oracle's PNGs
+   (at most one step per channel);
 5. the main path: frog 1920x1080, depth 8, diffuse bounces,
-   ``render_scene_frames`` with 16 frames at the port's own calibrated
-   capacity; its launch counters must show that emit and bounce_step
-   ran.  Then, counted apart, one frame at a capacity of 8 tiles, which
-   overflows and finishes in the resume kernel;
-6. each kernel against its plain version at the main path's shapes
-   (frog 1080p), and both times.
+   ``render_scene_frames`` with 16 frames at the calibrated capacity,
+   with the binned camera plan (its build time and size logged) and
+   then with ``RT_BINNED=0``; frames compared.  Counted apart: one frame
+   at a capacity of 8 tiles, which overflows into the resume kernel;
+6. kernel D at full width: frog 1080p terminal (diffuse off, depth 4),
+   16 frames, and the headline with ``RT_WAVEFRONT=0``, one 16-frame
+   call;
+7. the cpuonly dialect at full width: ``cpuonly_mirror.json`` at
+   1920x1080 through whatever the dispatch picks, then with
+   ``RT_WAVEFRONT=0`` (kernel D), and one frame at a capacity of 8
+   tiles (resume);
+8. each kernel against its plain version at its full-width shapes, both
+   timed, with the least time the card could take (bound).
 
-The line before the last is the JSON record of the main path's kernels
-(emit, bounce_step, with the main path's launch counts); the line before
-it holds resume's record with the overflow render's count.  The last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits non-zero before printing any result.
+Every render of phases 5-7 runs with the launch counters set to 0 just
+before it and read just after; a kernel of that render that did not run
+fails the script.  The line before the last is the JSON record of the
+kernels (emit, bounce_step, resume, render; each with the launches of
+the render named in ``launches_in``); the line before it holds the
+variants (flat emit, terminal render, cpuonly).  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits non-zero before printing any result.
 """
 
+import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 # tolerance of the kernel-vs-plain comparisons (both are built without FMA
 # contraction and with IEEE div/sqrt; powf and sqrtf may differ from
-# torch's by an ulp, which the RR decisions can amplify on a handful of
-# rays): float rows within 4 ulp or 1e-5 abs
+# torch's by an ulp): float rows within 4 ulp or 1e-5 abs, alive and rng
+# rows exact
 ULPS, ATOL = 4, 1e-5
 FRAMES = 16
+W, H = 1920, 1080
+DEVICE = "cuda"
 REPLACES = {
     "emit": "raytracinginonesemester_tpu/ops/megakernel.py:2108",
     "bounce_step": "raytracinginonesemester_tpu/ops/megakernel.py:2560",
     "resume": "raytracinginonesemester_tpu/ops/megakernel.py:2253",
+    "render": "raytracinginonesemester_tpu/ops/megakernel.py:1536",
 }
 SOURCE = "raytracinginonesemester_tpu_torch/csrc/megakernel.cu"
+# the bound: FP32 arithmetic of one Moller-Trumbore test (megakernel.cu
+# mt(): 46 adds, multiplies and the one divide; compares not counted)
+# times the tests the kernel makes on this run's inputs (live lanes only,
+# shadow walks up to their first hit; counted by the plain version's
+# ``stats``) over the card's 67 TFLOP/s, against each input byte read
+# once and each output byte written once over 3.35 TB/s (H100 SXM data
+# sheet)
+OPS_PER_PAIR = 46
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+SCENES = os.path.join(REPO, "tests", "assets", "scenes")
 
 
 def log(msg):
@@ -72,100 +106,432 @@ def ulp_bad(a, b):
     return int(((a64 - b64).abs() > tol).sum()), float((a64 - b64).abs().max())
 
 
-def two_frog(width, height, block_size, device):
+def check_state(errs, name, where, st_k, rng_k, st_p, rng_p):
+    """Kernel state vs plain state: alive and rng rows exact, float rows
+    within tolerance; raises on any difference."""
+    nt = st_k.shape[0] // 16
+    a = st_k.reshape(nt, 16, -1)
+    b = st_p.reshape(nt, 16, -1)
+    alive = int((a[:, 12] != b[:, 12]).sum())
+    rng = int((rng_k != rng_p).sum())
+    rows = [ulp_bad(a[:, r], b[:, r]) for r in range(16)]
+    beyond = sum(n for n, _ in rows)
+    worst = max(m for _, m in rows)
+    log(f"compare {name} {where}: alive mismatches {alive}, rng mismatches "
+        f"{rng}, float rows beyond tol {beyond}, max_abs {worst:.3e}")
+    errs[name] = max(errs.get(name, 0.0), worst)
+    if alive or rng or beyond:
+        raise AssertionError(f"{name} kernel disagrees with its plain "
+                             f"version ({where})")
+
+
+def check_sums(errs, name, where, got, want):
+    """Per-ray radiance (r, g, b) of a kernel vs its plain version."""
+    got = [g.reshape(-1) for g in got]
+    want = [w.reshape(-1) for w in want]
+    res = [ulp_bad(g, w) for g, w in zip(got, want)]
+    beyond = sum(n for n, _ in res)
+    worst = max(m for _, m in res)
+    log(f"compare {name} {where}: radiance beyond tol {beyond}, "
+        f"max_abs {worst:.3e}")
+    errs[name] = max(errs.get(name, 0.0), worst)
+    if beyond:
+        raise AssertionError(f"{name} kernel disagrees with its plain "
+                             f"version ({where})")
+
+
+def check_binned_equiv(where, flat, binned):
+    """Binned emit vs flat emit (the JAX contract): alive flags and
+    radiance rows everywhere, and every alive lane's whole state and rng,
+    bit for bit (the lanes of an empty-plan tile carry the canonical dead
+    state, which only the radiance and alive rows are read from)."""
+    nt = flat[0].shape[0] // 16
+    a, b = flat[0].reshape(nt, 16, -1), binned[0].reshape(nt, 16, -1)
+    alive = a[:, 12] > 0.0
+    bad = sum(int((a[:, r] != b[:, r]).sum()) for r in (9, 10, 11, 12))
+    bad += sum(int(((a[:, r] != b[:, r]) & alive).sum()) for r in range(13))
+    ra, rb = flat[1].reshape(nt, 8, -1)[:, 0], binned[1].reshape(nt, 8, -1)[:, 0]
+    bad += int(((ra != rb) & alive).sum())
+    log(f"compare emit binned vs flat {where}: {int(alive.sum())} alive "
+        f"lanes, differing values {bad}")
+    if bad:
+        raise AssertionError(f"binned emit differs from flat emit ({where})")
+
+
+def two_frog(width, height, block_size, device, diffuse=True):
     os.environ["RT_BLOCK_SIZE"] = str(block_size)
     from raytracinginonesemester_tpu_torch.scene.build import build_scene
     from raytracinginonesemester_tpu_torch.scene.config import (
         SceneConfig, SceneNodeConfig)
     from raytracinginonesemester_tpu_torch.scene.transform import Transform
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(repo, "tests"))
+    sys.path.insert(0, os.path.join(REPO, "tests"))
     from _torch_parity import two_frog_config
 
     cfg = two_frog_config(SceneConfig, SceneNodeConfig, Transform,
                           width=width, height=height, max_bounces=3,
-                          diffuse_bounce=True)
+                          diffuse_bounce=diffuse)
     scene = build_scene(cfg, device=device)
     os.environ.pop("RT_BLOCK_SIZE")
     return scene
 
 
-def compare_kernels(device, results):
-    """Phase 3: kernel vs plain version on the same inputs."""
-    import torch
+def cpuonly_scene(name, device, width=None, height=None, **light):
+    """A cpuonly JSON scene, optionally at another size or with its light
+    changed (``radius``, ``shadow_samples``) and ``diffuse_bounce``."""
+    from raytracinginonesemester_tpu_torch.scene.build import build_scene
+    from raytracinginonesemester_tpu_torch.scene.config import (
+        load_scene_config)
 
-    from raytracinginonesemester_tpu_torch.io.image import quantize
-    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
-    from raytracinginonesemester_tpu_torch.ops.wavefront import (
-        _unsort_radiance, sort_bounce_state)
-    from raytracinginonesemester_tpu_torch.render.renderer import (
-        _swizzled_grid, _unswizzle)
+    path = os.path.join(SCENES, f"{name}.json")
+    cfg = load_scene_config(path)
+    if width:
+        cfg = dataclasses.replace(cfg, pixel_width=width, pixel_height=height)
+    if "diffuse_bounce" in light:
+        cfg = dataclasses.replace(cfg, diffuse_bounce=light.pop("diffuse_bounce"))
+    if light:
+        cfg = dataclasses.replace(cfg, lights=[{**l, **light} for l in cfg.lights])
+    return build_scene(cfg, scene_path=path, device=device)
 
-    for bs in (128, 512):
-        scene = two_frog(128, 64, bs, device)
-        rows = mk._scene_rows(scene, scene.accel)
-        xs, ys, (hp, wp) = _swizzled_grid(128, 64, device=device)
-        xs_p, ys_p, n, np_rays = mk._pad_tiles(xs, ys)
-        plan = mk.camera_tile_plan(scene.camera, xs_p, ys_p, scene.accel)
-        has_work = plan[1][:, 0] < float("inf")
-        diffuse = scene.diffuse_bounce
 
-        st_k, rng_k = mk.emit_tiles(scene, xs_p, ys_p, 0, plan=plan, rows=rows)
-        st_p, rng_p = mk.emit_tiles_plain(rows, xs_p, ys_p, has_work, 0,
-                                          diffuse)
+class Frame:
+    """One scene at one resolution: the padded tile stream, both depth-0
+    plans and the keyword arguments of its kernels and plain versions."""
+
+    def __init__(self, scene, jitter="wang", chunk=256):
+        import torch
+
+        from raytracinginonesemester_tpu_torch.ops import binned
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+        from raytracinginonesemester_tpu_torch.render.renderer import (
+            _swizzled_grid)
+
+        self.scene = scene
+        dev = scene.device
+        xs, ys, _ = _swizzled_grid(scene.camera.width, scene.camera.height,
+                                   device=dev)
+        self.xs, self.ys, _, self.np_rays = mk._pad_tiles(xs, ys)
+        self.nt = self.np_rays // mk.RAY_TILE
+        self.rows = mk._scene_rows(scene, scene.accel)
+        self.plan = mk.camera_tile_plan(scene.camera, self.xs, self.ys,
+                                        scene.accel)
+        t0 = time.time()
+        self.cand = binned.build_camera_candidate_plan(
+            scene.camera, self.xs, self.ys, scene.accel, mk.RAY_TILE,
+            chunk=chunk)
         torch.cuda.synchronize()
-        report(results, "emit", f"128x64 block={bs}", st_k, rng_k, st_p, rng_p)
+        self.plan_s = time.time() - t0
+        self.kw = mk.megakernel_kwargs(scene, jitter)
+        self.kw.setdefault("jitter", jitter)
+        self.cpuonly = scene.dialect == "cpuonly"
+        self.pkw = dict(det_eps=self.kw.get("det_eps", 1e-8),
+                        shadow_eps=self.kw.get("shadow_eps", 1e-3),
+                        shadow_tmin=self.kw.get("shadow_tmin", 1e-4),
+                        dialect=scene.dialect,
+                        shadow_samples=self.kw.get("shadow_samples", 1))
+        self.terminal = (bool(scene.terminal_only)
+                         and not scene.diffuse_bounce and not self.cpuonly)
 
-        # B and C are fed the same (kernel) emit state, sorted as the
-        # wavefront scheduler sorts it
-        grid = scene.accel
+    def no_jitter(self):
+        return {k: v for k, v in self.kw.items() if k != "jitter"}
+
+    def has_work(self, binned):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        sh = mk._Shade(bool(self.scene.diffuse_bounce),
+                       dialect=self.scene.dialect,
+                       shadow_samples=self.pkw["shadow_samples"])
+        return mk._has_work(self.scene, self.xs, self.ys, sh, self.plan,
+                            self.cand if binned else None)
+
+    def emit(self, binned, offset=0):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        return mk.emit_tiles(self.scene, self.xs, self.ys, offset,
+                             plan=self.plan,
+                             cand_plan=self.cand if binned else None,
+                             rows=self.rows, **self.kw)
+
+    def emit_plain(self, binned, offset=0, stats=None):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        return mk.emit_tiles_plain(
+            self.rows, self.xs, self.ys, self.has_work(binned), offset,
+            self.scene.diffuse_bounce, jitter=self.kw["jitter"],
+            cand_plan=self.cand if binned else None, stats=stats,
+            **self.pkw)
+
+    def sorted_state(self, st, rng):
+        import torch
+
+        from raytracinginonesemester_tpu_torch.ops.wavefront import (
+            sort_bounce_state)
+
+        grid = self.scene.accel
         lo = [grid.aabb[c].amin() for c in range(3)]
         span = [torch.clamp(grid.aabb[3 + c].amax() - lo[c], min=1e-20)
                 for c in range(3)]
-        pix = torch.arange(np_rays, device=device)
-        st_s, rng_s, pix_s = sort_bounce_state(st_k, rng_k, pix, lo, span)
-        b_k = mk.bounce_step_tiles(scene, st_s, rng_s, rows=rows)
-        b_p = mk.bounce_step_tiles_plain(rows, st_s, rng_s, diffuse)
+        pix = torch.arange(self.np_rays, device=st.device)
+        return sort_bounce_state(st, rng, pix, lo, span)
+
+    def bounce(self, st, rng):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        return mk.bounce_step_tiles(self.scene, st, rng, rows=self.rows,
+                                    **self.no_jitter())
+
+    def bounce_plain(self, st, rng, stats=None):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        return mk.bounce_step_tiles_plain(self.rows, st, rng,
+                                          self.scene.diffuse_bounce,
+                                          stats=stats, **self.pkw)
+
+    def resume(self, st, rng):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        return mk.resume_tiles(self.scene, st, rng, rows=self.rows,
+                               **self.no_jitter())
+
+    def resume_plain(self, st, rng, stats=None):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        return mk.resume_tiles_plain(self.rows, st, rng,
+                                     self.scene.max_bounces,
+                                     self.scene.diffuse_bounce, stats=stats,
+                                     **self.pkw)
+
+    def render(self, binned, spp=1, offset=0):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        out = mk.render_tiles(self.scene, self.xs, self.ys, spp, offset,
+                              plan=self.plan,
+                              cand_plan=self.cand if binned else None,
+                              rows=self.rows, **self.kw)
+        return out.unbind(1)
+
+    def render_plain(self, binned, spp=1, offset=0, stats=None):
+        from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+        return mk.render_tiles_plain(
+            self.rows, self.xs, self.ys, self.has_work(binned), spp, offset,
+            self.scene.max_bounces, self.terminal, self.scene.diffuse_bounce,
+            jitter=self.kw["jitter"], cand_plan=self.cand if binned else None,
+            stats=stats, **self.pkw)
+
+    def scene_bytes(self, binned):
+        r = self.rows
+        n = sum(t.numel() * t.element_size() for t in (
+            r.cam, r.lights, r.mats, r.tri, r.norm, r.ids, r.obj, r.aabb))
+        if binned:
+            n += (self.cand.stream.numel() * 4 + self.cand.meta.numel() * 4)
+        return n
+
+
+def check_small(dev, errs):
+    """Phase 3: every kernel vs its plain version at 128x64."""
+    import torch
+
+    for bs in (128, 512):
+        for diffuse in (True, False):
+            f = Frame(two_frog(128, 64, bs, dev, diffuse=diffuse), chunk=128)
+            where = f"128x64 block={bs} {'V2' if diffuse else 'terminal'}"
+            emits = []
+            for binned in (False, True):
+                tag = f"{where} {'binned' if binned else 'flat'}"
+                if diffuse:
+                    emits.append(f.emit(binned))
+                    check_state(errs, "emit", tag, *emits[-1],
+                                *f.emit_plain(binned))
+                got = f.render(binned, spp=2, offset=3)
+                torch.cuda.synchronize()
+                check_sums(errs, "render", f"{tag} spp=2",
+                           got, [c.reshape(-1)[:got[0].numel()]
+                                 for c in f.render_plain(binned, 2, 3)])
+            if not diffuse:
+                continue
+            check_binned_equiv(where, *emits)
+            st, rng = f.emit(False)
+            st_s, rng_s, _ = f.sorted_state(st, rng)
+            check_state(errs, "bounce_step", where, *f.bounce(st_s, rng_s),
+                        *f.bounce_plain(st_s, rng_s))
+            check_sums(errs, "resume", where, f.resume(st_s, rng_s),
+                       f.resume_plain(st_s, rng_s))
+
+    variants = {"cpuonly point mirror": ({}, "center", 1),
+                "cpuonly area r=0.15 x4, diffuse": (
+                    dict(radius=0.15, shadow_samples=4, diffuse_bounce=True),
+                    "wang", 2)}
+    for where, (light, jitter, spp) in variants.items():
+        f = Frame(cpuonly_scene("cpuonly_mirror", dev, 128, 64, **light),
+                  jitter=jitter, chunk=128)
+        emits = []
+        for binned in (False, True):
+            emits.append(f.emit(binned))
+            check_state(errs, "emit", f"{where} {binned=}", *emits[-1],
+                        *f.emit_plain(binned))
+        check_binned_equiv(where, *emits)
+        st, rng = emits[1]
+        st_s, rng_s, _ = f.sorted_state(st, rng)
+        check_state(errs, "bounce_step", where, *f.bounce(st_s, rng_s),
+                    *f.bounce_plain(st_s, rng_s))
+        check_sums(errs, "resume", where, f.resume(st_s, rng_s),
+                   f.resume_plain(st_s, rng_s))
+        got = f.render(True, spp=spp, offset=1)
+        check_sums(errs, "render", f"{where} binned spp={spp}", got,
+                   [c.reshape(-1)[:got[0].numel()]
+                    for c in f.render_plain(True, spp, 1)])
+
+
+def counted(label, fn, need):
+    """Run ``fn`` with the launch counters set to 0 just before it and
+    read just after; every kernel in ``need`` must have launched."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+    mk.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = mk.launch_counts()
+    log(f"launch counts, {label}: {counts}")
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched ({counts})")
+    return out, counts
+
+
+def check_goldens(dev):
+    """Phase 4: the card's renders against the reference images."""
+    import numpy as np
+
+    from raytracinginonesemester_tpu_torch.io.image import quantize, read_png
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        render_scene, render_scene_frames)
+
+    goldens = os.path.join(REPO, "tests", "goldens")
+    # (file, diffuse, RT_WAVEFRONT, capacity, kernels that must run): the
+    # staged wavefront at the golden's own capacity of 8 tiles, then D
+    cases = [("torch_two_frog_128x64.npy", True, "auto", 8,
+              ["emit", "bounce_step"]),
+             ("torch_two_frog_128x64.npy", True, "0", None, ["render"]),
+             ("torch_two_frog_terminal_128x64.npy", False, "auto", None,
+              ["render"])]
+    for name, diffuse, wf, cap, need in cases:
+        ref = np.load(os.path.join(goldens, name))
+        os.environ["RT_WAVEFRONT"] = wf
+        scene = two_frog(128, 64, 512, dev, diffuse=diffuse)
+        img, _ = counted(f"golden {name} RT_WAVEFRONT={wf} cap={cap}",
+                         lambda: render_scene_frames(scene, ref.shape[0],
+                                                     "wang", 0,
+                                                     capacity_tiles=cap),
+                         need)
+        img = img.cpu().numpy()
+        for f in range(ref.shape[0]):
+            ok, bad, mean = images_close(quantize(img[f], "gpu"),
+                                         quantize(ref[f], "gpu"))
+            log(f"golden {name} RT_WAVEFRONT={wf} frame {f}: bad_frac "
+                f"{bad:.5f} mean {mean:.4f} max_abs "
+                f"{np.abs(img[f] - ref[f]).max():.3e}")
+            if not ok:
+                raise AssertionError(f"card render disagrees with {name}")
+    os.environ.pop("RT_WAVEFRONT")
+    for name in ("cpuonly_point", "cpuonly_mirror"):
+        scene = cpuonly_scene(name, dev)
+        img, _ = counted(f"golden {name}.png", lambda: render_scene(scene),
+                         [])
+        ours = quantize(img.cpu().numpy(), "cpuonly").astype(int)
+        gold = read_png(os.path.join(goldens, f"{name}.png")).astype(int)
+        diff = np.abs(ours - gold)
+        log(f"golden {name}.png (C++ oracle) 160x100: max channel diff "
+            f"{diff.max()}, channels off {(diff > 0).mean():.5f}")
+        if ours.shape != gold.shape or diff.max() > 1:
+            raise AssertionError(f"{name} disagrees with the C++ oracle")
+
+
+def timed_frames(label, scene, frames, smi, need, iters=3):
+    """Warm-up call, then ``iters`` timed calls counted as one run."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        render_scene_frames)
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    render_scene_frames(scene, frames, "auto", 0)
+    torch.cuda.synchronize()
+
+    def run():
+        t = cuda_time_ms(lambda: render_scene_frames(scene, frames, "auto", 0),
+                         warmup=0, iters=iters)
+        return t, render_scene_frames(scene, frames, "auto", 0)
+
+    (t, img), counts = counted(f"{label} ({iters + 1} calls of {frames} "
+                               "frames)", run, need)
+    ms = t["median_ms"] / frames
+    w, h = scene.camera.width, scene.camera.height
+    log(f"{label}: {frames} frames {w}x{h}: {ms:.3f} ms/frame, "
+        f"{w * h / (ms / 1e3):.4e} rays/s (median of {iters} CUDA-event "
+        f"timings, samples {[round(s, 2) for s in t['samples_ms']]} ms) "
+        f"on {smi}")
+    if tuple(img.shape) != (frames, h, w, 3) or \
+            not bool(torch.isfinite(img).all()) or bool(img.amax() <= 0.0):
+        raise AssertionError(f"{label}: output not finite, black or of the "
+                             "wrong shape")
+    return ms, img, counts
+
+
+def time_kernels(smi, errs, jobs):
+    """Phase 8: each job's kernel against its plain version on the same
+    inputs, both timed; the bound from the ray-triangle pairs the kernel
+    tests on these inputs (the plain version counts them) and the bytes
+    the function moves."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    records = {}
+    for key, (name, shape, kern, plain, check, nbytes) in jobs.items():
+        got = kern()
+        stats = {}
+        want = plain(stats)
         torch.cuda.synchronize()
-        report(results, "bounce_step", f"128x64 block={bs}", *b_k, *b_p)
+        pairs = stats["pairs"]
+        check(errs, name, f"{key} at {shape}", got, want)
+        del got, want
+        k = cuda_time_ms(kern, warmup=1, iters=3)
+        p = cuda_time_ms(plain, warmup=0, iters=1)
+        t_ops = pairs * OPS_PER_PAIR / PEAK_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"time {key} at {shape}: kernel {k['median_ms']:.3f} ms (median "
+            f"of 3), plain {p['median_ms']:.1f} ms (1 run); bound "
+            f"{bound:.4f} ms by {by} ({pairs} ray-triangle pairs, {nbytes} "
+            f"bytes) on {smi}")
+        records[key] = {"name": name, "route": "cuda", "source": SOURCE,
+                        "replaces": REPLACES[name], "shape": shape,
+                        "ms": k["median_ms"], "plain_ms": p["median_ms"],
+                        "bound_ms": bound, "bound_by": by,
+                        "library_ms": None, "pairs": pairs}
+    return records
 
-        r_k = mk.resume_tiles(scene, st_s, rng_s, rows=rows)
-        r_p = mk.resume_tiles_plain(rows, st_s, rng_s, scene.max_bounces,
-                                    diffuse)
-        torch.cuda.synchronize()
-        imgs = []
-        for rgb in (r_k, r_p):
-            flat = torch.stack(_unsort_radiance(pix_s, *rgb), dim=1)
-            img = _unswizzle(torch.clamp(flat[:n], 0.0, 1.0), 128, 64, hp, wp)
-            imgs.append(quantize(img.cpu().numpy(), "gpu"))
-        ok, bad, mean = images_close(imgs[0], imgs[1])
-        worst = max(ulp_bad(a, b)[1] for a, b in zip(r_k, r_p))
-        nbad = sum(ulp_bad(a, b)[0] for a, b in zip(r_k, r_p))
-        log(f"compare resume 128x64 block={bs}: radiance beyond tol {nbad}, "
-            f"max_abs {worst:.3e}; image bad_frac {bad:.5f} mean {mean:.4f}")
-        results["resume"] = max(results.get("resume", 0.0), worst)
-        if not ok or nbad:
-            raise AssertionError(f"resume kernel disagrees (block {bs})")
 
-
-def report(results, name, where, st_k, rng_k, st_p, rng_p):
-    nt = st_k.shape[0] // 16
-    a = st_k.reshape(nt, 16, -1)
-    b = st_p.reshape(nt, 16, -1)
-    alive = int((a[:, 12] != b[:, 12]).sum())
-    rng = int((rng_k != rng_p).sum())
-    # rows the winner drives: bounce origin (hit point) and direction
-    winner = sum(ulp_bad(a[:, r], b[:, r])[0] for r in range(6))
-    others = sum(ulp_bad(a[:, r], b[:, r])[0] for r in range(6, 16))
-    worst = max(ulp_bad(a[:, r], b[:, r])[1] for r in range(16))
-    log(f"compare {name} {where}: alive mismatches {alive}, rng "
-        f"mismatches {rng}, winner-row (bo, bd) beyond tol {winner}, "
-        f"other rows beyond tol {others}, max_abs {worst:.3e}")
-    results[name] = max(results.get(name, 0.0), worst)
-    if alive or rng or winner or others:
-        raise AssertionError(f"{name} kernel disagrees with its plain "
-                             f"version ({where})")
+def ptxas_summary(text):
+    """'kernel<dialect>: N registers, S spill bytes' per entry function."""
+    out, name, spill = [], None, "spills not reported"
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)ILb(\d)E", ln)
+        if m:
+            name = f"{m.group(1)}<{'cpuonly' if m.group(2) == '1' else 'gpu'}>"
+            spill = "spills not reported"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = f"spill st/ld {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, {spill}")
+            name = None
+    return "; ".join(out)
 
 
 def main():
@@ -184,165 +550,191 @@ def main():
     log(smi)
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"nvcc {nvcc}")
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
+    t_start = time.time()
 
     # --- 2. build
     t0 = time.time()
     _native.load()
-    regs = [ln.strip() for ln in _native.BUILD_LOG["ptxas"].splitlines()
-            if "registers" in ln]
     log(f"build: {time.time() - t0:.1f} s ({_native.BUILD_LOG['path']}); "
-        f"ptxas: {' | '.join(regs)}")
+        f"ptxas: {ptxas_summary(_native.BUILD_LOG['ptxas'])}")
 
-    # --- 3. kernels vs plain versions
+    # --- 3. kernels vs plain versions at 128x64
     errs = {}
-    compare_kernels(dev, errs)
+    check_small(dev, errs)
 
-    # --- 4. the card's render vs the JAX package's reference image
-    import numpy as np
+    # --- 4. reference images
+    check_goldens(dev)
 
-    from raytracinginonesemester_tpu_torch.io.image import quantize
+    # --- 5. the main path: frog 1080p, depth 8, binned plan, then flat
+    from raytracinginonesemester_tpu_torch.ops import binned
     from raytracinginonesemester_tpu_torch.render.renderer import (
-        frog_scene, render_scene_frames)
-
-    repo = os.path.dirname(os.path.abspath(__file__))
-    ref = np.load(os.path.join(repo, "tests", "goldens",
-                               "torch_two_frog_128x64.npy"))
-    img = render_scene_frames(two_frog(128, 64, 512, dev), ref.shape[0],
-                              "wang", 0).cpu().numpy()
-    for f in range(ref.shape[0]):
-        ok, bad, mean = images_close(quantize(img[f], "gpu"),
-                                     quantize(ref[f], "gpu"))
-        log(f"golden frame {f}: bad_frac {bad:.5f} mean {mean:.4f} "
-            f"max_abs {np.abs(img[f] - ref[f]).max():.3e}")
-        if not ok:
-            raise AssertionError("card render disagrees with the reference")
-
-    # --- 5. the main path at full size
-    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
-    from raytracinginonesemester_tpu_torch.render.renderer import (
+        frog_scene, render_scene_frames, resolve_candidate_plan,
         resolve_wavefront)
-    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
     t0 = time.time()
-    scene = frog_scene(1920, 1080, device=dev)
+    scene = frog_scene(W, H, device=dev)
     torch.cuda.synchronize()
     log(f"frog 1080p scene: {scene.geometry.num_triangles} triangles, "
         f"{scene.accel.num_blocks} blocks of {scene.accel.block_size}, "
         f"built in {time.time() - t0:.2f} s")
     t0 = time.time()
+    cand = resolve_candidate_plan(scene, "wang", 1)
+    torch.cuda.synchronize()
+    log(f"binned plan: built in {time.time() - t0:.3f} s, "
+        f"{binned.candidate_plan_stats(cand, 512)}")
+    t0 = time.time()
     _, cap = resolve_wavefront(scene, "wang", 1)
     log(f"capacity calibration: {time.time() - t0:.2f} s, cap={cap} tiles")
-    render_scene_frames(scene, FRAMES, "wang", 0)  # warm-up, not counted
-    torch.cuda.synchronize()
-    # the main path's run: three timed calls and one whose frames are
-    # checked, all at the calibrated capacity
-    mk.reset_launch_counts()
-    timing = cuda_time_ms(lambda: render_scene_frames(scene, FRAMES, "wang", 0),
-                          warmup=0, iters=3)
-    frames = render_scene_frames(scene, FRAMES, "wang", 3 * FRAMES)
-    torch.cuda.synchronize()
-    counts = mk.launch_counts()
-    ms_frame = timing["median_ms"] / FRAMES
-    log(f"main path: {FRAMES} frames 1920x1080 depth 8: {ms_frame:.3f} "
-        f"ms/frame, {1920 * 1080 / (ms_frame / 1e3):.4e} rays/s "
-        f"(median of 3 CUDA-event timings, samples "
-        f"{[round(t, 2) for t in timing['samples_ms']]} ms) on {smi}")
-    log(f"launch counts over the main path (4 calls of {FRAMES} frames at "
-        f"cap={cap}): {counts}")
-    if tuple(frames.shape) != (FRAMES, 1080, 1920, 3) or \
-            not bool(torch.isfinite(frames).all()):
-        raise AssertionError("main path output not finite / wrong shape")
-    if bool((frames.amax() <= 0.0)):
-        raise AssertionError("main path rendered a black frame")
-    if counts["emit"] == 0 or counts["bounce_step"] == 0:
-        raise AssertionError(f"a kernel of the main path never ran: {counts}")
+    ms_binned, frames_b, main_counts = timed_frames(
+        "main path, binned", scene, FRAMES, smi, ["emit", "bounce_step"])
+    os.environ["RT_BINNED"] = "0"
+    ms_flat, frames_f, flat_counts = timed_frames(
+        "main path, RT_BINNED=0", scene, FRAMES, smi, ["emit", "bounce_step"])
+    os.environ.pop("RT_BINNED")
+    diff = (frames_b - frames_f).abs()
+    n_diff = int((diff.amax(dim=-1) > 0).sum())
+    log(f"binned vs RT_BINNED=0: {ms_binned:.3f} vs {ms_flat:.3f} ms/frame; "
+        f"frames max abs diff {float(diff.max()):.3e}, differing pixels "
+        f"{n_diff} of {FRAMES * W * H}")
+    if n_diff:
+        raise AssertionError("binned frames differ from the RT_BINNED=0 "
+                             "frames (the plans must give the same images)")
+    del frames_b, frames_f, diff
 
-    # the overflow branch of the same path: at a capacity of 8 tiles the
-    # alive wavefront does not fit and the frame finishes in resume
-    mk.reset_launch_counts()
-    overflow = render_scene_frames(scene, 1, "wang", 0, capacity_tiles=8)
-    torch.cuda.synchronize()
-    overflow_counts = mk.launch_counts()
-    log(f"launch counts over the overflow render (1 frame at cap=8): "
-        f"{overflow_counts}")
+    overflow, over_counts = counted(
+        "overflow render (1 frame at cap=8)",
+        lambda: render_scene_frames(scene, 1, "wang", 0, capacity_tiles=8),
+        ["resume"])
     if not bool(torch.isfinite(overflow).all()):
         raise AssertionError("overflow render not finite")
-    if overflow_counts["resume"] == 0:
-        raise AssertionError(f"the overflow render never ran resume: "
-                             f"{overflow_counts}")
 
-    # --- 6. kernel times at the main path's shapes beside the plain ones
-    from raytracinginonesemester_tpu_torch.ops.wavefront import (
-        sort_bounce_state)
-    from raytracinginonesemester_tpu_torch.render.renderer import (
-        _swizzled_grid)
+    # --- 6. kernel D at full width
+    terminal = frog_scene(W, H, max_bounces=4, diffuse_bounce=False,
+                          device=dev)
+    if not terminal.terminal_only or resolve_wavefront(terminal, "wang", 1)[0]:
+        raise AssertionError("the terminal frog must take kernel D")
+    ms_term, _, term_counts = timed_frames(
+        "frog terminal depth 4 (kernel D)", terminal, FRAMES, smi, ["render"])
+    os.environ["RT_WAVEFRONT"] = "0"
+    ms_d, _, d_counts = timed_frames("main path, RT_WAVEFRONT=0 (kernel D)",
+                                     scene, FRAMES, smi, ["render"], iters=1)
+    os.environ.pop("RT_WAVEFRONT")
 
-    rows = mk._scene_rows(scene, scene.accel)
-    xs, ys, _ = _swizzled_grid(1920, 1080, device=dev)
-    xs_p, ys_p, _, np_rays = mk._pad_tiles(xs, ys)
-    nt = np_rays // mk.RAY_TILE
-    plan = mk.camera_tile_plan(scene.camera, xs_p, ys_p, scene.accel)
-    has_work = plan[1][:, 0] < float("inf")
-    grid = scene.accel
-    lo = [grid.aabb[c].amin() for c in range(3)]
-    span = [torch.clamp(grid.aabb[3 + c].amax() - lo[c], min=1e-20)
-            for c in range(3)]
-    pix = torch.arange(np_rays, device=dev)
-    st, rng = mk.emit_tiles(scene, xs_p, ys_p, 0, plan=plan, rows=rows)
-    st_s, rng_s, _ = sort_bounce_state(st, rng, pix, lo, span)
+    # --- 7. cpuonly at full width
+    cpu_scene = cpuonly_scene("cpuonly_mirror", dev, W, H)
+    wf, cpu_cap = resolve_wavefront(cpu_scene, "auto", 1)
+    path = "staged wavefront" if wf else "kernel D"
+    ms_cpu, _, cpu_counts = timed_frames(
+        f"cpuonly_mirror 1080p ({path}, cap={cpu_cap})", cpu_scene, FRAMES,
+        smi, ["emit"] if wf else ["render"])
+    os.environ["RT_WAVEFRONT"] = "0"
+    ms_cpu_d, _, cpu_d_counts = timed_frames(
+        "cpuonly_mirror 1080p, RT_WAVEFRONT=0 (kernel D)", cpu_scene, FRAMES,
+        smi, ["render"], iters=1)
+    os.environ.pop("RT_WAVEFRONT")
+    _, cpu_over_counts = counted(
+        "cpuonly_mirror 1080p overflow render (1 frame at cap=8)",
+        lambda: render_scene_frames(cpu_scene, 1, "auto", 0, capacity_tiles=8),
+        ["resume"])
+
+    # --- 8. kernel times at full width beside the plain versions
+    main = Frame(scene)
+    check_binned_equiv("frog 1080p", main.emit(False), main.emit(True))
+    st, rng = main.emit(False)
+    st_s, rng_s, _ = main.sorted_state(st, rng)
+    del st, rng
     # the ladder's first bounce sees the alive prefix of the sorted
     # subsets: cap tiles per frame, FRAMES frames
-    width = min(nt, (cap or nt) * FRAMES)
+    width = min(main.nt, (cap or main.nt) * FRAMES)
     st_b, rng_b = st_s[:width * 16], rng_s[:width * 8]
-    diffuse = scene.diffuse_bounce
-    shapes = {"emit": f"{nt} tiles x {mk.RAY_TILE} rays",
-              "bounce_step": f"{width} tiles x {mk.RAY_TILE} rays",
-              "resume": f"{nt} tiles x {mk.RAY_TILE} rays"}
-    calls = {
-        "emit": (lambda: mk.emit_tiles(scene, xs_p, ys_p, 0, plan=plan,
-                                       rows=rows),
-                 lambda: mk.emit_tiles_plain(rows, xs_p, ys_p, has_work, 0,
-                                             diffuse)),
-        "bounce_step": (lambda: mk.bounce_step_tiles(scene, st_b, rng_b,
-                                                     rows=rows),
-                        lambda: mk.bounce_step_tiles_plain(rows, st_b, rng_b,
-                                                           diffuse)),
-        "resume": (lambda: mk.resume_tiles(scene, st_s, rng_s, rows=rows),
-                   lambda: mk.resume_tiles_plain(rows, st_s, rng_s,
-                                                 scene.max_bounces, diffuse)),
-    }
-    records = {}
-    for name, (kern, plain) in calls.items():
-        # the same inputs through both, at the main path's shapes
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        if name == "resume":
-            nbad = sum(ulp_bad(a, b)[0] for a, b in zip(got, want))
-            worst = max(ulp_bad(a, b)[1] for a, b in zip(got, want))
-            log(f"compare resume 1080p: radiance beyond tol {nbad}, "
-                f"max_abs {worst:.3e}")
-            errs["resume"] = max(errs["resume"], worst)
-            if nbad:
-                raise AssertionError("resume kernel disagrees at 1080p")
-        else:
-            report(errs, name, "1080p", *got, *want)
-        del got, want
-        k = cuda_time_ms(kern, warmup=1, iters=3)
-        p = cuda_time_ms(plain, warmup=0, iters=1)
-        log(f"time {name} at {shapes[name]}: kernel {k['median_ms']:.3f} ms "
-            f"(median of 3), plain {p['median_ms']:.1f} ms (1 run) on {smi}")
-        records[name] = {"name": name, "route": "cuda", "source": SOURCE,
-                         "replaces": REPLACES[name],
-                         "max_abs_err": errs[name], "ms": k["median_ms"],
-                         "plain_ms": p["median_ms"]}
+    term = Frame(terminal)
+    cpu = Frame(cpu_scene, jitter="center")
+    c_st, c_rng = cpu.emit(True)
+    c_st_s, c_rng_s, _ = cpu.sorted_state(c_st, c_rng)
+    del c_st, c_rng
+    ray_b = 8 + 96  # xs, ys in; state and rng out
+    def states(e, n, w, a, b):
+        check_state(e, n, w, *a, *b)
 
-    # resume runs only in the overflow branch, so its launches are the
-    # overflow render's and it is reported on its own line
-    log(json.dumps({"overflow_kernels": [
-        dict(records.pop("resume"), launches=overflow_counts["resume"])]}))
-    log(json.dumps({"kernels": [dict(r, launches=counts[n])
-                                for n, r in records.items()]}))
+    # key: (kernel, shape, kernel call, plain call taking the stats dict,
+    # comparison, bytes moved)
+    jobs = {
+        "emit binned": (
+            "emit", f"{main.nt} tiles x 512", lambda: main.emit(True),
+            lambda x=None: main.emit_plain(True, stats=x), states,
+            main.np_rays * ray_b + main.scene_bytes(True)),
+        "emit flat": (
+            "emit", f"{main.nt} tiles x 512", lambda: main.emit(False),
+            lambda x=None: main.emit_plain(False, stats=x), states,
+            main.np_rays * ray_b + main.scene_bytes(False)),
+        "bounce_step": (
+            "bounce_step", f"{width} sorted tiles x 512",
+            lambda: main.bounce(st_b, rng_b),
+            lambda x=None: main.bounce_plain(st_b, rng_b, x), states,
+            width * 512 * 192 + main.scene_bytes(False)),
+        "resume": (
+            "resume", f"{main.nt} sorted tiles x 512, depths 1..7",
+            lambda: main.resume(st_s, rng_s),
+            lambda x=None: main.resume_plain(st_s, rng_s, x), check_sums,
+            main.np_rays * (96 + 12) + main.scene_bytes(False)),
+        "render V2 binned": (
+            "render", f"{main.nt} tiles x 512, spp 1, depth 8",
+            lambda: main.render(True),
+            lambda x=None: main.render_plain(True, stats=x), check_sums,
+            main.np_rays * 20 + main.scene_bytes(True)),
+        "render terminal binned": (
+            "render", f"{term.nt} tiles x 512, spp 1",
+            lambda: term.render(True),
+            lambda x=None: term.render_plain(True, stats=x), check_sums,
+            term.np_rays * 20 + term.scene_bytes(True)),
+        "cpuonly emit binned": (
+            "emit", f"{cpu.nt} tiles x 512", lambda: cpu.emit(True),
+            lambda x=None: cpu.emit_plain(True, stats=x), states,
+            cpu.np_rays * ray_b + cpu.scene_bytes(True)),
+        "cpuonly bounce_step": (
+            "bounce_step", f"{cpu.nt} sorted tiles x 512",
+            lambda: cpu.bounce(c_st_s, c_rng_s),
+            lambda x=None: cpu.bounce_plain(c_st_s, c_rng_s, x), states,
+            cpu.np_rays * 192 + cpu.scene_bytes(False)),
+        "cpuonly resume": (
+            "resume", f"{cpu.nt} sorted tiles x 512, depths 1..3",
+            lambda: cpu.resume(c_st_s, c_rng_s),
+            lambda x=None: cpu.resume_plain(c_st_s, c_rng_s, x),
+            check_sums, cpu.np_rays * (96 + 12) + cpu.scene_bytes(False)),
+        "cpuonly render binned": (
+            "render", f"{cpu.nt} tiles x 512, spp 1", lambda: cpu.render(True),
+            lambda x=None: cpu.render_plain(True, stats=x), check_sums,
+            cpu.np_rays * 20 + cpu.scene_bytes(True)),
+    }
+    records = time_kernels(smi, errs, jobs)
+
+    # which render's launches each record reports
+    runs = {"emit binned": ("main path, binned", main_counts),
+            "emit flat": ("main path, RT_BINNED=0", flat_counts),
+            "bounce_step": ("main path, binned", main_counts),
+            "resume": ("overflow render at cap=8", over_counts),
+            "render V2 binned": ("main path, RT_WAVEFRONT=0", d_counts),
+            "render terminal binned": ("frog terminal depth 4", term_counts),
+            "cpuonly emit binned": ("cpuonly_mirror 1080p", cpu_counts),
+            "cpuonly bounce_step": ("cpuonly_mirror 1080p", cpu_counts),
+            "cpuonly resume": ("cpuonly_mirror 1080p overflow render at "
+                               "cap=8", cpu_over_counts),
+            "cpuonly render binned": ("cpuonly_mirror 1080p, RT_WAVEFRONT=0",
+                                      cpu_d_counts)}
+    for key, rec in records.items():
+        label, counts = runs[key]
+        rec.update(variant=key, launches=counts[rec["name"]],
+                   launches_in=label, max_abs_err=errs[rec["name"]])
+    main_keys = ("emit binned", "bounce_step", "resume", "render V2 binned")
+    log(f"ms/frame on {smi}: main path binned {ms_binned:.3f}, "
+        f"RT_BINNED=0 {ms_flat:.3f}, RT_WAVEFRONT=0 {ms_d:.3f}, terminal "
+        f"{ms_term:.3f}, cpuonly_mirror {ms_cpu:.3f}, cpuonly_mirror "
+        f"RT_WAVEFRONT=0 {ms_cpu_d:.3f}; whole run "
+        f"{time.time() - t_start:.0f} s")
+    log(json.dumps({"variants": [r for k, r in records.items()
+                                 if k not in main_keys]}))
+    log(json.dumps({"kernels": [records[k] for k in main_keys]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

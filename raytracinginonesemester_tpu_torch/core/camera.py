@@ -49,7 +49,7 @@ class Camera:
         sensor_width_mm: float | None = None,
         width: int = 100,
         height: int = 100,
-        device="cpu",
+        device="cuda",
     ) -> "Camera":
         if width < 1:
             raise ValueError("pixel_width must be >= 1")

@@ -27,6 +27,7 @@ __all__ = [
     "make_rng_seed",
     "pixel_jitter",
     "random_unit_vector",
+    "random_in_unit_disk",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -119,6 +120,32 @@ def random_unit_vector(state, max_rounds: int = 64):
         cand = torch.stack([x * inv, y * inv, z * inv], dim=-1)
         vec = torch.where(take[..., None], cand, vec)
         state = torch.where(accepted, state, s3)
+        accepted = accepted | ok
+        if bool(accepted.all()):
+            break
+    return state, vec
+
+
+def random_in_unit_disk(state, max_rounds: int = 64):
+    """Uniform point in the unit disk by per-element rejection
+    (``CPUOnly/include/raytracer.h:77-85``): two draws per round, accepted
+    elements stop advancing; capped at ``max_rounds`` as the kernels are.
+    Returns (new_state, (..., 2) float32); elements never accepted keep
+    (0, 0)."""
+    state = to_u32(state)
+    vec = torch.zeros(state.shape + (2,), dtype=torch.float32,
+                      device=state.device)
+    accepted = torch.zeros(state.shape, dtype=torch.bool, device=state.device)
+    for _ in range(max_rounds):
+        s1, x = rng_next(state)
+        s2, y = rng_next(s1)
+        x = 2.0 * x - 1.0
+        y = 2.0 * y - 1.0
+        r2 = x * x + y * y
+        ok = (r2 > 1e-10) & (r2 <= 1.0)
+        take = ok & ~accepted
+        vec = torch.where(take[..., None], torch.stack([x, y], dim=-1), vec)
+        state = torch.where(accepted, state, s2)
         accepted = accepted | ok
         if bool(accepted.all()):
             break

@@ -1,31 +1,37 @@
-// Wavefront path-tracing kernels for Hopper (sm_90a): emit, bounce_step,
-// resume.
+// Path-tracing kernels for Hopper (sm_90a): emit, bounce_step, resume and
+// the monolithic render.
 //
 // Replaces the Pallas TPU kernels of raytracinginonesemester_tpu/ops/
 // megakernel.py: _emit_kernel (emit_tiles), _bounce_step_kernel
-// (bounce_step_tiles) and _resume_kernel (resume_tiles), gpu dialect, flat
-// block scan.  The three kernels share the device functions below, as the
-// Pallas kernels share _make_traverse / _make_shade / _make_bounce.
+// (bounce_step_tiles), _resume_kernel (resume_tiles) and _render_kernel
+// (render_tiles), in both reference dialects.  The four kernels share the
+// device functions below, as the Pallas kernels share _make_traverse /
+// _make_shade / _make_bounce; the dialect is a template argument (CPU =
+// the cpuonly dialect: pixel-center jitter, sky-gradient misses,
+// disk-sampled soft shadows, the (kd + kr)-weighted throughput rules).
 //
 // Design.  One thread per ray, 128 threads per block.  Thread (tile, lane)
 // reads state row k at tile*16*rt + k*rt + lane, so each row load of a warp
 // is coalesced.  Triangle planes stay in global memory (frog at 512-blocks
 // is ~1.7 MB and lives in L2); block AABBs, lights and materials are staged
-// in shared memory.  Closest hit scans blocks 0..L-1 with a per-ray slab
-// test against the running best t before each block's triangle loop (the
-// per-ray form of the Pallas tile-level gate); the lexicographic
-// (t, global triangle id) take rule makes the winner independent of visit
-// order.  Shadow rays stop at their first hit.  The hemisphere sampler is
-// the reference's scalar rejection loop (query.h:51-71), capped at 64
-// rounds, drawn only by rays that take the diffuse branch.
+// in shared memory.  Closest hit either scans blocks 0..L-1 with a per-ray
+// slab test against the running best t before each block's triangle loop
+// (the per-ray form of the Pallas tile-level gate), or, at depth 0 with a
+// binned camera plan (ops/binned.py), walks the tile's candidate chunks:
+// every thread of a CUDA block lies in one 512-ray tile, so each load of a
+// chunk's row is one address for the whole warp (a broadcast); the chunks
+// are read straight from global memory, not staged in shared memory.  The
+// lexicographic (t, global triangle id) take rule makes the winner
+// independent of visit order.  Shadow rays stop at their first hit.  The
+// hemisphere and disk samplers are the reference's scalar rejection loops
+// (query.h:51-71, raytracer.h:77-85), capped at 64 rounds.
 //
 // What bounds it on this card: divergent scalar FP32 work (Moller-Trumbore
 // per ray-triangle pair, shadow walks, rejection sampling) and L2-resident
 // triangle reads; there is nothing matrix-shaped for the tensor cores.
-// This first version is deliberately simple: exact and readable, with the
-// JAX kernels' op order (built with -fmad=false and IEEE div/sqrt) so that
-// it can be held against them to the last ulp.  A BVH or the binned camera
-// plan, not wgmma, is what would make it faster.
+// This version is deliberately simple: exact and readable, with the JAX
+// kernels' op order (built with -fmad=false and IEEE div/sqrt) so that it
+// can be held against them to the last ulp.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,6 +40,7 @@
 namespace {
 
 constexpr int kStRows = 16;
+constexpr int kCandRows = 16;
 constexpr int kThreads = 128;
 constexpr float kF32Max = 3.402823466e+38f;
 constexpr int kIntMax = 2147483647;
@@ -52,11 +59,16 @@ struct SceneArgs {
   const int* ids;       // (L, B) global triangle id, -1 padding
   const int* obj;       // (L, B) object id
   const float* aabb;    // (L, 8) min xyz, max xyz, 0, 0
+  const int* cand_meta;      // (nt, 8) first chunk, chunk count (binned)
+  const float* cand_stream;  // (chunks * 16, C) planes, id, home, slot
   int n_lights;
   int n_objects;
   int num_blocks;
   int block_size;
   int diffuse_bounce;
+  int cpuonly;
+  int shadow_samples;  // soft-shadow walks per area light (cpuonly)
+  int cand_chunk;      // C; 0: depth 0 takes the flat block scan
   float det_eps;
   float tmin;
   float shadow_eps;
@@ -94,6 +106,11 @@ __device__ __forceinline__ float wang_float(uint32_t h) {
   return __uint2float_rn(mix32(h)) * 2.3283064365386963e-10f;  // 2^-32
 }
 
+// clip to [0, 1] that keeps NaN, as jnp.clip / torch.clamp do
+__device__ __forceinline__ float clip01(float x) {
+  return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
+}
+
 // ---- geometry ----
 
 // Slab test with the robust far-plane stretch (Ize 2013) of _tile_slab;
@@ -118,22 +135,21 @@ __device__ __forceinline__ bool slab(const float* a, const float* o,
   return t0 <= t1;
 }
 
-// Moller-Trumbore (query.h:72-132) against triangle k of the planes;
-// returns t, or kF32Max on a miss.
-__device__ __forceinline__ float mt(const SceneArgs& s, size_t plane, int k,
-                                    const float* o, const float* d,
-                                    float tmin, float tmax, float* uo,
-                                    float* vo) {
-  const float* T = s.tri + k;
-  float v0x = T[0], v0y = T[plane], v0z = T[2 * plane];
-  float e1x = T[3 * plane], e1y = T[4 * plane], e1z = T[5 * plane];
-  float e2x = T[6 * plane], e2y = T[7 * plane], e2z = T[8 * plane];
+// Moller-Trumbore (query.h:72-132) against the triangle whose 9 planes
+// start at T, `stride` floats apart; returns t, or kF32Max on a miss.
+__device__ __forceinline__ float mt(const float* T, size_t stride,
+                                    float det_eps, const float* o,
+                                    const float* d, float tmin, float tmax,
+                                    float* uo, float* vo) {
+  float v0x = T[0], v0y = T[stride], v0z = T[2 * stride];
+  float e1x = T[3 * stride], e1y = T[4 * stride], e1z = T[5 * stride];
+  float e2x = T[6 * stride], e2y = T[7 * stride], e2z = T[8 * stride];
   float dx = d[0], dy = d[1], dz = d[2];
   float pvx = dy * e2z - dz * e2y;
   float pvy = dz * e2x - dx * e2z;
   float pvz = dx * e2y - dy * e2x;
   float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  float inv_det = 1.0f / (fabsf(det) < s.det_eps ? 1.0f : det);
+  float inv_det = 1.0f / (fabsf(det) < det_eps ? 1.0f : det);
   float tvx = o[0] - v0x;
   float tvy = o[1] - v0y;
   float tvz = o[2] - v0z;
@@ -145,15 +161,27 @@ __device__ __forceinline__ float mt(const SceneArgs& s, size_t plane, int k,
   float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
   *uo = u;
   *vo = v;
-  bool ok = fabsf(det) >= s.det_eps && u >= 0.0f && u <= 1.0f &&
-            v >= 0.0f && u + v <= 1.0f && t >= tmin && t <= tmax;
+  bool ok = fabsf(det) >= det_eps && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+            u + v <= 1.0f && t >= tmin && t <= tmax;
   return ok ? t : kF32Max;
 }
 
 struct Hit {
   float t, u, v;
-  int id, k;  // global triangle id (-1: none), plane index block*B + lane
+  int id, k;  // global triangle id (-1: none), grid slot block*B + lane
 };
+
+__device__ __forceinline__ void take(Hit& h, float t, float u, float v,
+                                     int id, int k) {
+  if (t < kF32Max &&
+      (t < h.t || (t == h.t && id < (h.id >= 0 ? h.id : kIntMax)))) {
+    h.t = t;
+    h.u = u;
+    h.v = v;
+    h.id = id;
+    h.k = k;
+  }
+}
 
 __device__ Hit closest(const SceneArgs& s, const Shared& sh, const float* o,
                        const float* d) {
@@ -167,21 +195,41 @@ __device__ Hit closest(const SceneArgs& s, const Shared& sh, const float* o,
       const int id = s.ids[base + j];
       if (id < 0) continue;
       float u, v;
-      float t = mt(s, plane, base + j, o, d, s.tmin, h.t, &u, &v);
-      if (t < kF32Max &&
-          (t < h.t || (t == h.t && id < (h.id >= 0 ? h.id : kIntMax)))) {
-        h.t = t;
-        h.u = u;
-        h.v = v;
-        h.id = id;
-        h.k = base + j;
-      }
+      float t = mt(s.tri + base + j, plane, s.det_eps, o, d, s.tmin, h.t, &u,
+                   &v);
+      take(h, t, u, v, id, base + j);
     }
   }
   return h;
 }
 
-// gpu-dialect shading normal of the winner (query.h:113-126).
+// The binned walk (ops/binned.py): the tile's candidate chunks, dense
+// Moller-Trumbore on every live lane; the winner's grid slot (row 11) is
+// where its attributes are read.
+__device__ Hit closest_binned(const SceneArgs& s, int tile, const float* o,
+                              const float* d) {
+  const int c_w = s.cand_chunk;
+  const int first = s.cand_meta[8 * tile];
+  const int count = s.cand_meta[8 * tile + 1];
+  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
+  for (int c = first; c < first + count; ++c) {
+    const float* rows = s.cand_stream + (size_t)c * kCandRows * c_w;
+    for (int j = 0; j < c_w; ++j) {
+      const int id = (int)rows[9 * c_w + j];  // exact integers in f32
+      if (id < 0) continue;
+      float u, v;
+      float t = mt(rows + j, c_w, s.det_eps, o, d, s.tmin, h.t, &u, &v);
+      take(h, t, u, v, id, (int)rows[11 * c_w + j]);
+    }
+  }
+  return h;
+}
+
+// Shading normal of the winner.  gpu: geometric sidedness, zero-length
+// fallback, hemisphere alignment (query.h:113-126); cpuonly: the
+// normalised interpolation flipped to the face normal's side
+// (CPUOnly/include/ray.h:76-92).
+template <bool CPU>
 __device__ void shading_normal(const SceneArgs& s, const Hit& h,
                                const float* d, float* n) {
   const size_t plane = (size_t)s.num_blocks * s.block_size;
@@ -197,6 +245,13 @@ __device__ void shading_normal(const SceneArgs& s, const Hit& h,
   float dg = d[0] * gx + d[1] * gy + d[2] * gz;
   float gsign = dg < 0.0f ? 1.0f : -1.0f;
   float len_sq = snx * snx + sny * sny + snz * snz;
+  if (CPU) {
+    float sc = (1.0f / sqrtf(fmaxf(len_sq, 1e-24f))) * gsign;
+    n[0] = snx * sc;
+    n[1] = sny * sc;
+    n[2] = snz * sc;
+    return;
+  }
   float ogx = gx * gsign, ogy = gy * gsign, ogz = gz * gsign;
   float inv_len = 1.0f / sqrtf(fmaxf(len_sq, 1e-38f));
   bool use_geom = len_sq < 1e-12f;
@@ -209,9 +264,10 @@ __device__ void shading_normal(const SceneArgs& s, const Hit& h,
   n[2] = snz * fs;
 }
 
-// IsInShadow: any hit on [shadow_tmin, dist], first hit wins.
+// IsInShadow: blocks culled on [shadow_tmin, dist], triangles tested on
+// [shadow_tmin, tmax]; first hit wins.
 __device__ bool occluded(const SceneArgs& s, const Shared& sh, const float* p,
-                         const float* ld, float dist) {
+                         const float* ld, float dist, float tmax) {
   const size_t plane = (size_t)s.num_blocks * s.block_size;
   float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};
   for (int b = 0; b < s.num_blocks; ++b) {
@@ -220,7 +276,8 @@ __device__ bool occluded(const SceneArgs& s, const Shared& sh, const float* p,
     for (int j = 0; j < s.block_size; ++j) {
       if (s.ids[base + j] < 0) continue;
       float u, v;
-      if (mt(s, plane, base + j, p, ld, s.shadow_tmin, dist, &u, &v) < kF32Max)
+      if (mt(s.tri + base + j, plane, s.det_eps, p, ld, s.shadow_tmin, tmax,
+             &u, &v) < kF32Max)
         return true;
     }
   }
@@ -255,18 +312,92 @@ __device__ void hemisphere(uint32_t* rng, const float* n, float* h) {
   h[2] *= fs;
 }
 
+// random_in_unit_disk (raytracer.h:77-85): scalar rejection, <= 64
+// rounds, two draws per round; (0, 0) if never accepted.
+__device__ void disk_sample(uint32_t* rng, float* xo, float* yo) {
+  uint32_t st = *rng;
+  *xo = 0.0f;
+  *yo = 0.0f;
+  for (int k = 0; k < 64; ++k) {
+    uint32_t s1 = lcg(st);
+    float x = 2.0f * wang_float(s1) - 1.0f;
+    uint32_t s2 = lcg(s1);
+    float y = 2.0f * wang_float(s2) - 1.0f;
+    st = s2;
+    float r2 = x * x + y * y;
+    if (r2 > 1e-10f && r2 <= 1.0f) {
+      *xo = x;
+      *yo = y;
+      break;
+    }
+  }
+  *rng = st;
+}
+
+// One cpuonly shadow walk from p along st (not normalised): 1 if nothing
+// blocks [shadow_tmin, |st| - shadow_eps], else 0.
+__device__ float soft_walk(const SceneArgs& s, const Shared& sh,
+                           const float* p, float stx, float sty, float stz,
+                           bool facing) {
+  float d_s = sqrtf(fmaxf(stx * stx + sty * sty + stz * stz, 1e-24f));
+  float inv_s = 1.0f / d_s;
+  float sld[3] = {stx * inv_s, sty * inv_s, stz * inv_s};
+  if (!facing) return 1.0f;
+  return occluded(s, sh, p, sld, d_s, d_s - s.shadow_eps) ? 0.0f : 1.0f;
+}
+
+// ShadowVisibility (CPUOnly/raytracer.h:121-168): shadow_samples walks
+// toward disk samples of an area light (the draws advance the ray's rng),
+// one toward a point light's center.
+__device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
+                                 const float* L, const float* p,
+                                 const float* to, const float* ld,
+                                 bool facing, uint32_t* rng) {
+  const float radius = L[6];
+  if (!(radius > 0.0f))
+    return soft_walk(s, sh, p, to[0], to[1], to[2], facing) / 1.0f;
+  // disk basis around w = (p - light) / |p - light| (raytracer.h:88-93)
+  const float wx = -ld[0], wy = -ld[1], wz = -ld[2];
+  const bool use_y = fabsf(wx) > 0.9f;
+  const float a0 = use_y ? 0.0f : 1.0f;
+  const float a1 = use_y ? 1.0f : 0.0f;
+  float tx = a1 * wz;
+  float ty = -a0 * wz;
+  float tz = a0 * wy - a1 * wx;
+  const float t_inv = 1.0f / sqrtf(tx * tx + ty * ty + tz * tz);
+  tx = tx * t_inv;
+  ty = ty * t_inv;
+  tz = tz * t_inv;
+  const float bx = wy * tz - wz * ty;
+  const float by = wz * tx - wx * tz;
+  const float bz = wx * ty - wy * tx;
+  float unocc = 0.0f;
+  for (int k = 0; k < s.shadow_samples; ++k) {
+    float dxs, dys;
+    disk_sample(rng, &dxs, &dys);
+    const float spx = L[0] + (tx * dxs + bx * dys) * radius;
+    const float spy = L[1] + (ty * dxs + by * dys) * radius;
+    const float spz = L[2] + (tz * dxs + bz * dys) * radius;
+    unocc = unocc +
+            soft_walk(s, sh, p, spx - p[0], spy - p[1], spz - p[2], facing);
+  }
+  return unocc / (float)s.shadow_samples;
+}
+
 // One closest hit + direct light + Russian-roulette step on an alive ray
-// (the loop body of TraceRayIterative, query.h:165-216).
+// (the loop body of TraceRayIterative, query.h:165-216, or of CPUOnly's
+// TraceRay).  tile >= 0: closest hit walks that tile's binned candidates.
+template <bool CPU>
 __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
-                       Ray& r) {
+                       Ray& r, int tile) {
   const float* o = r.bo;
   const float* d = r.bd;
-  Hit h = closest(s, sh, o, d);
+  Hit h = tile >= 0 ? closest_binned(s, tile, o, d) : closest(s, sh, o, d);
   const bool hit = h.t < kF32Max;
   float n[3] = {0.0f, 0.0f, 1.0f};
   int obj = 0;
   if (hit) {
-    shading_normal(s, h, d, n);
+    shading_normal<CPU>(s, h, d, n);
     obj = s.obj[h.k];
   }
   const float* m = sh.mats + 16 * obj;
@@ -283,14 +414,22 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
   for (int c = 0; c < 3; ++c) lo[c] = m[c] * 0.05f + m[10 + c];
   for (int li = 0; li < s.n_lights; ++li) {
     const float* L = sh.lights + 8 * li;
-    float tox = L[0] - p[0], toy = L[1] - p[1], toz = L[2] - p[2];
-    float dist = sqrtf(fmaxf(tox * tox + toy * toy + toz * toz, 1e-38f));
+    float to[3] = {L[0] - p[0], L[1] - p[1], L[2] - p[2]};
+    float dist = sqrtf(fmaxf(to[0] * to[0] + to[1] * to[1] + to[2] * to[2],
+                             CPU ? 1e-24f : 1e-38f));
     float inv_dist = 1.0f / dist;
-    float ld[3] = {tox * inv_dist, toy * inv_dist, toz * inv_dist};
+    float ld[3] = {to[0] * inv_dist, to[1] * inv_dist, to[2] * inv_dist};
     float ndotl = fmaxf(n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2], 0.0f);
     bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
+    float vis;
+    if (CPU) {
+      if (!hit) continue;  // a miss draws nothing and adds nothing
+      vis = soft_visibility(s, sh, L, p, to, ld, facing, &r.rng);
+    } else {
+      vis = 1.0f;
+    }
     if (!facing) continue;  // scale == 0: adds exactly 0
-    float vis = occluded(s, sh, p, ld, dist) ? 0.0f : 1.0f;
+    if (!CPU) vis = occluded(s, sh, p, ld, dist, dist) ? 0.0f : 1.0f;
     float hx = ld[0] + vx, hy = ld[1] + vy, hz = ld[2] + vz;
     float hlen = sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-38f));
     float ndoth = fmaxf((n[0] * hx + n[1] * hy + n[2] * hz) / hlen, 0.0f);
@@ -304,11 +443,24 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
   }
 
   // ---- radiance and the Russian-roulette split (query.h:188-212) ----
+  float ms[3];
+  if (CPU) {
+    // miss shader: the sky gradient on the unit direction
+    // (CPUOnly/raytracer.h:226-229)
+    const float skyt = 0.5f * (d[2] + 1.0f);
+    ms[0] = (1.0f - skyt) + skyt * 0.5f;
+    ms[1] = (1.0f - skyt) + skyt * 0.7f;
+    ms[2] = (1.0f - skyt) + skyt * 1.0f;
+  } else {
+    ms[0] = cam[12];
+    ms[1] = cam[13];
+    ms[2] = cam[14];
+  }
   const float found_f = hit ? 1.0f : 0.0f;
   const float missed_f = hit ? 0.0f : 1.0f;
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    r.rd[c] = r.rd[c] + r.tp[c] * (missed_f * cam[12 + c] + found_f * lo[c]);
+    r.rd[c] = r.rd[c] + r.tp[c] * (missed_f * ms[c] + found_f * lo[c]);
   const float kd = m[3], kr = m[9];
   const float total = kd + kr;
   const bool can_bounce = hit && total > 0.0f;
@@ -317,11 +469,17 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
   if (can_bounce) r.rng = s_xi;
   const float ratio = kd / (total > 0.0f ? total : 1.0f);
   const bool take_diff = s.diffuse_bounce && can_bounce && xi < ratio;
-  const bool take_mirror = can_bounce && !take_diff;
+  // CPUOnly mirrors only when kr > 0 (raytracer.h:249)
+  const bool take_mirror = can_bounce && !take_diff && (!CPU || kr > 0.0f);
   float hm[3] = {0.0f, 0.0f, 0.0f};
   if (take_diff) hemisphere(&r.rng, n, hm);
-  const float dtp =
-      2.0f * fmaxf(n[0] * hm[0] + n[1] * hm[1] + n[2] * hm[2], 0.0f);
+  const float ndotl_h =
+      fmaxf(n[0] * hm[0] + n[1] * hm[1] + n[2] * hm[2], 0.0f);
+  // diffuse throughput albedo * 2 N.L (query.h:195-199), times (kd + kr)
+  // in CPUOnly (raytracer.h:240-248); its mirror scales by kd + kr when
+  // diffuse bounces are on (raytracer.h:249-255)
+  const float dtp = CPU ? total * (2.0f * ndotl_h) : 2.0f * ndotl_h;
+  const float mirror_scale = (CPU && s.diffuse_bounce) ? total : kr;
   const float ddn = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
   const float td_f = take_diff ? 1.0f : 0.0f;
   const bool bounced = take_diff || take_mirror;
@@ -331,7 +489,8 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
   for (int c = 0; c < 3; ++c) {
     float rf = d[c] - 2.0f * ddn * n[c];
     nd[c] = b_f * (td_f * hm[c] + (1.0f - td_f) * rf) + (1.0f - b_f) * d[c];
-    float tsc = td_f * (m[c] * dtp) + (1.0f - td_f) * (m[4 + c] * kr);
+    float tsc =
+        td_f * (m[c] * dtp) + (1.0f - td_f) * (m[4 + c] * mirror_scale);
     tp[c] = b_f * (r.tp[c] * tsc) + (1.0f - b_f) * r.tp[c];
   }
 #pragma unroll
@@ -342,6 +501,31 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
   }
   const bool tiny = tp[0] < 1e-4f && tp[1] < 1e-4f && tp[2] < 1e-4f;
   r.alive = (bounced && !tiny) ? 1.0f : 0.0f;
+}
+
+// Camera ray of one sample (query.cu:36-43, camera.h:49-53): Wang jitter
+// or the pixel center; the rng seed is make_rng_seed(x, y, sample).
+__device__ void primary(const float* cam, int xi, int yi, uint32_t sample,
+                        bool center, Ray& r) {
+  const uint32_t x = (uint32_t)xi, y = (uint32_t)yi;
+  const uint32_t h = (x * 73856093u ^ y * 19349663u) ^ (sample * 83492791u);
+  const float jx = center ? 0.5f : wang_float(h) - 0.5f;
+  const float jy = center ? 0.5f : wang_float(lcg(h)) - 0.5f;
+  const float px = (float)xi + jx;
+  const float py = (float)yi + jy;
+  float rv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    rv[c] = (cam[3 + c] + px * cam[6 + c] + py * cam[9 + c]) - cam[c];
+  const float rlen = sqrtf(rv[0] * rv[0] + rv[1] * rv[1] + rv[2] * rv[2]);
+  for (int c = 0; c < 3; ++c) {
+    r.bo[c] = cam[c];
+    r.bd[c] = rv[c] / rlen;
+    r.tp[c] = 1.0f;
+    r.rd[c] = 0.0f;
+  }
+  r.alive = 1.0f;
+  r.rng = h;
 }
 
 // ---- kernels ----
@@ -389,9 +573,10 @@ __device__ __forceinline__ void store_ray(const Ray& r, int rt, float* st,
   for (int k = 1; k < 8; ++k) rng[k * rt] = 0;
 }
 
+template <bool CPU>
 __global__ void __launch_bounds__(kThreads)
 emit_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
-            int n_rays, int rt, int sample_offset, float* st_out,
+            int n_rays, int rt, int sample_offset, int center, float* st_out,
             int* rng_out) {
   const Shared sh = stage_shared(s);
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -414,31 +599,12 @@ emit_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
     store_ray(r, rt, so, ro);
     return;
   }
-  // jittered pinhole ray (query.cu:36-43, camera.h:49-53)
-  const uint32_t x = (uint32_t)xs[gid], y = (uint32_t)ys[gid];
-  const uint32_t h =
-      (x * 73856093u ^ y * 19349663u) ^ ((uint32_t)sample_offset * 83492791u);
-  const float jx = wang_float(h) - 0.5f;
-  const float jy = wang_float(lcg(h)) - 0.5f;
-  const float px = (float)xs[gid] + jx;
-  const float py = (float)ys[gid] + jy;
-  float rv[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-    rv[c] = (cam[3 + c] + px * cam[6 + c] + py * cam[9 + c]) - cam[c];
-  const float rlen = sqrtf(rv[0] * rv[0] + rv[1] * rv[1] + rv[2] * rv[2]);
-  for (int c = 0; c < 3; ++c) {
-    r.bo[c] = cam[c];
-    r.bd[c] = rv[c] / rlen;
-    r.tp[c] = 1.0f;
-    r.rd[c] = 0.0f;
-  }
-  r.alive = 1.0f;
-  r.rng = h;
-  bounce(s, sh, cam, r);
+  primary(cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0, r);
+  bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);
   store_ray(r, rt, so, ro);
 }
 
+template <bool CPU>
 __global__ void __launch_bounds__(kThreads)
 bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
                    int n_rays, int rt, float* st_out, int* rng_out) {
@@ -450,10 +616,11 @@ bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
   const size_t ro = (size_t)tile * 8 * rt + lane;
   Ray r;
   load_ray(st_in + so, rng_in + ro, rt, r);
-  if (r.alive > 0.0f) bounce(s, sh, s.cam, r);  // dead rays pass through
+  if (r.alive > 0.0f) bounce<CPU>(s, sh, s.cam, r, -1);  // dead rays pass
   store_ray(r, rt, st_out + so, rng_out + ro);
 }
 
+template <bool CPU>
 __global__ void __launch_bounds__(kThreads)
 resume_kernel(SceneArgs s, const float* st_in, const int* rng_in, int n_rays,
               int rt, int max_depth, float* r_out, float* g_out,
@@ -466,10 +633,48 @@ resume_kernel(SceneArgs s, const float* st_in, const int* rng_in, int n_rays,
   load_ray(st_in + (size_t)tile * kStRows * rt + lane,
            rng_in + (size_t)tile * 8 * rt + lane, rt, r);
   for (int depth = 1; depth < max_depth && r.alive > 0.0f; ++depth)
-    bounce(s, sh, s.cam, r);
+    bounce<CPU>(s, sh, s.cam, r, -1);
   r_out[gid] = r.rd[0];
   g_out[gid] = r.rd[1];
   b_out[gid] = r.rd[2];
+}
+
+// The monolithic render (_render_kernel): one thread owns one pixel over
+// all spp samples and writes the r, g, b sums.  gpu sky tiles add
+// clip(miss) per sample; other rays run depth 0 (binned or flat) and,
+// unless terminal, bounces 1..max-1, and add clip(rd) (gpu) or rd
+// (cpuonly, no per-sample clamp).
+template <bool CPU>
+__global__ void __launch_bounds__(kThreads)
+render_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
+              int n_rays, int rt, int spp, int sample_offset, int center,
+              int terminal, int max_depth, float* r_out, float* g_out,
+              float* b_out) {
+  const Shared sh = stage_shared(s);
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_rays) return;
+  const int tile = gid / rt;
+  const float* cam = s.cam;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  if (!CPU && !has_work[tile]) {
+    for (int k = 0; k < spp; ++k)
+      for (int c = 0; c < 3; ++c) acc[c] = acc[c] + clip01(cam[12 + c]);
+  } else {
+    for (int k = 0; k < spp; ++k) {
+      Ray r;
+      primary(cam, xs[gid], ys[gid], (uint32_t)(sample_offset + k),
+              center != 0, r);
+      bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);
+      if (!terminal)
+        for (int depth = 1; depth < max_depth && r.alive > 0.0f; ++depth)
+          bounce<CPU>(s, sh, cam, r, -1);
+      for (int c = 0; c < 3; ++c)
+        acc[c] = acc[c] + (CPU ? r.rd[c] : clip01(r.rd[c]));
+    }
+  }
+  r_out[gid] = acc[0];
+  g_out[gid] = acc[1];
+  b_out[gid] = acc[2];
 }
 
 // ---- C interface (loaded with ctypes) ----
@@ -483,15 +688,20 @@ size_t shared_bytes(const SceneArgs& s) {
 }
 
 template <typename K>
-int prepare(K kernel, size_t smem) {
+int prepare(K kernel, const SceneArgs& s) {
+  size_t smem = shared_bytes(s);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  if (s.cand_chunk && (!s.cand_meta || !s.cand_stream))
+    return (int)cudaErrorInvalidValue;
   return 0;
 }
+
+int blocks_for(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
 
 }  // namespace
 
@@ -499,37 +709,52 @@ extern "C" {
 
 int rt_emit(const SceneArgs* s, const int* xs, const int* ys,
             const int* has_work, int n_rays, int rt, int sample_offset,
-            float* st_out, int* rng_out, void* stream) {
-  size_t smem = shared_bytes(*s);
-  int e = prepare(emit_kernel, smem);
+            int center, float* st_out, int* rng_out, void* stream) {
+  auto kernel = s->cpuonly ? &emit_kernel<true> : &emit_kernel<false>;
+  int e = prepare(kernel, *s);
   if (e) return e;
-  int blocks = (n_rays + kThreads - 1) / kThreads;
-  emit_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      *s, xs, ys, has_work, n_rays, rt, sample_offset, st_out, rng_out);
+  kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
+           (cudaStream_t)stream>>>(*s, xs, ys, has_work, n_rays, rt,
+                                   sample_offset, center, st_out, rng_out);
   return (int)cudaGetLastError();
 }
 
 int rt_bounce_step(const SceneArgs* s, const float* st_in, const int* rng_in,
                    int n_rays, int rt, float* st_out, int* rng_out,
                    void* stream) {
-  size_t smem = shared_bytes(*s);
-  int e = prepare(bounce_step_kernel, smem);
+  auto kernel =
+      s->cpuonly ? &bounce_step_kernel<true> : &bounce_step_kernel<false>;
+  int e = prepare(kernel, *s);
   if (e) return e;
-  int blocks = (n_rays + kThreads - 1) / kThreads;
-  bounce_step_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      *s, st_in, rng_in, n_rays, rt, st_out, rng_out);
+  kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
+           (cudaStream_t)stream>>>(*s, st_in, rng_in, n_rays, rt, st_out,
+                                   rng_out);
   return (int)cudaGetLastError();
 }
 
 int rt_resume(const SceneArgs* s, const float* st_in, const int* rng_in,
               int n_rays, int rt, int max_depth, float* r_out, float* g_out,
               float* b_out, void* stream) {
-  size_t smem = shared_bytes(*s);
-  int e = prepare(resume_kernel, smem);
+  auto kernel = s->cpuonly ? &resume_kernel<true> : &resume_kernel<false>;
+  int e = prepare(kernel, *s);
   if (e) return e;
-  int blocks = (n_rays + kThreads - 1) / kThreads;
-  resume_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      *s, st_in, rng_in, n_rays, rt, max_depth, r_out, g_out, b_out);
+  kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
+           (cudaStream_t)stream>>>(*s, st_in, rng_in, n_rays, rt, max_depth,
+                                   r_out, g_out, b_out);
+  return (int)cudaGetLastError();
+}
+
+int rt_render(const SceneArgs* s, const int* xs, const int* ys,
+              const int* has_work, int n_rays, int rt, int spp,
+              int sample_offset, int center, int terminal, int max_depth,
+              float* r_out, float* g_out, float* b_out, void* stream) {
+  auto kernel = s->cpuonly ? &render_kernel<true> : &render_kernel<false>;
+  int e = prepare(kernel, *s);
+  if (e) return e;
+  kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
+           (cudaStream_t)stream>>>(*s, xs, ys, has_work, n_rays, rt, spp,
+                                   sample_offset, center, terminal,
+                                   max_depth, r_out, g_out, b_out);
   return (int)cudaGetLastError();
 }
 

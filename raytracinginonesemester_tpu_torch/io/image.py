@@ -69,11 +69,60 @@ def write_png(path: str, image: np.ndarray, mode: str = "cpuonly") -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read a PNG as (H, W, 3) uint8."""
-    from PIL import Image
+    """Read an 8-bit, non-interlaced RGB or RGBA PNG as (H, W, 3) uint8,
+    with zlib and numpy only (the goldens' format; anything else
+    raises)."""
+    import struct
+    import zlib
 
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or ctype not in (2, 6) or interlace:
+        raise ValueError(f"{path}: unsupported PNG (depth {depth}, colour "
+                         f"type {ctype}, interlace {interlace})")
+    bpp = 3 if ctype == 2 else 4
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + w * bpp)
+    out = np.zeros((h, w * bpp), np.int32)
+    prev = np.zeros(w * bpp, np.int32)
+    for y in range(h):  # undo the per-row filters (PNG spec 9.2)
+        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        else:
+            cur = np.zeros_like(line)
+            for i in range(w * bpp):
+                a = cur[i - bpp] if i >= bpp else 0
+                c = prev[i - bpp] if i >= bpp else 0
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + prev[i]) // 2
+                elif ftype == 4:
+                    p = a + prev[i] - c
+                    pa, pb, pc = abs(p - a), abs(p - prev[i]), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        prev[i] if pb <= pc else c)
+                else:
+                    raise ValueError(f"{path}: bad filter type {ftype}")
+                cur[i] = (line[i] + pred) & 0xFF
+        out[y] = cur
+        prev = cur
+    return out.reshape(h, w, bpp)[..., :3].astype(np.uint8)
 
 
 # ----------------------------------------------------------------------

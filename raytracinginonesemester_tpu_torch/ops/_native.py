@@ -46,11 +46,16 @@ class SceneArgs(ctypes.Structure):
         ("ids", ctypes.c_void_p),
         ("obj", ctypes.c_void_p),
         ("aabb", ctypes.c_void_p),
+        ("cand_meta", ctypes.c_void_p),
+        ("cand_stream", ctypes.c_void_p),
         ("n_lights", ctypes.c_int),
         ("n_objects", ctypes.c_int),
         ("num_blocks", ctypes.c_int),
         ("block_size", ctypes.c_int),
         ("diffuse_bounce", ctypes.c_int),
+        ("cpuonly", ctypes.c_int),
+        ("shadow_samples", ctypes.c_int),
+        ("cand_chunk", ctypes.c_int),
         ("det_eps", ctypes.c_float),
         ("tmin", ctypes.c_float),
         ("shadow_eps", ctypes.c_float),
@@ -105,10 +110,13 @@ def load():
             return _LIB
         lib = ctypes.CDLL(build())
         vp, i, sp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(SceneArgs)
-        lib.rt_emit.argtypes = [sp, vp, vp, vp, i, i, i, vp, vp, vp]
+        lib.rt_emit.argtypes = [sp, vp, vp, vp, i, i, i, i, vp, vp, vp]
         lib.rt_bounce_step.argtypes = [sp, vp, vp, i, i, vp, vp, vp]
         lib.rt_resume.argtypes = [sp, vp, vp, i, i, i, vp, vp, vp, vp]
-        for fn in (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume):
+        lib.rt_render.argtypes = [sp, vp, vp, vp, i, i, i, i, i, i, i,
+                                  vp, vp, vp, vp]
+        for fn in (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
+                   lib.rt_render):
             fn.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p

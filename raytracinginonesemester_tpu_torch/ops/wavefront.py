@@ -45,8 +45,8 @@ from .megakernel import (
     resume_tiles,
 )
 
-__all__ = ["render_tiles_wavefront_frames", "sort_bounce_state",
-           "auto_capacity_tiles"]
+__all__ = ["render_tiles_wavefront", "render_tiles_wavefront_frames",
+           "sort_bounce_state", "auto_capacity_tiles"]
 
 _I32_MAX = 2 ** 31 - 1
 
@@ -130,8 +130,15 @@ def _unsort_radiance(pix, r, g, b):
     return r.reshape(-1)[order], g.reshape(-1)[order], b.reshape(-1)[order]
 
 
+def _resume_all(scene, st, rng, pix, lo, span, kw):
+    """Single-sort path: every tile sorted, one multi-bounce resume, the
+    radiance unsorted back to pixel order."""
+    st_s, rng_s, pix_s = sort_bounce_state(st, rng, pix, lo, span)
+    return _unsort_radiance(pix_s, *resume_tiles(scene, st_s, rng_s, **kw))
+
+
 def _render_group(scene, xs_p, ys_p, plan, lo, span, cap, group, s0,
-                  jitter, kw):
+                  jitter, kw, cand_plan=None):
     """Render ``group`` consecutive samples with one merged bounce phase.
 
     Phase A: each sample's emit, and a gather of its alive tiles (at most
@@ -151,7 +158,7 @@ def _render_group(scene, xs_p, ys_p, plan, lo, span, cap, group, s0,
     idxs, st_gs, rng_gs, pix_gs, frames = [], [], [], [], []
     for j in range(group):
         st, rng = emit_tiles(scene, xs_p, ys_p, s0 + j, jitter=jitter,
-                             plan=plan, **kw)
+                             plan=plan, cand_plan=cand_plan, **kw)
         stv = st.reshape(nt, _ST_ROWS, RAY_TILE)
         alive_t = (stv[:, _ST_ALIVE_ROW] > 0.0).any(dim=1)
         key_t = torch.where(alive_t, iota_t, iota_t + nt)
@@ -161,9 +168,7 @@ def _render_group(scene, xs_p, ys_p, plan, lo, span, cap, group, s0,
         if int(alive_t.sum()) > cap:
             # capacity overflow: finish this sample at full width and
             # park its subset (final radiance, dead) for phase B
-            st_s, rng_s, pix_s = sort_bounce_state(st, rng, pix, lo, span)
-            base = list(_unsort_radiance(pix_s, *resume_tiles(scene, st_s,
-                                                              rng_s, **kw)))
+            base = list(_resume_all(scene, st, rng, pix, lo, span, kw))
             st_g = st_g.clone()
             for row, fr in zip((9, 10, 11), base):
                 st_g[:, row] = fr.reshape(nt, RAY_TILE)[idx]
@@ -197,40 +202,107 @@ def _render_group(scene, xs_p, ys_p, plan, lo, span, cap, group, s0,
     return tuple(out)
 
 
+def _setup(scene, xs, ys, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
+           shadow_samples, cand_plan):
+    """Padded stream, Morton bounds, the camera plan (unless binned) and
+    the kernels' shared keyword arguments of one render call."""
+    grid = scene.accel
+    xs_p, ys_p, n, np_rays = _pad_tiles(xs, ys)
+    lo = [grid.aabb[c].amin() for c in range(3)]
+    span = [torch.clamp(grid.aabb[3 + c].amax() - lo[c], min=1e-20)
+            for c in range(3)]
+    plan = (None if cand_plan is not None
+            else camera_tile_plan(scene.camera, xs_p, ys_p, grid, RAY_TILE))
+    kw = dict(det_eps=det_eps, tmin=tmin, shadow_eps=shadow_eps,
+              shadow_tmin=shadow_tmin, dialect=dialect,
+              shadow_samples=shadow_samples, rows=_scene_rows(scene, grid))
+    return xs_p, ys_p, n, np_rays, lo, span, plan, kw
+
+
+def _clip(dialect):
+    # per-sample clamp (query.h:219); cpuonly has none (clamped at PNG
+    # quantization, CPUOnly/src/render.cpp:157-160)
+    if dialect == "cpuonly":
+        return lambda c: c
+    return lambda c: torch.clamp(c, 0.0, 1.0)
+
+
 def render_tiles_wavefront_frames(scene, xs, ys, frames: int,
                                   sample_offset: int = 0, *, spp: int = 1,
                                   det_eps: float = 1e-8, tmin: float = 1e-4,
                                   shadow_eps: float = 1e-3,
                                   shadow_tmin: float = 1e-4,
                                   dialect: str = "gpu", jitter: str = "wang",
+                                  shadow_samples: int = 1,
                                   capacity_tiles: Optional[int] = None,
                                   cand_plan=None):
     """``frames`` spp-1 frames with one merged bounce phase -> (frames,
-    N, 3) clipped per-frame radiance; frame f renders sample
-    ``sample_offset + f``.
-
-    ``capacity_tiles=None`` runs the ladder at full width (cap = every
-    tile): the same kernels and per-ray math as a calibrated capacity,
-    without the subset gather saving anything."""
+    N, 3) per-frame radiance, clipped per sample in the gpu dialect;
+    frame f renders sample ``sample_offset + f``.  Requires a calibrated
+    ``capacity_tiles`` (``auto_capacity_tiles``); ``cand_plan``: the
+    binned plan of this stream, threaded to every emit."""
     if spp != 1:
         raise NotImplementedError("batched frames are spp-1 per frame")
-    if cand_plan is not None:
-        raise NotImplementedError(
-            "binned camera-candidate plans are not ported yet")
-    grid = scene.accel
-    xs_p, ys_p, n, np_rays = _pad_tiles(xs, ys)
-    nt = np_rays // RAY_TILE
-    cap = nt if capacity_tiles is None else min(int(capacity_tiles), nt)
-    lo = [grid.aabb[c].amin() for c in range(3)]
-    span = [torch.clamp(grid.aabb[3 + c].amax() - lo[c], min=1e-20)
-            for c in range(3)]
-    plan = camera_tile_plan(scene.camera, xs_p, ys_p, grid, RAY_TILE)
-    kw = dict(det_eps=det_eps, tmin=tmin, shadow_eps=shadow_eps,
-              shadow_tmin=shadow_tmin, dialect=dialect,
-              rows=_scene_rows(scene, grid))
+    if capacity_tiles is None:
+        raise ValueError("render_tiles_wavefront_frames requires a "
+                         "calibrated capacity_tiles")
+    xs_p, ys_p, n, np_rays, lo, span, plan, kw = _setup(
+        scene, xs, ys, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
+        shadow_samples, cand_plan)
+    cap = min(int(capacity_tiles), np_rays // RAY_TILE)
     r3 = _render_group(scene, xs_p, ys_p, plan, lo, span, cap, int(frames),
-                       int(sample_offset), jitter, kw)
-    return torch.stack([torch.clamp(c[:, :n], 0.0, 1.0) for c in r3], dim=2)
+                       int(sample_offset), jitter, kw, cand_plan)
+    clip = _clip(dialect)
+    return torch.stack([clip(c[:, :n]) for c in r3], dim=2)
+
+
+def render_tiles_wavefront(scene, xs, ys, spp: int, sample_offset: int = 0,
+                           *, det_eps: float = 1e-8, tmin: float = 1e-4,
+                           shadow_eps: float = 1e-3,
+                           shadow_tmin: float = 1e-4, dialect: str = "gpu",
+                           jitter: str = "wang", shadow_samples: int = 1,
+                           capacity_tiles: Optional[int] = None,
+                           sample_group: Optional[int] = None,
+                           cand_plan=None):
+    """Wavefront render of one frame -> (N, 3) radiance SUM over ``spp``
+    samples, the same sums as ``megakernel.render_tiles`` for scenes
+    that bounce.
+
+    ``capacity_tiles`` (below the tile count, depth > 1) stages the
+    bounces on the gathered alive tiles, ``sample_group`` samples
+    (``RT_SAMPLE_GROUP``, default 8, cut to a divisor of ``spp``) per
+    merged ladder; otherwise each sample sorts every tile and finishes
+    in one ``resume_tiles``.  Samples accumulate in order, clipped per
+    sample in the gpu dialect."""
+    if sample_group is None:
+        sample_group = int(os.environ.get("RT_SAMPLE_GROUP", "8"))
+    xs_p, ys_p, n, np_rays, lo, span, plan, kw = _setup(
+        scene, xs, ys, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
+        shadow_samples, cand_plan)
+    nt = np_rays // RAY_TILE
+    off = int(sample_offset)
+    staged = (capacity_tiles is not None and capacity_tiles < nt
+              and int(scene.max_bounces) > 1)
+    clip = _clip(dialect)
+    acc = [torch.zeros(np_rays, device=xs_p.device) for _ in range(3)]
+    if not staged:
+        pix = torch.arange(np_rays, dtype=torch.int64, device=xs_p.device)
+        for s in range(int(spp)):
+            st, rng = emit_tiles(scene, xs_p, ys_p, off + s, jitter=jitter,
+                                 plan=plan, cand_plan=cand_plan, **kw)
+            r3 = _resume_all(scene, st, rng, pix, lo, span, kw)
+            acc = [a + clip(c) for a, c in zip(acc, r3)]
+    else:
+        group = max(1, min(int(sample_group), int(spp)))
+        while spp % group:
+            group -= 1
+        for g0 in range(0, int(spp), group):
+            r3 = _render_group(scene, xs_p, ys_p, plan, lo, span,
+                               int(capacity_tiles), group, off + g0, jitter,
+                               kw, cand_plan)
+            for j in range(group):
+                acc = [a + clip(c[j]) for a, c in zip(acc, r3)]
+    return torch.stack([a[:n] for a in acc], dim=1)
 
 
 def _emit_alive_tiles(scene, xs_p, ys_p, **kw) -> int:

@@ -1,12 +1,13 @@
 """Top-level render drivers.
 
-PyTorch port of the wavefront route of
-``raytracinginonesemester_tpu.render.renderer``: the swizzled 16x16
-pixel-tile stream, the wavefront capacity resolve, and
-``render_scene`` / ``render_scene_frames`` on top of
-``ops.wavefront.render_tiles_wavefront_frames``.  Scenes the port does
-not cover raise ``NotImplementedError`` with the reason; nothing falls
-back to another path.
+PyTorch port of ``raytracinginonesemester_tpu.render.renderer``'s fused
+dispatch: the swizzled 16x16 pixel-tile stream, the wavefront and
+capacity resolve, the binned camera plan with its bounded cache, and
+``render_scene`` / ``render_scene_frames`` on top of the staged
+wavefront (``ops.wavefront``) or the monolithic render kernel
+(``ops.megakernel.render_tiles``), chosen as the JAX package chooses.
+Scenes the port does not cover raise ``NotImplementedError`` with the
+reason; nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.megakernel import megakernel_ineligible_reason
+from ..ops.megakernel import megakernel_ineligible_reason, megakernel_kwargs
 from ..scene.build import Scene
 
 __all__ = ["render_scene", "render_scene_frames", "resolve_wavefront",
-           "resolve_jitter_mode", "frog_scene", "entry"]
+           "resolve_candidate_plan", "resolve_jitter_mode", "frog_scene",
+           "entry"]
 
 
 def _swizzled_grid(width: int, height: int, tile: int = 16, device="cpu"):
@@ -64,48 +66,144 @@ def _require_ported(scene: Scene, jitter_mode: str) -> None:
         raise NotImplementedError(f"scene not covered by the port: {reason}")
 
 
+def _bouncing(scene: Scene) -> bool:
+    return bool(scene.diffuse_bounce) or not scene.terminal_only
+
+
+def _kernel_kwargs(scene: Scene, jitter_mode: str) -> dict:
+    kw = megakernel_kwargs(scene, jitter_mode)
+    kw.setdefault("jitter", jitter_mode)
+    return kw
+
+
 def resolve_wavefront(scene: Scene, jitter_mode: str = "auto",
                       spp_override: Optional[int] = None):
-    """(wavefront, capacity) for a scene.  ``RT_WAVEFRONT=0`` (the
-    monolithic kernel) is not ported and raises; ``RT_WAVEFRONT_CAP``
-    is "auto" (calibrate, cached on disk) or an integer tile count.
-    A capacity of None means the ladder runs at full width."""
-    if os.environ.get("RT_WAVEFRONT", "auto") == "0":
-        raise NotImplementedError(
-            "RT_WAVEFRONT=0: the monolithic render kernel is not ported yet")
+    """(wavefront, capacity) for a scene, as the JAX package resolves it.
+
+    ``RT_WAVEFRONT``: "auto" (default) takes the staged wavefront when a
+    capacity is calibrated, else the monolithic render kernel; "1"
+    always takes the wavefront, "0" never.  ``RT_WAVEFRONT_CAP``: "auto"
+    (calibrate, cached in memory and on disk) or a tile count.  Terminal
+    scenes (no diffuse bounce, every kr == 0) never take the wavefront.
+    A scene the port cannot render raises ``NotImplementedError``."""
     spp_eff = spp_override if spp_override is not None else scene.spp
     jm = resolve_jitter_mode(scene, jitter_mode, spp_eff)
     _require_ported(scene, jm)
+    wf_env = os.environ.get("RT_WAVEFRONT", "auto")
+    wavefront = wf_env in ("1", "auto")
+    cap = None
     cap_env = os.environ.get("RT_WAVEFRONT_CAP", "auto")
-    if cap_env == "auto":
-        from ..ops.wavefront import auto_capacity_tiles
+    if wavefront and cap_env:
+        if not _bouncing(scene):
+            wavefront = False
+        elif cap_env == "auto":
+            from ..ops.wavefront import auto_capacity_tiles
 
-        return True, auto_capacity_tiles(scene, jitter=jm)
-    return True, (int(cap_env) if cap_env else None)
+            cap = auto_capacity_tiles(scene, **_kernel_kwargs(scene, jm))
+        else:
+            cap = int(cap_env)
+    if wf_env == "auto" and cap is None:
+        # no staged capacity (the scene never bounces, or its alive
+        # wavefront is about the whole frame): the monolithic kernel
+        wavefront = False
+    return wavefront, cap
+
+
+# (scene, camera) fingerprint -> binned camera plan (ops.binned).  The
+# plan decides which triangles a tile tests, so the key holds the camera
+# frame's and the triangle planes' tensors by identity and in-place
+# version (ops.binned.plan_fingerprint: exact, and no device copy).
+# Bounded: each plan pins a device stream, so a camera animation evicts
+# the oldest entries beyond the cap.
+_CAND_PLAN_CACHE: dict = {}
+_CAND_PLAN_CACHE_MAX = 8
+
+
+def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
+                           spp_override: Optional[int] = None):
+    """Binned camera-candidate plan of a scene, built on its device once
+    per (scene, camera) and cached.  ``RT_BINNED``: "auto"/"1" (default
+    on), "0" off (returns None); ``RT_BINNED_CHUNK``: candidate lanes
+    per chunk (default 256).  The depth-0 walk of emit and render then
+    tests each tile's candidates instead of the block grid."""
+    if os.environ.get("RT_BINNED", "auto") == "0":
+        return None
+    spp_eff = spp_override if spp_override is not None else scene.spp
+    _require_ported(scene, resolve_jitter_mode(scene, jitter_mode, spp_eff))
+    from ..ops.binned import build_camera_candidate_plan, plan_fingerprint
+    from ..ops.megakernel import RAY_TILE, _pad_tiles
+
+    chunk = int(os.environ.get("RT_BINNED_CHUNK", "256"))
+    fp = plan_fingerprint(scene.camera, scene.accel, RAY_TILE, 1, chunk)
+    if fp in _CAND_PLAN_CACHE:
+        plan = _CAND_PLAN_CACHE.pop(fp)
+        _CAND_PLAN_CACHE[fp] = plan  # LRU: refresh the insertion order
+        return plan
+    w, h = int(scene.camera.width), int(scene.camera.height)
+    xs, ys, _ = _swizzled_grid(w, h, device=scene.device)
+    xs_p, ys_p, _, _ = _pad_tiles(xs, ys)
+    plan = build_camera_candidate_plan(scene.camera, xs_p, ys_p, scene.accel,
+                                       RAY_TILE, chunk=chunk)
+    while len(_CAND_PLAN_CACHE) >= _CAND_PLAN_CACHE_MAX:
+        _CAND_PLAN_CACHE.pop(next(iter(_CAND_PLAN_CACHE)))
+    _CAND_PLAN_CACHE[fp] = plan
+    return plan
+
+
+def _frame_accum(scene: Scene, xs, ys, spp: int, sample_offset: int,
+                 jitter_mode: str, wavefront: bool, cap, cand_plan):
+    """Per-ray radiance SUM over ``spp`` samples, (N, 3) in swizzled
+    order: the staged wavefront for bouncing scenes when it is taken,
+    else the monolithic render kernel."""
+    jm = resolve_jitter_mode(scene, jitter_mode, spp)
+    kw = _kernel_kwargs(scene, jm)
+    if _bouncing(scene) and wavefront:
+        from ..ops.wavefront import render_tiles_wavefront
+
+        return render_tiles_wavefront(scene, xs, ys, spp, sample_offset,
+                                      capacity_tiles=cap,
+                                      cand_plan=cand_plan, **kw)
+    from ..ops.megakernel import render_tiles
+
+    return render_tiles(scene, xs, ys, spp, sample_offset,
+                        cand_plan=cand_plan, **kw)
+
+
+def _dispatch(scene, jitter_mode, spp, cand_plan, capacity_tiles):
+    if capacity_tiles is not None:
+        _require_ported(scene, resolve_jitter_mode(scene, jitter_mode, spp))
+        wavefront, cap = True, int(capacity_tiles)
+    else:
+        wavefront, cap = resolve_wavefront(scene, jitter_mode, spp)
+    if cand_plan is None:
+        cand_plan = resolve_candidate_plan(scene, jitter_mode, spp)
+    return wavefront, cap, cand_plan
 
 
 def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
                         sample_offset: int = 0, cand_plan=None,
                         capacity_tiles: Optional[int] = None) -> torch.Tensor:
     """Render ``frames`` consecutive spp-1 frames -> (frames, H, W, 3);
-    frame f uses sample index ``sample_offset + f``.  All frames share one
-    merged compaction sort and bounce ladder.  ``capacity_tiles``
-    overrides the calibrated capacity."""
-    if cand_plan is not None:
-        raise NotImplementedError(
-            "binned camera-candidate plans are not ported yet")
-    from ..ops.wavefront import render_tiles_wavefront_frames
-
-    jm = resolve_jitter_mode(scene, jitter_mode, 1)
-    if capacity_tiles is None:
-        _, capacity_tiles = resolve_wavefront(scene, jitter_mode, 1)
-    else:
-        _require_ported(scene, jm)
+    frame f uses sample index ``sample_offset + f``.  On the staged
+    wavefront all frames share one merged compaction sort and bounce
+    ladder; otherwise each frame is one render-kernel call (the same
+    images).  ``capacity_tiles`` forces the wavefront at that capacity."""
+    wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, 1, cand_plan,
+                                          capacity_tiles)
     w, h = scene.camera.width, scene.camera.height
     xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
-    accum = render_tiles_wavefront_frames(
-        scene, xs, ys, frames, sample_offset, jitter=jm,
-        capacity_tiles=capacity_tiles)
+    jm = resolve_jitter_mode(scene, jitter_mode, 1)
+    if _bouncing(scene) and wavefront and cap is not None:
+        from ..ops.wavefront import render_tiles_wavefront_frames
+
+        accum = render_tiles_wavefront_frames(
+            scene, xs, ys, frames, sample_offset, capacity_tiles=cap,
+            cand_plan=cand_plan, **_kernel_kwargs(scene, jm))
+    else:
+        accum = torch.stack([
+            _frame_accum(scene, xs, ys, 1, int(sample_offset) + f,
+                         jitter_mode, wavefront, cap, cand_plan)
+            for f in range(int(frames))])
     return _unswizzle(accum, w, h, hp, wp)
 
 
@@ -114,19 +212,22 @@ def render_scene(scene: Scene, jitter_mode: str = "auto",
                  normalize: bool = True, cand_plan=None,
                  capacity_tiles: Optional[int] = None) -> torch.Tensor:
     """Render a scene to a linear (H, W, 3) float32 image: the mean (or,
-    with ``normalize=False``, the sum) over spp samples of the clipped
-    per-sample radiance, accumulated in sample order per pixel."""
+    with ``normalize=False``, the sum) over spp samples of the per-sample
+    radiance, clipped per sample in the gpu dialect and accumulated in
+    sample order per pixel."""
     spp = spp_override if spp_override is not None else scene.spp
-    frames = render_scene_frames(scene, spp, jitter_mode, sample_offset,
-                                 cand_plan, capacity_tiles)
-    acc = torch.zeros_like(frames[0])
-    for f in range(spp):
-        acc = acc + frames[f]
-    return acc / float(spp) if normalize else acc
+    wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, spp, cand_plan,
+                                          capacity_tiles)
+    w, h = scene.camera.width, scene.camera.height
+    xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
+    accum = _frame_accum(scene, xs, ys, spp, sample_offset, jitter_mode,
+                         wavefront, cap, cand_plan)
+    img = _unswizzle(accum, w, h, hp, wp)
+    return img / float(spp) if normalize else img
 
 
 def frog_scene(width=256, height=144, spp=1, max_bounces=8,
-               diffuse_bounce=True, device="cpu") -> Scene:
+               diffuse_bounce=True, device="cuda") -> Scene:
     """The reference's headline workload (``GPUandCPU/assets/json_files/
     frog.json``): frog mesh, one point light, 8 bounces, diffuse."""
     from ..scene.build import build_scene
@@ -155,11 +256,13 @@ def frog_scene(width=256, height=144, spp=1, max_bounces=8,
     return build_scene(config, device=device)
 
 
-def entry():
+def entry(device="cuda"):
     """(fn, example_args): one forward render of the frog scene, the
-    counterpart of ``__graft_entry__.entry``; on the card when one is
-    present."""
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    counterpart of ``__graft_entry__.entry``, on ``device``; raises when
+    the card is asked for and CUDA is missing."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("entry(): no CUDA device (pass device='cpu' to "
+                           "run the plain versions)")
     scene = frog_scene(device=device)
 
     def forward(s):

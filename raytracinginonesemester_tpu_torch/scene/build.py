@@ -52,7 +52,7 @@ class Geometry:
 
 def geometry_from_mesh(verts: np.ndarray, normals: np.ndarray,
                        obj_ids: Optional[np.ndarray] = None,
-                       pad_to: int = 512, device="cpu") -> Geometry:
+                       pad_to: int = 512, device="cuda") -> Geometry:
     t = int(verts.shape[0])
     padded = max(_round_up(t, pad_to), pad_to)
     if obj_ids is None:
@@ -98,7 +98,7 @@ class Scene:
 
 
 def build_scene(config: SceneConfig, scene_path: str = ".",
-                accel: str = "blocks", device="cpu") -> Scene:
+                accel: str = "blocks", device="cuda") -> Scene:
     """Load meshes, bake transforms and assemble the scene on ``device``.
     ``RT_BLOCK_SIZE`` (default 512) sets the block grid's block size."""
     global_mesh: Optional[MeshArrays] = None
@@ -174,14 +174,14 @@ def build_scene(config: SceneConfig, scene_path: str = ".",
 
 
 def load_scene(path: str, dialect: str = "auto", accel: str = "blocks",
-               device="cpu") -> Scene:
+               device="cuda") -> Scene:
     """JSON path -> Scene on ``device``."""
     config = load_scene_config(path, dialect=dialect)
     return build_scene(config, scene_path=path, accel=accel, device=device)
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], statics: Mapping,
-                     device="cpu") -> Scene:
+                     device="cuda") -> Scene:
     """Scene from numpy arrays under the JAX package's field names.
 
     ``arrays`` keys: ``camera.{center,pixel00_loc,pixel_delta_u,

@@ -43,7 +43,7 @@ class MaterialTable:
     emission: torch.Tensor  # (M, 3)
 
     @classmethod
-    def from_dicts(cls, mats: Sequence[dict], device="cpu") -> "MaterialTable":
+    def from_dicts(cls, mats: Sequence[dict], device="cuda") -> "MaterialTable":
         """Per-object material dicts; missing keys take the defaults."""
         if not mats:
             mats = [dict()]
@@ -86,7 +86,7 @@ class Lights:
     shadow_samples: tuple = (1,)
 
     @classmethod
-    def from_dicts(cls, lights: Sequence[dict], device="cpu") -> "Lights":
+    def from_dicts(cls, lights: Sequence[dict], device="cuda") -> "Lights":
         defaults = dict(position=(0.0, 0.0, 0.0), color=(1.0, 1.0, 1.0),
                         intensity=1.0, radius=0.0, shadow_samples=1)
         filled = [{**defaults, **l} for l in lights]

@@ -114,7 +114,8 @@ def test_cpu_tensors_take_the_plain_version(scenes, jax_emit):
     rows = tmk._scene_rows(ts, ts.accel)
     plain = tmk.bounce_step_tiles_plain(rows, st, rng, ts.diffuse_bounce)
     torch.testing.assert_close(got[0], plain[0], rtol=0, atol=0)
-    assert tmk.launch_counts() == {"emit": 0, "bounce_step": 0, "resume": 0}
+    assert tmk.launch_counts() == {"emit": 0, "bounce_step": 0, "resume": 0,
+                                   "render": 0}
 
 
 def test_wrappers_check_their_inputs(scenes, jax_emit):
@@ -124,8 +125,87 @@ def test_wrappers_check_their_inputs(scenes, jax_emit):
         tmk.bounce_step_tiles(ts, st.double(), rng)
     with pytest.raises(ValueError):
         tmk.resume_tiles(ts, st, rng[:8])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dialect"):
         tmk.bounce_step_tiles(ts, st, rng, dialect="cpuonly")
+
+
+def test_plain_pair_counts_follow_the_kernel_walk(scenes):
+    """The pairs a plain version reports are the Moller-Trumbore tests
+    the CUDA kernels make: live lanes of every block a ray's slab test
+    passes, and a shadow walk that stops at its first hit (emulated here
+    ray by ray, lane by lane in block order)."""
+    _, ts = scenes
+    rows = tmk._scene_rows(ts, ts.accel)
+    xs, ys, _ = t_grid(W, H)
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    work = torch.ones(xs_p.numel() // tmk.RAY_TILE, dtype=torch.bool)
+    st = tmk._primary_state(rows, xs_p, ys_p, 0, "wang", work)
+    alive = st["alive"] > 0.0
+    best = tmk._closest_plain(rows, st["bo"], st["bd"], alive, 1e-8, 1e-4)
+    hit = (best.t < tmk.F32_MAX).nonzero().squeeze(1)[::7][:64]
+    p = tuple(o[hit] + 0.999 * best.t[hit] * d[hit]
+              for o, d in zip(st["bo"], st["bd"]))
+    to = [rows.lights[0, k] - p[k] for k in range(3)]
+    dist = torch.sqrt(to[0] * to[0] + to[1] * to[1] + to[2] * to[2])
+    ld = tuple(c / dist for c in to)
+    facing = torch.ones_like(dist, dtype=torch.bool)
+    blocked, pairs = tmk._occluded_plain(rows, p, ld, dist, facing, 1e-8,
+                                         1e-4)
+
+    want_pairs, want_blocked, full = 0, [], 0
+    for i in range(hit.numel()):
+        pi = tuple(c[i:i + 1] for c in p)
+        di = tuple(c[i:i + 1] for c in ld)
+        inv = tuple(1.0 / c for c in di)
+        tmin = torch.full((1,), 1e-4)
+        stop = False
+        for b in range(rows.num_blocks):
+            if not bool(tmk._slab(rows.aabb[b], pi, inv, tmin, dist[i:i + 1])):
+                continue
+            tri = tuple(rows.tri[k, b][None, :] for k in range(9))
+            t, _, _ = tmk._mt(tuple(c[:, None] for c in pi),
+                              tuple(c[:, None] for c in di), tri, 1e-8, 1e-4,
+                              dist[i:i + 1, None])
+            live = (rows.ids[b] >= 0).numpy()
+            full += int(live.sum())
+            for j in np.flatnonzero(live):
+                want_pairs += 1
+                if float(t[0, j]) < tmk.F32_MAX:
+                    stop = True
+                    break
+            if stop:
+                break
+        want_blocked.append(stop)
+    assert blocked.tolist() == want_blocked
+    assert 0 < sum(want_blocked) < len(want_blocked)
+    assert int(pairs) == want_pairs < full
+
+    # closest hit: every live lane of each block whose slab test passes
+    # against the ray's running best t
+    sub = torch.arange(0, alive.numel(), 97)
+    o = tuple(c[sub] for c in st["bo"])
+    d = tuple(c[sub] for c in st["bd"])
+    got = tmk._closest_plain(rows, o, d, alive[sub], 1e-8, 1e-4)
+    want = 0
+    for i in range(sub.numel()):
+        oi = tuple(c[i:i + 1] for c in o)
+        di = tuple(c[i:i + 1] for c in d)
+        inv = tuple(1.0 / c for c in di)
+        best_t = torch.full((1,), tmk.F32_MAX)
+        for b in range(rows.num_blocks):
+            if not bool(tmk._slab(rows.aabb[b], oi, inv,
+                                  torch.full((1,), 1e-4), best_t)):
+                continue
+            live = rows.ids[b][None, :] >= 0
+            want += int(live.sum())
+            tri = tuple(rows.tri[k, b][None, :] for k in range(9))
+            t, _, _ = tmk._mt(tuple(c[:, None] for c in oi),
+                              tuple(c[:, None] for c in di), tri, 1e-8, 1e-4,
+                              best_t[:, None])
+            best_t = torch.minimum(best_t,
+                                   torch.where(live, t, tmk.F32_MAX).amin())
+    assert bool(alive[sub].all())
+    assert int(got.pairs) == want > 0
 
 
 # --- on the card: each CUDA kernel against its plain version ---------
@@ -161,4 +241,5 @@ def test_cuda_kernels_match_plain_versions(cuda_scene):
     pr = tmk.resume_tiles_plain(rows, st, rng, ts.max_bounces, True)
     for g, w in zip(r, pr):
         assert ulp_close(g.cpu().numpy(), w.cpu().numpy()).all()
-    assert tmk.launch_counts() == {"emit": 1, "bounce_step": 1, "resume": 1}
+    assert tmk.launch_counts() == {"emit": 1, "bounce_step": 1, "resume": 1,
+                                   "render": 0}

@@ -55,7 +55,8 @@ def test_frames_match_jax(scenes, cap):
         assert_images_close(quantize(got[f], "gpu"), quantize(want[f], "gpu"),
                             context=f"frame {f} cap {cap}")
     assert want.std() > 0.05  # lit, shadowed and sky pixels all present
-    assert launch_counts() == {"emit": 0, "bounce_step": 0, "resume": 0}
+    assert launch_counts() == {"emit": 0, "bounce_step": 0, "resume": 0,
+                              "render": 0}
 
 
 def test_images_do_not_depend_on_ray_order(scenes):
@@ -105,7 +106,7 @@ def test_reference_image_for_the_card(monkeypatch):
     ref = np.load(os.path.join(REPO, "tests/goldens/torch_two_frog_128x64.npy"))
     monkeypatch.setenv("RT_BLOCK_SIZE", "512")
     scene = build_scene(two_frog_config(SceneConfig, SceneNodeConfig, Transform,
-                                        width=128, height=64))
+                                        width=128, height=64), device="cpu")
     got = render_scene_frames(scene, ref.shape[0], "wang", 0).numpy()
     assert np.abs(got - ref).max() <= 1e-4
     for f in range(ref.shape[0]):

@@ -27,7 +27,7 @@ def test_camera_matches(sensor_width_mm):
               up=(0.0, 0.0, 1.0), focal_length_mm=45.0,
               sensor_height_mm=24.0, sensor_width_mm=sensor_width_mm,
               width=96, height=40)
-    jc, tc = JCamera.create(**kw), TCamera.create(**kw)
+    jc, tc = JCamera.create(**kw), TCamera.create(**kw, device="cpu")
     for name in ("center", "pixel00_loc", "pixel_delta_u", "pixel_delta_v"):
         np.testing.assert_array_equal(getattr(tc, name).numpy(),
                                       np.asarray(getattr(jc, name)))
@@ -44,7 +44,7 @@ def test_camera_matches(sensor_width_mm):
 
 def test_camera_rejects_empty_frame():
     with pytest.raises(ValueError):
-        TCamera.create(width=0)
+        TCamera.create(width=0, device="cpu")
 
 
 def _frog_geometry():
@@ -96,7 +96,8 @@ def test_build_scene_matches(monkeypatch):
     from raytracinginonesemester_tpu_torch.scene.transform import Transform
 
     js = jax_two_frog()
-    ts = build_scene(two_frog_config(SceneConfig, SceneNodeConfig, Transform))
+    ts = build_scene(two_frog_config(SceneConfig, SceneNodeConfig, Transform),
+                     device="cpu")
     np.testing.assert_array_equal(ts.geometry.vertices.numpy(),
                                   np.asarray(js.geometry.vertices))
     np.testing.assert_array_equal(ts.geometry.obj_id.numpy(),
@@ -128,6 +129,7 @@ def test_package_imports_without_jax():
     code = ("import sys, raytracinginonesemester_tpu_torch as p; "
             "import raytracinginonesemester_tpu_torch.render.renderer, "
             "raytracinginonesemester_tpu_torch.ops.wavefront, "
+            "raytracinginonesemester_tpu_torch.ops.binned, "
             "raytracinginonesemester_tpu_torch.ops._native; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('raytracinginonesemester_tpu.')"
@@ -138,25 +140,26 @@ def test_package_imports_without_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_unsupported_scenes_raise(monkeypatch):
-    """Scenes outside the slice raise NotImplementedError with the reason
-    instead of taking another path."""
+def test_unsupported_scenes_raise():
+    """Scenes outside the port raise NotImplementedError with the JAX
+    package's reason instead of taking another path."""
     import dataclasses
 
-    from raytracinginonesemester_tpu_torch.render.renderer import (
-        render_scene, render_scene_frames)
+    from raytracinginonesemester_tpu_torch.render.renderer import render_scene
     from raytracinginonesemester_tpu_torch.scene.build import load_scene
 
-    cpu = load_scene(os.path.join(REPO, "tests/assets/scenes/cpuonly_point.json"))
-    with pytest.raises(NotImplementedError, match="cpuonly"):
-        render_scene(cpu)
+    cpu = load_scene(os.path.join(REPO, "tests/assets/scenes/cpuonly_point.json"),
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="jitter"):
+        render_scene(cpu, jitter_mode="reference_cpu")
+    many = dataclasses.replace(cpu, lights=dataclasses.replace(
+        cpu.lights, shadow_samples=(17,)))
+    with pytest.raises(NotImplementedError, match="shadow_samples=17"):
+        render_scene(many)
     ts = torch_from_jax(jax_two_frog(width=32, height=16))
     with pytest.raises(NotImplementedError, match="jitter"):
         render_scene(ts, jitter_mode="center")
     with pytest.raises(NotImplementedError, match="differentiable"):
         render_scene(dataclasses.replace(ts, differentiable=True))
-    with pytest.raises(NotImplementedError, match="binned"):
-        render_scene_frames(ts, 1, cand_plan=object())
-    monkeypatch.setenv("RT_WAVEFRONT", "0")
-    with pytest.raises(NotImplementedError, match="RT_WAVEFRONT"):
-        render_scene(ts)
+    with pytest.raises(NotImplementedError, match="accel"):
+        render_scene(dataclasses.replace(ts, accel=None))
