@@ -13,13 +13,24 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    terminal and full loop); cpuonly dialect on ``cpuonly_mirror.json``
    and an area-light variant with diffuse bounces (emit, bounce_step,
    resume, render); binned emit against flat emit (here and at 1080p);
+   the staged integrator's closest-hit kernel E (with gpu normals and two
+   lights' fused shadows, ``shared_origin`` on and off; without normals,
+   the cpuonly case) and occlusion kernel F (camera, bounce and shadow
+   rays with per-ray windows, parked rays included), two-frog 128x64 at
+   block sizes 128 and 512;
 4. reference images: the two-frog 128x64 render on the staged wavefront
    and with ``RT_WAVEFRONT=0`` (kernel D) against the JAX package's
    ``tests/goldens/torch_two_frog_128x64.npy``, the terminal two-frog
    render (D) against ``torch_two_frog_terminal_128x64.npy`` (both made
    by ``scripts/make_torch_golden.py``), and ``cpuonly_point.json`` and
    ``cpuonly_mirror.json`` at 160x100 against the C++ oracle's PNGs
-   (at most one step per channel);
+   (at most one step per channel); then through the staged integrator
+   (E and F): ``gpu_spheres``, ``gpu_diffuse``, ``gpu_frog`` and
+   ``gpu_cornell`` with ``jitter_mode="reference_cpu"`` at their JSON
+   sizes against the C++ oracle's ``tests/goldens/gpu_*.png``
+   (``assert_images_close``'s rule), and ``cpuonly_point.json`` with 17
+   shadow samples (F 17 times per light and bounce) within one step of
+   its PNG;
 5. the main path: frog 1920x1080, depth 8, diffuse bounces,
    ``render_scene_frames`` with 16 frames at the calibrated capacity,
    with the binned camera plan (its build time and size logged) and
@@ -32,17 +43,26 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    1920x1080 through whatever the dispatch picks, then with
    ``RT_WAVEFRONT=0`` (kernel D), and one frame at a capacity of 8
    tiles (resume);
-8. each kernel against its plain version at its full-width shapes, both
-   timed, with the least time the card could take (bound).
+8. the staged integrator at full width, 4 frames per call through
+   ``render_scene_frames``: the frog 1920x1080 (depth 8, diffuse) with
+   ``jitter_mode="reference_cpu"`` (E every depth; F never, the gpu
+   dialect fuses its shadows into E), and ``cpuonly_mirror.json`` at
+   1920x1080 with its light at radius 0.15, 32 shadow samples and
+   diffuse bounces (E and F);
+9. each kernel against its plain version at its full-width shapes, both
+   timed, with the least time the card could take (bound); E and F on
+   the inputs of their first launches in single-frame renders of phase
+   8's scenes.
 
-Every render of phases 5-7 runs with the launch counters set to 0 just
+Every render of phases 4-8 runs with the launch counters set to 0 just
 before it and read just after; a kernel of that render that did not run
-fails the script.  The line before the last is the JSON record of the
-kernels (emit, bounce_step, resume, render; each with the launches of
-the render named in ``launches_in``); the line before it holds the
-variants (flat emit, terminal render, cpuonly).  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits non-zero before printing any result.
+fails the script, and so does a kernel that must not run there.  The
+line before the last is the JSON record of the kernels (emit,
+bounce_step, resume, render, closest, occluded; each with the launches
+of the render named in ``launches_in``); the line before it holds the
+variants (flat emit, terminal render, cpuonly, E on bounce rays).  The
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+the script exits non-zero before printing any result.
 """
 
 import dataclasses
@@ -67,8 +87,13 @@ REPLACES = {
     "bounce_step": "raytracinginonesemester_tpu/ops/megakernel.py:2560",
     "resume": "raytracinginonesemester_tpu/ops/megakernel.py:2253",
     "render": "raytracinginonesemester_tpu/ops/megakernel.py:1536",
+    "closest": "raytracinginonesemester_tpu/ops/pallas_kernels.py:222",
+    "occluded": "raytracinginonesemester_tpu/ops/pallas_kernels.py:688",
 }
 SOURCE = "raytracinginonesemester_tpu_torch/csrc/megakernel.cu"
+FUSED = ["emit", "bounce_step", "resume", "render"]
+STAGED_FRAMES = 4
+FLT_EPSILON = 1.1920929e-7  # the cpuonly dialect's Moller-Trumbore epsilon
 # the bound: FP32 arithmetic of one Moller-Trumbore test (megakernel.cu
 # mt(): 46 adds, multiplies and the one divide; compares not counted)
 # times the tests the kernel makes on this run's inputs (live lanes only,
@@ -156,6 +181,40 @@ def check_binned_equiv(where, flat, binned):
         f"lanes, differing values {bad}")
     if bad:
         raise AssertionError(f"binned emit differs from flat emit ({where})")
+
+
+def check_hits(errs, name, where, got, want):
+    """Kernel E's (hits[, normal, vis]) or F's blocked flags vs its plain
+    version: winner ids, hit flags, visibility and blocked flags exact;
+    t, u, v and the normal within tolerance."""
+    from raytracinginonesemester_tpu_torch.ops.intersect import HitData
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    exact, floats = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(g, HitData):
+            exact += [(g.tri_idx, w.tri_idx), (g.hit, w.hit)]
+            floats += [(g.t, w.t), (g.u, w.u), (g.v, w.v)]
+        elif i == 1:
+            floats.append((g, w))  # the shading normal
+        else:
+            exact.append((g, w))  # visibility or blocked flags
+    mismatches = sum(int((g != w).sum()) for g, w in exact)
+    res = [ulp_bad(g, w) for g, w in floats]
+    beyond = sum(n for n, _ in res)
+    worst = max((m for _, m in res), default=0.0)
+    first = got[0]
+    if isinstance(first, HitData):
+        shown = f"{int(first.hit.sum())} of {first.hit.numel()} rays hit"
+    else:
+        shown = f"{int(first.sum())} of {first.numel()} rays blocked"
+    log(f"compare {name} {where}: {shown}; exact fields mismatches "
+        f"{mismatches}, floats beyond tol {beyond}, max_abs {worst:.3e}")
+    errs[name] = max(errs.get(name, 0.0), worst)
+    if mismatches or beyond:
+        raise AssertionError(f"{name} kernel disagrees with its plain "
+                             f"version ({where})")
 
 
 def two_frog(width, height, block_size, device, diffuse=True):
@@ -383,21 +442,171 @@ def check_small(dev, errs):
                     for c in f.render_plain(True, spp, 1)])
 
 
-def counted(label, fn, need):
-    """Run ``fn`` with the launch counters set to 0 just before it and
-    read just after; every kernel in ``need`` must have launched."""
+def camera_rays(scene):
+    """The camera rays of sample 0 with ``jitter_mode="reference_cpu"``
+    (one mt19937(42) offset for every pixel), in the swizzled pixel
+    order of the renderer."""
     import torch
 
+    from raytracinginonesemester_tpu_torch.core.rng import jittered_samples
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        _swizzled_grid)
+
+    cam = scene.camera
+    xs, ys, _ = _swizzled_grid(cam.width, cam.height, device=scene.device)
+    jx, jy = (float(v) for v in jittered_samples(1, 42, True)[0])
+    o, d = cam.get_rays(xs.to(torch.float32) + jx, ys.to(torch.float32) + jy)
+    return o.contiguous(), d.contiguous()
+
+
+def block_rays(scene, seed=7):
+    """Ray sets of kernels E and F on ``scene``'s device: the camera rays,
+    seeded random bounce rays in the grid's box with the last eighth
+    parked at 1e30 (half of those with every direction component
+    negative, so their slab tests pass and the triangles decide), and
+    seeded per-ray [tmin, tmax] windows."""
+    import numpy as np
+    import torch
+
+    co, cd = camera_rays(scene)
+    r = co.shape[0]
+    rng = np.random.default_rng(seed)
+    box = scene.accel.aabb.cpu().numpy()
+    lo, hi = box[:3].min(axis=1), box[3:].max(axis=1)
+    bo = (lo + rng.uniform(0, 1, (r, 3)) * (hi - lo)).astype(np.float32)
+    bd = rng.normal(size=(r, 3)).astype(np.float32)
+    k = r // 8
+    bd[-k // 2:] = -np.abs(bd[-k // 2:])
+    bd = (bd / np.linalg.norm(bd, axis=1, keepdims=True)).astype(np.float32)
+    bo[-k:] = 1e30
+    tmin = rng.uniform(0.0, 0.02, r).astype(np.float32)
+    tmax = rng.uniform(0.05, 1.0, r).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(a).to(scene.device)
+
+    return dict(camera=(co, cd), bounce=(dev(bo), dev(bd)),
+                window=(dev(tmin), dev(tmax)))
+
+
+def shadow_rays(o, d, hits, normal, light, eps=1e-3):
+    """Shadow rays of E's hits toward ``light`` as the gpu dialect spawns
+    them (``p = o + t d + n eps`` on [1e-4, dist]); missed rays' shade
+    points parked at 1e30 (their dist is inf, their direction 0)."""
+    import torch
+
+    p = torch.where(hits.hit[:, None], o + hits.t[:, None] * d + normal * eps,
+                    1e30)
+    to = light - p
+    dist = torch.sqrt((to * to).sum(dim=1))
+    sd = to / torch.clamp(dist, min=1e-20)[:, None]
+    return p, sd, torch.full_like(dist, 1e-4), dist
+
+
+def _fields(out):
+    """Every tensor of a ``block_closest`` result, in order."""
+    out = out if isinstance(out, tuple) else (out,)
+    h = out[0]
+    return (h.t, h.u, h.v, h.tri_idx, h.hit) + out[1:]
+
+
+def check_block_small(dev, errs):
+    """Phase 3, staged integrator: kernels E and F vs their plain versions
+    at 128x64."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+
+    for bs in (128, 512):
+        scene = two_frog(128, 64, bs, dev)
+        grid, lights = scene.accel, scene.lights.position
+        rays = block_rays(scene)
+        co, cd = rays["camera"]
+        where = f"128x64 block={bs}"
+        fused = {}
+        for shared in (False, True):
+            kw = dict(return_normal=True, shadow_lights=lights,
+                      shared_origin=shared)
+            fused[shared] = bk.block_closest(co, cd, grid, 1e-4, **kw)
+            check_hits(errs, "closest", f"{where} camera rays, normals, "
+                       f"{lights.shape[0]} lights, shared_origin={shared}",
+                       fused[shared],
+                       bk.block_closest_plain(co, cd, grid, 1e-4, **kw))
+        if not all(torch.equal(a, b) for a, b in zip(_fields(fused[False]),
+                                                      _fields(fused[True]))):
+            raise AssertionError("closest: shared_origin changed the results")
+        for key in ("camera", "bounce"):
+            o, d = rays[key]
+            got = bk.block_closest(o, d, grid, 1e-4, det_eps=FLT_EPSILON)
+            check_hits(errs, "closest", f"{where} {key} rays, no normals "
+                       "(cpuonly)", got,
+                       bk.block_closest_plain(o, d, grid, 1e-4,
+                                              det_eps=FLT_EPSILON))
+            if key == "bounce" and bool(got.hit[o[:, 0] >= 1e29].any()):
+                raise AssertionError("closest: a parked ray hit")
+        hits, normal, _ = fused[False]
+        sets = {"camera": (co, cd, *rays["window"]),
+                "bounce": (*rays["bounce"], *rays["window"]),
+                "shadow": shadow_rays(co, cd, hits, normal, lights[0])}
+        for key, (o, d, tmin, tmax) in sets.items():
+            got = bk.block_occluded(o, d, grid, tmin, tmax)
+            check_hits(errs, "occluded", f"{where} {key} rays, per-ray "
+                       "[tmin, tmax]", got,
+                       bk.block_occluded_plain(o, d, grid, tmin, tmax))
+            if bool(got[o[:, 0] >= 1e29].any()):
+                raise AssertionError("occluded: a parked ray came out blocked")
+
+
+def record_calls(module, names, fn):
+    """Run ``fn`` with ``module``'s functions ``names`` wrapped to record
+    the arguments of their first two calls -> {name: [(args, kwargs)]}."""
+    seen = {n: [] for n in names}
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def recorded(*a, **k):
+            if len(seen[n]) < 2:
+                seen[n].append((a, k))
+            return real[n](*a, **k)
+        return recorded
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        fn()
+    finally:
+        for n in names:
+            setattr(module, n, real[n])
+    return seen
+
+
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def counted(label, fn, need, never=()):
+    """Run ``fn`` with the launch counters set to 0 just before it and
+    read just after; every kernel in ``need`` must have launched, and
+    none in ``never``."""
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
     from raytracinginonesemester_tpu_torch.ops import megakernel as mk
 
     mk.reset_launch_counts()
+    bk.reset_launch_counts()
     out = fn()
-    torch.cuda.synchronize()
-    counts = mk.launch_counts()
+    _sync()
+    counts = {**mk.launch_counts(), **bk.launch_counts()}
     log(f"launch counts, {label}: {counts}")
     missing = [k for k in need if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: {missing} never launched ({counts})")
+    extra = [k for k in never if counts[k]]
+    if extra:
+        raise AssertionError(f"{label}: {extra} launched, but this render "
+                             f"must not take them ({counts})")
     return out, counts
 
 
@@ -447,9 +656,47 @@ def check_goldens(dev):
             f"{diff.max()}, channels off {(diff > 0).mean():.5f}")
         if ours.shape != gold.shape or diff.max() > 1:
             raise AssertionError(f"{name} disagrees with the C++ oracle")
+    check_staged_goldens(dev, goldens)
 
 
-def timed_frames(label, scene, frames, smi, need, iters=3):
+def check_staged_goldens(dev, goldens):
+    """Phase 4, staged integrator: renders that only E and F may serve,
+    against the C++ oracle's PNGs."""
+    from raytracinginonesemester_tpu_torch.io.image import quantize, read_png
+    from raytracinginonesemester_tpu_torch.render.renderer import render_scene
+    from raytracinginonesemester_tpu_torch.scene.build import load_scene
+
+    for name in ("gpu_spheres", "gpu_diffuse", "gpu_frog", "gpu_cornell"):
+        scene = load_scene(os.path.join(SCENES, f"{name}.json"), device=dev)
+        w, h = scene.camera.width, scene.camera.height
+        img, _ = counted(f"golden {name}.png, reference_cpu (staged)",
+                         lambda: render_scene(scene, "reference_cpu"),
+                         ["closest"], never=FUSED + ["occluded"])
+        ours = quantize(img.cpu().numpy(), "gpu")
+        ok, bad, mean = images_close(
+            ours, read_png(os.path.join(goldens, f"{name}.png")))
+        log(f"golden {name}.png (C++ oracle) {w}x{h}, spp {scene.spp}, "
+            f"depth {scene.max_bounces}, through the staged integrator: "
+            f"bad_frac {bad:.5f} mean {mean:.4f}")
+        if not ok:
+            raise AssertionError(f"staged {name} disagrees with the C++ oracle")
+    scene = cpuonly_scene("cpuonly_point", dev, radius=0.0, shadow_samples=17)
+    img, _ = counted("golden cpuonly_point.png, 17 shadow samples (staged)",
+                     lambda: render_scene(scene), ["closest", "occluded"],
+                     never=FUSED)
+    ours = quantize(img.cpu().numpy(), "cpuonly").astype(int)
+    gold = read_png(os.path.join(goldens, "cpuonly_point.png")).astype(int)
+    diff = abs(ours - gold)
+    log(f"golden cpuonly_point.png (C++ oracle) 160x100, 17 shadow samples, "
+        f"through the staged integrator: max channel diff {diff.max()}, "
+        f"channels off {(diff > 0).mean():.5f}")
+    if ours.shape != gold.shape or diff.max() > 1:
+        raise AssertionError("staged cpuonly_point disagrees with the C++ "
+                             "oracle")
+
+
+def timed_frames(label, scene, frames, smi, need, iters=3, jitter="auto",
+                 never=()):
     """Warm-up call, then ``iters`` timed calls counted as one run."""
     import torch
 
@@ -457,16 +704,16 @@ def timed_frames(label, scene, frames, smi, need, iters=3):
         render_scene_frames)
     from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
-    render_scene_frames(scene, frames, "auto", 0)
+    render_scene_frames(scene, frames, jitter, 0)
     torch.cuda.synchronize()
 
     def run():
-        t = cuda_time_ms(lambda: render_scene_frames(scene, frames, "auto", 0),
+        t = cuda_time_ms(lambda: render_scene_frames(scene, frames, jitter, 0),
                          warmup=0, iters=iters)
-        return t, render_scene_frames(scene, frames, "auto", 0)
+        return t, render_scene_frames(scene, frames, jitter, 0)
 
     (t, img), counts = counted(f"{label} ({iters + 1} calls of {frames} "
-                               "frames)", run, need)
+                               "frames)", run, need, never)
     ms = t["median_ms"] / frames
     w, h = scene.camera.width, scene.camera.height
     log(f"{label}: {frames} frames {w}x{h}: {ms:.3f} ms/frame, "
@@ -517,12 +764,15 @@ def time_kernels(smi, errs, jobs):
 
 
 def ptxas_summary(text):
-    """'kernel<dialect>: N registers, S spill bytes' per entry function."""
+    """'kernel[<dialect>]: N registers, S spill bytes' per entry function."""
     out, name, spill = [], None, "spills not reported"
     for ln in text.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)ILb(\d)E", ln)
+        m = re.search(r"Compiling entry function "
+                      r"'_Z\d+(\w+?)(?:ILb(\d)E|9SceneArgs)", ln)
         if m:
-            name = f"{m.group(1)}<{'cpuonly' if m.group(2) == '1' else 'gpu'}>"
+            name = m.group(1)
+            if m.group(2):
+                name += f"<{'cpuonly' if m.group(2) == '1' else 'gpu'}>"
             spill = "spills not reported"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -562,6 +812,7 @@ def main():
     # --- 3. kernels vs plain versions at 128x64
     errs = {}
     check_small(dev, errs)
+    check_block_small(dev, errs)
 
     # --- 4. reference images
     check_goldens(dev)
@@ -638,7 +889,49 @@ def main():
         lambda: render_scene_frames(cpu_scene, 1, "auto", 0, capacity_tiles=8),
         ["resume"])
 
-    # --- 8. kernel times at full width beside the plain versions
+    # --- 8. the staged integrator at full width
+    ms_ref, _, ref_counts = timed_frames(
+        "frog 1080p depth 8, reference_cpu (staged integrator)", scene,
+        STAGED_FRAMES, smi, ["closest"], iters=1, jitter="reference_cpu",
+        never=FUSED + ["occluded"])
+    soft = cpuonly_scene("cpuonly_mirror", dev, W, H, radius=0.15,
+                         shadow_samples=32, diffuse_bounce=True)
+    ms_soft, _, soft_counts = timed_frames(
+        "cpuonly_mirror 1080p, area light r=0.15 x32, diffuse (staged "
+        "integrator)", soft, STAGED_FRAMES, smi, ["closest", "occluded"],
+        iters=1, never=FUSED)
+
+    # --- 9. kernel times at full width beside the plain versions
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.ops import integrator
+    from raytracinginonesemester_tpu_torch.render.renderer import render_scene
+
+    # E and F on the inputs of their first launches (depth 0) and E's
+    # second (depth 1) in single-frame staged renders
+    e_calls = record_calls(integrator, ["block_closest"], lambda: render_scene(
+        scene, "reference_cpu"))["block_closest"]
+    soft_calls = record_calls(integrator, ["block_closest", "block_occluded"],
+                              lambda: render_scene(soft))
+    _sync()
+
+    def e_job(call, shape):
+        (o, d, grid, tmin), kw = call
+        n_out = 16 + (12 + 4 * (0 if kw["shadow_lights"] is None else
+                                int(kw["shadow_lights"].shape[0]))
+                      if kw["return_normal"] else 0)
+        planes = grid.tri.numel() + grid.tri_index.numel() + grid.aabb.numel()
+        if kw["return_normal"]:
+            planes += grid.norm.numel()
+        return ("closest", shape, lambda: bk.block_closest(o, d, grid, tmin,
+                                                           **kw),
+                lambda x=None: bk.block_closest_plain(o, d, grid, tmin,
+                                                      stats=x, **kw),
+                check_hits, o.shape[0] * (24 + 4 + n_out) + 4 * planes)
+
+    (fo, fd, fgrid, ftmin, ftmax), fkw = soft_calls["block_occluded"][0]
+    f_bytes = fo.shape[0] * (24 + 8 + 1) + 4 * (
+        fgrid.tri.numel() + fgrid.tri_index.numel() + fgrid.aabb.numel())
+    n_rays = fo.shape[0]
     main = Frame(scene)
     check_binned_equiv("frog 1080p", main.emit(False), main.emit(True))
     st, rng = main.emit(False)
@@ -706,6 +999,20 @@ def main():
             "render", f"{cpu.nt} tiles x 512, spp 1", lambda: cpu.render(True),
             lambda x=None: cpu.render_plain(True, stats=x), check_sums,
             cpu.np_rays * 20 + cpu.scene_bytes(True)),
+        "closest": e_job(e_calls[0], f"{n_rays} camera rays, normals, 1 "
+                         "light's shadows (frog depth 0)"),
+        "closest bounce": e_job(e_calls[1], f"{n_rays} rays, normals, 1 "
+                                "light's shadows (frog depth 1)"),
+        "cpuonly closest": e_job(soft_calls["block_closest"][0],
+                                 f"{n_rays} camera rays, no normals "
+                                 "(cpuonly_mirror depth 0)"),
+        "occluded": (
+            "occluded", f"{n_rays} shadow rays (cpuonly_mirror depth 0, "
+            "first disk sample)",
+            lambda: bk.block_occluded(fo, fd, fgrid, ftmin, ftmax, **fkw),
+            lambda x=None: bk.block_occluded_plain(fo, fd, fgrid, ftmin,
+                                                   ftmax, stats=x, **fkw),
+            check_hits, f_bytes),
     }
     records = time_kernels(smi, errs, jobs)
 
@@ -721,17 +1028,26 @@ def main():
             "cpuonly resume": ("cpuonly_mirror 1080p overflow render at "
                                "cap=8", cpu_over_counts),
             "cpuonly render binned": ("cpuonly_mirror 1080p, RT_WAVEFRONT=0",
-                                      cpu_d_counts)}
+                                      cpu_d_counts),
+            "closest": ("frog 1080p reference_cpu (staged)", ref_counts),
+            "closest bounce": ("frog 1080p reference_cpu (staged)",
+                               ref_counts),
+            "cpuonly closest": ("cpuonly_mirror 1080p area light x32 "
+                                "(staged)", soft_counts),
+            "occluded": ("cpuonly_mirror 1080p area light x32 (staged)",
+                         soft_counts)}
     for key, rec in records.items():
         label, counts = runs[key]
         rec.update(variant=key, launches=counts[rec["name"]],
                    launches_in=label, max_abs_err=errs[rec["name"]])
-    main_keys = ("emit binned", "bounce_step", "resume", "render V2 binned")
+    main_keys = ("emit binned", "bounce_step", "resume", "render V2 binned",
+                 "closest", "occluded")
     log(f"ms/frame on {smi}: main path binned {ms_binned:.3f}, "
         f"RT_BINNED=0 {ms_flat:.3f}, RT_WAVEFRONT=0 {ms_d:.3f}, terminal "
         f"{ms_term:.3f}, cpuonly_mirror {ms_cpu:.3f}, cpuonly_mirror "
-        f"RT_WAVEFRONT=0 {ms_cpu_d:.3f}; whole run "
-        f"{time.time() - t_start:.0f} s")
+        f"RT_WAVEFRONT=0 {ms_cpu_d:.3f}; staged integrator: frog "
+        f"reference_cpu {ms_ref:.3f}, cpuonly_mirror area light x32 "
+        f"{ms_soft:.3f}; whole run {time.time() - t_start:.0f} s")
     log(json.dumps({"variants": [r for k, r in records.items()
                                  if k not in main_keys]}))
     log(json.dumps({"kernels": [records[k] for k in main_keys]}))

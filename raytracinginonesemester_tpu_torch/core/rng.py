@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -28,6 +29,9 @@ __all__ = [
     "pixel_jitter",
     "random_unit_vector",
     "random_in_unit_disk",
+    "random_on_hemisphere",
+    "make_basis",
+    "jittered_samples",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -150,3 +154,46 @@ def random_in_unit_disk(state, max_rounds: int = 64):
         if bool(accepted.all()):
             break
     return state, vec
+
+
+def random_on_hemisphere(normal: torch.Tensor, state):
+    """Uniform direction on the hemisphere around ``normal`` (..., 3)
+    (``query.h:66-71``): a ``random_unit_vector`` draw, negated unless
+    it lies on the normal's side.  Returns (new_state, (..., 3))."""
+    state, v = random_unit_vector(state)
+    flip = (v * normal).sum(dim=-1, keepdim=True) > 0.0
+    return state, torch.where(flip, v, -v)
+
+
+def make_basis(w: torch.Tensor):
+    """Orthonormal (T, B) around the unit direction ``w`` (..., 3)
+    (``CPUOnly/include/raytracer.h:88-93``): the helper axis is +Y when
+    |w.x| > 0.9, else +X."""
+    use_y = w[..., 0].abs() > 0.9
+    a0 = torch.where(use_y, 0.0, 1.0)
+    a1 = torch.where(use_y, 1.0, 0.0)
+    a2 = torch.zeros_like(a0)
+    w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
+    t = torch.stack([a1 * w2 - a2 * w1, a2 * w0 - a0 * w2, a0 * w1 - a1 * w0],
+                    dim=-1)
+    t = t / torch.sqrt((t * t).sum(dim=-1, keepdim=True))
+    t0, t1, t2 = t[..., 0], t[..., 1], t[..., 2]
+    b = torch.stack([w1 * t2 - w2 * t1, w2 * t0 - w0 * t2, w0 * t1 - w1 * t0],
+                    dim=-1)
+    return t, b
+
+
+def jittered_samples(spp: int, seed: int = 12345,
+                     centered: bool = True) -> np.ndarray:
+    """Host-side per-sample jitter offsets, (spp, 2) float32: numpy's
+    legacy ``RandomState(seed)`` raw 32-bit draws are ``std::mt19937(seed)``'s,
+    and libstdc++'s ``uniform_real_distribution<float>`` maps a draw to
+    ``draw * 2**-32``.  ``centered=True``: the GPU repo's [-0.5, 0.5)
+    (``GPUandCPU/include/antialias.h:22-25``); else HW1's [0, 1)."""
+    rs = np.random.RandomState(seed)
+    draws = rs.randint(0, 2**32, size=2 * spp, dtype=np.uint32)
+    offsets = (draws.astype(np.float64) * 2.0**-32).astype(np.float32)
+    offsets = offsets.reshape(spp, 2)
+    if centered:
+        offsets = offsets - np.float32(0.5)
+    return offsets

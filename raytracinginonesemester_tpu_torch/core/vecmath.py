@@ -66,6 +66,13 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
     return v * inv[..., None]
 
 
+def unit(v: torch.Tensor) -> torch.Tensor:
+    """``v / sqrt(max(|v|^2, 1e-24))`` over the last axis: the
+    normalisation of the JAX package's integrator and shaders."""
+    return v / torch.sqrt(torch.clamp((v * v).sum(dim=-1, keepdim=True),
+                                      min=1e-24))
+
+
 def normalize_or(v: torch.Tensor, fallback: torch.Tensor,
                  eps: float = 1e-12) -> torch.Tensor:
     """Unit vector, or ``fallback`` where ``|v| < eps``

@@ -1,10 +1,14 @@
 // Path-tracing kernels for Hopper (sm_90a): emit, bounce_step, resume and
-// the monolithic render.
+// the monolithic render, and the staged integrator's closest-hit and
+// occlusion kernels.
 //
 // Replaces the Pallas TPU kernels of raytracinginonesemester_tpu/ops/
 // megakernel.py: _emit_kernel (emit_tiles), _bounce_step_kernel
 // (bounce_step_tiles), _resume_kernel (resume_tiles) and _render_kernel
-// (render_tiles), in both reference dialects.  The four kernels share the
+// (render_tiles), in both reference dialects; and of ops/pallas_kernels.py:
+// _closest_kernel (pallas_block_closest) and _occluded_kernel
+// (pallas_block_occluded), the staged integrator's closest_kernel and
+// occluded_kernel below.  The kernels share the
 // device functions below, as the Pallas kernels share _make_traverse /
 // _make_shade / _make_bounce; the dialect is a template argument (CPU =
 // the cpuonly dialect: pixel-center jitter, sky-gradient misses,
@@ -115,8 +119,12 @@ __device__ __forceinline__ float clip01(float x) {
 
 // Slab test with the robust far-plane stretch (Ize 2013) of _tile_slab;
 // a NaN slab (0 * inf) opens that axis, as jnp.minimum/maximum + isnan do.
+// A NaN window bound (the cpuonly soft-shadow rays of parked shade points
+// have NaN directions and tmax) stays NaN through jnp.maximum/minimum and
+// fails the test; fmaxf/fminf would drop it and open every block.
 __device__ __forceinline__ bool slab(const float* a, const float* o,
                                      const float* inv, float t0, float t1) {
+  if (isnan(t0) || isnan(t1)) return false;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     float lo = (a[k] - o[k]) * inv[k];
@@ -184,19 +192,18 @@ __device__ __forceinline__ void take(Hit& h, float t, float u, float v,
 }
 
 __device__ Hit closest(const SceneArgs& s, const Shared& sh, const float* o,
-                       const float* d) {
+                       const float* d, float tmin) {
   const size_t plane = (size_t)s.num_blocks * s.block_size;
   float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
   Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
   for (int b = 0; b < s.num_blocks; ++b) {
-    if (!slab(sh.aabb + 6 * b, o, inv, s.tmin, h.t)) continue;
+    if (!slab(sh.aabb + 6 * b, o, inv, tmin, h.t)) continue;
     const int base = b * s.block_size;
     for (int j = 0; j < s.block_size; ++j) {
       const int id = s.ids[base + j];
       if (id < 0) continue;
       float u, v;
-      float t = mt(s.tri + base + j, plane, s.det_eps, o, d, s.tmin, h.t, &u,
-                   &v);
+      float t = mt(s.tri + base + j, plane, s.det_eps, o, d, tmin, h.t, &u, &v);
       take(h, t, u, v, id, base + j);
     }
   }
@@ -264,20 +271,20 @@ __device__ void shading_normal(const SceneArgs& s, const Hit& h,
   n[2] = snz * fs;
 }
 
-// IsInShadow: blocks culled on [shadow_tmin, dist], triangles tested on
-// [shadow_tmin, tmax]; first hit wins.
+// Any hit (IsInShadow): blocks culled on [tmin, dist], triangles tested on
+// [tmin, tmax]; the walk stops at the first hit.
 __device__ bool occluded(const SceneArgs& s, const Shared& sh, const float* p,
-                         const float* ld, float dist, float tmax) {
+                         const float* ld, float tmin, float dist, float tmax) {
   const size_t plane = (size_t)s.num_blocks * s.block_size;
   float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};
   for (int b = 0; b < s.num_blocks; ++b) {
-    if (!slab(sh.aabb + 6 * b, p, inv, s.shadow_tmin, dist)) continue;
+    if (!slab(sh.aabb + 6 * b, p, inv, tmin, dist)) continue;
     const int base = b * s.block_size;
     for (int j = 0; j < s.block_size; ++j) {
       if (s.ids[base + j] < 0) continue;
       float u, v;
-      if (mt(s.tri + base + j, plane, s.det_eps, p, ld, s.shadow_tmin, tmax,
-             &u, &v) < kF32Max)
+      if (mt(s.tri + base + j, plane, s.det_eps, p, ld, tmin, tmax, &u, &v) <
+          kF32Max)
         return true;
     }
   }
@@ -343,7 +350,9 @@ __device__ float soft_walk(const SceneArgs& s, const Shared& sh,
   float inv_s = 1.0f / d_s;
   float sld[3] = {stx * inv_s, sty * inv_s, stz * inv_s};
   if (!facing) return 1.0f;
-  return occluded(s, sh, p, sld, d_s, d_s - s.shadow_eps) ? 0.0f : 1.0f;
+  return occluded(s, sh, p, sld, s.shadow_tmin, d_s, d_s - s.shadow_eps)
+             ? 0.0f
+             : 1.0f;
 }
 
 // ShadowVisibility (CPUOnly/raytracer.h:121-168): shadow_samples walks
@@ -392,7 +401,8 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
                        Ray& r, int tile) {
   const float* o = r.bo;
   const float* d = r.bd;
-  Hit h = tile >= 0 ? closest_binned(s, tile, o, d) : closest(s, sh, o, d);
+  Hit h = tile >= 0 ? closest_binned(s, tile, o, d)
+                     : closest(s, sh, o, d, s.tmin);
   const bool hit = h.t < kF32Max;
   float n[3] = {0.0f, 0.0f, 1.0f};
   int obj = 0;
@@ -429,7 +439,8 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
       vis = 1.0f;
     }
     if (!facing) continue;  // scale == 0: adds exactly 0
-    if (!CPU) vis = occluded(s, sh, p, ld, dist, dist) ? 0.0f : 1.0f;
+    if (!CPU)
+      vis = occluded(s, sh, p, ld, s.shadow_tmin, dist, dist) ? 0.0f : 1.0f;
     float hx = ld[0] + vx, hy = ld[1] + vy, hz = ld[2] + vz;
     float hlen = sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-38f));
     float ndoth = fmaxf((n[0] * hx + n[1] * hy + n[2] * hz) / hlen, 0.0f);
@@ -677,6 +688,72 @@ render_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
   b_out[gid] = acc[2];
 }
 
+// The staged integrator's closest hit (E, _closest_kernel): one thread per
+// ray runs the flat block scan on [tmin[i], best t]; with_normal adds the
+// gpu shading normal (0, 0, 1 on a miss); each of the n_shadow point lights
+// then gets the fused IsInShadow walk of _closest_kernel in its op order:
+// p = o + t d + n eps, dist = sqrt(max(|to|^2, 1e-38)), direction
+// to * (1 / dist), any hit on [shadow_tmin, dist]; lanes that miss or face
+// away (N.L <= 0 or N.V <= 0) trace nothing and get visibility 0.  The
+// Pallas kernel's superblock plan, early exit and quarter gating are TPU
+// schedules: the (t, id) take rule gives the same winners in any order.
+// Bound on this card: FP32 Moller-Trumbore per ray-triangle pair, planes
+// read from L2; nothing here for the tensor cores.
+__global__ void __launch_bounds__(kThreads)
+closest_kernel(SceneArgs s, const float* orig, const float* dir,
+               const float* tmin, int n_rays, int with_normal,
+               const float* shadow_lights, int n_shadow, float* t_out,
+               float* u_out, float* v_out, int* idx_out, float* n_out,
+               float* vis_out) {
+  const Shared sh = stage_shared(s);
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_rays) return;
+  const float o[3] = {orig[3 * gid], orig[3 * gid + 1], orig[3 * gid + 2]};
+  const float d[3] = {dir[3 * gid], dir[3 * gid + 1], dir[3 * gid + 2]};
+  const Hit h = closest(s, sh, o, d, tmin[gid]);
+  t_out[gid] = h.t;
+  u_out[gid] = h.u;
+  v_out[gid] = h.v;
+  idx_out[gid] = h.id;
+  if (!with_normal) return;
+  const bool hit = h.t < kF32Max;
+  float n[3] = {0.0f, 0.0f, 1.0f};
+  if (hit) shading_normal<false>(s, h, d, n);
+  for (int c = 0; c < 3; ++c) n_out[3 * gid + c] = n[c];
+  float p[3];
+  for (int c = 0; c < 3; ++c)
+    p[c] = hit ? o[c] + h.t * d[c] + n[c] * s.shadow_eps : 1e30f;
+  const float ndotv = -(n[0] * d[0] + n[1] * d[1] + n[2] * d[2]);
+  for (int li = 0; li < n_shadow; ++li) {
+    const float* L = shadow_lights + 3 * li;
+    const float to[3] = {L[0] - p[0], L[1] - p[1], L[2] - p[2]};
+    const float dist =
+        sqrtf(fmaxf(to[0] * to[0] + to[1] * to[1] + to[2] * to[2], 1e-38f));
+    const float inv_dist = 1.0f / dist;
+    const float sd[3] = {to[0] * inv_dist, to[1] * inv_dist, to[2] * inv_dist};
+    const float ndotl = n[0] * sd[0] + n[1] * sd[1] + n[2] * sd[2];
+    const bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
+    vis_out[(size_t)gid * n_shadow + li] =
+        facing && !occluded(s, sh, p, sd, s.shadow_tmin, dist, dist) ? 1.0f
+                                                                      : 0.0f;
+  }
+}
+
+// The staged integrator's any-hit test (F, _occluded_kernel): one thread
+// per ray walks the blocks on [tmin[i], tmax[i]] and stops at its first
+// blocker.  Bound as closest_kernel.
+__global__ void __launch_bounds__(kThreads)
+occluded_kernel(SceneArgs s, const float* orig, const float* dir,
+                const float* tmin, const float* tmax, int n_rays,
+                unsigned char* blocked) {
+  const Shared sh = stage_shared(s);
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_rays) return;
+  const float o[3] = {orig[3 * gid], orig[3 * gid + 1], orig[3 * gid + 2]};
+  const float d[3] = {dir[3 * gid], dir[3 * gid + 1], dir[3 * gid + 2]};
+  blocked[gid] = occluded(s, sh, o, d, tmin[gid], tmax[gid], tmax[gid]);
+}
+
 // ---- C interface (loaded with ctypes) ----
 
 namespace {
@@ -755,6 +832,31 @@ int rt_render(const SceneArgs* s, const int* xs, const int* ys,
            (cudaStream_t)stream>>>(*s, xs, ys, has_work, n_rays, rt, spp,
                                    sample_offset, center, terminal,
                                    max_depth, r_out, g_out, b_out);
+  return (int)cudaGetLastError();
+}
+
+int rt_closest(const SceneArgs* s, const float* orig, const float* dir,
+               const float* tmin, int n_rays, int with_normal,
+               const float* shadow_lights, int n_shadow, float* t_out,
+               float* u_out, float* v_out, int* idx_out, float* n_out,
+               float* vis_out, void* stream) {
+  int e = prepare(&closest_kernel, *s);
+  if (e) return e;
+  closest_kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
+                   (cudaStream_t)stream>>>(
+      *s, orig, dir, tmin, n_rays, with_normal, shadow_lights, n_shadow, t_out,
+      u_out, v_out, idx_out, n_out, vis_out);
+  return (int)cudaGetLastError();
+}
+
+int rt_occluded(const SceneArgs* s, const float* orig, const float* dir,
+                const float* tmin, const float* tmax, int n_rays,
+                unsigned char* blocked, void* stream) {
+  int e = prepare(&occluded_kernel, *s);
+  if (e) return e;
+  occluded_kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
+                    (cudaStream_t)stream>>>(*s, orig, dir, tmin, tmax, n_rays,
+                                            blocked);
   return (int)cudaGetLastError();
 }
 

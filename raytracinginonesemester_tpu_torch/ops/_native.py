@@ -115,8 +115,11 @@ def load():
         lib.rt_resume.argtypes = [sp, vp, vp, i, i, i, vp, vp, vp, vp]
         lib.rt_render.argtypes = [sp, vp, vp, vp, i, i, i, i, i, i, i,
                                   vp, vp, vp, vp]
+        lib.rt_closest.argtypes = [sp, vp, vp, vp, i, i, vp, i, vp, vp, vp,
+                                   vp, vp, vp, vp]
+        lib.rt_occluded.argtypes = [sp, vp, vp, vp, vp, i, vp, vp]
         for fn in (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
-                   lib.rt_render):
+                   lib.rt_render, lib.rt_closest, lib.rt_occluded):
             fn.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p

@@ -89,9 +89,9 @@ def megakernel_kwargs(scene, jitter_mode: str) -> dict:
 
 
 def megakernel_ineligible_reason(scene, jitter_mode: str):
-    """Why the port cannot render a scene through its kernels (None = it
-    can); the JAX package's reasons.  Callers raise
-    ``NotImplementedError`` with this reason."""
+    """Why the fused kernels do not take a scene (None = they do), in
+    the JAX package's words; the renderer then takes the staged
+    integrator and warns once with this reason."""
     if scene.accel is None:
         return "no block-grid accel (accel=None)"
     if getattr(scene, "differentiable", False):
@@ -309,8 +309,9 @@ def _has_work(scene, xs_p, ys_p, sh: _Shade, plan, cand_plan):
 
 
 def _slab(a, o, inv, t0, t1):
-    """Per-ray slab test against one block AABB row ``a`` (8,), with
-    the robust far-plane stretch (Ize 2013) of ``_tile_slab``."""
+    """Per-ray slab test against one block AABB row ``a`` (8,) (or rows
+    broadcast against the rays), with the robust far-plane stretch (Ize
+    2013) of ``_tile_slab``."""
     for axis in range(3):
         lo = (a[axis] - o[axis]) * inv[axis]
         hi = (a[axis + 3] - o[axis]) * inv[axis]
@@ -369,11 +370,12 @@ class _Best:
     def visit(self, ch, o, d, tri, ids, slots, det_eps, tmin):
         """Dense test of rays ``ch`` against candidates (planes ``tri``,
         global ``ids``, grid ``slots``, each (1, W)) with the (t, id)
-        take rule."""
+        take rule; ``tmin`` a float or a per-ray (R,) tensor."""
         oc = tuple(c[ch, None] for c in o)
         dc = tuple(c[ch, None] for c in d)
         old_t = self.t[ch]
-        t, u, v = _mt(oc, dc, tri, det_eps, tmin, old_t[:, None])
+        tm = tmin[ch, None] if torch.is_tensor(tmin) else tmin
+        t, u, v = _mt(oc, dc, tri, det_eps, tm, old_t[:, None])
         t = torch.where(ids >= 0, t, F32_MAX)
         min_t = t.amin(dim=1)
         at_min = t == min_t[:, None]
@@ -393,13 +395,15 @@ class _Best:
 
 
 def _closest_plain(rows: SceneRows, o, d, alive, det_eps, tmin):
-    """Closest hit by the flat block scan -> ``_Best``."""
+    """Closest hit by the flat block scan -> ``_Best``; ``tmin`` a float
+    or a per-ray (R,) tensor."""
     r = d[0].shape[0]
     dev = d[0].device
     bs = rows.block_size
     inv = tuple(1.0 / c for c in d)
     best = _Best(r, dev)
-    tmin_t = torch.full((r,), tmin, device=dev)
+    tmin_t = tmin if torch.is_tensor(tmin) else torch.full((r,), tmin,
+                                                             device=dev)
     for b in range(rows.num_blocks):
         boxed = _slab(rows.aabb[b], o, inv, tmin_t, best.t) & alive
         sub = boxed.nonzero().squeeze(1)
@@ -473,20 +477,26 @@ def _occluded_plain(rows: SceneRows, p, ld, dist, facing, det_eps,
                     shadow_tmin, tmax=None):
     """Any hit toward each light for ``facing`` rays: blocks are culled
     by a slab test on [shadow_tmin, dist] and triangles tested on
-    [shadow_tmin, tmax] (``tmax`` defaults to ``dist``); a ray leaves
-    the walk at its first hit.  -> (blocked, pairs): ``pairs`` counts
-    the tests the kernels make, which stop at that hit (the dense test
-    here runs the whole block)."""
+    [shadow_tmin, tmax] (``tmax`` defaults to ``dist``; ``shadow_tmin``
+    a float or a per-ray tensor); a ray leaves the walk at its first
+    hit.  -> (blocked, pairs): ``pairs`` counts the tests the kernels
+    make, which stop at that hit (the dense test here runs the whole
+    block)."""
     tmax = dist if tmax is None else tmax
     inv = tuple(1.0 / c for c in ld)
     blocked = torch.zeros_like(facing)
     pairs = torch.zeros((), dtype=torch.int64, device=dist.device)
-    tmin_t = torch.full_like(dist, shadow_tmin)
+    tmin_t = (shadow_tmin if torch.is_tensor(shadow_tmin)
+              else torch.full_like(dist, shadow_tmin))
+    # every block's slab test at once: its window does not change
+    slabs = _slab(rows.aabb.T[:, None, :], tuple(c[:, None] for c in p),
+                  tuple(c[:, None] for c in inv), tmin_t[:, None],
+                  dist[:, None])  # (R, L)
     for b in range(rows.num_blocks):
         cand = facing & ~blocked
         if not bool(cand.any()):
             break
-        boxed = _slab(rows.aabb[b], p, inv, tmin_t, dist) & cand
+        boxed = slabs[:, b] & cand
         sub = boxed.nonzero().squeeze(1)
         if sub.numel() == 0:
             continue
@@ -498,7 +508,7 @@ def _occluded_plain(rows: SceneRows, p, ld, dist, facing, det_eps,
         for ch in _chunks(sub, rows.block_size):
             t, _, _ = _mt(tuple(c[ch, None] for c in p),
                           tuple(c[ch, None] for c in ld), tri, det_eps,
-                          shadow_tmin, tmax[ch, None])
+                          tmin_t[ch, None], tmax[ch, None])
             hits = live & (t < F32_MAX)
             hit = hits.any(dim=1)
             first = hits.to(torch.int32).argmax(dim=1)

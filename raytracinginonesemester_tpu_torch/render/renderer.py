@@ -1,13 +1,16 @@
 """Top-level render drivers.
 
-PyTorch port of ``raytracinginonesemester_tpu.render.renderer``'s fused
+PyTorch port of ``raytracinginonesemester_tpu.render.renderer``'s
 dispatch: the swizzled 16x16 pixel-tile stream, the wavefront and
 capacity resolve, the binned camera plan with its bounded cache, and
-``render_scene`` / ``render_scene_frames`` on top of the staged
-wavefront (``ops.wavefront``) or the monolithic render kernel
-(``ops.megakernel.render_tiles``), chosen as the JAX package chooses.
-Scenes the port does not cover raise ``NotImplementedError`` with the
-reason; nothing falls back to another path.
+``render_scene`` / ``render_scene_frames``.  As in the JAX package,
+scenes the fused kernels take render on the staged wavefront
+(``ops.wavefront``) or the monolithic render kernel
+(``ops.megakernel.render_tiles``); every other scene renders through the
+staged integrator (``accumulate_samples`` -> ``ops.integrator.trace_rays``,
+kernels E and F), with a one-time warning that names the reason.
+Differentiable scenes raise ``NotImplementedError``: that path is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -18,12 +21,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import rng as rnglib
 from ..ops.megakernel import megakernel_ineligible_reason, megakernel_kwargs
 from ..scene.build import Scene
 
 __all__ = ["render_scene", "render_scene_frames", "resolve_wavefront",
-           "resolve_candidate_plan", "resolve_jitter_mode", "frog_scene",
-           "entry"]
+           "resolve_candidate_plan", "resolve_jitter_mode",
+           "accumulate_samples", "DEFAULT_RAY_TILE", "frog_scene", "entry"]
+
+# rays per ``trace_rays`` call of the staged integrator; <= 0 is one
+# batch of the whole frame.  Images do not depend on it (per-ray math,
+# seeds by absolute pixel and sample); the JAX package's 16384 bounds its
+# compiled program's memory, which eager PyTorch on an 80 GB card need
+# not do.
+DEFAULT_RAY_TILE = 0
 
 
 def _swizzled_grid(width: int, height: int, tile: int = 16, device="cpu"):
@@ -60,10 +71,30 @@ def resolve_jitter_mode(scene: Scene, jitter_mode: str, spp: int) -> str:
     return "wang" if (scene.dialect == "gpu" or spp > 1) else "center"
 
 
-def _require_ported(scene: Scene, jitter_mode: str) -> None:
-    reason = megakernel_ineligible_reason(scene, jitter_mode)
+def _require_ported(scene: Scene) -> None:
+    if getattr(scene, "differentiable", False):
+        raise NotImplementedError(
+            "scene not covered by the port: differentiable scene (the "
+            "differentiable path is not ported)")
+
+
+def _fused(scene: Scene, jitter_mode: str) -> bool:
+    """Whether the fused kernels (A-D) take the scene, as the JAX
+    package decides (``megakernel_eligible``)."""
+    return megakernel_ineligible_reason(scene, jitter_mode) is None
+
+
+def _warn_if_fallback(scene: Scene, jitter_mode: str, spp: int) -> None:
+    """One warning per reason when a scene falls off the fused kernels
+    onto the staged integrator, as the JAX package warns."""
+    from ..utils.logging import warn_once
+
+    reason = megakernel_ineligible_reason(
+        scene, resolve_jitter_mode(scene, jitter_mode, spp))
     if reason is not None:
-        raise NotImplementedError(f"scene not covered by the port: {reason}")
+        warn_once(f"mk-fallback:{reason}",
+                  f"scene falls off the fused kernels ({reason}); rendering "
+                  "via the staged integrator (kernels E and F)")
 
 
 def _bouncing(scene: Scene) -> bool:
@@ -84,17 +115,18 @@ def resolve_wavefront(scene: Scene, jitter_mode: str = "auto",
     capacity is calibrated, else the monolithic render kernel; "1"
     always takes the wavefront, "0" never.  ``RT_WAVEFRONT_CAP``: "auto"
     (calibrate, cached in memory and on disk) or a tile count.  Terminal
-    scenes (no diffuse bounce, every kr == 0) never take the wavefront.
-    A scene the port cannot render raises ``NotImplementedError``."""
+    scenes (no diffuse bounce, every kr == 0) and scenes the fused
+    kernels do not take never take the wavefront.  Differentiable scenes
+    raise ``NotImplementedError``."""
     spp_eff = spp_override if spp_override is not None else scene.spp
     jm = resolve_jitter_mode(scene, jitter_mode, spp_eff)
-    _require_ported(scene, jm)
+    _require_ported(scene)
     wf_env = os.environ.get("RT_WAVEFRONT", "auto")
     wavefront = wf_env in ("1", "auto")
     cap = None
     cap_env = os.environ.get("RT_WAVEFRONT_CAP", "auto")
     if wavefront and cap_env:
-        if not _bouncing(scene):
+        if not (_bouncing(scene) and _fused(scene, jm)):
             wavefront = False
         elif cap_env == "auto":
             from ..ops.wavefront import auto_capacity_tiles
@@ -125,11 +157,14 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
     per (scene, camera) and cached.  ``RT_BINNED``: "auto"/"1" (default
     on), "0" off (returns None); ``RT_BINNED_CHUNK``: candidate lanes
     per chunk (default 256).  The depth-0 walk of emit and render then
-    tests each tile's candidates instead of the block grid."""
+    tests each tile's candidates instead of the block grid.  None for a
+    scene the fused kernels do not take."""
     if os.environ.get("RT_BINNED", "auto") == "0":
         return None
     spp_eff = spp_override if spp_override is not None else scene.spp
-    _require_ported(scene, resolve_jitter_mode(scene, jitter_mode, spp_eff))
+    _require_ported(scene)
+    if not _fused(scene, resolve_jitter_mode(scene, jitter_mode, spp_eff)):
+        return None
     from ..ops.binned import build_camera_candidate_plan, plan_fingerprint
     from ..ops.megakernel import RAY_TILE, _pad_tiles
 
@@ -150,12 +185,76 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
     return plan
 
 
+def _tile_map(fn, args, num_rays: int, tile: int):
+    """``fn`` over consecutive ray tiles of ``args`` (tensors with leading
+    dim ``num_rays``), the tail tile padded with copies of ray 0;
+    ``tile <= 0`` is one whole-batch tile.  Results keep ``num_rays``."""
+    tile = num_rays if tile <= 0 else min(tile, num_rays)
+    padded = -(-num_rays // tile) * tile
+    if padded != num_rays:
+        args = tuple(torch.cat([a, a[:1].expand(padded - num_rays,
+                                                *a.shape[1:])])
+                     for a in args)
+    outs = [fn(tuple(a[i:i + tile] for a in args))
+            for i in range(0, padded, tile)]
+    return torch.cat(outs)[:num_rays]
+
+
+def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
+                       ray_tile: int = DEFAULT_RAY_TILE,
+                       sample_offset: int = 0) -> torch.Tensor:
+    """Sum over ``spp`` samples of the per-sample radiance of the pixels
+    ``xs``, ``ys`` through the staged integrator -> (N, 3).
+
+    Sample ``s`` seeds its rays ``make_rng_seed(x, y, s + sample_offset)``
+    (``query.h:44-48``) and jitters them by ``jitter_mode``: ``"wang"``
+    (``query.cu:36-43``); ``"reference_cpu"``, one host-side mt19937(42)
+    offset per sample shared by every pixel (``query.cu:137-146``),
+    indexed ``min(s + sample_offset, spp - 1)`` as the JAX package does;
+    ``"center"``, the pixel center.  Any split of the pixels, and any
+    ``ray_tile``, gives the same sums."""
+    cam = scene.camera
+    num_rays = int(xs.shape[0])
+    dev = xs.device
+    if jitter_mode == "reference_cpu":
+        offsets = torch.as_tensor(rnglib.jittered_samples(spp, 42, True),
+                                  device=dev)
+    elif jitter_mode not in ("wang", "center"):
+        raise ValueError(f"unknown jitter_mode {jitter_mode!r}")
+    from ..ops.integrator import trace_rays
+
+    def tile_fn(args):
+        o, d, st = args
+        return trace_rays(o, d, st, scene, shared_origin0=cam.is_pinhole)
+
+    accum = torch.zeros(num_rays, 3, device=dev)
+    for s in range(int(spp)):
+        s_abs = s + int(sample_offset)
+        if jitter_mode == "wang":
+            jx, jy = rnglib.pixel_jitter(xs, ys, s_abs)
+        elif jitter_mode == "reference_cpu":
+            jx, jy = offsets[min(s_abs, spp - 1)]
+        else:
+            jx = jy = 0.5
+        origins, dirs = cam.get_rays(xs.to(torch.float32) + jx,
+                                     ys.to(torch.float32) + jy)
+        seeds = rnglib.make_rng_seed(xs, ys, s_abs)
+        accum = accum + _tile_map(tile_fn, (origins, dirs, seeds), num_rays,
+                                  ray_tile)
+    return accum
+
+
 def _frame_accum(scene: Scene, xs, ys, spp: int, sample_offset: int,
-                 jitter_mode: str, wavefront: bool, cap, cand_plan):
+                 jitter_mode: str, wavefront: bool, cap, cand_plan,
+                 ray_tile: int = DEFAULT_RAY_TILE):
     """Per-ray radiance SUM over ``spp`` samples, (N, 3) in swizzled
-    order: the staged wavefront for bouncing scenes when it is taken,
-    else the monolithic render kernel."""
+    order: for a scene the fused kernels take, the staged wavefront for
+    bouncing scenes when it is taken, else the monolithic render kernel;
+    for any other scene the staged integrator."""
     jm = resolve_jitter_mode(scene, jitter_mode, spp)
+    if not _fused(scene, jm):
+        return accumulate_samples(scene, xs, ys, spp, jm, ray_tile,
+                                  sample_offset)
     kw = _kernel_kwargs(scene, jm)
     if _bouncing(scene) and wavefront:
         from ..ops.wavefront import render_tiles_wavefront
@@ -171,29 +270,35 @@ def _frame_accum(scene: Scene, xs, ys, spp: int, sample_offset: int,
 
 def _dispatch(scene, jitter_mode, spp, cand_plan, capacity_tiles):
     if capacity_tiles is not None:
-        _require_ported(scene, resolve_jitter_mode(scene, jitter_mode, spp))
+        _require_ported(scene)
         wavefront, cap = True, int(capacity_tiles)
     else:
         wavefront, cap = resolve_wavefront(scene, jitter_mode, spp)
     if cand_plan is None:
         cand_plan = resolve_candidate_plan(scene, jitter_mode, spp)
+    _warn_if_fallback(scene, jitter_mode, spp)
     return wavefront, cap, cand_plan
 
 
 def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
                         sample_offset: int = 0, cand_plan=None,
-                        capacity_tiles: Optional[int] = None) -> torch.Tensor:
+                        capacity_tiles: Optional[int] = None,
+                        ray_tile: int = DEFAULT_RAY_TILE) -> torch.Tensor:
     """Render ``frames`` consecutive spp-1 frames -> (frames, H, W, 3);
     frame f uses sample index ``sample_offset + f``.  On the staged
     wavefront all frames share one merged compaction sort and bounce
-    ladder; otherwise each frame is one render-kernel call (the same
-    images).  ``capacity_tiles`` forces the wavefront at that capacity."""
+    ladder; otherwise each frame is one render-kernel call or, for a
+    scene the fused kernels do not take, one staged-integrator call
+    (the same images as single-frame renders).  ``capacity_tiles``
+    forces the wavefront at that capacity where the fused kernels take
+    the scene; ``ray_tile`` as in ``accumulate_samples``."""
     wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, 1, cand_plan,
                                           capacity_tiles)
     w, h = scene.camera.width, scene.camera.height
     xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
     jm = resolve_jitter_mode(scene, jitter_mode, 1)
-    if _bouncing(scene) and wavefront and cap is not None:
+    if (_fused(scene, jm) and _bouncing(scene) and wavefront
+            and cap is not None):
         from ..ops.wavefront import render_tiles_wavefront_frames
 
         accum = render_tiles_wavefront_frames(
@@ -202,7 +307,7 @@ def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
     else:
         accum = torch.stack([
             _frame_accum(scene, xs, ys, 1, int(sample_offset) + f,
-                         jitter_mode, wavefront, cap, cand_plan)
+                         jitter_mode, wavefront, cap, cand_plan, ray_tile)
             for f in range(int(frames))])
     return _unswizzle(accum, w, h, hp, wp)
 
@@ -210,18 +315,21 @@ def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
 def render_scene(scene: Scene, jitter_mode: str = "auto",
                  spp_override: Optional[int] = None, sample_offset: int = 0,
                  normalize: bool = True, cand_plan=None,
-                 capacity_tiles: Optional[int] = None) -> torch.Tensor:
+                 capacity_tiles: Optional[int] = None,
+                 ray_tile: int = DEFAULT_RAY_TILE) -> torch.Tensor:
     """Render a scene to a linear (H, W, 3) float32 image: the mean (or,
     with ``normalize=False``, the sum) over spp samples of the per-sample
     radiance, clipped per sample in the gpu dialect and accumulated in
-    sample order per pixel."""
+    sample order per pixel.  ``jitter_mode``: "wang", "reference_cpu"
+    (the oracle-parity mode), "center" or "auto" (gpu or spp > 1:
+    "wang", else "center"); ``ray_tile`` as in ``accumulate_samples``."""
     spp = spp_override if spp_override is not None else scene.spp
     wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, spp, cand_plan,
                                           capacity_tiles)
     w, h = scene.camera.width, scene.camera.height
     xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
     accum = _frame_accum(scene, xs, ys, spp, sample_offset, jitter_mode,
-                         wavefront, cap, cand_plan)
+                         wavefront, cap, cand_plan, ray_tile)
     img = _unswizzle(accum, w, h, hp, wp)
     return img / float(spp) if normalize else img
 

@@ -1,7 +1,7 @@
 """Structured logging helpers (port of ``raytracinginonesemester_tpu.utils.logging``).
 
-Nothing on the ported slice warns yet; ``warn_once`` is kept as the
-counterpart of the JAX helper for the paths still to port."""
+``warn_once`` is the renderer's warning when a scene falls off the fused
+kernels onto the staged integrator."""
 
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ PyTorch port (``tests/test_torch_*.py``).
 (``raytracinginonesemester_tpu_torch.scene.build.scene_from_numpy``), so
 both packages render the very same block-grid planes.  The scene
 builders make the two-frog test scene of ``tests/test_megakernel.py``
-for either package.
+for either package.  ``one_torch_thread`` keeps the port's tests to one
+PyTorch thread.
 """
 
 from __future__ import annotations
@@ -14,8 +15,26 @@ import dataclasses
 import os
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch CPU thread for each test module that imports this
+    fixture (autouse: importing it is enough).  The test workers share
+    the machine's cores: with PyTorch's default of one thread per core
+    in every worker, the port's test files took 920 s under six workers
+    on an 8-core machine, against 140 s with one thread each, while one
+    process alone runs as fast with one thread as with eight.  The
+    count is restored after the module."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def scene_to_numpy(scene):

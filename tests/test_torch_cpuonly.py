@@ -37,7 +37,7 @@ from raytracinginonesemester_tpu_torch.render.renderer import (
     _swizzled_grid as t_grid, render_scene)
 from raytracinginonesemester_tpu_torch.scene.build import load_scene
 
-from _torch_parity import REPO, torch_from_jax, ulp_close
+from _torch_parity import REPO, one_torch_thread, torch_from_jax, ulp_close
 from test_megakernel_cpuonly import _cpuonly_scene
 
 W, H = 48, 24
@@ -140,14 +140,31 @@ def test_render_tiles_matches_jax(case):
     assert want.max() > 1.0 * case["spp"]  # no per-sample clamp
 
 
-def test_ineligible_cpuonly_scenes_raise(case):
+def test_ineligible_cpuonly_scenes_raise(case, monkeypatch):
+    """The cpuonly scenes the fused kernels refuse (more than 16 shadow
+    samples, ``reference_cpu`` jitter; the JAX package's reasons) no
+    longer raise: they take the staged integrator, whose renders
+    ``test_torch_integrator.py`` holds against the JAX package."""
+    from raytracinginonesemester_tpu_torch.render import renderer
+
     ts = case["ts"]
     many = dataclasses.replace(ts, lights=dataclasses.replace(
         ts.lights, shadow_samples=(17,)))
-    with pytest.raises(NotImplementedError, match="shadow_samples=17 > 16"):
-        render_scene(many)
-    with pytest.raises(NotImplementedError, match="jitter_mode='reference_cpu'"):
-        render_scene(ts, jitter_mode="reference_cpu")
+    assert "shadow_samples=17 > 16" in tmk.megakernel_ineligible_reason(
+        many, case["jitter"])
+    assert "jitter_mode='reference_cpu'" in tmk.megakernel_ineligible_reason(
+        ts, "reference_cpu")
+    staged = []
+
+    def accumulate(scene, xs, ys, spp, jitter_mode, *rest):
+        staged.append(jitter_mode)
+        return torch.zeros(xs.shape[0], 3)
+
+    monkeypatch.setattr(renderer, "accumulate_samples", accumulate)
+    render_scene(many)
+    render_scene(ts, jitter_mode="reference_cpu")
+    assert staged == [renderer.resolve_jitter_mode(many, "auto", many.spp),
+                      "reference_cpu"]
 
 
 @pytest.mark.parametrize("name", ["cpuonly_point", "cpuonly_mirror"])

@@ -26,7 +26,8 @@ from raytracinginonesemester_tpu.render.renderer import _swizzled_grid as j_grid
 from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
 from raytracinginonesemester_tpu_torch.render.renderer import _swizzled_grid as t_grid
 
-from _torch_parity import jax_two_frog, torch_from_jax, ulp_close
+from _torch_parity import (
+    jax_two_frog, one_torch_thread, torch_from_jax, ulp_close)
 
 W, H = 64, 32
 EMIT_ATOL = 5e-5

@@ -26,7 +26,7 @@ from raytracinginonesemester_tpu_torch.render.renderer import (
     _swizzled_grid as t_grid, _unswizzle as t_unswizzle, render_scene,
     render_scene_frames)
 
-from _torch_parity import REPO, jax_two_frog, torch_from_jax
+from _torch_parity import REPO, jax_two_frog, one_torch_thread, torch_from_jax
 from conftest import assert_images_close
 
 W, H, FRAMES = 64, 32, 2

@@ -33,7 +33,8 @@ from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
 from raytracinginonesemester_tpu_torch.ops import wavefront as twf
 from raytracinginonesemester_tpu_torch.render import renderer as tr
 
-from _torch_parity import REPO, jax_two_frog, torch_from_jax, ulp_close
+from _torch_parity import (
+    REPO, jax_two_frog, one_torch_thread, torch_from_jax, ulp_close)
 from conftest import assert_images_close
 
 W, H, SPP, OFFSET = 64, 32, 2, 3

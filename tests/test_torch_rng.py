@@ -16,7 +16,7 @@ from raytracinginonesemester_tpu.core import vecmath as jvm
 from raytracinginonesemester_tpu_torch.core import rng as trng
 from raytracinginonesemester_tpu_torch.core import vecmath as tvm
 
-from _torch_parity import ulp_close
+from _torch_parity import one_torch_thread, ulp_close
 
 
 def _seeds(n=4096, seed=0):

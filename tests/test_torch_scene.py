@@ -18,7 +18,9 @@ from raytracinginonesemester_tpu_torch.core.camera import Camera as TCamera
 from raytracinginonesemester_tpu_torch.ops.accel import build_block_grid as t_bbg
 from raytracinginonesemester_tpu_torch.ops.accel import super_aabbs as t_super
 
-from _torch_parity import REPO, jax_two_frog, torch_from_jax, two_frog_config, ulp_close
+from _torch_parity import (
+    REPO, jax_two_frog, one_torch_thread, torch_from_jax, two_frog_config,
+    ulp_close)
 
 
 @pytest.mark.parametrize("sensor_width_mm", [None, 36.0])
@@ -130,6 +132,7 @@ def test_package_imports_without_jax():
             "import raytracinginonesemester_tpu_torch.render.renderer, "
             "raytracinginonesemester_tpu_torch.ops.wavefront, "
             "raytracinginonesemester_tpu_torch.ops.binned, "
+            "raytracinginonesemester_tpu_torch.ops.integrator, "
             "raytracinginonesemester_tpu_torch.ops._native; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('raytracinginonesemester_tpu.')"
@@ -141,25 +144,31 @@ def test_package_imports_without_jax():
 
 
 def test_unsupported_scenes_raise():
-    """Scenes outside the port raise NotImplementedError with the JAX
-    package's reason instead of taking another path."""
+    """Differentiable scenes raise NotImplementedError (that path is not
+    ported); the scenes the fused kernels refuse, for the JAX package's
+    reasons, now take the staged integrator without calibrating a
+    wavefront, and render."""
     import dataclasses
 
-    from raytracinginonesemester_tpu_torch.render.renderer import render_scene
+    from raytracinginonesemester_tpu_torch.ops.megakernel import (
+        megakernel_ineligible_reason as reason)
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        render_scene, resolve_wavefront)
     from raytracinginonesemester_tpu_torch.scene.build import load_scene
 
     cpu = load_scene(os.path.join(REPO, "tests/assets/scenes/cpuonly_point.json"),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="jitter"):
-        render_scene(cpu, jitter_mode="reference_cpu")
     many = dataclasses.replace(cpu, lights=dataclasses.replace(
         cpu.lights, shadow_samples=(17,)))
-    with pytest.raises(NotImplementedError, match="shadow_samples=17"):
-        render_scene(many)
     ts = torch_from_jax(jax_two_frog(width=32, height=16))
-    with pytest.raises(NotImplementedError, match="jitter"):
-        render_scene(ts, jitter_mode="center")
+    grid_less = dataclasses.replace(ts, accel=None)
+    for scene, jitter, why in ((cpu, "reference_cpu", "jitter"),
+                               (many, "center", "shadow_samples=17"),
+                               (ts, "center", "jitter"),
+                               (grid_less, "wang", "accel")):
+        assert why in reason(scene, jitter)
+        assert resolve_wavefront(scene, jitter, 1) == (False, None)
+    img = render_scene(ts, jitter_mode="center")
+    assert torch.isfinite(img).all() and float(img.std()) > 0.0
     with pytest.raises(NotImplementedError, match="differentiable"):
         render_scene(dataclasses.replace(ts, differentiable=True))
-    with pytest.raises(NotImplementedError, match="accel"):
-        render_scene(dataclasses.replace(ts, accel=None))
