@@ -49,19 +49,36 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    dialect fuses its shadows into E), and ``cpuonly_mirror.json`` at
    1920x1080 with its light at radius 0.15, 32 shadow samples and
    diffuse bounces (E and F);
-9. each kernel against its plain version at its full-width shapes, both
+9. the differentiable training path, ``bench.py --grad``'s workload:
+   ``gpu_spheres.json`` at 960x540 with its camera, spp 1, 2 bounces,
+   ``center`` jitter, a block grid with ``differentiable=True``, albedo,
+   light intensity and vertices perturbed by 5% (``RandomState(0)``),
+   Adam at lr 1e-3, 8 steps per call, the binned depth-0 plan at slack
+   0.05: kernel B's oracle rows (flat and binned) against their plain
+   version at 128x64 and at 960x540 (depths 0 and 1), a warm call and 3
+   timed calls (ms/step, backward rays/s), the launches of one call
+   (bounce_step's oracle variant 2 per step, segment_accum at least 1,
+   closest and occluded 0), finite and nonzero gradients, bit-identical
+   gradients from two identical steps, one step with the oracle off
+   (kernels E and F) within 5e-2 of the oracle's gradients, kernel J on
+   the inputs of its first launch in a training step bit for bit against
+   its plain version and within 1e-5 of each bin's sum of |ct| against
+   ``index_add_``, and the albedo recovery of ``tests/test_diff.py``
+   (96x54, 60 Adam steps at lr 0.03) below 5% of the first loss;
+10. each kernel against its plain version at its full-width shapes, both
    timed, with the least time the card could take (bound); E and F on
    the inputs of their first launches in single-frame renders of phase
-   8's scenes.
+   8's scenes, J on those of phase 9.
 
 Every render of phases 4-8 runs with the launch counters set to 0 just
 before it and read just after; a kernel of that render that did not run
-fails the script, and so does a kernel that must not run there.  The
-line before the last is the JSON record of the kernels (emit,
-bounce_step, resume, render, closest, occluded; each with the launches
-of the render named in ``launches_in``); the line before it holds the
-variants (flat emit, terminal render, cpuonly, E on bounce rays).  The
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+fails the script, and so does a kernel that must not run there; phase
+9's training call likewise.  The line before the last is the JSON record
+of the kernels (emit, bounce_step, resume, render, closest, occluded,
+segment_accum; each with the launches of the run named in
+``launches_in``); the line before it holds the variants (flat emit,
+terminal render, cpuonly, E on bounce rays, B's oracle rows flat and
+binned).  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
 """
 
@@ -89,8 +106,11 @@ REPLACES = {
     "render": "raytracinginonesemester_tpu/ops/megakernel.py:1536",
     "closest": "raytracinginonesemester_tpu/ops/pallas_kernels.py:222",
     "occluded": "raytracinginonesemester_tpu/ops/pallas_kernels.py:688",
+    "segment_accum": "raytracinginonesemester_tpu/ops/diff_gather.py:46",
 }
 SOURCE = "raytracinginonesemester_tpu_torch/csrc/megakernel.cu"
+SOURCES = {"segment_accum":
+           "raytracinginonesemester_tpu_torch/csrc/segment_accum.cu"}
 FUSED = ["emit", "bounce_step", "resume", "render"]
 STAGED_FRAMES = 4
 FLT_EPSILON = 1.1920929e-7  # the cpuonly dialect's Moller-Trumbore epsilon
@@ -104,6 +124,9 @@ FLT_EPSILON = 1.1920929e-7  # the cpuonly dialect's Moller-Trumbore epsilon
 OPS_PER_PAIR = 46
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 SCENES = os.path.join(REPO, "tests", "assets", "scenes")
+# the training phase: bench.py --grad (bench.py:47-87)
+GRAD_W, GRAD_H, GRAD_STEPS = 960, 540, 8
+GRAD_KEYS = ("albedo", "light_intensity", "vertices")
 
 
 def log(msg):
@@ -557,21 +580,25 @@ def check_block_small(dev, errs):
                 raise AssertionError("occluded: a parked ray came out blocked")
 
 
-def record_calls(module, names, fn):
+def record_calls(module, names, fn, keep=2):
     """Run ``fn`` with ``module``'s functions ``names`` wrapped to record
-    the arguments of their first two calls -> {name: [(args, kwargs)]}."""
+    the arguments of their first ``keep`` calls -> {name: [(args,
+    kwargs)]}."""
     seen = {n: [] for n in names}
     real = {n: getattr(module, n) for n in names}
 
     def wrap(n):
         def recorded(*a, **k):
-            if len(seen[n]) < 2:
+            if len(seen[n]) < keep:
                 seen[n].append((a, k))
             return real[n](*a, **k)
         return recorded
 
     for n in names:
-        setattr(module, n, wrap(n))
+        w = wrap(n)
+        # share the attributes (a wrapper's launch counter lives there)
+        w.__dict__ = real[n].__dict__
+        setattr(module, n, w)
     try:
         fn()
     finally:
@@ -592,13 +619,16 @@ def counted(label, fn, need, never=()):
     read just after; every kernel in ``need`` must have launched, and
     none in ``never``."""
     from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.ops import diff_gather as dg
     from raytracinginonesemester_tpu_torch.ops import megakernel as mk
 
     mk.reset_launch_counts()
     bk.reset_launch_counts()
+    dg.reset_launch_counts()
     out = fn()
     _sync()
-    counts = {**mk.launch_counts(), **bk.launch_counts()}
+    counts = {**mk.launch_counts(), **mk.variant_launch_counts(),
+              **bk.launch_counts(), **dg.launch_counts()}
     log(f"launch counts, {label}: {counts}")
     missing = [k for k in need if counts[k] == 0]
     if missing:
@@ -737,30 +767,398 @@ def time_kernels(smi, errs, jobs):
     from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
     records = {}
-    for key, (name, shape, kern, plain, check, nbytes) in jobs.items():
+    for key, job in jobs.items():
+        name, shape, kern, plain, check, nbytes = job[:6]
+        library = job[6] if len(job) > 6 else None
         got = kern()
         stats = {}
         want = plain(stats)
         torch.cuda.synchronize()
-        pairs = stats["pairs"]
+        # FP32 operations: Moller-Trumbore pairs, or the count the plain
+        # version states itself (kernel J: one add per ray and feature)
+        pairs = stats.get("pairs", 0)
+        ops = stats.get("ops", pairs * OPS_PER_PAIR)
         check(errs, name, f"{key} at {shape}", got, want)
         del got, want
         k = cuda_time_ms(kern, warmup=1, iters=3)
         p = cuda_time_ms(plain, warmup=0, iters=1)
-        t_ops = pairs * OPS_PER_PAIR / PEAK_FLOPS * 1e3
+        lib = (cuda_time_ms(library, warmup=1, iters=3)["median_ms"]
+               if library else None)
+        t_ops = ops / PEAK_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         by = "operations" if t_ops >= t_bytes else "bytes"
         log(f"time {key} at {shape}: kernel {k['median_ms']:.3f} ms (median "
-            f"of 3), plain {p['median_ms']:.1f} ms (1 run); bound "
-            f"{bound:.4f} ms by {by} ({pairs} ray-triangle pairs, {nbytes} "
-            f"bytes) on {smi}")
-        records[key] = {"name": name, "route": "cuda", "source": SOURCE,
+            f"of 3), plain {p['median_ms']:.1f} ms (1 run)"
+            + (f", library {lib:.3f} ms" if library else "")
+            + f"; bound {bound:.4f} ms by {by} ({pairs} ray-triangle pairs, "
+            f"{ops} FP32 operations, {nbytes} bytes) on {smi}")
+        records[key] = {"name": name, "route": "cuda",
+                        "source": SOURCES.get(name, SOURCE),
                         "replaces": REPLACES[name], "shape": shape,
                         "ms": k["median_ms"], "plain_ms": p["median_ms"],
                         "bound_ms": bound, "bound_by": by,
-                        "library_ms": None, "pairs": pairs}
+                        "library_ms": lib, "pairs": pairs}
     return records
+
+
+def check_diff(errs, name, where, got, want):
+    """Kernel B with its oracle rows vs its plain version: every row of
+    the state, the rng and the (nt*8, 512) oracle rows bit for bit."""
+    rows = int((got[2] != want[2]).sum())
+    nt = got[2].shape[0] // 8
+    dec = want[2].reshape(nt, 8, -1)[:, 5]
+    log(f"compare {name} oracle rows {where}: {int((dec > 0).sum())} rays "
+        f"found, differing oracle values {rows}")
+    check_state(errs, name, where, got[0], got[1], want[0], want[1])
+    state = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+    if rows or state:
+        raise AssertionError(f"{name} with oracle rows differs from its plain "
+                             f"version ({where}): {rows} oracle values, "
+                             f"{state} state values")
+
+
+def center_rays(scene):
+    """Pixel-center camera rays and rng seeds of sample 0 in the
+    renderer's swizzled pixel order (``jitter_mode="center"``)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.core.rng import make_rng_seed
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        _swizzled_grid)
+
+    cam = scene.camera
+    xs, ys, _ = _swizzled_grid(cam.width, cam.height, device=scene.device)
+    o, d = cam.get_rays(xs.to(torch.float32) + 0.5, ys.to(torch.float32) + 0.5)
+    return o.contiguous(), d.contiguous(), make_rng_seed(xs, ys, 0)
+
+
+def grad_scene(dev, width=GRAD_W, height=GRAD_H):
+    """``bench.py --grad``'s scene (``bench.py:53-66``): gpu_spheres.json,
+    its camera, 2 bounces, spp 1, a differentiable block grid."""
+    from raytracinginonesemester_tpu_torch.core.camera import Camera
+    from raytracinginonesemester_tpu_torch.scene.build import load_scene
+
+    scene = load_scene(os.path.join(SCENES, "gpu_spheres.json"), device=dev)
+    cam = Camera.create(position=(0.0, -2.5, 1.2), look_at=(0.0, 0.0, 0.5),
+                        up=(0, 0, 1), focal_length_mm=24.0, width=width,
+                        height=height, device=dev)
+    return dataclasses.replace(scene, camera=cam, max_bounces=2, spp=1,
+                               differentiable=True)
+
+
+class Training:
+    """The grad bench's training loop on one scene: the target (the
+    render with the scene's own parameters), the perturbed start
+    parameters (``bench.py:70-77``), the scene they give and the binned
+    depth-0 context built for it."""
+
+    def __init__(self, scene, keys=GRAD_KEYS, slack=0.05):
+        import numpy as np
+        import torch
+
+        from raytracinginonesemester_tpu_torch.diff import inverse
+
+        self.scene = scene
+        self.inv = inverse
+        with torch.no_grad():
+            self.target = inverse.render_scene(scene, "center",
+                                               spp_override=1)
+        rs = np.random.RandomState(0)
+        self.p0 = {}
+        for k, v in inverse.extract_params(scene, keys).items():
+            v = v.detach().cpu().numpy()
+            self.p0[k] = v * (1.0 + 0.05 * rs.standard_normal(v.shape)
+                              .astype(np.float32))
+        self.start = inverse.apply_params(
+            scene, inverse.params_from_numpy(self.p0, scene))
+        t0 = time.time()
+        self.ctx = inverse.camera_candidate_context(self.start, slack=slack)
+        _sync()
+        self.plan_s = time.time() - t0
+
+    def params(self):
+        return self.inv.params_from_numpy(self.p0, self.scene)
+
+    def call(self, steps=GRAD_STEPS, lr=1e-3):
+        """One call of ``steps`` Adam steps from the start parameters ->
+        (losses (steps,), params)."""
+        import torch
+
+        params = self.params()
+        step = self.inv.make_train_step(torch.optim.Adam(
+            list(params.values()), lr=lr))
+        with self.ctx:
+            losses = [step(params, self.scene, self.target)
+                      for _ in range(steps)]
+        return torch.stack(losses), params
+
+    def grads(self):
+        """Loss and gradients at the start parameters (one step's)."""
+        params = self.params()
+        with self.ctx:
+            loss = self.inv.render_loss(params, self.scene, self.target,
+                                        "center", 1)
+            loss.backward()
+        return loss.detach(), {k: v.grad for k, v in params.items()}
+
+
+def check_diff_small(dev, errs):
+    """Phase 9: kernel B's oracle rows vs its plain version at 128x64,
+    flat and binned, on the two-frog scene's pixel-center camera rays."""
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+    from raytracinginonesemester_tpu_torch.ops.diff_oracle import pack_rays
+
+    for bs in (128, 512):
+        f = Frame(two_frog(128, 64, bs, dev), chunk=128)
+        st, rng = pack_rays(*center_rays(f.scene))
+        for binned in (False, True):
+            cand = f.cand if binned else None
+            got = mk.bounce_step_tiles(f.scene, st, rng, diff_out=True,
+                                       cand_plan=cand, rows=f.rows,
+                                       **f.no_jitter())
+            want = mk.bounce_step_tiles_plain(
+                f.rows, st, rng, f.scene.diffuse_bounce, diff_out=True,
+                cand_plan=cand, **f.pkw)
+            check_diff(errs, "bounce_step", f"128x64 block={bs} "
+                       f"{'binned' if binned else 'flat'}", got, want)
+
+
+def grads_close(label, got, want, rel):
+    """Every gradient within ``rel`` of the largest entry of ``want``."""
+    for k in want:
+        scale = float(want[k].abs().max())
+        err = float((got[k] - want[k]).abs().max())
+        log(f"{label}: grad {k} max |diff| {err:.3e}, max |g| {scale:.3e}")
+        if not err <= rel * scale:
+            raise AssertionError(f"{label}: grad {k} beyond {rel} of max |g|")
+
+
+def check_training(dev, smi):
+    """Phase 9: the differentiable training path at full width."""
+    import numpy as np
+    import torch
+
+    from raytracinginonesemester_tpu_torch.diff import inverse
+    from raytracinginonesemester_tpu_torch.ops import binned
+    from raytracinginonesemester_tpu_torch.ops import diff_gather as dg
+    from raytracinginonesemester_tpu_torch.ops import integrator
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    t0 = time.time()
+    scene = grad_scene(dev)
+    tr = Training(scene)
+    _sync()
+    log(f"grad bench scene: {scene.geometry.num_triangles} triangles, "
+        f"{scene.accel.num_blocks} blocks of {scene.accel.block_size}, "
+        f"{GRAD_W}x{GRAD_H}; set-up {time.time() - t0:.2f} s; binned plan "
+        f"(slack 0.05) {tr.plan_s:.3f} s, "
+        f"{binned.candidate_plan_stats(tr.ctx.plan, 512)}")
+    t0 = time.time()
+    losses, _ = tr.call()
+    _sync()
+    log(f"training warm call ({GRAD_STEPS} Adam steps): {time.time() - t0:.2f}"
+        f" s, losses {[round(float(x), 6) for x in losses]}")
+    j_calls = record_calls(dg, ["segment_accum_rows"], tr.grads,
+                           keep=16)["segment_accum_rows"]
+    n_vert = scene.geometry.vertices.shape[0]
+    log(f"segment_accum launches of one step: "
+        f"{[(int(c[0][2]), tuple(c[0][1].shape)) for c in j_calls]} "
+        "(rows, cotangent shape)")
+    t = cuda_time_ms(tr.call, warmup=0, iters=3)
+    ms_step = t["median_ms"] / GRAD_STEPS
+    rays = GRAD_W * GRAD_H
+    log(f"training, grad-bench config: {ms_step:.3f} ms/step, "
+        f"{rays / (ms_step / 1e3):.4e} backward rays/s ({GRAD_STEPS} steps "
+        f"per call, median of 3 CUDA-event timings, calls "
+        f"{[round(x, 2) for x in t['samples_ms']]} ms) on {smi}")
+    (losses, params), counts = counted(
+        f"training call ({GRAD_STEPS} Adam steps)", tr.call,
+        ["bounce_step", "segment_accum"],
+        never=["emit", "resume", "render", "closest", "occluded"])
+    want = {"bounce_step": 2 * GRAD_STEPS, "bounce_step[diff]": 2 * GRAD_STEPS,
+            "bounce_step[binned]": GRAD_STEPS}
+    if any(counts[k] != v for k, v in want.items()) or \
+            counts["segment_accum"] < GRAD_STEPS:
+        raise AssertionError(f"training call launches {counts}, expected "
+                             f"{want} and segment_accum >= {GRAD_STEPS}")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("training loss not finite")
+    if not all(bool(torch.isfinite(p).all()) for p in params.values()):
+        raise AssertionError("trained parameters not finite")
+
+    l1, g1 = tr.grads()
+    l2, g2 = tr.grads()
+    for k, g in g1.items():
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            raise AssertionError(f"gradient of {k} not finite or all zero")
+    same = all(torch.equal(g1[k], g2[k]) for k in g1) and torch.equal(l1, l2)
+    log(f"two identical steps: loss {float(l1):.8f}, gradients "
+        f"{'bit-identical' if same else 'DIFFER'} "
+        f"({', '.join(f'{k} {tuple(g.shape)}' for k, g in g1.items())})")
+    if not same:
+        raise AssertionError("two identical steps gave different gradients")
+
+    integrator._DIFF_ORACLE = False
+    try:
+        (l3, g3), off_counts = counted(
+            "one step, RT_DIFF_ORACLE=0 (kernels E and F)", tr.grads,
+            ["closest", "occluded", "segment_accum"], never=["bounce_step"])
+    finally:
+        integrator._DIFF_ORACLE = True
+    log(f"RT_DIFF_ORACLE=0: loss {float(l3):.8f} vs oracle {float(l1):.8f}")
+    grads_close("oracle vs RT_DIFF_ORACLE=0", g1, g3, 5e-2)
+
+    small = grad_scene(dev, 96, 54)
+    with torch.no_grad():
+        target = inverse.render_scene(small, "center", spp_override=1)
+    true = small.materials.albedo.cpu().numpy()
+    rs = np.random.RandomState(1)
+    init = np.clip(true + rs.uniform(-0.25, 0.25, true.shape), 0.05,
+                   1.0).astype(np.float32)
+    t0 = time.time()
+    _, rec = inverse.optimize(small, target, keys=("albedo",), steps=60,
+                              learning_rate=0.03, spp_override=1,
+                              init_params={"albedo": torch.from_numpy(init)
+                                           .to(dev)})
+    log(f"albedo recovery 96x54, 60 Adam steps at lr 0.03 through the "
+        f"oracle: loss {rec[0]:.6e} -> {rec[-1]:.6e} "
+        f"({rec[-1] / rec[0]:.4f} of the first) in {time.time() - t0:.1f} s")
+    if not rec[-1] < 0.05 * rec[0]:
+        raise AssertionError("albedo recovery did not reach 5% of the "
+                             "first loss")
+    return dict(ms_step=ms_step, counts=counts, off_counts=off_counts,
+                tr=tr, j_call=j_calls[0],
+                j_vertex_call=next(c for c in j_calls if c[0][2] == n_vert))
+
+
+def diff_jobs(train):
+    """Phase 10 jobs of the training path: kernel B's oracle rows at
+    960x540 (depth 0 binned and flat, depth 1 flat) and kernel J on the
+    inputs of its first launch in a training step."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import diff_gather as dg
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+    from raytracinginonesemester_tpu_torch.ops.diff_oracle import pack_rays
+
+    tr = train["tr"]
+    start = tr.start
+    with torch.no_grad():
+        rows = mk._scene_rows(start, start.accel)
+    plan = tr.ctx.plan
+    st0, rng0 = pack_rays(*center_rays(start))
+    nt = st0.shape[0] // 16
+    st1, rng1, _ = mk.bounce_step_tiles(start, st0, rng0, diff_out=True,
+                                        cand_plan=plan, rows=rows)
+    scene_b = sum(t.numel() * t.element_size() for t in (
+        rows.cam, rows.lights, rows.mats, rows.tri, rows.norm, rows.ids,
+        rows.obj, rows.aabb))
+    plan_b = (plan.stream.numel() + plan.meta.numel()) * 4
+    ray_b = 224  # state and rng in and out, oracle rows out
+
+    def b_job(st, rng, cand, shape):
+        return ("bounce_step", shape,
+                lambda: mk.bounce_step_tiles(start, st, rng, diff_out=True,
+                                             cand_plan=cand, rows=rows),
+                lambda x=None: mk.bounce_step_tiles_plain(
+                    rows, st, rng, start.diffuse_bounce, diff_out=True,
+                    cand_plan=cand, stats=x),
+                check_diff,
+                nt * 512 * ray_b + scene_b + (plan_b if cand else 0))
+
+    def j_job(call, what):
+        (idx, ct, n_rows), _ = call
+        r, f = ct.shape
+
+        def j_plain(stats=None):
+            if stats is not None:
+                stats["ops"] = r * f  # one add per ray and feature
+            return dg.segment_accum_rows_plain(idx, ct, n_rows)
+
+        keep = (idx >= 0) & (idx < n_rows)
+        i_lib, ct_lib = idx[keep].long(), ct[keep]
+
+        def library():
+            return torch.zeros(n_rows, f, device=ct.device).index_add_(
+                0, i_lib, ct_lib)
+
+        return ("segment_accum",
+                f"{r} rays x {f} features into {n_rows} rows ({what})",
+                lambda: dg.segment_accum_rows(idx, ct, n_rows), j_plain,
+                check_accum, r * 4 + r * f * 4 + n_rows * f * 4, library)
+
+    return {
+        "bounce_step diff binned": b_job(
+            st0, rng0, plan, f"{nt} tiles x 512, grad depth 0, binned"),
+        "bounce_step diff flat": b_job(
+            st0, rng0, None, f"{nt} tiles x 512, grad depth 0, flat"),
+        "bounce_step diff": b_job(
+            st1, rng1, None, f"{nt} tiles x 512, grad depth 1, flat"),
+        "segment_accum": j_job(train["j_call"], "the first launch of a "
+                               "training step"),
+        "segment_accum vertices": j_job(train["j_vertex_call"],
+                                        "the vertex table"),
+    }
+
+
+def check_accum(errs, name, where, got, want):
+    """Kernel J vs its plain version: bit for bit."""
+    bad = int((got != want).sum())
+    log(f"compare {name} {where}: differing sums {bad}, max_abs "
+        f"{float((got - want).abs().max()):.3e}")
+    errs[name] = max(errs.get(name, 0.0), float((got - want).abs().max()))
+    if bad:
+        raise AssertionError(f"{name} kernel disagrees with its plain version "
+                             f"({where})")
+
+
+def check_accum_library(call):
+    """Kernel J vs ``index_add_`` (float atomics, any order) and both vs a
+    float64 sum.  Each sum within 1e-5 of its bin's sum of |ct|, or, for
+    a bin whose run is long enough that float32 rounding reaches that,
+    within 2 gamma_(n-1) of it (gamma_k = k u / (1 - k u), u = 2^-24: the
+    error bound of any order of recursive summation, so of both sums),
+    plus n 2^-126 (a float atomic add flushes a subnormal result to zero;
+    the kernel keeps subnormals, within 2^-149 an add); J within
+    gamma_(n-1) of the float64 sum plus n 2^-149.  Also the sort's
+    traffic."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import diff_gather as dg
+
+    (idx, ct, n_rows), _ = call
+    got = dg.segment_accum_rows(idx, ct, n_rows)
+    keep = (idx >= 0) & (idx < n_rows)
+    i = idx[keep].long()
+    lib = torch.zeros_like(got).index_add_(0, i, ct[keep])
+    exact = torch.zeros(got.shape, dtype=torch.float64, device=got.device
+                        ).index_add_(0, i, ct[keep].double())
+    scale = torch.zeros_like(exact).index_add_(0, i, ct[keep].abs().double())
+    counts = torch.bincount(i, minlength=n_rows)
+    k = (counts - 1).clamp(min=0).double()[:, None] * 2.0 ** -24
+    gamma = k / (1.0 - k)
+    n = counts.double()[:, None]
+    err = (got.double() - lib.double()).abs()
+    beyond_1e5 = int((err > 1e-5 * scale).sum())
+    tiny = int((scale < n * 2.0 ** -126).sum())
+    bad = int((err > torch.maximum(1e-5 * scale, 2 * gamma * scale)
+               + n * 2.0 ** -126).sum())
+    j_err = (got.double() - exact).abs()
+    bad += int((j_err > gamma * scale + n * 2.0 ** -149).sum())
+    rel = lambda e: float((e / scale.clamp(min=1e-300)).max())
+    log(f"compare segment_accum vs index_add_ on {tuple(ct.shape)} into "
+        f"{n_rows} rows: max |diff| {float(err.max()):.3e}, "
+        f"{beyond_1e5} of {err.numel()} sums beyond 1e-5 of sum |ct| "
+        f"({tiny} of them at sum |ct| below n 2^-126), {bad} beyond the "
+        f"rounding bound; vs a float64 sum, relative to "
+        f"sum |ct|: kernel {rel(j_err):.3e}, index_add_ "
+        f"{rel((lib.double() - exact).abs()):.3e}; longest run "
+        f"{int(counts.max())} rays (bin {int(counts.argmax())}), empty bins "
+        f"{int((counts == 0).sum())}; the sort moves {idx.numel() * 20} "
+        "bytes apart (int64 keys read and written, int32 order written)")
+    if bad:
+        raise AssertionError("segment_accum disagrees with index_add_")
 
 
 def ptxas_summary(text):
@@ -768,11 +1166,13 @@ def ptxas_summary(text):
     out, name, spill = [], None, "spills not reported"
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'_Z\d+(\w+?)(?:ILb(\d)E|9SceneArgs)", ln)
+                      r"'_Z\d+(\w+?)(?:ILb(\d)E(?:Lb(\d)E)?|9SceneArgs|PKf)",
+                      ln)
         if m:
             name = m.group(1)
             if m.group(2):
-                name += f"<{'cpuonly' if m.group(2) == '1' else 'gpu'}>"
+                name += f"<{'cpuonly' if m.group(2) == '1' else 'gpu'}"
+                name += ", diff>" if m.group(3) == "1" else ">"
             spill = "spills not reported"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -803,11 +1203,15 @@ def main():
     dev = torch.device(DEVICE)
     t_start = time.time()
 
-    # --- 2. build
+    # --- 2. build: one nvcc per source, all at once
     t0 = time.time()
-    _native.load()
-    log(f"build: {time.time() - t0:.1f} s ({_native.BUILD_LOG['path']}); "
-        f"ptxas: {ptxas_summary(_native.BUILD_LOG['ptxas'])}")
+    _native.build_all()
+    for name in _native.SOURCES:
+        _native.load(name)
+        b = _native.BUILD_LOG[name]
+        log(f"build {name}.cu: {b['seconds']:.1f} s ({b['path']}); "
+            f"ptxas: {ptxas_summary(b['ptxas'])}")
+    log(f"build: {time.time() - t0:.1f} s for {len(_native.SOURCES)} sources")
 
     # --- 3. kernels vs plain versions at 128x64
     errs = {}
@@ -901,7 +1305,13 @@ def main():
         "integrator)", soft, STAGED_FRAMES, smi, ["closest", "occluded"],
         iters=1, never=FUSED)
 
-    # --- 9. kernel times at full width beside the plain versions
+    # --- 9. the differentiable training path (bench.py --grad)
+    check_diff_small(dev, errs)
+    train = check_training(dev, smi)
+    check_accum_library(train["j_call"])
+    check_accum_library(train["j_vertex_call"])
+
+    # --- 10. kernel times at full width beside the plain versions
     from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
     from raytracinginonesemester_tpu_torch.ops import integrator
     from raytracinginonesemester_tpu_torch.render.renderer import render_scene
@@ -1013,41 +1423,59 @@ def main():
             lambda x=None: bk.block_occluded_plain(fo, fd, fgrid, ftmin,
                                                    ftmax, stats=x, **fkw),
             check_hits, f_bytes),
+        **diff_jobs(train),
     }
     records = time_kernels(smi, errs, jobs)
 
-    # which render's launches each record reports
-    runs = {"emit binned": ("main path, binned", main_counts),
-            "emit flat": ("main path, RT_BINNED=0", flat_counts),
-            "bounce_step": ("main path, binned", main_counts),
-            "resume": ("overflow render at cap=8", over_counts),
-            "render V2 binned": ("main path, RT_WAVEFRONT=0", d_counts),
-            "render terminal binned": ("frog terminal depth 4", term_counts),
-            "cpuonly emit binned": ("cpuonly_mirror 1080p", cpu_counts),
-            "cpuonly bounce_step": ("cpuonly_mirror 1080p", cpu_counts),
+    # which run's launches each record reports: (run, counts, counter)
+    tc = train["counts"]
+    training = f"training call, grad-bench config ({GRAD_STEPS} steps)"
+    runs = {"emit binned": ("main path, binned", main_counts, "emit"),
+            "emit flat": ("main path, RT_BINNED=0", flat_counts, "emit"),
+            "bounce_step": ("main path, binned", main_counts, "bounce_step"),
+            "resume": ("overflow render at cap=8", over_counts, "resume"),
+            "render V2 binned": ("main path, RT_WAVEFRONT=0", d_counts,
+                                 "render"),
+            "render terminal binned": ("frog terminal depth 4", term_counts,
+                                       "render"),
+            "cpuonly emit binned": ("cpuonly_mirror 1080p", cpu_counts,
+                                    "emit"),
+            "cpuonly bounce_step": ("cpuonly_mirror 1080p", cpu_counts,
+                                    "bounce_step"),
             "cpuonly resume": ("cpuonly_mirror 1080p overflow render at "
-                               "cap=8", cpu_over_counts),
+                               "cap=8", cpu_over_counts, "resume"),
             "cpuonly render binned": ("cpuonly_mirror 1080p, RT_WAVEFRONT=0",
-                                      cpu_d_counts),
-            "closest": ("frog 1080p reference_cpu (staged)", ref_counts),
+                                      cpu_d_counts, "render"),
+            "closest": ("frog 1080p reference_cpu (staged)", ref_counts,
+                        "closest"),
             "closest bounce": ("frog 1080p reference_cpu (staged)",
-                               ref_counts),
+                               ref_counts, "closest"),
             "cpuonly closest": ("cpuonly_mirror 1080p area light x32 "
-                                "(staged)", soft_counts),
+                                "(staged)", soft_counts, "closest"),
             "occluded": ("cpuonly_mirror 1080p area light x32 (staged)",
-                         soft_counts)}
+                         soft_counts, "occluded"),
+            "bounce_step diff binned": (training, tc, "bounce_step[binned]"),
+            "bounce_step diff": (training, {"flat": tc["bounce_step[diff]"]
+                                            - tc["bounce_step[binned]"]},
+                                 "flat"),
+            "bounce_step diff flat": ("not on the training path (depth 0 "
+                                      "walks the binned plan)", {"none": 0},
+                                      "none"),
+            "segment_accum": (training, tc, "segment_accum"),
+            "segment_accum vertices": (training, tc, "segment_accum")}
     for key, rec in records.items():
-        label, counts = runs[key]
-        rec.update(variant=key, launches=counts[rec["name"]],
+        label, counts, counter = runs[key]
+        rec.update(variant=key, launches=counts[counter],
                    launches_in=label, max_abs_err=errs[rec["name"]])
     main_keys = ("emit binned", "bounce_step", "resume", "render V2 binned",
-                 "closest", "occluded")
+                 "closest", "occluded", "segment_accum")
     log(f"ms/frame on {smi}: main path binned {ms_binned:.3f}, "
         f"RT_BINNED=0 {ms_flat:.3f}, RT_WAVEFRONT=0 {ms_d:.3f}, terminal "
         f"{ms_term:.3f}, cpuonly_mirror {ms_cpu:.3f}, cpuonly_mirror "
         f"RT_WAVEFRONT=0 {ms_cpu_d:.3f}; staged integrator: frog "
         f"reference_cpu {ms_ref:.3f}, cpuonly_mirror area light x32 "
-        f"{ms_soft:.3f}; whole run {time.time() - t_start:.0f} s")
+        f"{ms_soft:.3f}; training, grad-bench config {train['ms_step']:.3f} "
+        f"ms/step; whole run {time.time() - t_start:.0f} s")
     log(json.dumps({"variants": [r for k, r in records.items()
                                  if k not in main_keys]}))
     log(json.dumps({"kernels": [records[k] for k in main_keys]}))

@@ -2,15 +2,16 @@
 
 A second package beside the JAX reference ``raytracinginonesemester_tpu``,
 with the same module paths and public names.  It imports ``torch`` and
-never ``jax``.  The path tracer's wavefront main path (gpu dialect) runs
-through hand-written CUDA kernels (``csrc/megakernel.cu``) on a CUDA
-device and through their plain PyTorch versions on the CPU.
+never ``jax``.  The path tracer runs through hand-written CUDA kernels
+(``csrc/megakernel.cu``, ``csrc/segment_accum.cu``) on a CUDA device and
+through their plain PyTorch versions on the CPU.
 
 - ``core``   — vec math, camera, bit-compatible RNG
 - ``io``     — OBJ loading, PNG/PPM codecs (copied from the JAX package)
 - ``scene``  — scene configs, transforms, materials/lights, scene building
 - ``ops``    — block grid, wavefront kernels and their scheduling
 - ``render`` — whole-image render drivers
+- ``diff``   — differentiable rendering and inverse optimisation
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,9 @@
 // Replaces the Pallas TPU kernels of raytracinginonesemester_tpu/ops/
 // megakernel.py: _emit_kernel (emit_tiles), _bounce_step_kernel
 // (bounce_step_tiles), _resume_kernel (resume_tiles) and _render_kernel
-// (render_tiles), in both reference dialects; and of ops/pallas_kernels.py:
+// (render_tiles), in both reference dialects, and _bounce_step_kernel's
+// oracle rows (diff_out) with its binned depth 0 (cand_*); and of
+// ops/pallas_kernels.py:
 // _closest_kernel (pallas_block_closest) and _occluded_kernel
 // (pallas_block_occluded), the staged integrator's closest_kernel and
 // occluded_kernel below.  The kernels share the
@@ -177,6 +179,15 @@ __device__ __forceinline__ float mt(const float* T, size_t stride,
 struct Hit {
   float t, u, v;
   int id, k;  // global triangle id (-1: none), grid slot block*B + lane
+};
+
+// The oracle rows of one bounce (bounce_step_tiles(diff_out=True)): the
+// winner's t, u, v and global id, the per-light visibility bits and the
+// decision bits (1 found, 2 diffuse, 4 mirror, 8 alive after).  The
+// defaults are a dead lane's.
+struct Capture {
+  float t = kF32Max, u = 0.0f, v = 0.0f;
+  int id = -1, vis = 0, dec = 0;
 };
 
 __device__ __forceinline__ void take(Hit& h, float t, float u, float v,
@@ -396,9 +407,11 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
 // One closest hit + direct light + Russian-roulette step on an alive ray
 // (the loop body of TraceRayIterative, query.h:165-216, or of CPUOnly's
 // TraceRay).  tile >= 0: closest hit walks that tile's binned candidates.
-template <bool CPU>
+// DIFF (gpu dialect only): also fill *cap with the oracle rows; the other
+// instantiations compile without it.
+template <bool CPU, bool DIFF = false>
 __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
-                       Ray& r, int tile) {
+                       Ray& r, int tile, Capture* cap = nullptr) {
   const float* o = r.bo;
   const float* d = r.bd;
   Hit h = tile >= 0 ? closest_binned(s, tile, o, d)
@@ -441,6 +454,7 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
     if (!facing) continue;  // scale == 0: adds exactly 0
     if (!CPU)
       vis = occluded(s, sh, p, ld, s.shadow_tmin, dist, dist) ? 0.0f : 1.0f;
+    if (DIFF && vis > 0.0f) cap->vis |= 1 << li;
     float hx = ld[0] + vx, hy = ld[1] + vy, hz = ld[2] + vz;
     float hlen = sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-38f));
     float ndoth = fmaxf((n[0] * hx + n[1] * hy + n[2] * hz) / hlen, 0.0f);
@@ -512,6 +526,14 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
   }
   const bool tiny = tp[0] < 1e-4f && tp[1] < 1e-4f && tp[2] < 1e-4f;
   r.alive = (bounced && !tiny) ? 1.0f : 0.0f;
+  if (DIFF) {
+    cap->t = h.t;
+    cap->u = h.u;
+    cap->v = h.v;
+    cap->id = h.id;
+    cap->dec = (hit ? 1 : 0) | (take_diff ? 2 : 0) | (take_mirror ? 4 : 0) |
+               (r.alive > 0.0f ? 8 : 0);
+  }
 }
 
 // Camera ray of one sample (query.cu:36-43, camera.h:49-53): Wang jitter
@@ -615,10 +637,16 @@ emit_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
   store_ray(r, rt, so, ro);
 }
 
-template <bool CPU>
+// One bounce on packed state.  DIFF (the detached oracle of the
+// differentiable integrator, _bounce_step_kernel's diff_out): also write the
+// (nt*8, rt) oracle rows [t, u, v, id, vis bits, decision bits, 0, 0], ints
+// as exact floats, dead lanes at the defaults; with a binned plan
+// (cand_chunk) the closest hit walks the tile's candidates, as emit does.
+template <bool CPU, bool DIFF>
 __global__ void __launch_bounds__(kThreads)
 bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
-                   int n_rays, int rt, float* st_out, int* rng_out) {
+                   int n_rays, int rt, float* st_out, int* rng_out,
+                   float* diff_out) {
   const Shared sh = stage_shared(s);
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n_rays) return;
@@ -627,8 +655,22 @@ bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
   const size_t ro = (size_t)tile * 8 * rt + lane;
   Ray r;
   load_ray(st_in + so, rng_in + ro, rt, r);
-  if (r.alive > 0.0f) bounce<CPU>(s, sh, s.cam, r, -1);  // dead rays pass
+  Capture cap;
+  if (r.alive > 0.0f)  // dead rays pass
+    bounce<CPU, DIFF>(s, sh, s.cam, r, DIFF && s.cand_chunk ? tile : -1,
+                      DIFF ? &cap : nullptr);
   store_ray(r, rt, st_out + so, rng_out + ro);
+  if (DIFF) {
+    float* dv = diff_out + (size_t)tile * 8 * rt + lane;
+    dv[0] = cap.t;
+    dv[rt] = cap.u;
+    dv[2 * rt] = cap.v;
+    dv[3 * rt] = (float)cap.id;
+    dv[4 * rt] = (float)cap.vis;
+    dv[5 * rt] = (float)cap.dec;
+    dv[6 * rt] = 0.0f;
+    dv[7 * rt] = 0.0f;
+  }
 }
 
 template <bool CPU>
@@ -796,16 +838,21 @@ int rt_emit(const SceneArgs* s, const int* xs, const int* ys,
   return (int)cudaGetLastError();
 }
 
+// diff_out: nullptr, or the (nt*8, rt) oracle rows (gpu dialect only).
+// A binned plan (cand_chunk) is taken only with diff_out.
 int rt_bounce_step(const SceneArgs* s, const float* st_in, const int* rng_in,
                    int n_rays, int rt, float* st_out, int* rng_out,
-                   void* stream) {
-  auto kernel =
-      s->cpuonly ? &bounce_step_kernel<true> : &bounce_step_kernel<false>;
+                   float* diff_out, void* stream) {
+  if ((diff_out && s->cpuonly) || (s->cand_chunk && !diff_out))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = s->cpuonly ? &bounce_step_kernel<true, false>
+                : diff_out ? &bounce_step_kernel<false, true>
+                           : &bounce_step_kernel<false, false>;
   int e = prepare(kernel, *s);
   if (e) return e;
   kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
            (cudaStream_t)stream>>>(*s, st_in, rng_in, n_rays, rt, st_out,
-                                   rng_out);
+                                   rng_out, diff_out);
   return (int)cudaGetLastError();
 }
 

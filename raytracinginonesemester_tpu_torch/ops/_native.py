@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernels (``csrc/megakernel.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` into a shared library with a plain C
+Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
-seconds.  The build happens at first use, into ``build/`` beside the
-package (``RT_TORCH_BUILD_DIR`` overrides), under a name that hashes the
-source and the flags, so an edited source never loads a stale library.
-Nothing here runs at import time.
+seconds.  ``megakernel.cu`` holds kernels A-F, ``segment_accum.cu`` kernel
+J.  The build happens at first use, into ``build/`` beside the package
+(``RT_TORCH_BUILD_DIR`` overrides), under a name that hashes the source and
+the flags, so an edited source never loads a stale library;
+``build_all`` starts one ``nvcc`` per source at once.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -16,11 +18,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
-__all__ = ["NVCC_FLAGS", "SceneArgs", "build", "load"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "SceneArgs", "build", "build_all", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "megakernel.cu")
+SOURCES = ("megakernel", "segment_accum")
 
 # exact IEEE division/sqrt and no FMA contraction: the kernels keep the
 # op order of the plain versions and of the JAX reference
@@ -29,8 +32,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
-_LIB = None
-BUILD_LOG = {"seconds": None, "ptxas": "", "path": None}
+_LIBS = {}
+# per source: build seconds (0.0 when cached), ptxas output, library path
+BUILD_LOG = {name: {"seconds": None, "ptxas": "", "path": None}
+             for name in SOURCES}
 
 
 class SceneArgs(ctypes.Structure):
@@ -75,53 +80,86 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile ``megakernel.cu`` (if not already built) and return the
-    path of the shared library."""
-    import time
-
-    with open(_SRC, "rb") as f:
+def _target(name: str):
+    """(source path, library path) of one kernel source."""
+    if name not in SOURCES:
+        raise ValueError(f"unknown kernel source {name!r}")
+    src = os.path.join(_PKG, "csrc", f"{name}.cu")
+    with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
     out_dir = os.environ.get("RT_TORCH_BUILD_DIR",
                              os.path.join(os.path.dirname(_PKG), "build"))
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"librt_megakernel_{digest.hexdigest()[:12]}.so")
-    BUILD_LOG["path"] = path
-    if os.path.exists(path):
-        BUILD_LOG["seconds"] = 0.0
-        return path
-    tmp = f"{path}.{os.getpid()}.tmp"
+    return src, os.path.join(out_dir,
+                             f"librt_{name}_{digest.hexdigest()[:12]}.so")
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every source in ``names`` that is not built yet, one
+    ``nvcc`` process each, all started together -> {name: library path}."""
+    procs, paths = {}, {}
     t0 = time.time()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    BUILD_LOG["seconds"] = time.time() - t0
-    BUILD_LOG["ptxas"] = proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builders never see half a file
-    return path
+    for name in names:
+        src, path = _target(name)
+        paths[name] = path
+        BUILD_LOG[name]["path"] = path
+        if os.path.exists(path):
+            if BUILD_LOG[name]["seconds"] is None:
+                BUILD_LOG[name]["seconds"] = 0.0  # built before this process
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        BUILD_LOG[name]["seconds"] = time.time() - t0
+        BUILD_LOG[name]["ptxas"] = err
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, paths[name])  # atomic: no reader sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def load():
-    """The loaded kernel library with its argtypes declared."""
-    global _LIB
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib = ctypes.CDLL(build())
-        vp, i, sp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(SceneArgs)
+def build(name: str = "megakernel") -> str:
+    """Compile ``csrc/<name>.cu`` (if not already built) and return the
+    path of its shared library."""
+    return build_all((name,))[name]
+
+
+def _declare(name: str, lib) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    if name == "megakernel":
+        sp = ctypes.POINTER(SceneArgs)
         lib.rt_emit.argtypes = [sp, vp, vp, vp, i, i, i, i, vp, vp, vp]
-        lib.rt_bounce_step.argtypes = [sp, vp, vp, i, i, vp, vp, vp]
+        lib.rt_bounce_step.argtypes = [sp, vp, vp, i, i, vp, vp, vp, vp]
         lib.rt_resume.argtypes = [sp, vp, vp, i, i, i, vp, vp, vp, vp]
         lib.rt_render.argtypes = [sp, vp, vp, vp, i, i, i, i, i, i, i,
                                   vp, vp, vp, vp]
         lib.rt_closest.argtypes = [sp, vp, vp, vp, i, i, vp, i, vp, vp, vp,
                                    vp, vp, vp, vp]
         lib.rt_occluded.argtypes = [sp, vp, vp, vp, vp, i, vp, vp]
-        for fn in (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
-                   lib.rt_render, lib.rt_closest, lib.rt_occluded):
-            fn.restype = ctypes.c_int
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return lib
+        fns = (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
+               lib.rt_render, lib.rt_closest, lib.rt_occluded)
+    else:
+        lib.rt_segment_accum.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp]
+        fns = (lib.rt_segment_accum,)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+
+
+def load(name: str = "megakernel"):
+    """The loaded library of ``csrc/<name>.cu`` with its argtypes
+    declared."""
+    with _LOCK:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(build(name))
+            _declare(name, lib)
+            _LIBS[name] = lib
+        return _LIBS[name]

@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 __all__ = ["HitData", "FLT_EPSILON", "F32_MAX", "mt_single",
            "intersect_closest", "occluded", "make_hit_frame"]
@@ -88,12 +89,27 @@ def _bounds(tmin, tmax, r, dev):
     return full(tmin), full(tmax)
 
 
+def _chunk_closest(origins, dirs, tri, tmin, tmax, det_eps):
+    """Closest hit within one triangle chunk -> (t, u, v, j) (R,), the
+    first index of the minimum winning (F32_MAX where none)."""
+    t, u, v, ok = _chunk_hits(origins, dirs, tri, det_eps, tmin, tmax)
+    t = torch.where(ok, t, F32_MAX)
+    ct, j = t.min(dim=1)
+    rows = torch.arange(t.shape[0], device=t.device)
+    return ct, u[rows, j], v[rows, j], j
+
+
 def intersect_closest(origins, dirs, vertices, tmin=1e-4, tmax=F32_MAX, *,
                       det_eps: float = 1e-8, chunk: int = 512) -> HitData:
     """Closest hit of each ray against all triangles ``vertices``
     (T, 3, 3), T a multiple of ``chunk``; ``tmin``/``tmax`` broadcast to
     (R,).  Strictly closer wins, so the lowest triangle index survives
-    equal t (the reference's sequential scan)."""
+    equal t (the reference's sequential scan).
+
+    Differentiable in every input.  Under autograd each chunk is
+    checkpointed (``jax.checkpoint(body)`` in the JAX scan): the backward
+    pass recomputes a chunk's (R, chunk) intermediates instead of keeping
+    every chunk's."""
     r = origins.shape[0]
     dev = origins.device
     n_tri = vertices.shape[0]
@@ -101,20 +117,23 @@ def intersect_closest(origins, dirs, vertices, tmin=1e-4, tmax=F32_MAX, *,
     if n_tri % chunk:
         raise ValueError("triangle count must be padded to the chunk size")
     tmin, tmax = _bounds(tmin, tmax, r, dev)
+    remat = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (origins, dirs, vertices))
     best_t = torch.full((r,), F32_MAX, device=dev)
     best_u = torch.zeros(r, device=dev)
     best_v = torch.zeros(r, device=dev)
     best_idx = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    rows = torch.arange(r, device=dev)
     for c in range(n_tri // chunk):
-        t, u, v, ok = _chunk_hits(origins, dirs,
-                                  vertices[c * chunk:(c + 1) * chunk],
-                                  det_eps, tmin, tmax)
-        t = torch.where(ok, t, F32_MAX)
-        ct, j = t.min(dim=1)  # first index of the minimum
+        args = (origins, dirs, vertices[c * chunk:(c + 1) * chunk], tmin,
+                tmax, det_eps)
+        if remat:
+            ct, cu, cv, j = torch.utils.checkpoint.checkpoint(
+                _chunk_closest, *args, use_reentrant=False)
+        else:
+            ct, cu, cv, j = _chunk_closest(*args)
         better = ct < best_t
-        best_u = torch.where(better, u[rows, j], best_u)
-        best_v = torch.where(better, v[rows, j], best_v)
+        best_u = torch.where(better, cu, best_u)
+        best_v = torch.where(better, cv, best_v)
         best_idx = torch.where(better, (c * chunk + j).to(torch.int32),
                                best_idx)
         best_t = torch.where(better, ct, best_t)
@@ -142,7 +161,7 @@ def occluded(origins, dirs, vertices, tmin=1e-4, tmax=F32_MAX, *,
 
 
 def make_hit_frame(origins, dirs, hits: HitData, vertices, normals,
-                   mode: str = "gpu"):
+                   mode: str = "gpu", tri=None, tn=None):
     """Hit position, shading normal and front_face of a ``HitData``.
 
     - ``"hw1"``: raw interpolated vertex normal (``HW1/include/ray.h:108-110``);
@@ -151,12 +170,16 @@ def make_hit_frame(origins, dirs, hits: HitData, vertices, normals,
     - ``"gpu"``: geometric sidedness, zero-length fallback, hemisphere
       alignment (``GPUandCPU/include/query.h:113-126``).
 
+    ``tri``/``tn``: the winners' (R, 3, 3) vertices and normals when the
+    caller has gathered them already (the differentiable integrator,
+    through ``ops.diff_gather.gather_rows``).
+
     The geometric normal is normalised with ``max(len, 1e-20)`` as in the
     JAX package (the block grid clamps ``len**2`` at 1e-38 instead; each
     keeps its own).  Values where ``hits.hit`` is False are arbitrary."""
     idx = torch.clamp(hits.tri_idx.long(), min=0)
-    tri = vertices[idx]  # (R, 3, 3)
-    tn = normals[idx]
+    tri = vertices[idx] if tri is None else tri  # (R, 3, 3)
+    tn = normals[idx] if tn is None else tn
     u, v = hits.u[:, None], hits.v[:, None]
     w = 1.0 - u - v
     p = origins + hits.t[:, None] * dirs

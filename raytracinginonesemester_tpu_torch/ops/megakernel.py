@@ -55,12 +55,15 @@ __all__ = ["RAY_TILE", "SceneRows", "megakernel_ineligible_reason",
            "camera_tile_plan", "emit_tiles", "bounce_step_tiles",
            "resume_tiles", "render_tiles", "emit_tiles_plain",
            "bounce_step_tiles_plain", "resume_tiles_plain",
-           "render_tiles_plain", "launch_counts", "reset_launch_counts"]
+           "render_tiles_plain", "launch_counts", "variant_launch_counts",
+           "reset_launch_counts", "DIFF_ROWS"]
 
 RAY_TILE = 512
 _ST_ROWS = 16  # rows: bo xyz, bd xyz, tp rgb, rd rgb, alive, pad x3
 _ST_LIVE_ROWS = 13
 _ST_ALIVE_ROW = 12
+# the oracle rows of bounce_step_tiles(diff_out=True), rows 6 and 7 zero
+DIFF_ROWS = ("t", "u", "v", "id", "vis", "dec")
 
 F32_MAX = float(np.finfo(np.float32).max)
 _INT_MAX = 2 ** 31 - 1
@@ -95,7 +98,7 @@ def megakernel_ineligible_reason(scene, jitter_mode: str):
     if scene.accel is None:
         return "no block-grid accel (accel=None)"
     if getattr(scene, "differentiable", False):
-        return "differentiable scene (the differentiable path is not ported)"
+        return "differentiable scene (staged integrator only)"
     if scene.dialect == "gpu":
         if jitter_mode != "wang":
             return f"gpu dialect with jitter_mode={jitter_mode!r} (needs 'wang')"
@@ -583,14 +586,16 @@ def _visibility_plain(rows, sh: _Shade, li, radius, p, to, ld, dist,
     return unocc / float(sh.shadow_samples), rng, sum(pairs)
 
 
-def _bounce_plain(rows: SceneRows, st: dict, sh: _Shade, cand_plan=None):
+def _bounce_plain(rows: SceneRows, st: dict, sh: _Shade, cand_plan=None,
+                  capture=None):
     """One closest hit + shade + RR step (the loop body of
     ``TraceRayIterative``, ``query.h:165-216``, or of CPUOnly's
     ``TraceRay``) on the flat per-ray state ``st``, updated in place.
     Dead rays pass through unchanged.  ``cand_plan``: walk the binned
     candidates (depth 0, rays in tile order) instead of the blocks.
-    Returns the ray-triangle pairs the kernels test for this step (a
-    0-d tensor)."""
+    ``capture``: a dict that receives the oracle rows of the gpu dialect
+    (``DIFF_ROWS``), dead rays at their defaults.  Returns the
+    ray-triangle pairs the kernels test for this step (a 0-d tensor)."""
     alive = st["alive"] > 0.0
     dev = alive.device
     big = torch.tensor(1e30, device=dev)
@@ -626,6 +631,7 @@ def _bounce_plain(rows: SceneRows, st: dict, sh: _Shade, cand_plan=None):
     rng_s = rng0
     pairs = best.pairs
     dist_floor = 1e-24 if sh.cpuonly else 1e-38
+    vis_bits = torch.zeros(t_hit.shape, dtype=torch.int64, device=dev)
     radii = rows.lights[:, 6].cpu().tolist()
     for li, radius in enumerate(radii):
         lrow = rows.lights[li]
@@ -640,6 +646,7 @@ def _bounce_plain(rows: SceneRows, st: dict, sh: _Shade, cand_plan=None):
             rows, sh, li, radius, (px, py, pz), (tox, toy, toz),
             (ldx, ldy, ldz), dist, facing, hit & alive, rng_s)
         pairs = pairs + n
+        vis_bits = vis_bits | torch.where(vis > 0.0, 1 << li, 0)
         hx, hy, hz = ldx + vx, ldy + vy, ldz + vz
         hlen = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-38))
         ndoth = torch.clamp((nx * hx + ny * hy + nz * hz) / hlen, min=0.0)
@@ -723,6 +730,12 @@ def _bounce_plain(rows: SceneRows, st: dict, sh: _Shade, cand_plan=None):
     st["alive"] = torch.where(alive, new_alive, st["alive"])
     # the disk draws advanced hit rays only, the RR draw bouncing ones
     st["rng"] = torch.where(alive, rng1, rng0)
+    if capture is not None:
+        dec = (torch.where(hit & alive, 1, 0) | torch.where(take_diff, 2, 0)
+               | torch.where(take_mirror, 4, 0)
+               | torch.where(st["alive"] > 0.0, 8, 0))
+        capture.update(t=t_hit, u=best.u, v=best.v, id=best.id,
+                       vis=vis_bits, dec=dec)
     return pairs
 
 
@@ -820,18 +833,30 @@ def emit_tiles_plain(rows: SceneRows, xs_p, ys_p, has_work, sample_offset,
     return _pack(st, nt, RAY_TILE)
 
 
+def _pack_diff(cap: dict, nt: int, rt: int) -> torch.Tensor:
+    """Oracle rows -> the (nt*8, rt) float32 block of ``diff_out``."""
+    planes = [cap[k].to(torch.float32) for k in DIFF_ROWS]
+    planes += [torch.zeros_like(planes[0])] * (8 - len(planes))
+    return torch.stack([pl.reshape(nt, rt) for pl in planes], dim=1).reshape(
+        nt * 8, rt).contiguous()
+
+
 def bounce_step_tiles_plain(rows: SceneRows, state, rng_state,
                             diffuse_bounce, det_eps=1e-8, tmin=1e-4,
                             shadow_eps=1e-3, shadow_tmin=1e-4, *,
-                            dialect="gpu", shadow_samples=1,
-                            stats=None):
-    """Plain version of the bounce-step kernel."""
+                            dialect="gpu", shadow_samples=1, diff_out=False,
+                            cand_plan=None, stats=None):
+    """Plain version of the bounce-step kernel; ``diff_out`` and
+    ``cand_plan`` as in ``bounce_step_tiles``."""
     sh = _plain_shade(diffuse_bounce, det_eps, tmin, shadow_eps,
                       shadow_tmin, dialect, shadow_samples)
+    _check_diff(sh, diff_out, cand_plan, state.shape[1])
     nt = state.shape[0] // _ST_ROWS
     st = _unpack(state, rng_state)
-    _tally(stats, _bounce_plain(rows, st, sh))
-    return _pack(st, nt, state.shape[1])
+    cap = {} if diff_out else None
+    _tally(stats, _bounce_plain(rows, st, sh, cand_plan, cap))
+    out = _pack(st, nt, state.shape[1])
+    return out + (_pack_diff(cap, nt, state.shape[1]),) if diff_out else out
 
 
 def _bounces_plain(rows, st, sh, first_depth, max_bounces):
@@ -1011,22 +1036,50 @@ def emit_tiles(scene, xs, ys, sample_offset=0, *, det_eps: float = 1e-8,
     return st, rng
 
 
+def _check_diff(sh: _Shade, diff_out: bool, cand_plan, rt: int) -> None:
+    """The oracle rows exist in the gpu dialect only, and the binned
+    bounce serves the oracle's depth 0 only (the JAX asserts,
+    ``megakernel.py:2743-2752``)."""
+    if diff_out and sh.cpuonly:
+        raise ValueError("diff_out: the oracle rows exist in the gpu "
+                         "dialect only")
+    if cand_plan is not None and (not diff_out or rt != RAY_TILE):
+        raise ValueError("a binned bounce needs diff_out=True and "
+                         f"{RAY_TILE}-ray tiles")
+
+
 def bounce_step_tiles(scene, state, rng_state, *, det_eps: float = 1e-8,
                       tmin: float = 1e-4, shadow_eps: float = 1e-3,
                       shadow_tmin: float = 1e-4, dialect: str = "gpu",
-                      shadow_samples: int = 1, rows: SceneRows = None):
+                      shadow_samples: int = 1, diff_out: bool = False,
+                      cand_plan=None, rows: SceneRows = None):
     """One bounce over packed state tiles -> (state', rng').  The JAX
     version's ``order``/``entry`` plan operands are not taken: the port
-    always runs the flat scan, which needs no plan."""
+    always runs the flat scan, which needs no plan.
+
+    ``diff_out`` (gpu dialect): also return the (nt*8, rt) float32 oracle
+    rows of the differentiable integrator -> (state', rng', diff): per
+    ray [winner t (F32_MAX on a miss), u, v, global triangle id (-1),
+    per-light visibility bits, decision bits (1 found, 2 diffuse, 4
+    mirror, 8 alive after), 0, 0], integers as exact floats, dead rays
+    at those defaults.  ``cand_plan`` (with ``diff_out`` only): a binned
+    camera plan (``ops.binned``) built for this tile stream and camera;
+    the closest hit then walks each tile's candidates (depth 0)."""
     sh = _shade_of(scene, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
                    shadow_samples)
     _check_rows(state, rng_state)
+    nt = state.shape[0] // _ST_ROWS
+    rt = state.shape[1]
+    _check_diff(sh, diff_out, cand_plan, rt)
+    if cand_plan is not None:
+        _check_cand_plan(cand_plan, scene.camera, nt)
     rows = _scene_rows(scene, scene.accel) if rows is None else rows
     if _device_kind(state) == "cpu":
         return bounce_step_tiles_plain(
             rows, state, rng_state, sh.diffuse_bounce, det_eps, tmin,
             shadow_eps, shadow_tmin, dialect=dialect,
-            shadow_samples=shadow_samples)
+            shadow_samples=shadow_samples, diff_out=diff_out,
+            cand_plan=cand_plan)
     from ._native import load
 
     lib = load()
@@ -1034,14 +1087,18 @@ def bounce_step_tiles(scene, state, rng_state, *, det_eps: float = 1e-8,
     rng_state = rng_state.contiguous()
     st_out = torch.empty_like(state)
     rng_out = torch.empty_like(rng_state)
-    nt = state.shape[0] // _ST_ROWS
-    rt = state.shape[1]
-    args = _scene_args(rows, sh)
+    diff = (torch.empty(nt * 8, rt, dtype=torch.float32, device=state.device)
+            if diff_out else None)
+    args = _scene_args(rows, sh, cand_plan)
     err = lib.rt_bounce_step(ctypes.byref(args), _ptr(state), _ptr(rng_state),
                              nt * rt, rt, _ptr(st_out), _ptr(rng_out),
-                             _stream())
+                             _ptr(diff) if diff_out else None, _stream())
     _raise_on(lib, err, "bounce_step")
     bounce_step_tiles.launches += 1
+    if diff_out:
+        bounce_step_tiles.diff_launches += 1
+        bounce_step_tiles.binned_launches += int(cand_plan is not None)
+        return st_out, rng_out, diff
     return st_out, rng_out
 
 
@@ -1124,11 +1181,19 @@ def render_tiles(scene, xs, ys, spp: int, sample_offset=0, *,
     return torch.stack([a.reshape(np_rays)[:n] for a in outs], dim=1)
 
 
-# launch counters: each wrapper adds one where it launches its kernel
+# launch counters: each wrapper adds one where it launches its kernel;
+# bounce_step's oracle (diff_out) and binned launches are also counted apart
 _WRAPPERS = {"emit": emit_tiles, "bounce_step": bounce_step_tiles,
              "resume": resume_tiles, "render": render_tiles}
-for _fn in _WRAPPERS.values():
-    _fn.launches = 0
+_VARIANTS = {"bounce_step[diff]": "diff_launches",
+             "bounce_step[binned]": "binned_launches"}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
+    for attr in _VARIANTS.values():
+        setattr(bounce_step_tiles, attr, 0)
 
 
 def launch_counts() -> dict:
@@ -1136,6 +1201,11 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
-def reset_launch_counts() -> None:
-    for fn in _WRAPPERS.values():
-        fn.launches = 0
+def variant_launch_counts() -> dict:
+    """bounce_step's oracle and binned launches since the last reset
+    (each also counted under "bounce_step")."""
+    return {name: getattr(bounce_step_tiles, attr)
+            for name, attr in _VARIANTS.items()}
+
+
+reset_launch_counts()

@@ -9,8 +9,9 @@ scenes the fused kernels take render on the staged wavefront
 (``ops.megakernel.render_tiles``); every other scene renders through the
 staged integrator (``accumulate_samples`` -> ``ops.integrator.trace_rays``,
 kernels E and F), with a one-time warning that names the reason.
-Differentiable scenes raise ``NotImplementedError``: that path is not
-ported yet.
+Differentiable scenes render there too, without a warning (the fused
+kernels have no gradient): through kernel B's oracle rows and kernel J
+in the backward pass (``ops.integrator``).
 """
 
 from __future__ import annotations
@@ -71,13 +72,6 @@ def resolve_jitter_mode(scene: Scene, jitter_mode: str, spp: int) -> str:
     return "wang" if (scene.dialect == "gpu" or spp > 1) else "center"
 
 
-def _require_ported(scene: Scene) -> None:
-    if getattr(scene, "differentiable", False):
-        raise NotImplementedError(
-            "scene not covered by the port: differentiable scene (the "
-            "differentiable path is not ported)")
-
-
 def _fused(scene: Scene, jitter_mode: str) -> bool:
     """Whether the fused kernels (A-D) take the scene, as the JAX
     package decides (``megakernel_eligible``)."""
@@ -86,12 +80,13 @@ def _fused(scene: Scene, jitter_mode: str) -> bool:
 
 def _warn_if_fallback(scene: Scene, jitter_mode: str, spp: int) -> None:
     """One warning per reason when a scene falls off the fused kernels
-    onto the staged integrator, as the JAX package warns."""
+    onto the staged integrator, as the JAX package warns; none for a
+    differentiable scene, which has no faster option."""
     from ..utils.logging import warn_once
 
     reason = megakernel_ineligible_reason(
         scene, resolve_jitter_mode(scene, jitter_mode, spp))
-    if reason is not None:
+    if reason is not None and not reason.startswith("differentiable"):
         warn_once(f"mk-fallback:{reason}",
                   f"scene falls off the fused kernels ({reason}); rendering "
                   "via the staged integrator (kernels E and F)")
@@ -116,11 +111,9 @@ def resolve_wavefront(scene: Scene, jitter_mode: str = "auto",
     always takes the wavefront, "0" never.  ``RT_WAVEFRONT_CAP``: "auto"
     (calibrate, cached in memory and on disk) or a tile count.  Terminal
     scenes (no diffuse bounce, every kr == 0) and scenes the fused
-    kernels do not take never take the wavefront.  Differentiable scenes
-    raise ``NotImplementedError``."""
+    kernels do not take never take the wavefront."""
     spp_eff = spp_override if spp_override is not None else scene.spp
     jm = resolve_jitter_mode(scene, jitter_mode, spp_eff)
-    _require_ported(scene)
     wf_env = os.environ.get("RT_WAVEFRONT", "auto")
     wavefront = wf_env in ("1", "auto")
     cap = None
@@ -162,7 +155,6 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
     if os.environ.get("RT_BINNED", "auto") == "0":
         return None
     spp_eff = spp_override if spp_override is not None else scene.spp
-    _require_ported(scene)
     if not _fused(scene, resolve_jitter_mode(scene, jitter_mode, spp_eff)):
         return None
     from ..ops.binned import build_camera_candidate_plan, plan_fingerprint
@@ -270,7 +262,6 @@ def _frame_accum(scene: Scene, xs, ys, spp: int, sample_offset: int,
 
 def _dispatch(scene, jitter_mode, spp, cand_plan, capacity_tiles):
     if capacity_tiles is not None:
-        _require_ported(scene)
         wavefront, cap = True, int(capacity_tiles)
     else:
         wavefront, cap = resolve_wavefront(scene, jitter_mode, spp)

@@ -75,8 +75,8 @@ def geometry_from_mesh(verts: np.ndarray, normals: np.ndarray,
 class Scene:
     """Fully built render input: geometry, materials, lights, camera and
     the block grid, all on ``camera.device``.  ``terminal_only`` is True
-    when no material has kr > 0.  ``differentiable`` scenes are not
-    supported by the port yet (renderers raise)."""
+    when no material has kr > 0.  ``differentiable`` scenes render through
+    the staged integrator's differentiable modes (``ops.integrator``)."""
 
     geometry: Geometry
     materials: MaterialTable

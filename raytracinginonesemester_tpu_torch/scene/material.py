@@ -5,7 +5,9 @@ PyTorch port of ``raytracinginonesemester_tpu.scene.material``:
 indexed by object id, ``Light`` (``CPUOnly/include/raytracer.h:38-46``,
 GPU variant ``GPUandCPU/include/scene.h:21-25``) likewise.  The JAX
 package's one-hot MXU gather (``gather_table_small``) is a TPU
-workaround; here ``gather`` is plain indexing.
+workaround; here ``gather`` is plain indexing, or, when a field is being
+differentiated, one ``ops.diff_gather.gather_rows`` of the packed table,
+whose backward pass is the deterministic kernel J.
 """
 
 from __future__ import annotations
@@ -67,10 +69,25 @@ class MaterialTable:
     def gather(self, obj_id: torch.Tensor) -> "MaterialTable":
         """Per-hit materials by object id (``assignMaterialToHit``,
         ``GPUandCPU/include/query.h:134-153``).  Out-of-range ids clamp;
-        callers mask misses themselves."""
-        idx = torch.clamp(obj_id.long(), 0, int(self.kd.shape[0]) - 1)
-        return MaterialTable(**{f.name: getattr(self, f.name)[idx]
-                                for f in dataclasses.fields(self)})
+        callers mask misses themselves.  When a field requires grad, all
+        13 features ride one ``gather_rows`` of the packed (M, 13) table,
+        so the material gradient takes kernel J too."""
+        fields = [f.name for f in dataclasses.fields(self)]
+        if not any(getattr(self, n).requires_grad for n in fields):
+            idx = torch.clamp(obj_id.long(), 0, int(self.kd.shape[0]) - 1)
+            return MaterialTable(**{n: getattr(self, n)[idx] for n in fields})
+        from ..ops.diff_gather import gather_rows
+
+        cols = [getattr(self, n) for n in fields]
+        widths = [1 if c.ndim == 1 else int(c.shape[1]) for c in cols]
+        table = torch.cat([c[:, None] if c.ndim == 1 else c for c in cols],
+                          dim=1)
+        g = gather_rows(table, obj_id)
+        out, at = {}, 0
+        for n, w, c in zip(fields, widths, cols):
+            out[n] = g[:, at] if c.ndim == 1 else g[:, at:at + w]
+            at += w
+        return MaterialTable(**out)
 
 
 @dataclasses.dataclass(frozen=True)

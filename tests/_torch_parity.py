@@ -5,7 +5,7 @@ PyTorch port (``tests/test_torch_*.py``).
 (``raytracinginonesemester_tpu_torch.scene.build.scene_from_numpy``), so
 both packages render the very same block-grid planes.  The scene
 builders make the two-frog test scene of ``tests/test_megakernel.py``
-for either package.  ``one_torch_thread`` keeps the port's tests to one
+for either package, and ``grad_scene`` the JAX grad-bench scene.  ``one_torch_thread`` keeps the port's tests to one
 PyTorch thread.
 """
 
@@ -117,6 +117,23 @@ def jax_two_frog(**kw):
 
     return build_scene(two_frog_config(SceneConfig, SceneNodeConfig,
                                        Transform, **kw))
+
+
+def grad_scene(width=48, height=32, bounces=2, scene="gpu_spheres"):
+    """The JAX package's differentiable grad-bench scene (``bench.py
+    --grad``: ``gpu_spheres.json``, its camera, a block grid,
+    ``differentiable=True``) at a test size, with its Pallas kernels in
+    interpret mode."""
+    import raytracinginonesemester_tpu as jrt
+    from raytracinginonesemester_tpu.core.camera import Camera
+
+    js = jrt.load_scene(os.path.join(REPO, f"tests/assets/scenes/{scene}.json"),
+                        accel="blocks")
+    cam = Camera.create(position=(0.0, -2.5, 1.2), look_at=(0.0, 0.0, 0.5),
+                        up=(0, 0, 1), focal_length_mm=24.0, width=width,
+                        height=height)
+    return dataclasses.replace(js, camera=cam, differentiable=True,
+                               max_bounces=bounces, spp=1, use_pallas=True)
 
 
 def torch_from_jax(jscene, device="cpu"):

@@ -241,14 +241,21 @@ def test_trace_rays_matches_jax(name):
 
 
 def test_bounce_step_refuses_what_waits_for_later_slices(frog):
+    """Triangle sharding waits for the sharding slice; an oracle serves
+    differentiable scenes only; differentiable scenes trace (their
+    modes are held against JAX in ``test_torch_diff.py``)."""
     _, ts = frog
-    with pytest.raises(NotImplementedError, match="sharding"):
-        make_bounce_step(ts, model_axis="model")
-    with pytest.raises(NotImplementedError, match="differentiable"):
+    diff = dataclasses.replace(ts, differentiable=True)
+    for scene in (ts, diff):
+        with pytest.raises(NotImplementedError, match="sharding"):
+            make_bounce_step(scene, model_axis="model")
+    with pytest.raises(ValueError, match="oracle"):
         make_bounce_step(ts, oracle={})
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        trace_rays(*(_t(a) for a in _camera_rays(frog[0])),
-                   dataclasses.replace(ts, differentiable=True))
+    rays = [_t(a) for a in _camera_rays(frog[0])]
+    got = trace_rays(*rays, diff)
+    want = trace_rays(*rays, ts)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 # --- the renderer's staged path ---------------------------------------
@@ -354,12 +361,20 @@ def test_fused_scenes_still_take_the_fused_kernels(frog, spy, case):
     assert spy["staged"] == 0 and spy["fused"] >= 1
 
 
-def test_differentiable_scenes_still_raise(frog):
+def test_differentiable_scenes_still_raise(frog, spy, recwarn):
+    """Differentiable scenes no longer raise: they render on the staged
+    path without a fallback warning (the fused kernels have no
+    gradient), and only triangle sharding still raises for them."""
     _, ts = frog
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        tr.render_scene(dataclasses.replace(ts, differentiable=True))
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        tr.render_scene_frames(dataclasses.replace(ts, differentiable=True), 1)
+    diff = dataclasses.replace(ts, differentiable=True)
+    img = tr.render_scene(diff)
+    frames = tr.render_scene_frames(diff, 1)
+    assert spy == {"staged": 2, "fused": 0}
+    assert not [w for w in recwarn if "fused kernels" in str(w.message)]
+    assert torch.isfinite(img).all() and float(img.std()) > 0.02
+    torch.testing.assert_close(frames[0], img, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="sharding"):
+        make_bounce_step(diff, model_axis="model")
 
 
 # --- on the card ------------------------------------------------------

@@ -144,10 +144,9 @@ def test_package_imports_without_jax():
 
 
 def test_unsupported_scenes_raise():
-    """Differentiable scenes raise NotImplementedError (that path is not
-    ported); the scenes the fused kernels refuse, for the JAX package's
-    reasons, now take the staged integrator without calibrating a
-    wavefront, and render."""
+    """The scenes the fused kernels refuse, for the JAX package's reasons
+    (differentiable scenes among them), take the staged integrator
+    without calibrating a wavefront, and render; none raises now."""
     import dataclasses
 
     from raytracinginonesemester_tpu_torch.ops.megakernel import (
@@ -162,13 +161,16 @@ def test_unsupported_scenes_raise():
         cpu.lights, shadow_samples=(17,)))
     ts = torch_from_jax(jax_two_frog(width=32, height=16))
     grid_less = dataclasses.replace(ts, accel=None)
+    diff = dataclasses.replace(ts, differentiable=True)
     for scene, jitter, why in ((cpu, "reference_cpu", "jitter"),
                                (many, "center", "shadow_samples=17"),
                                (ts, "center", "jitter"),
-                               (grid_less, "wang", "accel")):
+                               (grid_less, "wang", "accel"),
+                               (diff, "wang", "differentiable")):
         assert why in reason(scene, jitter)
         assert resolve_wavefront(scene, jitter, 1) == (False, None)
     img = render_scene(ts, jitter_mode="center")
     assert torch.isfinite(img).all() and float(img.std()) > 0.0
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        render_scene(dataclasses.replace(ts, differentiable=True))
+    assert reason(diff, "wang") == "differentiable scene (staged integrator only)"
+    img = render_scene(diff, jitter_mode="center")
+    assert torch.isfinite(img).all() and float(img.std()) > 0.0
