@@ -65,21 +65,43 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    its plain version and within 1e-5 of each bin's sum of |ct| against
    ``index_add_``, and the albedo recovery of ``tests/test_diff.py``
    (96x54, 60 Adam steps at lr 0.03) below 5% of the first loss;
-10. each kernel against its plain version at its full-width shapes, both
+10. the large-scene streamed path, ``bench.py --large 1000000``'s
+   workload: the frog at 1920x1080 (spp 1, depth 8, diffuse, ``wang``)
+   with its mesh subdivided 3 levels (1,270,912 triangles), the block
+   grid at 512 lanes (2,483 blocks, over the plane budget: the fused
+   kernels refuse it).  On the pixel-center camera rays (``bench.py:
+   204-207``) G's winners against E's and H's against G's; on their
+   shadow rays to the frog's light as the integrator spawns them (the
+   missed rays' shade points parked at 1e30 with a zero direction, in
+   the same tiles as the hits'), H's flags against I's and no parked ray
+   blocked; on the hits' shadow rays alone, I's flags against F's and
+   against I's full-width flags, exactly; one frame through
+   ``render_scene_frames`` (G and
+   I must launch, E, F, H and A-D must not; ms/frame median of 3 calls),
+   the same frame with ``RT_STREAM_BLOCKMAJOR`` on (H; the frame must be
+   the G/I frame bit for bit), and, off the dispatch, the same frame
+   through kernels A and B (``render_tiles_wavefront_frames``, timed,
+   ``images_close`` to the G/I frame); the host seconds of the
+   subdivision, the grid build and the camera rays' plan;
+11. each kernel against its plain version at its full-width shapes, both
    timed, with the least time the card could take (bound); E and F on
    the inputs of their first launches in single-frame renders of phase
-   8's scenes, J on those of phase 9.
+   8's scenes, J on those of phase 9, G, I and H on phase 10's camera
+   and full-width shadow rays, and E and F on the large scene too (E on
+   the camera rays, F on the hits' shadow rays).
 
-Every render of phases 4-8 runs with the launch counters set to 0 just
-before it and read just after; a kernel of that render that did not run
-fails the script, and so does a kernel that must not run there; phase
-9's training call likewise.  The line before the last is the JSON record
-of the kernels (emit, bounce_step, resume, render, closest, occluded,
-segment_accum; each with the launches of the run named in
-``launches_in``); the line before it holds the variants (flat emit,
-terminal render, cpuonly, E on bounce rays, B's oracle rows flat and
-binned).  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script exits non-zero before printing any result.
+Every render of phases 4-8 and 10 runs with the launch counters set to 0
+just before it and read just after; a kernel of that render that did not
+run fails the script, and so does a kernel that must not run there;
+phase 9's training call likewise.  The line before the last is the JSON
+record of the kernels (emit, bounce_step, resume, render, closest,
+occluded, segment_accum, closest_streamed, occluded_streamed,
+closest_blockmajor, occluded_blockmajor; each with the launches of the
+run named in ``launches_in``); the line before it holds the variants
+(flat emit, terminal render, cpuonly, E on bounce rays, B's oracle rows
+flat and binned, E and F on the large scene).  The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits non-zero before printing any
+result.
 """
 
 import dataclasses
@@ -107,10 +129,27 @@ REPLACES = {
     "closest": "raytracinginonesemester_tpu/ops/pallas_kernels.py:222",
     "occluded": "raytracinginonesemester_tpu/ops/pallas_kernels.py:688",
     "segment_accum": "raytracinginonesemester_tpu/ops/diff_gather.py:46",
+    "closest_streamed": "raytracinginonesemester_tpu/ops/pallas_kernels.py:994",
+    "occluded_streamed":
+        "raytracinginonesemester_tpu/ops/pallas_kernels.py:1425",
+    "closest_blockmajor":
+        "raytracinginonesemester_tpu/ops/pallas_kernels.py:1230",
+    "occluded_blockmajor":
+        "raytracinginonesemester_tpu/ops/pallas_kernels.py:1230",
 }
 SOURCE = "raytracinginonesemester_tpu_torch/csrc/megakernel.cu"
+STREAM_SOURCE = "raytracinginonesemester_tpu_torch/csrc/block_stream.cu"
 SOURCES = {"segment_accum":
-           "raytracinginonesemester_tpu_torch/csrc/segment_accum.cu"}
+           "raytracinginonesemester_tpu_torch/csrc/segment_accum.cu",
+           "closest_streamed": STREAM_SOURCE,
+           "occluded_streamed": STREAM_SOURCE,
+           "closest_blockmajor": STREAM_SOURCE,
+           "occluded_blockmajor": STREAM_SOURCE}
+STREAMED = ["closest_streamed", "occluded_streamed"]
+BLOCKMAJOR = ["closest_blockmajor", "occluded_blockmajor"]
+# bench.py --large 1000000: the frog mesh subdivided until >= 1e6
+# triangles, 19,858 x 4^3 = 1,270,912 (bench.py:183-186)
+LARGE_LEVELS = 3
 FUSED = ["emit", "bounce_step", "resume", "render"]
 STAGED_FRAMES = 4
 FLT_EPSILON = 1.1920929e-7  # the cpuonly dialect's Moller-Trumbore epsilon
@@ -207,9 +246,10 @@ def check_binned_equiv(where, flat, binned):
 
 
 def check_hits(errs, name, where, got, want):
-    """Kernel E's (hits[, normal, vis]) or F's blocked flags vs its plain
-    version: winner ids, hit flags, visibility and blocked flags exact;
-    t, u, v and the normal within tolerance."""
+    """A closest-hit kernel's (hits[, normal, vis]) or an occlusion
+    kernel's blocked flags vs its plain version (or vs another kernel of
+    the same function): winner ids, hit flags, visibility and blocked
+    flags exact; t, u, v and the normal within tolerance."""
     from raytracinginonesemester_tpu_torch.ops.intersect import HitData
 
     got = got if isinstance(got, tuple) else (got,)
@@ -236,8 +276,7 @@ def check_hits(errs, name, where, got, want):
         f"{mismatches}, floats beyond tol {beyond}, max_abs {worst:.3e}")
     errs[name] = max(errs.get(name, 0.0), worst)
     if mismatches or beyond:
-        raise AssertionError(f"{name} kernel disagrees with its plain "
-                             f"version ({where})")
+        raise AssertionError(f"{name}: the results disagree ({where})")
 
 
 def two_frog(width, height, block_size, device, diffuse=True):
@@ -774,6 +813,8 @@ def time_kernels(smi, errs, jobs):
         stats = {}
         want = plain(stats)
         torch.cuda.synchronize()
+        if callable(nbytes):  # bytes that depend on the walk (stats)
+            nbytes = nbytes(stats)
         # FP32 operations: Moller-Trumbore pairs, or the count the plain
         # version states itself (kernel J: one add per ray and feature)
         pairs = stats.get("pairs", 0)
@@ -1161,6 +1202,220 @@ def check_accum_library(call):
         raise AssertionError("segment_accum disagrees with index_add_")
 
 
+def large_scene(dev):
+    """``bench.py --large 1000000``'s scene (``bench.py:153-200``): the
+    frog at 1920x1080, spp 1, depth 8, diffuse, its mesh subdivided
+    ``LARGE_LEVELS`` times, the block grid rebuilt at 512 lanes -> (scene,
+    subdivision s, grid build s), each on the host clock after a
+    synchronise."""
+    from raytracinginonesemester_tpu_torch.ops.accel import build_block_grid
+    from raytracinginonesemester_tpu_torch.render.renderer import frog_scene
+    from raytracinginonesemester_tpu_torch.scene.subdivide import (
+        subdivide_geometry)
+
+    scene = frog_scene(W, H, device=dev)
+    t0 = time.time()
+    geom = subdivide_geometry(scene.geometry, LARGE_LEVELS)
+    _sync()
+    t_sub = time.time() - t0
+    t0 = time.time()
+    grid = build_block_grid(geom.vertices, geom.num_triangles,
+                            block_size=512, normals=geom.normals,
+                            obj_ids=geom.obj_id)
+    _sync()
+    t_grid = time.time() - t0
+    return (dataclasses.replace(scene, geometry=geom, accel=grid), t_sub,
+            t_grid)
+
+
+def check_large(dev, smi):
+    """Phase 10: the large-scene streamed path (module docstring) ->
+    (frame times, launch counts, phase 11's jobs)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.io.image import quantize
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.ops import integrator
+    from raytracinginonesemester_tpu_torch.ops.accel import (
+        tile_visit_plan_fast)
+    from raytracinginonesemester_tpu_torch.ops.megakernel import (
+        RAY_TILE, megakernel_ineligible_reason)
+    from raytracinginonesemester_tpu_torch.ops.wavefront import (
+        auto_capacity_tiles, render_tiles_wavefront_frames)
+    from raytracinginonesemester_tpu_torch.render import renderer as tr
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    scene, t_sub, t_grid = large_scene(dev)
+    grid = scene.accel
+    reason = megakernel_ineligible_reason(scene, "wang")
+    log(f"large scene (bench.py --large 1000000): "
+        f"{scene.geometry.num_triangles} triangles ({LARGE_LEVELS} levels), "
+        f"{grid.num_blocks} blocks of {grid.block_size} in "
+        f"{-(-grid.num_blocks // 8)} superblocks; subdivision {t_sub:.3f} s "
+        f"(host numpy), block grid {t_grid:.3f} s; plane bytes "
+        f"{bk._grid_bytes(*grid.tri_index.shape)}, fits_vmem "
+        f"{bk.fits_vmem(grid)}, num_chunks_for {bk.num_chunks_for(grid)}; "
+        f"fused kernels: {reason}")
+    if bk.fits_vmem(grid) or reason is None:
+        raise AssertionError("the large scene must be over the plane budget")
+
+    # bench.py:204-207: pixel-center camera rays in scanline order
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    o, d = scene.camera.get_rays(xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5)
+    o, d = o.contiguous(), d.contiguous()
+    t0 = time.time()
+    rays, rp = bk._prep_rays(o, d, 1e-4, bk.F32_MAX)
+    order, _, count = tile_visit_plan_fast(rays[:, 0:3], rays[:, 3:6], grid,
+                                           rays[:, 6], rays[:, 7], RAY_TILE)
+    _sync()
+    t_plan = time.time() - t0
+    nt, ls = (int(n) for n in order.shape)
+    log(f"camera rays' tile visit plan: {nt} tiles x {ls} superblocks, built "
+        f"in {t_plan:.4f} s; superblocks per tile mean "
+        f"{float(count.float().mean()):.1f}, max {int(count.max())}, tiles "
+        f"with none {int((count == 0).sum())}")
+
+    # kernel against kernel, by check_hits' rule (ids and flags exact)
+    pair = {}
+    g = bk.block_closest_streamed(o, d, grid, 1e-4)
+    e, normal = bk.block_closest(o, d, grid, 1e-4, return_normal=True)
+    check_hits(pair, "G vs E", "1080p camera rays", g, e)
+    check_hits(pair, "H (closest) vs G", "1080p camera rays",
+               bk.block_closest_blockmajor(o, d, grid, 1e-4), g)
+    # the shadow rays as shade_direct gives them to I on the main path:
+    # every camera ray's, the missed rays' shade points parked at 1e30
+    # (direction 0, window [1e-4, inf]) in the same tiles as the hits'
+    light = scene.lights.position[0]
+    sh = shadow_rays(o, d, g, normal, light)
+    parked = ~g.hit
+    if bool((sh[1][parked] != 0.0).any()):
+        raise AssertionError("a parked shade point's shadow ray moves")
+    blocked_all = bk.block_occluded_streamed(sh[0], sh[1], grid, *sh[2:])
+    check_hits(pair, "H (occluded) vs I", f"{W * H} shadow rays, parked "
+               "ones included", bk.block_occluded_blockmajor(
+                   sh[0], sh[1], grid, *sh[2:]), blocked_all)
+    if bool(blocked_all[parked].any()):
+        raise AssertionError("I: a parked shadow ray came out blocked")
+    # F on the hits' shadow rays only: a parked ray passes every slab test
+    # of F, as in the JAX package, and would test all 1.27M triangles
+    p, sd, smin, dist = (x[g.hit].contiguous() for x in sh)
+    blocked = bk.block_occluded_streamed(p, sd, grid, smin, dist)
+    check_hits(pair, "I vs F", "the hits' shadow rays to the frog light",
+               blocked, bk.block_occluded(p, sd, grid, smin, dist))
+    if not torch.equal(blocked, blocked_all[g.hit]):
+        raise AssertionError("I: the hits' flags change with the parked "
+                             "lanes beside them")
+    del e, normal, blocked, blocked_all
+
+    label = "large frog 1080p depth 8"
+    others = FUSED + ["closest", "occluded"]
+    ms_gi, img_gi, gi_counts = timed_frames(
+        f"{label} (G and I)", scene, 1, smi, STREAMED, jitter="wang",
+        never=others + BLOCKMAJOR)
+    integrator._STREAM_BLOCKMAJOR = True
+    try:
+        ms_h, img_h, h_counts = timed_frames(
+            f"{label}, RT_STREAM_BLOCKMAJOR=1 (H)", scene, 1, smi,
+            BLOCKMAJOR, iters=1, jitter="wang", never=others + STREAMED)
+    finally:
+        integrator._STREAM_BLOCKMAJOR = False
+    n_diff = int((img_h != img_gi).any(dim=-1).sum())
+    log(f"H frame vs G/I frame: differing pixels {n_diff} of {W * H}")
+    if n_diff:
+        raise AssertionError("the H frame differs from the G/I frame")
+
+    # off the dispatch, for comparison: the same frame through A and B
+    kw = tr._kernel_kwargs(scene, "wang")
+    cap = auto_capacity_tiles(scene, **kw) or nt
+    xs_s, ys_s, (hp, wp) = tr._swizzled_grid(W, H, device=dev)
+
+    def ab():
+        acc = render_tiles_wavefront_frames(scene, xs_s, ys_s, 1, 0,
+                                            capacity_tiles=cap, **kw)
+        return tr._unswizzle(acc, W, H, hp, wp)
+
+    img_ab = ab()
+    t_ab, ab_counts = counted(
+        f"{label} through A and B off the dispatch (cap={cap})",
+        lambda: cuda_time_ms(ab, warmup=0, iters=3),
+        ["emit", "bounce_step"], never=["closest", "occluded"] + STREAMED
+        + BLOCKMAJOR)
+    ms_ab = t_ab["median_ms"]
+    ok, bad, mean = images_close(quantize(img_ab[0].cpu().numpy(), "gpu"),
+                                 quantize(img_gi[0].cpu().numpy(), "gpu"))
+    log(f"{label} through A and B (flat scan, off the dispatch): {ms_ab:.3f} "
+        f"ms/frame (median of 3 CUDA-event timings, samples "
+        f"{[round(x, 2) for x in t_ab['samples_ms']]}) vs G/I {ms_gi:.3f} "
+        f"and H {ms_h:.3f} ms/frame on {smi}; A/B frame vs G/I frame: "
+        f"bad_frac {bad:.5f} mean {mean:.4f}")
+    if not ok:
+        raise AssertionError("the A/B frame is not close to the G/I frame")
+
+    # phase 11's jobs: the bytes each kernel moves are its ray rows, its
+    # plan or gate, its outputs and every block it stages (10 rows of 512
+    # floats, once per tile that stages it; the plain version counts them)
+    blk = 10 * grid.block_size * 4
+    plan_b = nt * ls * 8 + grid.num_blocks * 32
+    planes_b = 4 * (grid.tri.numel() + grid.tri_index.numel()
+                    + grid.aabb.numel())
+    n_sh = int(p.shape[0])
+    chunks = -(-rp // (bk.BM_CHUNK_TILES * RAY_TILE))
+    gate_b = chunks * (-(-grid.num_blocks // bk.BM_SLAB_BLOCKS)) * 4
+
+    def g_job(name, rays_in, n_out, extra, kern, plain, shape):
+        tiles = -(-rays_in // (8 * RAY_TILE)) * 8
+        if "blockmajor" in name:
+            tiles = -(-tiles // bk.BM_CHUNK_TILES) * bk.BM_CHUNK_TILES
+        return (name, shape, kern,
+                lambda x=None: plain(stats=x), check_hits,
+                lambda st: extra + st["staged_blocks"] * blk
+                + tiles * RAY_TILE * (32 + n_out))
+
+    cam = f"{W * H} camera rays (pixel centers), {nt} tiles"
+    shadow = (f"{W * H} shadow rays to the frog light, {n_sh} of them the "
+              "hits', the rest parked")
+    hit_shadow = f"{n_sh} shadow rays of the hits to the frog light"
+    so, sdir = sh[0], sh[1]
+    jobs = {
+        "large closest_streamed": g_job(
+            "closest_streamed", W * H, 16, plan_b,
+            lambda: bk.block_closest_streamed(o, d, grid, 1e-4),
+            lambda stats: bk.block_closest_streamed_plain(
+                o, d, grid, 1e-4, stats=stats), cam),
+        "large occluded_streamed": g_job(
+            "occluded_streamed", W * H, 1, plan_b,
+            lambda: bk.block_occluded_streamed(so, sdir, grid, *sh[2:]),
+            lambda stats: bk.block_occluded_streamed_plain(
+                so, sdir, grid, *sh[2:], stats=stats), shadow),
+        "large closest_blockmajor": g_job(
+            "closest_blockmajor", W * H, 16, gate_b,
+            lambda: bk.block_closest_blockmajor(o, d, grid, 1e-4),
+            lambda stats: bk.block_closest_blockmajor_plain(
+                o, d, grid, 1e-4, stats=stats), cam),
+        "large occluded_blockmajor": g_job(
+            "occluded_blockmajor", W * H, 1, gate_b,
+            lambda: bk.block_occluded_blockmajor(so, sdir, grid, *sh[2:]),
+            lambda stats: bk.block_occluded_blockmajor_plain(
+                so, sdir, grid, *sh[2:], stats=stats), shadow),
+        # E and F on the same function's inputs, beside G and I
+        "large closest": (
+            "closest", cam, lambda: bk.block_closest(o, d, grid, 1e-4),
+            lambda x=None: bk.block_closest_plain(o, d, grid, 1e-4, stats=x),
+            check_hits, W * H * (24 + 4 + 16) + planes_b),
+        "large occluded": (
+            "occluded", hit_shadow,
+            lambda: bk.block_occluded(p, sd, grid, smin, dist),
+            lambda x=None: bk.block_occluded_plain(p, sd, grid, smin, dist,
+                                                   stats=x),
+            check_hits, n_sh * (24 + 8 + 1) + planes_b),
+    }
+    return dict(ms_gi=ms_gi, ms_h=ms_h, ms_ab=ms_ab, gi_counts=gi_counts,
+                h_counts=h_counts, ab_counts=ab_counts, jobs=jobs,
+                host_s=dict(subdivide=t_sub, grid=t_grid, plan=t_plan))
+
+
 def ptxas_summary(text):
     """'kernel[<dialect>]: N registers, S spill bytes' per entry function."""
     out, name, spill = [], None, "spills not reported"
@@ -1171,7 +1426,9 @@ def ptxas_summary(text):
         if m:
             name = m.group(1)
             if m.group(2):
-                name += f"<{'cpuonly' if m.group(2) == '1' else 'gpu'}"
+                flag = {"blockmajor_kernel": ("closest", "occluded")}.get(
+                    name, ("gpu", "cpuonly"))[int(m.group(2))]
+                name += f"<{flag}"
                 name += ", diff>" if m.group(3) == "1" else ">"
             spill = "spills not reported"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -1311,7 +1568,10 @@ def main():
     check_accum_library(train["j_call"])
     check_accum_library(train["j_vertex_call"])
 
-    # --- 10. kernel times at full width beside the plain versions
+    # --- 10. the large-scene streamed path (bench.py --large 1000000)
+    large = check_large(dev, smi)
+
+    # --- 11. kernel times at full width beside the plain versions
     from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
     from raytracinginonesemester_tpu_torch.ops import integrator
     from raytracinginonesemester_tpu_torch.render.renderer import render_scene
@@ -1424,6 +1684,7 @@ def main():
                                                    ftmax, stats=x, **fkw),
             check_hits, f_bytes),
         **diff_jobs(train),
+        **large["jobs"],
     }
     records = time_kernels(smi, errs, jobs)
 
@@ -1462,20 +1723,46 @@ def main():
                                       "walks the binned plan)", {"none": 0},
                                       "none"),
             "segment_accum": (training, tc, "segment_accum"),
-            "segment_accum vertices": (training, tc, "segment_accum")}
+            "segment_accum vertices": (training, tc, "segment_accum"),
+            "large closest_streamed": ("large frog 1080p depth 8 (G and I)",
+                                       large["gi_counts"],
+                                       "closest_streamed"),
+            "large occluded_streamed": ("large frog 1080p depth 8 (G and I)",
+                                        large["gi_counts"],
+                                        "occluded_streamed"),
+            "large closest_blockmajor": ("large frog 1080p depth 8, "
+                                         "RT_STREAM_BLOCKMAJOR=1 (H)",
+                                         large["h_counts"],
+                                         "closest_blockmajor"),
+            "large occluded_blockmajor": ("large frog 1080p depth 8, "
+                                          "RT_STREAM_BLOCKMAJOR=1 (H)",
+                                          large["h_counts"],
+                                          "occluded_blockmajor"),
+            "large closest": ("large frog 1080p depth 8 (G and I), which "
+                              "does not bind E", large["gi_counts"],
+                              "closest"),
+            "large occluded": ("large frog 1080p depth 8 (G and I), which "
+                               "does not bind F", large["gi_counts"],
+                               "occluded")}
     for key, rec in records.items():
         label, counts, counter = runs[key]
         rec.update(variant=key, launches=counts[counter],
                    launches_in=label, max_abs_err=errs[rec["name"]])
     main_keys = ("emit binned", "bounce_step", "resume", "render V2 binned",
-                 "closest", "occluded", "segment_accum")
+                 "closest", "occluded", "segment_accum",
+                 "large closest_streamed", "large occluded_streamed",
+                 "large closest_blockmajor", "large occluded_blockmajor")
     log(f"ms/frame on {smi}: main path binned {ms_binned:.3f}, "
         f"RT_BINNED=0 {ms_flat:.3f}, RT_WAVEFRONT=0 {ms_d:.3f}, terminal "
         f"{ms_term:.3f}, cpuonly_mirror {ms_cpu:.3f}, cpuonly_mirror "
         f"RT_WAVEFRONT=0 {ms_cpu_d:.3f}; staged integrator: frog "
         f"reference_cpu {ms_ref:.3f}, cpuonly_mirror area light x32 "
         f"{ms_soft:.3f}; training, grad-bench config {train['ms_step']:.3f} "
-        f"ms/step; whole run {time.time() - t_start:.0f} s")
+        f"ms/step; large frog (1,270,912 triangles) G/I "
+        f"{large['ms_gi']:.3f}, H {large['ms_h']:.3f}, A/B off the dispatch "
+        f"{large['ms_ab']:.3f}; large scene host seconds "
+        f"{ {k: round(v, 4) for k, v in large['host_s'].items()} }; "
+        f"whole run {time.time() - t_start:.0f} s")
     log(json.dumps({"variants": [r for k, r in records.items()
                                  if k not in main_keys]}))
     log(json.dumps({"kernels": [records[k] for k in main_keys]}))

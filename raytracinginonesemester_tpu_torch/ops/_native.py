@@ -2,10 +2,12 @@
 
 Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
-seconds.  ``megakernel.cu`` holds kernels A-F, ``segment_accum.cu`` kernel
-J.  The build happens at first use, into ``build/`` beside the package
-(``RT_TORCH_BUILD_DIR`` overrides), under a name that hashes the source and
-the flags, so an edited source never loads a stale library;
+seconds.  ``megakernel.cu`` holds kernels A-F, ``block_stream.cu`` the
+streamed kernels G, I and H, ``segment_accum.cu`` kernel J; the first two
+include ``trace_common.cuh``.  The build happens at first use, into
+``build/`` beside the package (``RT_TORCH_BUILD_DIR`` overrides), under a
+name that hashes the source, the shared headers and the flags, so an
+edited source never loads a stale library;
 ``build_all`` starts one ``nvcc`` per source at once.  Nothing here runs at
 import time.
 """
@@ -23,7 +25,7 @@ import time
 __all__ = ["NVCC_FLAGS", "SOURCES", "SceneArgs", "build", "build_all", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("megakernel", "segment_accum")
+SOURCES = ("megakernel", "block_stream", "segment_accum")
 
 # exact IEEE division/sqrt and no FMA contraction: the kernels keep the
 # op order of the plain versions and of the JAX reference
@@ -84,9 +86,13 @@ def _target(name: str):
     """(source path, library path) of one kernel source."""
     if name not in SOURCES:
         raise ValueError(f"unknown kernel source {name!r}")
-    src = os.path.join(_PKG, "csrc", f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    csrc = os.path.join(_PKG, "csrc")
+    src = os.path.join(csrc, f"{name}.cu")
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(csrc, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     out_dir = os.environ.get("RT_TORCH_BUILD_DIR",
                              os.path.join(os.path.dirname(_PKG), "build"))
     os.makedirs(out_dir, exist_ok=True)
@@ -145,6 +151,14 @@ def _declare(name: str, lib) -> None:
         lib.rt_occluded.argtypes = [sp, vp, vp, vp, vp, i, vp, vp]
         fns = (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
                lib.rt_render, lib.rt_closest, lib.rt_occluded)
+    elif name == "block_stream":
+        f = ctypes.c_float
+        lib.rt_closest_streamed.argtypes = [vp] * 6 + [i] * 4 + [f] + [vp] * 5
+        lib.rt_occluded_streamed.argtypes = [vp] * 6 + [i] * 4 + [f] + [vp] * 2
+        lib.rt_blockmajor.argtypes = ([vp] * 5 + [i] * 6 + [f, i]
+                                      + [vp] * 6)
+        fns = (lib.rt_closest_streamed, lib.rt_occluded_streamed,
+               lib.rt_blockmajor)
     else:
         lib.rt_segment_accum.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp]
         fns = (lib.rt_segment_accum,)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..core import rng as rnglib
+from .block_kernels import fits_vmem
 from .megakernel import _ST_ROWS, RAY_TILE, _scene_rows, bounce_step_tiles
 
 __all__ = ["MAX_ORACLE_LIGHTS", "fused_bounce_oracle", "oracle_eligible",
@@ -30,12 +31,14 @@ MAX_ORACLE_LIGHTS = 24
 
 
 def oracle_eligible(scene, model_axis=None) -> bool:
-    """Whether the fused oracle serves this scene: a block grid, the gpu
-    dialect, 1 to 24 lights and no triangle sharding.  (The JAX package's
-    ``fits_vmem`` gate is a TPU limit; kernel B reads the planes from
-    global memory.)"""
+    """Whether the fused oracle serves this scene: a block grid under the
+    plane budget (``block_kernels.fits_vmem``, the JAX package's rule;
+    kernel B itself reads the planes from global memory), the gpu dialect,
+    1 to 24 lights and no triangle sharding."""
     if scene.accel is None or model_axis is not None:
         return False
+    if not fits_vmem(scene.accel):
+        return False  # the streamed kernels' detached mode serves it
     if scene.dialect != "gpu":
         return False  # cpuonly soft shadows: no capture
     return 1 <= scene.lights.num_lights <= MAX_ORACLE_LIGHTS

@@ -9,10 +9,13 @@ bounce: closest hit (kernel E, ``ops.block_kernels.block_closest``) ->
 miss shading -> hit frame -> direct light with shadows (fused into E in
 the gpu dialect, kernel F per shadow sample in cpuonly) ->
 Russian-roulette diffuse/mirror split -> throughput update -> early-out.
-This is the path for scenes the fused kernels (``ops.megakernel``) do
-not take: ``reference_cpu`` jitter, gpu ``center`` jitter, cpuonly
-scenes with more than 16 shadow samples, scenes without a block grid
-(brute force, ``ops.intersect``) and differentiable scenes.
+A grid over the plane budget (``block_kernels.fits_vmem``, the JAX
+package's rule) takes the streamed kernels G and I instead (H with
+``RT_STREAM_BLOCKMAJOR=1``), in every mode.  This is the path for scenes
+the fused kernels (``ops.megakernel``) do not take: ``reference_cpu``
+jitter, gpu ``center`` jitter, cpuonly scenes with more than 16 shadow
+samples, scenes over the plane budget, scenes without a block grid (brute
+force, ``ops.intersect``) and differentiable scenes.
 
 Differentiable scenes (``Scene.differentiable``) run a fixed number of
 bounces, with no host read of the alive flags, in one of three modes:
@@ -21,8 +24,9 @@ bounces, with no host read of the alive flags, in one of three modes:
   at most 8 bounces; ``RT_DIFF_ORACLE=0`` turns it off): one kernel-B
   launch per depth (``ops.diff_oracle``) supplies the winners, the
   visibility bits and the branch decisions, which the chain adopts;
-- detached (other scenes with a block grid): kernel E without normals or
-  fused shadows, and F per light, on detached inputs;
+- detached (other scenes with a block grid, among them those over the
+  plane budget): kernel E without normals or fused shadows, and F per
+  light (G and I over the budget), on detached inputs;
 - brute (no grid): the brute-force intersector, differentiated through.
 
 In the first two, the winner's triangle and normals come from
@@ -44,7 +48,11 @@ import torch
 
 from ..core import rng as rnglib
 from ..core.vecmath import reflect, unit
-from .block_kernels import block_closest, block_occluded, grid_rows
+from .block_kernels import (block_closest, block_closest_blockmajor,
+                            block_closest_streamed, block_occluded,
+                            block_occluded_blockmajor,
+                            block_occluded_streamed, grid_rows,
+                            num_chunks_for)
 from .diff_gather import gather_int_rows, gather_rows
 from .intersect import (FLT_EPSILON, HitData, intersect_closest,
                         make_hit_frame, mt_single, occluded)
@@ -53,8 +61,14 @@ from .shading import RT_EPS_CPUONLY, RT_EPS_GPU, shade_direct, sky_gradient
 __all__ = ["diff_candidate_plan", "make_bounce_step", "trace_rays"]
 
 # Fused detached oracle for differentiable scenes: "0" keeps kernels E and
-# F.  Read once at import, as the JAX package does.
+# F.  Read once at import, as the JAX package does, like the two below.
 _DIFF_ORACLE = os.environ.get("RT_DIFF_ORACLE", "1") == "1"
+# A scene over the plane budget: "0" takes kernels E and F instead of the
+# streamed G and I (the JAX package's launch-per-chunk E/F relaunches
+# compute the same function; the card runs it in one launch).
+_STREAM_ENV = os.environ.get("RT_STREAM", "1") == "1"
+# "1": kernel H (block-major sweep) instead of G and I for such a scene.
+_STREAM_BLOCKMAJOR = os.environ.get("RT_STREAM_BLOCKMAJOR", "0") == "1"
 # the JAX unroll gate: the oracle serves scenes of at most this many
 # bounces, so that both packages send the same scenes the same way
 _ORACLE_MAX_BOUNCES = 8
@@ -132,9 +146,13 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
 
     Forward scenes with a block grid run kernel E (in the gpu dialect with
     the shading normal and the point lights' shadow visibility) and
-    cpuonly shadow rays kernel F; without a grid, the brute-force scans of
-    ``ops.intersect``.  ``first`` marks the pinhole camera pass, whose
-    rays share one origin.  ``oracle``: the per-depth rows of
+    cpuonly shadow rays kernel F; a grid over the plane budget
+    (``block_kernels.num_chunks_for`` > 1) runs the streamed kernels G and
+    I (H with ``RT_STREAM_BLOCKMAJOR=1``; E with normals and F with
+    ``RT_STREAM=0``) and the hit frame's gathers, in both dialects;
+    without a grid, the brute-force scans of ``ops.intersect``.  ``first``
+    marks the pinhole camera pass, whose rays share one origin.
+    ``oracle``: the per-depth rows of
     ``ops.diff_oracle.fused_bounce_oracle``, read at depth ``k``;
     otherwise a differentiable scene with a grid takes the detached
     mode (module docstring)."""
@@ -151,24 +169,41 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
 
     if scene.accel is not None:
         rows = grid_rows(scene.accel)
-        # detached mode: the hit frame is recomputed differentiably, so E
-        # returns neither the normal nor the fused shadows
-        fused = gpu and not differentiable
-        lights = scene.lights.position if fused else None
+        # over the plane budget, the streamed kernels (the JAX package's
+        # rule, integrator.py:182-194 there)
+        grid_chunks = num_chunks_for(scene.accel)
+        streamed = grid_chunks > 1 and _STREAM_ENV
+        # the streamed kernels return no normal, and the detached mode
+        # recomputes the hit frame differentiably: then E returns neither
+        # the normal nor the fused shadows; shadows fuse only under the
+        # budget (RT_STREAM=0 over it: E with normals, then F)
+        fused = gpu and not differentiable and not streamed
+        lights = (scene.lights.position if fused and grid_chunks == 1
+                  else None)
 
         def closest_fn(o, d, shared=False):
+            if streamed:
+                fn = (block_closest_blockmajor if _STREAM_BLOCKMAJOR
+                      else block_closest_streamed)
+                return fn(o, d, scene.accel, tmin, det_eps=det_eps,
+                          rows=rows), None, None
             out = block_closest(o, d, scene.accel, tmin, det_eps=det_eps,
                                 return_normal=fused, shadow_lights=lights,
                                 shadow_eps=RT_EPS_GPU, shadow_tmin=1e-4,
                                 shared_origin=shared, rows=rows)
-            return out if fused else (out, None, None)
+            out = out if isinstance(out, tuple) else (out,)
+            return out + (None,) * (3 - len(out))  # (hits, normal, vis)
 
         def occlude_fn(o, d, s_tmin, s_tmax):
             def det(x):
                 return x.detach() if torch.is_tensor(x) else x
 
-            return block_occluded(det(o), det(d), scene.accel, det(s_tmin),
-                                  det(s_tmax), det_eps=det_eps, rows=rows)
+            fn = block_occluded
+            if streamed:
+                fn = (block_occluded_blockmajor if _STREAM_BLOCKMAJOR
+                      else block_occluded_streamed)
+            return fn(det(o), det(d), scene.accel, det(s_tmin), det(s_tmax),
+                      det_eps=det_eps, rows=rows)
     else:
         def closest_fn(o, d, shared=False):
             return (intersect_closest(o, d, geom.vertices, tmin,

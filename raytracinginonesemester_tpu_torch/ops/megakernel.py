@@ -95,8 +95,13 @@ def megakernel_ineligible_reason(scene, jitter_mode: str):
     """Why the fused kernels do not take a scene (None = they do), in
     the JAX package's words; the renderer then takes the staged
     integrator and warns once with this reason."""
+    from .block_kernels import fits_vmem
+
     if scene.accel is None:
         return "no block-grid accel (accel=None)"
+    if not fits_vmem(scene.accel):
+        # the plane-budget rule: a dispatch rule on the card
+        return "triangle planes exceed the kernel VMEM budget"
     if getattr(scene, "differentiable", False):
         return "differentiable scene (staged integrator only)"
     if scene.dialect == "gpu":
@@ -372,8 +377,9 @@ class _Best:
 
     def visit(self, ch, o, d, tri, ids, slots, det_eps, tmin):
         """Dense test of rays ``ch`` against candidates (planes ``tri``,
-        global ``ids``, grid ``slots``, each (1, W)) with the (t, id)
-        take rule; ``tmin`` a float or a per-ray (R,) tensor."""
+        global ``ids``, grid ``slots``, each (1, W) shared by the rays or
+        (len(ch), W) one row per ray) with the (t, id) take rule;
+        ``tmin`` a float or a per-ray (R,) tensor."""
         oc = tuple(c[ch, None] for c in o)
         dc = tuple(c[ch, None] for c in d)
         old_t = self.t[ch]
@@ -388,13 +394,15 @@ class _Best:
         old_key = torch.where(old_id >= 0, old_id, _INT_MAX)
         take = (min_t < F32_MAX) & (
             (min_t < old_t) | ((min_t == old_t) & (win_id < old_key)))
-        rr = torch.arange(ch.numel(), device=ch.device)
-        self.pairs += (ids >= 0).sum() * ch.numel()
+        n = ch.numel()
+        rr = torch.arange(n, device=ch.device)
+        self.pairs += (ids >= 0).sum() * (n // ids.shape[0])
         self.t[ch] = torch.where(take, min_t, old_t)
         self.u[ch] = torch.where(take, u[rr, lane], self.u[ch])
         self.v[ch] = torch.where(take, v[rr, lane], self.v[ch])
         self.id[ch] = torch.where(take, win_id, old_id)
-        self.slot[ch] = torch.where(take, slots[0, lane], self.slot[ch])
+        self.slot[ch] = torch.where(take, slots.expand(n, -1)[rr, lane],
+                                    self.slot[ch])
 
 
 def _closest_plain(rows: SceneRows, o, d, alive, det_eps, tmin):

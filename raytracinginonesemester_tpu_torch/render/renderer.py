@@ -7,8 +7,9 @@ capacity resolve, the binned camera plan with its bounded cache, and
 scenes the fused kernels take render on the staged wavefront
 (``ops.wavefront``) or the monolithic render kernel
 (``ops.megakernel.render_tiles``); every other scene renders through the
-staged integrator (``accumulate_samples`` -> ``ops.integrator.trace_rays``,
-kernels E and F), with a one-time warning that names the reason.
+staged integrator (``accumulate_samples`` -> ``ops.integrator.trace_rays``:
+kernels E and F, or G and I for a scene over the plane budget), with a
+one-time warning that names the reason.
 Differentiable scenes render there too, without a warning (the fused
 kernels have no gradient): through kernel B's oracle rows and kernel J
 in the backward pass (``ops.integrator``).
@@ -89,7 +90,7 @@ def _warn_if_fallback(scene: Scene, jitter_mode: str, spp: int) -> None:
     if reason is not None and not reason.startswith("differentiable"):
         warn_once(f"mk-fallback:{reason}",
                   f"scene falls off the fused kernels ({reason}); rendering "
-                  "via the staged integrator (kernels E and F)")
+                  "via the staged integrator")
 
 
 def _bouncing(scene: Scene) -> bool:

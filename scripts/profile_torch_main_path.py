@@ -3,6 +3,7 @@
     python scripts/profile_torch_main_path.py [--frames 16] [--width 1920 --height 1080]
         [--jitter wang|reference_cpu]
     python scripts/profile_torch_main_path.py --grad [--frames 8]
+    python scripts/profile_torch_main_path.py --large
 
 Renders the frog scene (depth 8, diffuse) with
 ``render_scene_frames`` once to warm up, then once under
@@ -25,8 +26,16 @@ Besides the profile it times one call's parts with CUDA events: the
 grid rebuild (``apply_params``), the plan refresh, the oracle (kernel B
 and its packing), kernel J with its sort glue, the rest of the forward
 and backward chains (the glue), and Adam.
+``--large`` profiles one frame of the large-scene path, the workload of
+``bench.py --large 1000000`` (``chip_smoke.large_scene``: the frog at
+1920x1080, depth 8, its mesh subdivided to 1,270,912 triangles, over the
+plane budget), through the staged integrator and the streamed kernels G
+and I.  Besides the profile it times, with CUDA events over one frame,
+G and I (their wrappers, the plan built on the card included) and the
+hit frame's gathers (``make_hit_frame``), the rest being the glue.
 The full table is also written to ``chiprun_out/profile_main_path.txt``
-(``profile_grad.txt`` with ``--grad``).
+(``profile_grad.txt`` with ``--grad``, ``profile_large.txt`` with
+``--large``).
 """
 
 import argparse
@@ -47,10 +56,13 @@ def main():
     ap.add_argument("--jitter", choices=("wang", "reference_cpu"),
                     default="wang")
     ap.add_argument("--grad", action="store_true")
+    ap.add_argument("--large", action="store_true")
     args = ap.parse_args()
     if args.grad:
         return profile_grad(args.frames or 8, args.width or 960,
                             args.height or 540)
+    if args.large:
+        return profile_large()
     args.frames = args.frames or 16
     args.width, args.height = args.width or 1920, args.height or 1080
     jitter = args.jitter
@@ -242,6 +254,91 @@ def profile_grad(steps, width, height):
     for outer, parts_in in inner.items():
         glue = ms.get(outer, 0.0) - sum(ms.get(p, 0.0) for p in parts_in)
         print(f"  {outer} glue (the rest of the {outer} chain): {glue:.3f}")
+    for us, count, key in rows[:20]:
+        print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def profile_large():
+    """One frame of the large-scene path (module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import large_scene
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.ops import integrator
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        render_scene_frames)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    smi = _card()
+    scene, t_sub, t_grid = large_scene("cuda")
+    render_scene_frames(scene, 1, "wang", 0)
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        render_scene_frames(scene, 1, "wang", i + 1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    parts = {}
+    patched = [(integrator, "block_closest_streamed", "G (with its plan)"),
+               (integrator, "block_occluded_streamed", "I (with its plan)"),
+               (integrator, "make_hit_frame", "hit frame gathers")]
+    real = {}
+    for mod, name, label in patched:
+        real[(mod, name)] = getattr(mod, name)
+
+        def timed(*a, _f=real[(mod, name)], _label=label, **k):
+            with _part(parts, _label):
+                return _f(*a, **k)
+
+        timed.__dict__ = real[(mod, name)].__dict__
+        setattr(mod, name, timed)
+    try:
+        t0 = time.perf_counter()
+        with _part(parts, "frame"):
+            render_scene_frames(scene, 1, "wang", 4)
+        torch.cuda.synchronize()
+        timed_wall = time.perf_counter() - t0
+    finally:
+        for (mod, name), f in real.items():
+            setattr(mod, name, f)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in parts.items()}
+
+    mk.reset_launch_counts()
+    bk.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_scene_frames(scene, 1, "wang", 5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, rows, syncs = _busy_table(prof, "profile_large.txt")
+    launches = {k: v for k, v in {**mk.launch_counts(),
+                                  **bk.launch_counts()}.items() if v}
+    kernel_us = sum(us for us, _, key in rows
+                    if key.startswith(("closest_streamed_kernel",
+                                       "occluded_streamed_kernel")))
+    print(f"card: {smi}")
+    print(f"large frog 1920x1080 depth 8 ({scene.geometry.num_triangles} "
+          f"triangles, {scene.accel.num_blocks} blocks; subdivision "
+          f"{t_sub:.3f} s, grid {t_grid:.3f} s): wall per frame "
+          f"{sorted(walls)[1] * 1e3:.2f} ms (median of 3 unprofiled; "
+          f"{[round(w * 1e3, 2) for w in walls]}), profiled frame "
+          f"{wall * 1e3:.2f} ms")
+    print(f"device busy {busy_us / 1e3:.2f} ms of {wall * 1e3:.2f} ms "
+          f"profiled wall: idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f};"
+          f" G and I kernels {kernel_us / 1e3:.2f} ms of the busy time, the "
+          f"rest (plans, operands, glue) {(busy_us - kernel_us) / 1e3:.2f} ms")
+    print(f"profiled frame: kernel launches {launches}; device-to-host "
+          f"copies {syncs}")
+    print(f"one frame, CUDA events (ms, frame wall {timed_wall * 1e3:.2f}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    glue = ms["frame"] - sum(v for k, v in ms.items() if k != "frame")
+    print(f"  the rest of the frame (camera rays, shading glue, host "
+          f"syncs): {glue:.3f}")
     for us, count, key in rows[:20]:
         print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 

@@ -283,4 +283,5 @@ def test_cuda_kernels_match_plain_versions(cuda_setup):
     torch.testing.assert_close(
         bk.block_occluded(po, pd, ts.accel, tmin, tmax),
         bk.block_occluded_plain(po, pd, ts.accel, tmin, tmax), rtol=0, atol=0)
-    assert bk.launch_counts() == {"closest": 1, "occluded": 1}
+    assert {k: n for k, n in bk.launch_counts().items() if n} == {
+        "closest": 1, "occluded": 1}
