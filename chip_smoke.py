@@ -88,7 +88,20 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    the inputs of their first launches in single-frame renders of phase
    8's scenes, J on those of phase 9, G, I and H on phase 10's camera
    and full-width shadow rays, and E and F on the large scene too (E on
-   the camera rays, F on the hits' shadow rays).
+   the camera rays, F on the hits' shadow rays);
+12. the TPU probes of ``scripts/`` (``raytracinginonesemester_tpu_torch/
+   probes``, ``csrc/probes.cu``), on no render or training path (their
+   launch counters, set to 0 before phase 5 and read after phase 10,
+   must read 0): the probes' own run, each wrapper once through its
+   entry point with the counters set to 0 just before and read just
+   after (every probe must launch) -- P1 ``toy_mask`` in its three modes
+   on the script's inputs and on a seeded hazard set (zero directions,
+   NaN distances), P2 ``sel7`` and ``mm22`` and P3 ``dyn12`` and
+   ``blk1`` on their scripts' inputs, all at the scripts' full widths;
+   then each bit for bit against its plain version, timed as in phase
+   11 (``mm22``'s bound at the card's bf16 tensor rate), and
+   ``torch.matmul`` of ``mm22``'s stacked picks by qsel timed beside it
+   (the product alone).
 
 Every render of phases 4-8 and 10 runs with the launch counters set to 0
 just before it and read just after; a kernel of that render that did not
@@ -96,10 +109,13 @@ run fails the script, and so does a kernel that must not run there;
 phase 9's training call likewise.  The line before the last is the JSON
 record of the kernels (emit, bounce_step, resume, render, closest,
 occluded, segment_accum, closest_streamed, occluded_streamed,
-closest_blockmajor, occluded_blockmajor; each with the launches of the
-run named in ``launches_in``); the line before it holds the variants
-(flat emit, terminal render, cpuonly, E on bounce rays, B's oracle rows
-flat and binned, E and F on the large scene).  The last line is ``{"ok": true, "device": {...}}``.
+closest_blockmajor, occluded_blockmajor, toy_mask, sel7, mm22, dyn12,
+blk1; each with the launches of the run named in ``launches_in``, the
+probes' from their own run in phase 12); the line before it holds the
+variants (flat emit, terminal
+render, cpuonly, E on bounce rays, B's oracle rows flat and binned, E
+and F on the large scene, P1's other modes and hazard set).  The last
+line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -136,7 +152,15 @@ REPLACES = {
         "raytracinginonesemester_tpu/ops/pallas_kernels.py:1230",
     "occluded_blockmajor":
         "raytracinginonesemester_tpu/ops/pallas_kernels.py:1230",
+    "toy_mask": "scripts/probe_toy_mask.py:23",
+    "sel7": "scripts/probe_mm_select.py:41",
+    "mm22": "scripts/probe_mm_select.py:56",
+    "dyn12": "scripts/probe_dyn_reads.py:26",
+    "blk1": "scripts/probe_dyn_reads.py:38",
 }
+PROBES = ["toy_mask", "sel7", "mm22", "dyn12", "blk1"]
+PROBE_RUN = ("probes' own run (phase 12): each wrapper once on its script's "
+             "inputs, P1 in 3 modes on 2 input sets")
 SOURCE = "raytracinginonesemester_tpu_torch/csrc/megakernel.cu"
 STREAM_SOURCE = "raytracinginonesemester_tpu_torch/csrc/block_stream.cu"
 SOURCES = {"segment_accum":
@@ -144,7 +168,9 @@ SOURCES = {"segment_accum":
            "closest_streamed": STREAM_SOURCE,
            "occluded_streamed": STREAM_SOURCE,
            "closest_blockmajor": STREAM_SOURCE,
-           "occluded_blockmajor": STREAM_SOURCE}
+           "occluded_blockmajor": STREAM_SOURCE,
+           **dict.fromkeys(PROBES,
+                           "raytracinginonesemester_tpu_torch/csrc/probes.cu")}
 STREAMED = ["closest_streamed", "occluded_streamed"]
 BLOCKMAJOR = ["closest_blockmajor", "occluded_blockmajor"]
 # bench.py --large 1000000: the frog mesh subdivided until >= 1e6
@@ -162,6 +188,7 @@ FLT_EPSILON = 1.1920929e-7  # the cpuonly dialect's Moller-Trumbore epsilon
 # sheet)
 OPS_PER_PAIR = 46
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+PEAK_BF16 = 989e12  # dense bf16 tensor-core rate (mm22's product)
 SCENES = os.path.join(REPO, "tests", "assets", "scenes")
 # the training phase: bench.py --grad (bench.py:47-87)
 GRAD_W, GRAD_H, GRAD_STEPS = 960, 540, 8
@@ -819,21 +846,24 @@ def time_kernels(smi, errs, jobs):
         # version states itself (kernel J: one add per ray and feature)
         pairs = stats.get("pairs", 0)
         ops = stats.get("ops", pairs * OPS_PER_PAIR)
+        bf16_ops = stats.get("bf16_ops", 0)  # on the tensor cores
         check(errs, name, f"{key} at {shape}", got, want)
         del got, want
         k = cuda_time_ms(kern, warmup=1, iters=3)
         p = cuda_time_ms(plain, warmup=0, iters=1)
         lib = (cuda_time_ms(library, warmup=1, iters=3)["median_ms"]
                if library else None)
-        t_ops = ops / PEAK_FLOPS * 1e3
+        t_ops = max(ops / PEAK_FLOPS, bf16_ops / PEAK_BF16) * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         by = "operations" if t_ops >= t_bytes else "bytes"
         log(f"time {key} at {shape}: kernel {k['median_ms']:.3f} ms (median "
             f"of 3), plain {p['median_ms']:.1f} ms (1 run)"
             + (f", library {lib:.3f} ms" if library else "")
-            + f"; bound {bound:.4f} ms by {by} ({pairs} ray-triangle pairs, "
-            f"{ops} FP32 operations, {nbytes} bytes) on {smi}")
+            + f"; bound {bound:.4f} ms by {by} ({pairs} ray-primitive pairs, "
+            f"{ops} FP32 operations, "
+            + (f"{bf16_ops} bf16 tensor operations, " if bf16_ops else "")
+            + f"{nbytes} bytes) on {smi}")
         records[key] = {"name": name, "route": "cuda",
                         "source": SOURCES.get(name, SOURCE),
                         "replaces": REPLACES[name], "shape": shape,
@@ -1416,20 +1446,138 @@ def check_large(dev, smi):
                 host_s=dict(subdivide=t_sub, grid=t_grid, plan=t_plan))
 
 
+def check_exact(errs, name, where, got, want):
+    """A probe kernel vs its plain version: every float's bits equal, or
+    both NaN."""
+    import torch
+
+    nan = got.isnan() & want.isnan()
+    bad = int(((got.view(torch.int32) != want.view(torch.int32)) & ~nan).sum())
+    err = float((got - want).abs().nan_to_num(0.0).max())
+    log(f"compare {name} {where}: differing values {bad} of {got.numel()} "
+        f"({int(nan.sum())} NaN on both sides), max_abs {err:.3e}")
+    errs[name] = max(errs.get(name, 0.0), err)
+    if bad:
+        raise AssertionError(f"{name} kernel disagrees with its plain version "
+                             f"({where})")
+
+
+def probe_jobs(dev):
+    """Phase 12 jobs: the TPU probes P1-P3 at their scripts' full widths
+    (``probes/``), P1 also on its seeded hazard set.  Bytes: each input
+    the function reads (sel7: q's 7 rows it selects from) and each output,
+    once."""
+    from raytracinginonesemester_tpu_torch.probes import dyn_reads as dr
+    from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+    from raytracinginonesemester_tpu_torch.probes import toy_mask as tm
+
+    jobs = {}
+    for tag, (rays, aabb) in (("", tm.script_inputs(dev)),
+                              (" hazards", tm.hazard_inputs(0, dev))):
+        for mode in tm.MODES:
+            jobs[f"toy_mask {mode}{tag}"] = (
+                "toy_mask", f"{mode}, (64, 512) rays x (156, 8) boxes"
+                + (", seeded hazards" if tag else ", all ones"),
+                lambda m=mode, r=rays, a=aabb: tm.toy_mask(m, r, a),
+                lambda x=None, m=mode, r=rays, a=aabb: tm.toy_mask_plain(
+                    m, r, a, stats=x),
+                check_exact, 4 * (2 * rays.numel() + aabb.numel()))
+    win, q, qsel = ms.script_inputs(dev)
+    rt, lanes = win.shape[0], q.shape[1]
+    jobs["sel7"] = (
+        "sel7", f"{ms.VISITS} visits, {rt} rays x {lanes} lanes, q (22, 512)",
+        lambda: ms.sel7(win, q), lambda x=None: ms.sel7_plain(win, q, stats=x),
+        check_exact, 4 * (2 * rt + ms.SEL_ROWS * lanes))
+    jobs["mm22"] = (
+        "mm22", f"{ms.VISITS} visits, ({rt}, {lanes}) picks x qsel "
+        f"({lanes}, 128) bf16",
+        lambda: ms.mm22(win, qsel),
+        lambda x=None: ms.mm22_plain(win, qsel, stats=x), check_exact,
+        4 * 2 * rt + 2 * qsel.numel())
+    tab = dr.script_inputs(dev)
+    for name, kern, plain in (("dyn12", dr.dyn12, dr.dyn12_plain),
+                              ("blk1", dr.blk1, dr.blk1_plain)):
+        jobs[name] = (name, f"{dr.VISITS} visits, q (468, 512)",
+                      lambda k=kern: k(tab),
+                      lambda x=None, p=plain: p(tab, stats=x), check_exact,
+                      4 * (tab.numel() + tab.shape[1]))
+    return jobs, (win, qsel)
+
+
+def run_probes(jobs):
+    """Phase 12, the probes' own run: each job's kernel wrapper once, with
+    the probes' launch counters set to 0 just before and read just after;
+    every probe must launch, every output be float32 of the shape its
+    script gives and finite (NaN only where P1 ``grid`` adds a NaN
+    distance) -> counts."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch import probes
+
+    probes.reset_launch_counts()
+    outs = {key: job[2]() for key, job in jobs.items()}
+    _sync()
+    counts = probes.launch_counts()
+    log(f"launch counts, {PROBE_RUN}: {counts}")
+    missing = [k for k in PROBES if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{PROBE_RUN}: {missing} never launched")
+    for key, out in outs.items():
+        shape = (64, 512) if key.startswith("toy_mask") else (1, 512)
+        ok = (out.isfinite() | out.isnan() if key == "toy_mask grid hazards"
+              else out.isfinite())
+        if tuple(out.shape) != shape or out.dtype != torch.float32 or \
+                not bool(ok.all()):
+            raise AssertionError(f"{PROBE_RUN}: {key} gave {out.dtype} "
+                                 f"{tuple(out.shape)}, not all finite")
+    return counts
+
+
+def time_mm22_matmul(win, qsel, smi):
+    """``torch.matmul`` of mm22's stacked one-hot picks (every visit's,
+    bf16) by qsel: the product alone, not the function (no per-visit
+    sums) -> ms."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    lanes = qsel.shape[0]
+    w = ms._lanes(win, ms.VISITS, lanes).reshape(-1)
+    picks = torch.zeros(w.shape[0], lanes, dtype=torch.bfloat16,
+                        device=qsel.device)
+    picks[torch.arange(w.shape[0], device=w.device), w] = 1.0
+    t = cuda_time_ms(lambda: torch.matmul(picks, qsel), warmup=1, iters=3)
+    log(f"time mm22's product as one torch.matmul ({tuple(picks.shape)} x "
+        f"{tuple(qsel.shape)} bf16, the per-visit sums not included): "
+        f"{t['median_ms']:.3f} ms (median of 3) on {smi}")
+    del picks
+    return t["median_ms"]
+
+
+# labels of an entry function's first template argument, by kernel (the
+# others: the dialect); a second argument set marks the diff variant
+FLAG_LABELS = {"blockmajor_kernel": ("closest", "occluded"),
+               "dyn_reads_kernel": ("plane-major", "block-major"),
+               "toy_mask_kernel": ("grid", "scalar", "both")}
+
+
 def ptxas_summary(text):
-    """'kernel[<dialect>]: N registers, S spill bytes' per entry function."""
+    """'kernel[<flags>]: N registers, S spill bytes' per entry function."""
     out, name, spill = [], None, "spills not reported"
     for ln in text.splitlines():
-        m = re.search(r"Compiling entry function "
-                      r"'_Z\d+(\w+?)(?:ILb(\d)E(?:Lb(\d)E)?|9SceneArgs|PKf)",
-                      ln)
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
         if m:
-            name = m.group(1)
-            if m.group(2):
-                flag = {"blockmajor_kernel": ("closest", "occluded")}.get(
-                    name, ("gpu", "cpuonly"))[int(m.group(2))]
-                name += f"<{flag}"
-                name += ", diff>" if m.group(3) == "1" else ">"
+            n = int(m.group(1))
+            name, rest = m.group(2)[:n], m.group(2)[n:]
+            args = re.match(r"I((?:L[bi]\d+E)+)E", rest)
+            if args:
+                flags = [int(a) for a in
+                         re.findall(r"L[bi](\d+)E", args.group(1))]
+                labels = [FLAG_LABELS.get(name, ("gpu", "cpuonly"))[flags[0]]]
+                if flags[1:] == [1]:
+                    labels.append("diff")
+                name += f"<{', '.join(labels)}>"
             spill = "spills not reported"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -1479,11 +1627,13 @@ def main():
     check_goldens(dev)
 
     # --- 5. the main path: frog 1080p, depth 8, binned plan, then flat
+    from raytracinginonesemester_tpu_torch import probes
     from raytracinginonesemester_tpu_torch.ops import binned
     from raytracinginonesemester_tpu_torch.render.renderer import (
         frog_scene, render_scene_frames, resolve_candidate_plan,
         resolve_wavefront)
 
+    probes.reset_launch_counts()  # read after phase 10: no path runs one
     t0 = time.time()
     scene = frog_scene(W, H, device=dev)
     torch.cuda.synchronize()
@@ -1570,6 +1720,12 @@ def main():
 
     # --- 10. the large-scene streamed path (bench.py --large 1000000)
     large = check_large(dev, smi)
+    _sync()
+    path_probes = probes.launch_counts()
+    log(f"probe launches in phases 5-10 (the render, training and "
+        f"large-scene paths): {path_probes}")
+    if any(path_probes.values()):
+        raise AssertionError("a render or training path launched a probe")
 
     # --- 11. kernel times at full width beside the plain versions
     from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
@@ -1688,6 +1844,13 @@ def main():
     }
     records = time_kernels(smi, errs, jobs)
 
+    # --- 12. the TPU probes P1-P3, on no render or training path
+    p_jobs, (p_win, p_qsel) = probe_jobs(dev)
+    probe_counts = run_probes(p_jobs)
+    probe_records = time_kernels(smi, errs, p_jobs)
+    probe_records["mm22"]["matmul_product_ms"] = time_mm22_matmul(
+        p_win, p_qsel, smi)
+
     # which run's launches each record reports: (run, counts, counter)
     tc = train["counts"]
     training = f"training call, grad-bench config ({GRAD_STEPS} steps)"
@@ -1744,6 +1907,9 @@ def main():
             "large occluded": ("large frog 1080p depth 8 (G and I), which "
                                "does not bind F", large["gi_counts"],
                                "occluded")}
+    for key, rec in probe_records.items():
+        runs[key] = (PROBE_RUN, probe_counts, rec["name"])
+    records.update(probe_records)
     for key, rec in records.items():
         label, counts, counter = runs[key]
         rec.update(variant=key, launches=counts[counter],
@@ -1751,7 +1917,8 @@ def main():
     main_keys = ("emit binned", "bounce_step", "resume", "render V2 binned",
                  "closest", "occluded", "segment_accum",
                  "large closest_streamed", "large occluded_streamed",
-                 "large closest_blockmajor", "large occluded_blockmajor")
+                 "large closest_blockmajor", "large occluded_blockmajor",
+                 "toy_mask both", "sel7", "mm22", "dyn12", "blk1")
     log(f"ms/frame on {smi}: main path binned {ms_binned:.3f}, "
         f"RT_BINNED=0 {ms_flat:.3f}, RT_WAVEFRONT=0 {ms_d:.3f}, terminal "
         f"{ms_term:.3f}, cpuonly_mirror {ms_cpu:.3f}, cpuonly_mirror "

@@ -3,8 +3,9 @@
 Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
 seconds.  ``megakernel.cu`` holds kernels A-F, ``block_stream.cu`` the
-streamed kernels G, I and H, ``segment_accum.cu`` kernel J; the first two
-include ``trace_common.cuh``.  The build happens at first use, into
+streamed kernels G, I and H, ``segment_accum.cu`` kernel J, ``probes.cu``
+the TPU probes P1-P3 (``probes/``); the first two include
+``trace_common.cuh``.  The build happens at first use, into
 ``build/`` beside the package (``RT_TORCH_BUILD_DIR`` overrides), under a
 name that hashes the source, the shared headers and the flags, so an
 edited source never loads a stale library;
@@ -25,7 +26,7 @@ import time
 __all__ = ["NVCC_FLAGS", "SOURCES", "SceneArgs", "build", "build_all", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("megakernel", "block_stream", "segment_accum")
+SOURCES = ("megakernel", "block_stream", "segment_accum", "probes")
 
 # exact IEEE division/sqrt and no FMA contraction: the kernels keep the
 # op order of the plain versions and of the JAX reference
@@ -159,9 +160,15 @@ def _declare(name: str, lib) -> None:
                                       + [vp] * 6)
         fns = (lib.rt_closest_streamed, lib.rt_occluded_streamed,
                lib.rt_blockmajor)
-    else:
+    elif name == "segment_accum":
         lib.rt_segment_accum.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp]
         fns = (lib.rt_segment_accum,)
+    else:
+        lib.rt_toy_mask.argtypes = [i, vp, vp, i, i, i, i, vp, vp]
+        lib.rt_sel7.argtypes = [vp, vp, i, i, i, vp, vp]
+        lib.rt_mm22.argtypes = [vp, vp, i, i, i, i, vp, vp]
+        lib.rt_dyn_reads.argtypes = [i, vp, i, i, vp, vp]
+        fns = (lib.rt_toy_mask, lib.rt_sel7, lib.rt_mm22, lib.rt_dyn_reads)
     for fn in fns:
         fn.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]

@@ -1,0 +1,210 @@
+"""P2: the one-hot attribute selection of ``scripts/probe_mm_select.py``
+on the card.
+
+On each of ``visits`` visits, ray r (of RT) selects lane w = (win[r] + k)
+mod B of a table whose rows are attributes, and adds what it selected to
+its sum, visit after visit:
+
+- ``sel7(win, q)`` replaces ``sel_kernel`` (``pallas_call`` at
+  ``probe_mm_select.py:86``): 7 masked lane reductions of q (22, B) a
+  visit, ``acc += q[f, w]`` for f < 7 (a reduction with one nonzero term
+  is that term);
+- ``mm22(win, qsel)`` replaces ``mm_kernel`` (:88): the (RT, B) one-hot
+  pick in bf16 times ``qsel`` (B, 128) bf16, accumulated in float32 (the
+  kernel runs the product on the tensor cores), then ``acc += (hi + mid)
+  + lo`` for each of the 22 attributes, whose three bf16 parts
+  (``split3``) ``make_qsel`` packs at columns 0, 32 and 64.
+
+Both return (1, RT) float32.  The plain versions gather the selected
+lanes (the product's one nonzero term) and add in the kernels' order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._common import card, launch, timed
+
+__all__ = ["RT", "B", "F", "VISITS", "split3", "make_qsel", "sel7",
+           "sel7_plain", "mm22", "mm22_plain", "script_inputs", "main"]
+
+RT, B, F, VISITS = 512, 512, 22, 4096  # probe_mm_select.py:22
+SEL_ROWS = 7  # sel_kernel's reductions a visit
+PARTS = (0, 32, 64)  # qsel's columns of hi, mid and lo
+
+
+def split3(q: torch.Tensor):
+    """float32 -> (hi, mid, lo) bf16 with hi + mid + lo ~ q, as the
+    script's ``split3`` (torch's bf16 cast rounds to nearest even, as
+    ``astype(jnp.bfloat16)``)."""
+    hi = q.to(torch.bfloat16).to(torch.float32)
+    r = q - hi
+    mid = r.to(torch.bfloat16).to(torch.float32)
+    lo = (r - mid).to(torch.bfloat16)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), lo
+
+
+def make_qsel(q: torch.Tensor) -> torch.Tensor:
+    """q (F, B) float32 -> qsel (B, 128) bf16: ``split3``'s parts of the
+    F attributes at columns 0, 32 and 64, zeros elsewhere."""
+    f = q.shape[0]
+    qsel = torch.zeros(q.shape[1], 128, dtype=torch.bfloat16, device=q.device)
+    for col, part in zip(PARTS, split3(q)):
+        qsel[:, col:col + f] = part.t()
+    return qsel
+
+
+def _lanes(win: torch.Tensor, visits: int, lanes: int) -> torch.Tensor:
+    """(visits, RT) int64: the lane each ray selects on each visit."""
+    k = torch.arange(visits, device=win.device)
+    return (win.reshape(-1).to(torch.int64)[None, :] + k[:, None]) % lanes
+
+
+def _ordered_sum(seq: torch.Tensor) -> torch.Tensor:
+    """(n, RT) -> (1, RT): acc = acc + seq[i] for i = 0, 1, ... in float32."""
+    acc = torch.zeros(seq.shape[1], dtype=torch.float32, device=seq.device)
+    for row in seq:
+        acc = acc + row
+    return acc[None, :]
+
+
+def _check_win(win: torch.Tensor) -> None:
+    if win.dtype != torch.int32 or win.numel() == 0 or \
+            win.reshape(-1).shape[0] != win.shape[0]:
+        raise ValueError(f"win must be (RT,) or (RT, 1) int32, got "
+                         f"{tuple(win.shape)} {win.dtype}")
+    if win.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"win on {win.device}")
+
+
+def _check_sel(win, q, visits):
+    _check_win(win)
+    if q.dtype != torch.float32 or q.ndim != 2 or q.shape[0] < SEL_ROWS \
+            or not 0 < q.shape[1] <= 1024:
+        raise ValueError(f"q must be (>= 7, B <= 1024) float32, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if q.device != win.device or visits < 0:
+        raise ValueError(f"q on {q.device}, win on {win.device}, "
+                         f"visits={visits}")
+
+
+def sel7_plain(win: torch.Tensor, q: torch.Tensor, visits: int = VISITS,
+               stats: dict | None = None) -> torch.Tensor:
+    """Plain version of ``sel7`` on the inputs' device; ``stats``
+    (optional) receives its FP32 adds (``ops``)."""
+    _check_sel(win, q, visits)
+    w = _lanes(win, visits, q.shape[1])
+    vals = q[:SEL_ROWS][:, w].permute(1, 0, 2)  # (visits, 7, RT)
+    if stats is not None:
+        stats["ops"] = vals.numel()
+    return _ordered_sum(vals.reshape(-1, w.shape[1]))
+
+
+def sel7(win: torch.Tensor, q: torch.Tensor, visits: int = VISITS
+         ) -> torch.Tensor:
+    """(1, RT) float32: each ray's sum over ``visits`` visits of q[f, w]
+    for f < 7.  The CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check_sel(win, q, visits)
+    if win.device.type == "cpu":
+        return sel7_plain(win, q, visits)
+    win, q = win.reshape(-1).contiguous(), q.contiguous()
+    out = torch.empty(1, win.shape[0], dtype=torch.float32, device=q.device)
+    launch("sel7", "sel7", win, q, win.shape[0], q.shape[1], visits, out)
+    sel7.launches += 1
+    return out
+
+
+sel7.launches = 0
+
+
+def _check_mm(win, qsel, visits):
+    _check_win(win)
+    if qsel.dtype != torch.bfloat16 or qsel.ndim != 2 or \
+            qsel.shape[1] < PARTS[-1] + 24 or qsel.shape[0] % 16 or \
+            not 0 < qsel.shape[0] <= 1024:
+        raise ValueError(f"qsel must be (B, >= 88) bf16 with B a multiple "
+                         f"of 16 up to 1024, got {tuple(qsel.shape)} "
+                         f"{qsel.dtype}")
+    if win.shape[0] % 16:
+        raise ValueError(f"{win.shape[0]} rays: a multiple of 16")
+    if qsel.device != win.device or visits < 0:
+        raise ValueError(f"qsel on {qsel.device}, win on {win.device}, "
+                         f"visits={visits}")
+
+
+def mm22_plain(win: torch.Tensor, qsel: torch.Tensor, visits: int = VISITS,
+               stats: dict | None = None) -> torch.Tensor:
+    """Plain version of ``mm22`` on the inputs' device.  The product's
+    row for ray r is qsel[w] (one term 1 x value, the rest zeros, exact
+    in float32).  ``stats`` (optional): ``ops``, the FP32 adds;
+    ``bf16_ops``, the product's operations on the columns the sums
+    read."""
+    _check_mm(win, qsel, visits)
+    part = qsel.to(torch.float32)
+    attr = part[:, 0:F] + part[:, 32:32 + F]
+    attr = attr + part[:, 64:64 + F]  # (B, F): (hi + mid) + lo
+    w = _lanes(win, visits, qsel.shape[0])
+    vals = attr[w].permute(0, 2, 1)  # (visits, F, RT)
+    if stats is not None:
+        stats["ops"] = 3 * vals.numel()
+        stats["bf16_ops"] = 2 * w.numel() * qsel.shape[0] * 3 * F
+    return _ordered_sum(vals.reshape(-1, w.shape[1]))
+
+
+def mm22(win: torch.Tensor, qsel: torch.Tensor, visits: int = VISITS
+         ) -> torch.Tensor:
+    """(1, RT) float32: each ray's sum over ``visits`` visits of (hi + mid)
+    + lo of its selected lane, attribute after attribute, the selection
+    a one-hot product on the tensor cores.  The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    _check_mm(win, qsel, visits)
+    if win.device.type == "cpu":
+        return mm22_plain(win, qsel, visits)
+    win, qsel = win.reshape(-1).contiguous(), qsel.contiguous()
+    out = torch.empty(1, win.shape[0], dtype=torch.float32,
+                      device=qsel.device)
+    launch("mm22", "mm22", win, qsel, win.shape[0], qsel.shape[0],
+           qsel.shape[1], visits, out)
+    mm22.launches += 1
+    return out
+
+
+mm22.launches = 0
+
+
+def script_inputs(device="cuda"):
+    """The script's inputs (``probe_mm_select.py:74-76``):
+    ``default_rng(0)``'s q (22, 512) float32, then win (512,) -> (win
+    (512, 1) int32, q, qsel)."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((F, B)).astype(np.float32))
+    win = torch.from_numpy(rng.integers(0, B, RT).astype(np.int32))
+    q, win = q.to(device), win.reshape(RT, 1).to(device)
+    return win, q, make_qsel(q)
+
+
+def main() -> None:
+    """``python -m raytracinginonesemester_tpu_torch.probes.mm_select``:
+    the script's two timed lines on the card, then its per-attribute bit
+    check of the one-hot product against the masked reductions."""
+    print(card(), flush=True)
+    win, q, qsel = script_inputs()
+    timed("sel7", lambda: sel7(win, q), VISITS)
+    timed("mm22", lambda: mm22(win, qsel), VISITS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pick = torch.zeros(RT, B, dtype=torch.float32, device=q.device)
+    pick[torch.arange(RT), win[:, 0].long()] = 1.0
+    sel_exact = torch.stack([torch.where(pick > 0, q[f][None, :], 0.0)
+                             .sum(dim=1) for f in range(F)])
+    mm_out = pick @ qsel.to(torch.float32)  # bf16 values, exact in float32
+    mm_attr = (mm_out[:, 0:F] + mm_out[:, 32:32 + F]
+               + mm_out[:, 64:64 + F]).t()
+    same = sel_exact == mm_attr
+    print("attr values bit-identical:", bool(same.all()),
+          f"({float(same.float().mean()):.6f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -33,11 +33,14 @@ from raytracinginonesemester_tpu.ops import diff_oracle as jdo
 from raytracinginonesemester_tpu.ops import megakernel as jmk
 from raytracinginonesemester_tpu.render import renderer as jr
 from raytracinginonesemester_tpu.scene import subdivide as jsub
+from raytracinginonesemester_tpu.scene.build import build_scene as jbuild
+from raytracinginonesemester_tpu.scene.config import load_scene_config
 from raytracinginonesemester_tpu_torch.ops import accel as taccel
 from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
 from raytracinginonesemester_tpu_torch.ops import diff_oracle as tdo
 from raytracinginonesemester_tpu_torch.ops import integrator as tint
 from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
+from raytracinginonesemester_tpu_torch.ops import wavefront as twf
 from raytracinginonesemester_tpu_torch.ops.accel import BlockGrid
 from raytracinginonesemester_tpu_torch.render import renderer as tr
 from raytracinginonesemester_tpu_torch.scene import subdivide as tsub
@@ -423,6 +426,80 @@ def test_differentiable_over_budget_takes_the_detached_streamed_mode(
     _close_images(got.detach().numpy(), want)
     got.sum().backward()
     assert torch.isfinite(vertices.grad).all() and (vertices.grad != 0).any()
+
+
+# --- the cpuonly dialect over the budget --------------------------------
+
+# chip_smoke.py phase 8's area light (radius 0.15, diffuse bounces) with a
+# few shadow samples: I traces the disk-sampled soft shadows
+CPUONLY_LIGHTS = {"point": {},
+                  "area": dict(radius=0.15, shadow_samples=4,
+                               diffuse_bounce=True)}
+
+
+def _cpuonly_mirror(**light):
+    """``cpuonly_mirror.json`` at 48x24, built by the JAX package with its
+    Pallas kernels, its light changed as ``chip_smoke.py``'s
+    ``cpuonly_scene`` changes it."""
+    path = f"{REPO}/tests/assets/scenes/cpuonly_mirror.json"
+    cfg = dataclasses.replace(load_scene_config(path), pixel_width=W,
+                              pixel_height=H)
+    if "diffuse_bounce" in light:
+        cfg = dataclasses.replace(cfg,
+                                  diffuse_bounce=light.pop("diffuse_bounce"))
+    if light:
+        cfg = dataclasses.replace(
+            cfg, lights=[{**l, **light} for l in cfg.lights])
+    return dataclasses.replace(jbuild(cfg, scene_path=path), use_pallas=True)
+
+
+@pytest.fixture(scope="module", params=sorted(CPUONLY_LIGHTS))
+def cpuonly_image(request):
+    """The JAX render of the over-budget cpuonly mirror scene (its
+    streamed kernels, interpret mode; ``auto`` jitter: pixel centres) and
+    the port's scene on the same planes."""
+    js = _cpuonly_mirror(**CPUONLY_LIGHTS[request.param])
+    budget = 4 * pk._grid_bytes(1, 128)
+    jax.clear_caches()
+    saved = pk._VMEM_TRI_BUDGET_BYTES
+    pk._VMEM_TRI_BUDGET_BYTES = budget
+    try:
+        assert pk.num_chunks_for(js.accel) > 1
+        reason = jmk.megakernel_ineligible_reason(js, "auto")
+        want = np.asarray(jr.render_scene(js, "auto"))
+    finally:
+        pk._VMEM_TRI_BUDGET_BYTES = saved
+        jax.clear_caches()
+    return request.param, js, torch_from_jax(js), want, reason
+
+
+@pytest.fixture
+def no_fused(monkeypatch):
+    """Kernels A-D (emit, bounce_step, resume, render) raise if called."""
+    def fused(*a, **k):
+        raise AssertionError("a fused kernel ran for an over-budget scene")
+
+    monkeypatch.setattr(tmk, "render_tiles", fused)
+    for name in ("emit_tiles", "bounce_step_tiles", "resume_tiles"):
+        monkeypatch.setattr(twf, name, fused)
+
+
+def test_cpuonly_over_budget_renders_through_g_and_i(cpuonly_image,
+                                                     low_budget, calls,
+                                                     no_fused):
+    """det_eps = FLT_EPSILON, the sky-gradient misses and (area light) the
+    disk-sampled soft shadows through G and I, against the JAX package's
+    streamed render."""
+    name, js, ts, want, reason = cpuonly_image
+    assert ts.dialect == js.dialect == "cpuonly"
+    assert ts.lights.shadow_samples == js.lights.shadow_samples == (
+        (4,) if name == "area" else (1,))
+    assert tmk.megakernel_ineligible_reason(ts, "auto") == reason
+    assert "VMEM budget" in reason
+    got = tr.render_scene(ts, "auto").numpy()
+    assert set(calls) == set(STREAMED)
+    _close_images(got, want)
+    assert want.std() > 0.05
 
 
 # --- on the card ------------------------------------------------------
