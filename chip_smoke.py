@@ -86,7 +86,9 @@ Phases, each printed on its own line; any failure raises (exit != 0):
 11. each kernel against its plain version at its full-width shapes, both
    timed, with the least time the card could take (bound); E and F on
    the inputs of their first launches in single-frame renders of phase
-   8's scenes, J on those of phase 9, G, I and H on phase 10's camera
+   8's scenes, J on those of phase 9 (also its glue, the sort that plans
+   the runs and chunks, and its kernels on that plan, each timed alone),
+   G, I and H on phase 10's camera
    and full-width shadow rays, and E and F on the large scene too (E on
    the camera rays, F on the hits' shadow rays);
 12. the TPU probes of ``scripts/`` (``raytracinginonesemester_tpu_torch/
@@ -836,6 +838,7 @@ def time_kernels(smi, errs, jobs):
     for key, job in jobs.items():
         name, shape, kern, plain, check, nbytes = job[:6]
         library = job[6] if len(job) > 6 else None
+        parts = job[7] if len(job) > 7 else {}  # {record key: call}
         got = kern()
         stats = {}
         want = plain(stats)
@@ -853,6 +856,8 @@ def time_kernels(smi, errs, jobs):
         p = cuda_time_ms(plain, warmup=0, iters=1)
         lib = (cuda_time_ms(library, warmup=1, iters=3)["median_ms"]
                if library else None)
+        part_ms = {k: cuda_time_ms(f, warmup=1, iters=3)["median_ms"]
+                   for k, f in parts.items()}
         t_ops = max(ops / PEAK_FLOPS, bf16_ops / PEAK_BF16) * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
@@ -860,6 +865,7 @@ def time_kernels(smi, errs, jobs):
         log(f"time {key} at {shape}: kernel {k['median_ms']:.3f} ms (median "
             f"of 3), plain {p['median_ms']:.1f} ms (1 run)"
             + (f", library {lib:.3f} ms" if library else "")
+            + "".join(f", {k} {v:.4f}" for k, v in part_ms.items())
             + f"; bound {bound:.4f} ms by {by} ({pairs} ray-primitive pairs, "
             f"{ops} FP32 operations, "
             + (f"{bf16_ops} bf16 tensor operations, " if bf16_ops else "")
@@ -870,6 +876,7 @@ def time_kernels(smi, errs, jobs):
                         "ms": k["median_ms"], "plain_ms": p["median_ms"],
                         "bound_ms": bound, "bound_by": by,
                         "library_ms": lib, "pairs": pairs}
+        records[key].update(part_ms)
     return records
 
 
@@ -1149,6 +1156,7 @@ def diff_jobs(train):
 
         keep = (idx >= 0) & (idx < n_rows)
         i_lib, ct_lib = idx[keep].long(), ct[keep]
+        plan = dg.segment_plan(idx, n_rows)
 
         def library():
             return torch.zeros(n_rows, f, device=ct.device).index_add_(
@@ -1157,7 +1165,10 @@ def diff_jobs(train):
         return ("segment_accum",
                 f"{r} rays x {f} features into {n_rows} rows ({what})",
                 lambda: dg.segment_accum_rows(idx, ct, n_rows), j_plain,
-                check_accum, r * 4 + r * f * 4 + n_rows * f * 4, library)
+                check_accum, r * 4 + r * f * 4 + n_rows * f * 4, library,
+                {"glue_ms": lambda: dg.segment_plan(idx, n_rows),
+                 "kernel_only_ms": lambda: dg.segment_accum_planned(
+                     ct, plan, n_rows)})
 
     return {
         "bounce_step diff binned": b_job(
@@ -1192,8 +1203,8 @@ def check_accum_library(call):
     error bound of any order of recursive summation, so of both sums),
     plus n 2^-126 (a float atomic add flushes a subnormal result to zero;
     the kernel keeps subnormals, within 2^-149 an add); J within
-    gamma_(n-1) of the float64 sum plus n 2^-149.  Also the sort's
-    traffic."""
+    gamma_(n-1) of the float64 sum plus n 2^-149 (J's fixed tree is one
+    such order)."""
     import torch
 
     from raytracinginonesemester_tpu_torch.ops import diff_gather as dg
@@ -1226,8 +1237,7 @@ def check_accum_library(call):
         f"sum |ct|: kernel {rel(j_err):.3e}, index_add_ "
         f"{rel((lib.double() - exact).abs()):.3e}; longest run "
         f"{int(counts.max())} rays (bin {int(counts.argmax())}), empty bins "
-        f"{int((counts == 0).sum())}; the sort moves {idx.numel() * 20} "
-        "bytes apart (int64 keys read and written, int32 order written)")
+        f"{int((counts == 0).sum())}")
     if bad:
         raise AssertionError("segment_accum disagrees with index_add_")
 
@@ -1556,7 +1566,8 @@ def time_mm22_matmul(win, qsel, smi):
 
 
 # labels of an entry function's first template argument, by kernel (the
-# others: the dialect); a second argument set marks the diff variant
+# others: the dialect); a second argument set marks the diff variant, a
+# third is bounce_step_kernel's rays a warp
 FLAG_LABELS = {"blockmajor_kernel": ("closest", "occluded"),
                "dyn_reads_kernel": ("plane-major", "block-major"),
                "toy_mask_kernel": ("grid", "scalar", "both")}
@@ -1575,8 +1586,10 @@ def ptxas_summary(text):
                 flags = [int(a) for a in
                          re.findall(r"L[bi](\d+)E", args.group(1))]
                 labels = [FLAG_LABELS.get(name, ("gpu", "cpuonly"))[flags[0]]]
-                if flags[1:] == [1]:
+                if flags[1:2] == [1]:
                     labels.append("diff")
+                if flags[2:]:  # bounce_step_kernel: rays a warp
+                    labels.append(f"{flags[2]} rays a warp")
                 name += f"<{', '.join(labels)}>"
             spill = "spills not reported"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)

@@ -18,19 +18,23 @@
 //
 // Design.  One thread per ray, 128 threads per block.  Thread (tile, lane)
 // reads state row k at tile*16*rt + k*rt + lane, so each row load of a warp
-// is coalesced.  Triangle planes stay in global memory (frog at 512-blocks
-// is ~1.7 MB and lives in L2); block AABBs, lights and materials are staged
-// in shared memory.  Closest hit either scans blocks 0..L-1 with a per-ray
-// slab test against the running best t before each block's triangle loop
-// (the per-ray form of the Pallas tile-level gate), or, at depth 0 with a
-// binned camera plan (ops/binned.py), walks the tile's candidate chunks:
-// every thread of a CUDA block lies in one 512-ray tile, so each load of a
-// chunk's row is one address for the whole warp (a broadcast); the chunks
-// are read straight from global memory, not staged in shared memory.  The
-// lexicographic (t, global triangle id) take rule makes the winner
-// independent of visit order.  Shadow rays stop at their first hit.  The
-// hemisphere and disk samplers are the reference's scalar rejection loops
-// (query.h:51-71, raytracer.h:77-85), capped at 64 rounds.
+// is coalesced.  bounce_step_kernel (B) walks its flat closest hit and its
+// shadow rays warp-cooperatively, 8 rays to a warp (closest_coop,
+// occluded_coop below); the other kernels keep the one-thread-per-ray walk
+// (closest, occluded).  Triangle planes stay in global memory (frog at
+// 512-blocks is ~1.7 MB and lives in L2); block AABBs, lights and
+// materials are staged in shared memory.  Closest hit either scans blocks
+// 0..L-1 with a per-ray slab test against the running best t before each
+// block's triangle loop (the per-ray form of the Pallas tile-level gate),
+// or, at depth 0 with a binned camera plan (ops/binned.py), walks the
+// tile's candidate chunks: every thread of a CUDA block lies in one
+// 512-ray tile, so each load of a chunk's row is one address for the whole
+// warp (a broadcast); the chunks are read straight from global memory, not
+// staged in shared memory.  The lexicographic (t, global triangle id) take
+// rule makes the winner independent of visit order.  Shadow rays stop at
+// their first hit.  The hemisphere and disk samplers are the reference's
+// scalar rejection loops (query.h:51-71, raytracer.h:77-85), capped at 64
+// rounds.
 //
 // What bounds it on this card: divergent scalar FP32 work (Moller-Trumbore
 // per ray-triangle pair, shadow walks, rejection sampling) and L2-resident
@@ -52,6 +56,10 @@ constexpr int kCandRows = 16;
 constexpr int kThreads = 128;
 constexpr float kInvPi = 0.31830988618f;
 constexpr float kInv2Pi = 0.15915494309f;
+constexpr unsigned kFull = 0xffffffffu;
+// rays a warp of bounce_step_kernel owns when its closest hit is the flat
+// walk; its 32 lanes test their pairs
+constexpr int kRaysPerWarp = 8;
 
 }  // namespace
 
@@ -230,6 +238,179 @@ __device__ bool occluded(const SceneArgs& s, const Shared& sh, const float* p,
   return false;
 }
 
+// ---- the warp-cooperative walks of bounce_step_kernel ----
+//
+// Measured on the card (scripts/profile_torch_main_path.py --kernels): in
+// the one-thread-per-ray walk above, a warp runs a block's 512-step
+// triangle loop whenever any of its lanes passes the block's slab test
+// (half its lanes idle after a diffuse bounce), and each step is one
+// triangle whose test waits on the step before (the window shrinks with
+// the running best t), with few live warps to hide that.
+//
+// Here each lane keeps its ray, running hit and block cursor, and gates
+// the blocks in order 0..L-1 against its running best t exactly as
+// closest() does.  The warp takes the lowest block any lane waits on, and
+// all 32 lanes test the (ray, block) pairs waiting on it one after the
+// other, lane l taking triangles l, l + 32, ... (coalesced plane loads,
+// and independent tests: the window is the owner's best t when the block
+// starts).  A fixed shuffle tree keeps the lexicographic (t, global id,
+// slot) minimum, which the owner takes by the take rule.  That is the
+// winner of the sequential walk: a triangle it rejects for the shrunken
+// window has a larger t than the hit that shrank it, and mt() computes
+// t, u and v from the same inputs in both.  Every lane of the warp calls
+// these; `active` marks the lanes that have a ray to walk.  A warp owns
+// kRaysPerWarp rays: with 32 the few warps holding the live rays of a
+// bounce kept the card busy half the time (the slowest warps set the
+// time), with 8 there are four times as many, each with a quarter of the
+// pairs.  (The binned walk, one ray a lane, keeps 32.)
+
+// The first block from b on whose slab test passes on [t0, t1] (L: none).
+__device__ __forceinline__ int next_block(const SceneArgs& s,
+                                          const Shared& sh, const float* o,
+                                          const float* inv, float t0,
+                                          float t1, int b) {
+  while (b < s.num_blocks && !slab(sh.aabb + 6 * b, o, inv, t0, t1)) ++b;
+  return b;
+}
+
+// The lexicographic (t, id, j) order; misses carry (kF32Max, kIntMax, j).
+__device__ __forceinline__ bool key_less(float t, int id, int j, float t2,
+                                         int id2, int j2) {
+  return t < t2 || (t == t2 && (id < id2 || (id == id2 && j < j2)));
+}
+
+// All 32 lanes test the pair's block (ray o, d on [tmin, tmax]) and end
+// with its closest triangle, the same on every lane: slot j in the block
+// (kIntMax if none), t (kF32Max), u, v and global id.
+__device__ void block_closest_warp(const SceneArgs& s, int b, const float* o,
+                                   const float* d, float tmin, float tmax,
+                                   float* t_o, float* u_o, float* v_o,
+                                   int* id_o, int* j_o) {
+  const int lane = threadIdx.x & 31;
+  const size_t plane = (size_t)s.num_blocks * s.block_size;
+  const int base = b * s.block_size;
+  float bt = kF32Max, bu = 0.0f, bv = 0.0f;
+  int bid = kIntMax, bj = kIntMax;
+#pragma unroll 4
+  for (int j = lane; j < s.block_size; j += 32) {
+    const int id = s.ids[base + j];
+    float u, v;
+    const float t =
+        mt(s.tri + base + j, plane, s.det_eps, o, d, tmin, tmax, &u, &v);
+    // ascending j within the lane: a tie keeps the earlier slot
+    if (id >= 0 && t < kF32Max && (t < bt || (t == bt && id < bid))) {
+      bt = t;
+      bu = u;
+      bv = v;
+      bid = id;
+      bj = j;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(kFull, bt, off);
+    const int oid = __shfl_xor_sync(kFull, bid, off);
+    const int oj = __shfl_xor_sync(kFull, bj, off);
+    if (key_less(ot, oid, oj, bt, bid, bj)) {
+      bt = ot;
+      bid = oid;
+      bj = oj;
+    }
+  }
+  const int src = bj == kIntMax ? 0 : (bj & 31);  // the winner's lane
+  *u_o = __shfl_sync(kFull, bu, src);
+  *v_o = __shfl_sync(kFull, bv, src);
+  *t_o = bt;
+  *id_o = bid;
+  *j_o = bj;
+}
+
+// closest() for the lanes of a warp together.
+__device__ Hit closest_coop(const SceneArgs& s, const Shared& sh,
+                            const float* o, const float* d, float tmin,
+                            bool active) {
+  const int lane = threadIdx.x & 31;
+  const float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
+  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
+  int b = active ? next_block(s, sh, o, inv, tmin, h.t, 0) : s.num_blocks;
+  for (int bmin = __reduce_min_sync(kFull, b); bmin < s.num_blocks;
+       bmin = __reduce_min_sync(kFull, b)) {
+    for (unsigned todo = __ballot_sync(kFull, b == bmin); todo;
+         todo &= todo - 1) {
+      const int src = __ffs(todo) - 1;
+      float po[3], pd[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        po[c] = __shfl_sync(kFull, o[c], src);
+        pd[c] = __shfl_sync(kFull, d[c], src);
+      }
+      const float ptmin = __shfl_sync(kFull, tmin, src);
+      const float ptmax = __shfl_sync(kFull, h.t, src);
+      float t, u, v;
+      int id, j;
+      block_closest_warp(s, bmin, po, pd, ptmin, ptmax, &t, &u, &v, &id, &j);
+      if (lane == src && j != kIntMax)
+        take(h, t, u, v, id, bmin * s.block_size + j);
+    }
+    if (b == bmin) b = next_block(s, sh, o, inv, tmin, h.t, b + 1);
+  }
+  return h;
+}
+
+// Any hit of the pair's block on [tmin, tmax], on every lane; the lanes
+// test 128 triangles between votes.
+__device__ bool block_any_warp(const SceneArgs& s, int b, const float* p,
+                               const float* ld, float tmin, float tmax) {
+  const int lane = threadIdx.x & 31;
+  const size_t plane = (size_t)s.num_blocks * s.block_size;
+  const int base = b * s.block_size;
+  for (int j0 = 0; j0 < s.block_size; j0 += 128) {
+    bool hit = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + 32 * q + lane;
+      if (j < s.block_size && s.ids[base + j] >= 0) {
+        float u, v;
+        hit |= mt(s.tri + base + j, plane, s.det_eps, p, ld, tmin, tmax, &u,
+                  &v) < kF32Max;
+      }
+    }
+    if (__any_sync(kFull, hit)) return true;
+  }
+  return false;
+}
+
+// occluded() for the lanes of a warp together: a lane leaves the walk at
+// the first block that holds a blocker.
+__device__ bool occluded_coop(const SceneArgs& s, const Shared& sh,
+                              const float* p, const float* ld, float tmin,
+                              float dist, float tmax, bool active) {
+  const int lane = threadIdx.x & 31;
+  const float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};
+  bool blocked = false;
+  int b = active ? next_block(s, sh, p, inv, tmin, dist, 0) : s.num_blocks;
+  for (int bmin = __reduce_min_sync(kFull, b); bmin < s.num_blocks;
+       bmin = __reduce_min_sync(kFull, b)) {
+    for (unsigned todo = __ballot_sync(kFull, b == bmin); todo;
+         todo &= todo - 1) {
+      const int src = __ffs(todo) - 1;
+      float pp[3], pl[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        pp[c] = __shfl_sync(kFull, p[c], src);
+        pl[c] = __shfl_sync(kFull, ld[c], src);
+      }
+      const float ptmin = __shfl_sync(kFull, tmin, src);
+      const float ptmax = __shfl_sync(kFull, tmax, src);
+      if (block_any_warp(s, bmin, pp, pl, ptmin, ptmax) && lane == src)
+        blocked = true;
+    }
+    if (b == bmin)
+      b = blocked ? s.num_blocks : next_block(s, sh, p, inv, tmin, dist, b + 1);
+  }
+  return blocked;
+}
+
 // random_on_hemisphere (query.h:51-71): scalar rejection, <= 64 rounds.
 __device__ void hemisphere(uint32_t* rng, const float* n, float* h) {
   uint32_t st = *rng;
@@ -281,13 +462,20 @@ __device__ void disk_sample(uint32_t* rng, float* xo, float* yo) {
 }
 
 // One cpuonly shadow walk from p along st (not normalised): 1 if nothing
-// blocks [shadow_tmin, |st| - shadow_eps], else 0.
+// blocks [shadow_tmin, |st| - shadow_eps], else 0.  COOP: the warp walks
+// together (every lane calls it).
+template <bool COOP>
 __device__ float soft_walk(const SceneArgs& s, const Shared& sh,
                            const float* p, float stx, float sty, float stz,
                            bool facing) {
   float d_s = sqrtf(fmaxf(stx * stx + sty * sty + stz * stz, 1e-24f));
   float inv_s = 1.0f / d_s;
   float sld[3] = {stx * inv_s, sty * inv_s, stz * inv_s};
+  if (COOP)
+    return occluded_coop(s, sh, p, sld, s.shadow_tmin, d_s,
+                         d_s - s.shadow_eps, facing)
+               ? 0.0f
+               : 1.0f;
   if (!facing) return 1.0f;
   return occluded(s, sh, p, sld, s.shadow_tmin, d_s, d_s - s.shadow_eps)
              ? 0.0f
@@ -296,14 +484,17 @@ __device__ float soft_walk(const SceneArgs& s, const Shared& sh,
 
 // ShadowVisibility (CPUOnly/raytracer.h:121-168): shadow_samples walks
 // toward disk samples of an area light (the draws advance the ray's rng),
-// one toward a point light's center.
+// one toward a point light's center.  Only a ray that hit calls it, or,
+// COOP, every lane of the warp, the draws advancing the rng of those that
+// hit.
+template <bool COOP>
 __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
                                  const float* L, const float* p,
                                  const float* to, const float* ld,
-                                 bool facing, uint32_t* rng) {
+                                 bool facing, bool hit, uint32_t* rng) {
   const float radius = L[6];
   if (!(radius > 0.0f))
-    return soft_walk(s, sh, p, to[0], to[1], to[2], facing) / 1.0f;
+    return soft_walk<COOP>(s, sh, p, to[0], to[1], to[2], facing) / 1.0f;
   // disk basis around w = (p - light) / |p - light| (raytracer.h:88-93)
   const float wx = -ld[0], wy = -ld[1], wz = -ld[2];
   const bool use_y = fabsf(wx) > 0.9f;
@@ -321,13 +512,13 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
   const float bz = wx * ty - wy * tx;
   float unocc = 0.0f;
   for (int k = 0; k < s.shadow_samples; ++k) {
-    float dxs, dys;
-    disk_sample(rng, &dxs, &dys);
+    float dxs = 0.0f, dys = 0.0f;
+    if (hit) disk_sample(rng, &dxs, &dys);
     const float spx = L[0] + (tx * dxs + bx * dys) * radius;
     const float spy = L[1] + (ty * dxs + by * dys) * radius;
     const float spz = L[2] + (tz * dxs + bz * dys) * radius;
-    unocc = unocc +
-            soft_walk(s, sh, p, spx - p[0], spy - p[1], spz - p[2], facing);
+    unocc = unocc + soft_walk<COOP>(s, sh, p, spx - p[0], spy - p[1],
+                                    spz - p[2], facing);
   }
   return unocc / (float)s.shadow_samples;
 }
@@ -336,14 +527,23 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
 // (the loop body of TraceRayIterative, query.h:165-216, or of CPUOnly's
 // TraceRay).  tile >= 0: closest hit walks that tile's binned candidates.
 // DIFF (gpu dialect only): also fill *cap with the oracle rows; the other
-// instantiations compile without it.
-template <bool CPU, bool DIFF = false>
+// instantiations compile without it.  COOP: every lane of the warp calls
+// it, the flat closest hit and the shadow rays take the warp-cooperative
+// walks, and `live` marks the lanes whose ray bounces (the others find
+// no hit, trace nothing, and the caller drops what they computed).
+template <bool CPU, bool DIFF = false, bool COOP = false>
 __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
-                       Ray& r, int tile, Capture* cap = nullptr) {
+                       Ray& r, int tile, Capture* cap = nullptr,
+                       bool live = true) {
   const float* o = r.bo;
   const float* d = r.bd;
-  Hit h = tile >= 0 ? closest_binned(s, tile, o, d)
-                     : closest(s, sh, o, d, s.tmin);
+  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
+  if (tile >= 0) {
+    if (live) h = closest_binned(s, tile, o, d);
+  } else {
+    h = COOP ? closest_coop(s, sh, o, d, s.tmin, live)
+             : closest(s, sh, o, d, s.tmin);
+  }
   const bool hit = h.t < kF32Max;
   float n[3] = {0.0f, 0.0f, 1.0f};
   int obj = 0;
@@ -372,16 +572,19 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
     float ld[3] = {to[0] * inv_dist, to[1] * inv_dist, to[2] * inv_dist};
     float ndotl = fmaxf(n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2], 0.0f);
     bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
-    float vis;
-    if (CPU) {
-      if (!hit) continue;  // a miss draws nothing and adds nothing
-      vis = soft_visibility(s, sh, L, p, to, ld, facing, &r.rng);
-    } else {
-      vis = 1.0f;
-    }
+    float vis = 1.0f;
+    if (CPU && COOP)  // every lane walks; a miss draws nothing
+      vis = soft_visibility<true>(s, sh, L, p, to, ld, facing, hit, &r.rng);
+    if (CPU && !hit) continue;  // a miss adds nothing
+    if (CPU && !COOP)
+      vis = soft_visibility<false>(s, sh, L, p, to, ld, facing, true, &r.rng);
+    bool blocked = false;
+    if (!CPU && COOP)
+      blocked = occluded_coop(s, sh, p, ld, s.shadow_tmin, dist, dist, facing);
     if (!facing) continue;  // scale == 0: adds exactly 0
-    if (!CPU)
-      vis = occluded(s, sh, p, ld, s.shadow_tmin, dist, dist) ? 0.0f : 1.0f;
+    if (!CPU && !COOP)
+      blocked = occluded(s, sh, p, ld, s.shadow_tmin, dist, dist);
+    if (!CPU) vis = blocked ? 0.0f : 1.0f;
     if (DIFF && vis > 0.0f) cap->vis |= 1 << li;
     float hx = ld[0] + vx, hy = ld[1] + vy, hz = ld[2] + vz;
     float hlen = sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-38f));
@@ -570,23 +773,40 @@ emit_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
 // (nt*8, rt) oracle rows [t, u, v, id, vis bits, decision bits, 0, 0], ints
 // as exact floats, dead lanes at the defaults; with a binned plan
 // (cand_chunk) the closest hit walks the tile's candidates, as emit does.
-template <bool CPU, bool DIFF>
+// The walks are warp-cooperative: lane l < RAYS of warp w owns ray
+// w * RAYS + l, and every lane, with a ray or without, tests the live
+// rays' blocks.  A warp without a live ray skips the bounce.  Each ray
+// stores what it did before (a dead ray unchanged, the defaults in its
+// oracle rows).  RAYS is kRaysPerWarp, or 32 with the binned walk, whose
+// lanes each walk their own ray's candidates (no lane is left idle).
+template <bool CPU, bool DIFF, int RAYS>
 __global__ void __launch_bounds__(kThreads)
 bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
                    int n_rays, int rt, float* st_out, int* rng_out,
                    float* diff_out) {
   const Shared sh = stage_shared(s);
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rays) return;
+  const int wl = threadIdx.x & 31;
+  const int gid = (blockIdx.x * blockDim.x + threadIdx.x) / 32 * RAYS + wl;
+  const bool in_range = wl < RAYS && gid < n_rays;
   const int tile = gid / rt, lane = gid % rt;
   const size_t so = (size_t)tile * kStRows * rt + lane;
   const size_t ro = (size_t)tile * 8 * rt + lane;
-  Ray r;
-  load_ray(st_in + so, rng_in + ro, rt, r);
+  Ray r{};
+  if (in_range) load_ray(st_in + so, rng_in + ro, rt, r);
+  const bool live = in_range && r.alive > 0.0f;  // dead rays pass
   Capture cap;
-  if (r.alive > 0.0f)  // dead rays pass
-    bounce<CPU, DIFF>(s, sh, s.cam, r, DIFF && s.cand_chunk ? tile : -1,
-                      DIFF ? &cap : nullptr);
+  if (__any_sync(kFull, live)) {  // warp-uniform
+    Ray w = r;
+    Capture c;
+    bounce<CPU, DIFF, true>(s, sh, s.cam, w,
+                            DIFF && s.cand_chunk ? tile : -1,
+                            DIFF ? &c : nullptr, live);
+    if (live) {
+      r = w;
+      cap = c;
+    }
+  }
+  if (!in_range) return;
   store_ray(r, rt, st_out + so, rng_out + ro);
   if (DIFF) {
     float* dv = diff_out + (size_t)tile * 8 * rt + lane;
@@ -750,6 +970,12 @@ int prepare(K kernel, const SceneArgs& s) {
 
 int blocks_for(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
 
+// bounce_step_kernel: a warp for each `rays` rays
+int coop_blocks_for(int n_rays, int rays) {
+  const long long warps = (n_rays + rays - 1) / rays;
+  return (int)((warps * 32 + kThreads - 1) / kThreads);
+}
+
 }  // namespace
 
 extern "C" {
@@ -773,14 +999,16 @@ int rt_bounce_step(const SceneArgs* s, const float* st_in, const int* rng_in,
                    float* diff_out, void* stream) {
   if ((diff_out && s->cpuonly) || (s->cand_chunk && !diff_out))
     return (int)cudaErrorInvalidValue;
-  auto kernel = s->cpuonly ? &bounce_step_kernel<true, false>
-                : diff_out ? &bounce_step_kernel<false, true>
-                           : &bounce_step_kernel<false, false>;
+  const bool binned = s->cand_chunk != 0;
+  auto kernel = s->cpuonly ? &bounce_step_kernel<true, false, kRaysPerWarp>
+                : binned   ? &bounce_step_kernel<false, true, 32>
+                : diff_out ? &bounce_step_kernel<false, true, kRaysPerWarp>
+                           : &bounce_step_kernel<false, false, kRaysPerWarp>;
   int e = prepare(kernel, *s);
   if (e) return e;
-  kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
-           (cudaStream_t)stream>>>(*s, st_in, rng_in, n_rays, rt, st_out,
-                                   rng_out, diff_out);
+  kernel<<<coop_blocks_for(n_rays, binned ? 32 : kRaysPerWarp), kThreads,
+           shared_bytes(*s), (cudaStream_t)stream>>>(
+      *s, st_in, rng_in, n_rays, rt, st_out, rng_out, diff_out);
   return (int)cudaGetLastError();
 }
 

@@ -161,7 +161,7 @@ def _declare(name: str, lib) -> None:
         fns = (lib.rt_closest_streamed, lib.rt_occluded_streamed,
                lib.rt_blockmajor)
     elif name == "segment_accum":
-        lib.rt_segment_accum.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp]
+        lib.rt_segment_accum.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp, vp]
         fns = (lib.rt_segment_accum,)
     else:
         lib.rt_toy_mask.argtypes = [i, vp, vp, i, i, i, i, vp, vp]

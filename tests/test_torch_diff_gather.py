@@ -1,15 +1,20 @@
 """Kernel J of the PyTorch port (``ops.diff_gather``): the deterministic
 scatter-accumulate behind ``gather_rows``' backward pass.
 
-On the CPU ``segment_accum_rows`` runs its plain version (``index_add_``
-on the host, in ascending ray order), held here against an explicit loop
-bit for bit and against the JAX package's Pallas kernel in interpret
-mode.  Tolerance against JAX: 4 ulp, or 1e-6 of the bin's sum of |ct|
-(the JAX kernel adds a 512-ray tile through one matrix product before
-the next tile, the port adds ray by ray).  ``gather_rows``: forward
-exact, backward against the JAX custom VJP's gradient at the same
-bound.
+On the CPU ``segment_accum_rows`` runs its plain version (the kernel's
+fixed order: each bin's run cut into chunks of ``CHUNK`` rays, each
+chunk and then each bin's chunk sums added by 32 lanes and joined by an
+xor tree, in float32 on the host), held here against an explicit loop
+in that order bit for bit and against the JAX package's Pallas kernel in
+interpret mode.  Tolerance against JAX: 4 ulp, or 1e-6 of the bin's sum
+of |ct| (the JAX kernel adds a 512-ray tile through one matrix product
+before the next tile, the port in its own fixed tree).  ``gather_rows``:
+forward exact, backward against the JAX custom VJP's gradient at the
+same bound.
 """
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -76,21 +81,50 @@ def test_segment_accum_drops_out_of_range():
     assert torch.equal(got, only_kept)
 
 
+def _tree32(lanes):
+    """The kernel's xor tree over 32 lane sums (32, F) float32: lane l
+    holds v_l + v_(l + h) for h = 16, 8, 4, 2, 1."""
+    h = 16
+    while h:
+        lanes = lanes[:h] + lanes[h:2 * h]
+        h //= 2
+    return lanes[0]
+
+
+def _fixed_order_sum(idx, ct, t, chunk):
+    """The order of kernel J, written out as loops: each bin's rays in
+    ascending order, cut into chunks of ``chunk`` from the run's start;
+    lane q % 32 of a chunk adds its rays q in order from +0.0, the tree
+    joins the lanes; lane m % 32 of a bin adds its chunk sums m the same
+    way, the tree joins them.  Every add in float32."""
+    f = ct.shape[1]
+    out = np.zeros((t, f), np.float32)
+    for b in range(t):
+        run = ct[idx == b]
+        partials = []
+        for c0 in range(0, len(run), chunk):
+            lanes = np.zeros((32, f), np.float32)
+            for q, row in enumerate(run[c0:c0 + chunk]):
+                lanes[q % 32] = lanes[q % 32] + row
+            partials.append(_tree32(lanes))
+        lanes = np.zeros((32, f), np.float32)
+        for m, p in enumerate(partials):
+            lanes[m % 32] = lanes[m % 32] + p
+        out[b] = _tree32(lanes)
+    return out
+
+
 @pytest.mark.parametrize("threads", [1, 4])
-def test_plain_adds_in_ascending_ray_order(threads):
-    """The plain version equals an explicit loop that adds each ray's
-    row to its bin in ascending ray order, bit for bit (the order the
-    CUDA kernel keeps), with wide magnitudes so that another order
+def test_plain_adds_in_its_fixed_order(threads):
+    """The plain version equals an explicit loop in the kernel's chunk and
+    tree order, bit for bit, with wide magnitudes so that another order
     would round differently, and with any thread count."""
     rs = np.random.RandomState(3)
     t, r, f = 37, 6000, 5
     idx = rs.randint(-3, t + 3, r).astype(np.int32)
     ct = (rs.standard_normal((r, f))
           * 10.0 ** rs.uniform(-4, 4, (r, f))).astype(np.float32)
-    want = np.zeros((t, f), np.float32)
-    for i in range(r):
-        if 0 <= idx[i] < t:
-            want[idx[i]] = want[idx[i]] + ct[i]
+    want = _fixed_order_sum(idx, ct, t, tdg.CHUNK)
     n = torch.get_num_threads()
     torch.set_num_threads(threads)
     try:
@@ -100,11 +134,87 @@ def test_plain_adds_in_ascending_ray_order(threads):
         torch.set_num_threads(n)
     np.testing.assert_array_equal(got.numpy(), want)
     # another order differs somewhere: the test can see an order change
-    rev = np.zeros((t, f), np.float32)
-    for i in reversed(range(r)):
+    chain = np.zeros((t, f), np.float32)
+    for i in range(r):
         if 0 <= idx[i] < t:
-            rev[idx[i]] = rev[idx[i]] + ct[i]
-    assert not np.array_equal(rev, want)
+            chain[idx[i]] = chain[idx[i]] + ct[i]
+    assert not np.array_equal(chain, want)
+
+
+def test_plain_order_over_many_chunks():
+    """One bin holding more than 4 chunks with a ragged tail, short runs
+    in the other bins, -0.0 entries (a bin of them sums to +0.0, as
+    every lane starts at +0.0) and ids out of range: the explicit loop
+    bit for bit, and the float64 sum within ``_close_to_jax``'s
+    tolerance."""
+    rs = np.random.RandomState(11)
+    t, r, f = 9, 1900, 3
+    idx = rs.randint(1, t, r).astype(np.int32)
+    idx[rs.uniform(size=r) < 0.75] = 4  # > 4 chunks of 256 in bin 4
+    idx[::13] = -1
+    idx[::17] = t
+    ct = (rs.standard_normal((r, f))
+          * 10.0 ** rs.uniform(-3, 3, (r, f))).astype(np.float32)
+    ct[::5, 1] = -0.0
+    idx[:40:4] = 0
+    ct[:40:4] = -0.0  # bin 0: -0.0 entries only
+    n4 = int((idx == 4).sum())
+    assert n4 > 4 * tdg.CHUNK and n4 % tdg.CHUNK and (idx == 0).sum() == 10
+    got = tdg.segment_accum_rows_plain(torch.from_numpy(idx),
+                                       torch.from_numpy(ct), t).numpy()
+    np.testing.assert_array_equal(got, _fixed_order_sum(idx, ct, t,
+                                                        tdg.CHUNK))
+    assert not np.signbit(got[0]).any() and (got[0] == 0).all()
+    keep = (idx >= 0) & (idx < t)
+    exact = np.zeros((t, f), np.float64)
+    np.add.at(exact, idx[keep], ct[keep].astype(np.float64))
+    _close_to_jax(got, exact, idx, ct, t)
+
+
+def test_plan_and_kernel_indexing_match_the_plain_version():
+    """``segment_plan`` (the glue the CUDA kernel reads) with the
+    kernel's indexing, emulated warp by warp: level 1 finds each chunk's
+    bin by its search over ``cstart`` and reads ``perm`` from the run's
+    start, level 2 reads each bin's chunk sums; the result is the plain
+    version's, bit for bit.  ``CHUNK`` is the kernel's ``kChunk``."""
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "raytracinginonesemester_tpu_torch", "csrc",
+        "segment_accum.cu")
+    with open(src) as fh:
+        k_chunk = int(re.search(r"kChunk = (\d+);", fh.read()).group(1))
+    assert k_chunk == tdg.CHUNK
+    rs = np.random.RandomState(7)
+    t, r, f = 6, 1500, 4
+    idx = rs.randint(-1, t + 1, r).astype(np.int32)
+    idx[rs.uniform(size=r) < 0.5] = 3
+    idx[idx == 1] = 2  # an empty bin
+    ct = rs.standard_normal((r, f)).astype(np.float32)
+    perm, bounds, cstart, max_chunks = tdg.segment_plan(
+        torch.from_numpy(idx), t)
+    perm, bounds, cstart = perm.numpy(), bounds.numpy(), cstart.numpy()
+    assert perm.dtype == bounds.dtype == cstart.dtype == np.int32
+    assert cstart[t] <= max_chunks and bounds[t] == ((idx >= 0)
+                                                     & (idx < t)).sum()
+    partial = np.zeros((cstart[t], f), np.float32)
+    for w in range(cstart[t]):
+        lo, hi = 0, t - 1  # bin_of: the last b with cstart[b] <= w
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if cstart[mid] <= w else (lo, mid - 1)
+        begin = bounds[lo] + (w - cstart[lo]) * k_chunk
+        lanes = np.zeros((32, f), np.float32)
+        for q in range(min(k_chunk, bounds[lo + 1] - begin)):
+            lanes[q % 32] = lanes[q % 32] + ct[perm[begin + q]]
+        partial[w] = _tree32(lanes)
+    out = np.zeros((t, f), np.float32)
+    for b in range(t):
+        lanes = np.zeros((32, f), np.float32)
+        for m in range(cstart[b + 1] - cstart[b]):
+            lanes[m % 32] = lanes[m % 32] + partial[cstart[b] + m]
+        out[b] = _tree32(lanes)
+    want = tdg.segment_accum_rows_plain(torch.from_numpy(idx),
+                                        torch.from_numpy(ct), t)
+    np.testing.assert_array_equal(out, want.numpy())
 
 
 def test_segment_accum_checks_its_inputs():

@@ -209,6 +209,171 @@ def test_plain_pair_counts_follow_the_kernel_walk(scenes):
     assert int(got.pairs) == want > 0
 
 
+# --- kernel B's warp-cooperative walks, emulated on the CPU -----------
+
+_LANES = 32
+
+
+def _key_less(t, i, j, t2, i2, j2):
+    return (t < t2) | ((t == t2) & ((i < i2) | ((i == i2) & (j < j2))))
+
+
+def _coop_closest(rows, o, d, alive, det_eps, tmin):
+    """``closest_coop`` of ``csrc/megakernel.cu``, emulated for every ray
+    at once: each ray gates the blocks in order 0..L-1 against its
+    running best t; a passing block's triangles are all tested at the
+    block-start best t, lane l taking slots l, l + 32, ... with a
+    sequential take in ascending slot, the xor tree (16, 8, 4, 2, 1)
+    keeps the lexicographic (t, id, slot) minimum on every lane, and the
+    ray takes it by the take rule, u and v from the winner's lane."""
+    r, dev, bs = d[0].shape[0], d[0].device, rows.block_size
+    inv = tuple(1.0 / c for c in d)
+    best = tmk._Best(r, dev)
+    tmin_t = torch.full((r,), tmin)
+    big = torch.iinfo(torch.int64).max
+    rounds = -(-bs // _LANES)
+    lane = torch.arange(_LANES)
+    for b in range(rows.num_blocks):
+        sub = (tmk._slab(rows.aabb[b], o, inv, tmin_t, best.t)
+               & alive).nonzero().squeeze(1)
+        if sub.numel() == 0:
+            continue
+        n = sub.numel()
+        ids = rows.ids[b].to(torch.int64)
+        t, u, v = tmk._mt(tuple(c[sub, None] for c in o),
+                          tuple(c[sub, None] for c in d),
+                          tuple(rows.tri[k, b][None, :] for k in range(9)),
+                          det_eps, tmin, best.t[sub, None])
+        lt = torch.full((n, _LANES), tmk.F32_MAX)
+        lu, lv = torch.zeros(n, _LANES), torch.zeros(n, _LANES)
+        li = torch.full((n, _LANES), big)
+        lj = torch.full((n, _LANES), big)
+        for i in range(rounds):  # each lane's slots in ascending order
+            j = i * _LANES + lane
+            ok = j < bs
+            jj = torch.where(ok, j, 0)
+            ti, ii = t[:, jj], ids[jj][None, :].expand(n, -1)
+            take = ok[None, :] & (ii >= 0) & (ti < tmk.F32_MAX) & (
+                (ti < lt) | ((ti == lt) & (ii < li)))
+            lt = torch.where(take, ti, lt)
+            lu = torch.where(take, u[:, jj], lu)
+            lv = torch.where(take, v[:, jj], lv)
+            li = torch.where(take, ii, li)
+            lj = torch.where(take, jj[None, :].expand(n, -1), lj)
+        for off in (16, 8, 4, 2, 1):  # every lane keeps the smaller key
+            x = lane ^ off
+            sw = _key_less(lt[:, x], li[:, x], lj[:, x], lt, li, lj)
+            lt = torch.where(sw, lt[:, x], lt)
+            li = torch.where(sw, li[:, x], li)
+            lj = torch.where(sw, lj[:, x], lj)
+        assert (lt == lt[:, :1]).all() and (lj == lj[:, :1]).all()
+        wt, wi, wj = lt[:, 0], li[:, 0], lj[:, 0]
+        src = torch.where(wj == big, 0, wj % _LANES)
+        rr = torch.arange(n)
+        old_t, old_id = best.t[sub], best.id[sub]
+        old_key = torch.where(old_id >= 0, old_id, tmk._INT_MAX)
+        take = (wt < tmk.F32_MAX) & ((wt < old_t) | ((wt == old_t)
+                                                     & (wi < old_key)))
+        best.t[sub] = torch.where(take, wt, old_t)
+        best.u[sub] = torch.where(take, lu[rr, src], best.u[sub])
+        best.v[sub] = torch.where(take, lv[rr, src], best.v[sub])
+        best.id[sub] = torch.where(take, wi, old_id)
+        best.slot[sub] = torch.where(take, b * bs + wj, best.slot[sub])
+    return best
+
+
+def _coop_occluded(rows, p, ld, dist, facing, det_eps, shadow_tmin,
+                   tmax=None):
+    """``occluded_coop``, emulated: each facing ray gates the blocks in
+    order on [shadow_tmin, dist]; the warp tests a passing block 128
+    triangles (4 a lane) between votes and the ray leaves the walk at
+    the first block holding a blocker.  -> (blocked, tests made)."""
+    tmax = dist if tmax is None else tmax
+    inv = tuple(1.0 / c for c in ld)
+    bs = rows.block_size
+    tmin_t = (shadow_tmin if torch.is_tensor(shadow_tmin)
+              else torch.full_like(dist, shadow_tmin))
+    blocked = torch.zeros_like(facing)
+    tests = 0
+    for b in range(rows.num_blocks):
+        sub = (tmk._slab(rows.aabb[b], p, inv, tmin_t, dist)
+               & facing & ~blocked).nonzero().squeeze(1)
+        if sub.numel() == 0:
+            continue
+        t, _, _ = tmk._mt(tuple(c[sub, None] for c in p),
+                          tuple(c[sub, None] for c in ld),
+                          tuple(rows.tri[k, b][None, :] for k in range(9)),
+                          det_eps, tmin_t[sub, None], tmax[sub, None])
+        hit = (rows.ids[b] >= 0)[None, :] & (t < tmk.F32_MAX)
+        done = torch.zeros(sub.numel(), dtype=torch.bool)
+        for j0 in range(0, bs, 4 * _LANES):  # a vote every 128 slots
+            live = ~done
+            tests += int(live.sum()) * min(4 * _LANES, bs - j0)
+            done = done | hit[:, j0:j0 + 4 * _LANES].any(dim=1)
+        blocked[sub] = done
+    return blocked, torch.tensor(tests)
+
+
+@pytest.mark.parametrize("dialect", ["gpu", "cpuonly"])
+@pytest.mark.parametrize("block_size", [128, 512])
+def test_cooperative_walk_matches_the_plain_walk(block_size, dialect,
+                                                 monkeypatch):
+    """Kernel B's warp-cooperative walks give the winners, t, u, v, the
+    shadow flags, and so every state, rng and oracle row of the plain
+    version's sequential walk, bit for bit: two-frog 64x32 after a
+    diffuse bounce (the emit state), at 128- and 512-triangle blocks."""
+    from raytracinginonesemester_tpu_torch.scene.build import build_scene
+    from raytracinginonesemester_tpu_torch.scene.config import (
+        SceneConfig, SceneNodeConfig)
+    from raytracinginonesemester_tpu_torch.scene.transform import Transform
+
+    from _torch_parity import two_frog_config
+
+    monkeypatch.setenv("RT_BLOCK_SIZE", str(block_size))
+    ts = build_scene(two_frog_config(SceneConfig, SceneNodeConfig, Transform,
+                                     width=W, height=H, dialect=dialect),
+                     device="cpu")
+    kw = tmk.megakernel_kwargs(ts, "wang")
+    pkw = {k: v for k, v in kw.items() if k != "jitter"}
+    rows = tmk._scene_rows(ts, ts.accel)
+    assert rows.block_size == block_size
+    xs, ys, _ = t_grid(W, H)
+    st, rng = tmk.emit_tiles(ts, xs, ys, 0, **kw)
+    gpu = dialect == "gpu"
+
+    flat = tmk._unpack(st, rng)
+    alive = flat["alive"] > 0.0
+    o = tuple(torch.where(alive, c, torch.tensor(1e30)) for c in flat["bo"])
+    eps = pkw.get("det_eps", 1e-8)
+    want = tmk._closest_plain(rows, o, flat["bd"], alive, eps, 1e-4)
+    got = _coop_closest(rows, o, flat["bd"], alive, eps, 1e-4)
+    for k in ("t", "u", "v", "id", "slot"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert 0 < int((want.t < tmk.F32_MAX).sum()) < int(alive.sum())
+
+    def step():
+        return tmk.bounce_step_tiles_plain(rows, st, rng, ts.diffuse_bounce,
+                                           diff_out=gpu, **pkw)
+
+    want = step()
+    blocked = []
+    real_occ = tmk._occluded_plain
+
+    def coop_occ(*a, **k):
+        b, tests = _coop_occluded(*a, **k)
+        assert torch.equal(b, real_occ(*a, **k)[0])
+        blocked.append(int(b.sum()))
+        return b, tests
+
+    monkeypatch.setattr(tmk, "_closest_plain", _coop_closest)
+    monkeypatch.setattr(tmk, "_occluded_plain", coop_occ)
+    got = step()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert sum(blocked) > 0  # the shadow walks found blockers
+
+
 # --- on the card: each CUDA kernel against its plain version ---------
 
 
