@@ -12,11 +12,13 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    (emit flat and binned, bounce_step, resume, render flat and binned,
    terminal and full loop); cpuonly dialect on ``cpuonly_mirror.json``
    and an area-light variant with diffuse bounces (emit, bounce_step,
-   resume, render); binned emit against flat emit (here and at 1080p);
+   resume, render); binned emit against flat emit (here and at 1080p),
+   and binned emit at a chunk width of 126 (its staging's plain copies);
    the staged integrator's closest-hit kernel E (with gpu normals and two
    lights' fused shadows, ``shared_origin`` on and off; without normals,
    the cpuonly case) and occlusion kernel F (camera, bounce and shadow
-   rays with per-ray windows, parked rays included), two-frog 128x64 at
+   rays with per-ray windows, parked rays included, and bounce rays with
+   NaN windows, none of which may come out blocked), two-frog 128x64 at
    block sizes 128 and 512;
 4. reference images: the two-frog 128x64 render on the staged wavefront
    and with ``RT_WAVEFRONT=0`` (kernel D) against the JAX package's
@@ -86,7 +88,9 @@ Phases, each printed on its own line; any failure raises (exit != 0):
 11. each kernel against its plain version at its full-width shapes, both
    timed, with the least time the card could take (bound); E and F on
    the inputs of their first launches in single-frame renders of phase
-   8's scenes, J on those of phase 9 (also its glue, the sort that plans
+   8's scenes, A's shadow walk apart (F on the facing shadow rays of the
+   headline's binned emit, as its plain version walks them), J on those
+   of phase 9 (also its glue, the sort that plans
    the runs and chunks, and its kernels on that plan, each timed alone),
    G, I and H on phase 10's camera
    and full-width shadow rays, and E and F on the large scene too (E on
@@ -115,8 +119,9 @@ closest_blockmajor, occluded_blockmajor, toy_mask, sel7, mm22, dyn12,
 blk1; each with the launches of the run named in ``launches_in``, the
 probes' from their own run in phase 12); the line before it holds the
 variants (flat emit, terminal
-render, cpuonly, E on bounce rays, B's oracle rows flat and binned, E
-and F on the large scene, P1's other modes and hazard set).  The last
+render, cpuonly, E on bounce rays, A's shadow walk, B's oracle rows flat
+and binned, E and F on the large scene, P1's other modes and hazard
+set).  The last
 line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
 result.
@@ -501,6 +506,11 @@ def check_small(dev, errs):
             if not diffuse:
                 continue
             check_binned_equiv(where, *emits)
+            # a chunk width that is not a multiple of 4: emit stages its
+            # chunks with plain copies and ends each with single tests
+            odd = Frame(f.scene, chunk=126)
+            check_state(errs, "emit", f"{where} binned, chunk 126",
+                        *odd.emit(True), *odd.emit_plain(True))
             st, rng = f.emit(False)
             st_s, rng_s, _ = f.sorted_state(st, rng)
             check_state(errs, "bounce_step", where, *f.bounce(st_s, rng_s),
@@ -531,6 +541,31 @@ def check_small(dev, errs):
         check_sums(errs, "render", f"{where} binned spp={spp}", got,
                    [c.reshape(-1)[:got[0].numel()]
                     for c in f.render_plain(True, spp, 1)])
+
+
+def emit_shadow_rays(frame, binned):
+    """The facing shadow rays of ``frame``'s depth-0 pass, as its plain
+    version walks them: [(origins, directions, tmin, tmax)] a light (and
+    disk sample), the rays that face the light only."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+    walks, real = [], mk._occluded_plain
+
+    def recorded(rows, p, ld, dist, facing, det_eps, tmin, tmax=None):
+        sel = facing.nonzero().squeeze(1)
+        walks.append((torch.stack(p, 1)[sel].contiguous(),
+                      torch.stack(ld, 1)[sel].contiguous(), float(tmin),
+                      (dist if tmax is None else tmax)[sel].contiguous()))
+        return real(rows, p, ld, dist, facing, det_eps, tmin, tmax)
+
+    mk._occluded_plain = recorded
+    try:
+        frame.emit_plain(binned)
+    finally:
+        mk._occluded_plain = real
+    return walks
 
 
 def camera_rays(scene):
@@ -636,8 +671,11 @@ def check_block_small(dev, errs):
             if key == "bounce" and bool(got.hit[o[:, 0] >= 1e29].any()):
                 raise AssertionError("closest: a parked ray hit")
         hits, normal, _ = fused[False]
+        tmin, tmax = (w.clone() for w in rays["window"])
+        tmax[::7], tmin[::11] = float("nan"), float("nan")
         sets = {"camera": (co, cd, *rays["window"]),
                 "bounce": (*rays["bounce"], *rays["window"]),
+                "bounce, NaN windows": (*rays["bounce"], tmin, tmax),
                 "shadow": shadow_rays(co, cd, hits, normal, lights[0])}
         for key, (o, d, tmin, tmax) in sets.items():
             got = bk.block_occluded(o, d, grid, tmin, tmax)
@@ -646,6 +684,10 @@ def check_block_small(dev, errs):
                        bk.block_occluded_plain(o, d, grid, tmin, tmax))
             if bool(got[o[:, 0] >= 1e29].any()):
                 raise AssertionError("occluded: a parked ray came out blocked")
+            if key.endswith("NaN windows") and bool(got[::7].any()
+                                                    or got[::11].any()):
+                raise AssertionError("occluded: a NaN window came out "
+                                     "blocked")
 
 
 def record_calls(module, names, fn, keep=2):
@@ -1786,6 +1828,8 @@ def main():
     c_st_s, c_rng_s, _ = cpu.sorted_state(c_st, c_rng)
     del c_st, c_rng
     ray_b = 8 + 96  # xs, ys in; state and rng out
+    # A's shadow walk timed apart: F on the headline emit's facing rays
+    so, sd, s_tmin, s_tmax = emit_shadow_rays(main, True)[0]
     def states(e, n, w, a, b):
         check_state(e, n, w, *a, *b)
 
@@ -1852,6 +1896,15 @@ def main():
             lambda x=None: bk.block_occluded_plain(fo, fd, fgrid, ftmin,
                                                    ftmax, stats=x, **fkw),
             check_hits, f_bytes),
+        "emit binned shadow walk": (
+            "occluded", f"{so.shape[0]} facing shadow rays of emit binned "
+            "(headline depth 0), F on them",
+            lambda: bk.block_occluded(so, sd, scene.accel, s_tmin, s_tmax),
+            lambda x=None: bk.block_occluded_plain(so, sd, scene.accel,
+                                                   s_tmin, s_tmax, stats=x),
+            check_hits, so.shape[0] * (24 + 4 + 1) + 4 * (
+                scene.accel.tri.numel() + scene.accel.tri_index.numel()
+                + scene.accel.aabb.numel())),
         **diff_jobs(train),
         **large["jobs"],
     }
@@ -1870,6 +1923,8 @@ def main():
     runs = {"emit binned": ("main path, binned", main_counts, "emit"),
             "emit flat": ("main path, RT_BINNED=0", flat_counts, "emit"),
             "bounce_step": ("main path, binned", main_counts, "bounce_step"),
+            "emit binned shadow walk": ("not on a path: A's shadow walk "
+                                        "timed apart", {"none": 0}, "none"),
             "resume": ("overflow render at cap=8", over_counts, "resume"),
             "render V2 binned": ("main path, RT_WAVEFRONT=0", d_counts,
                                  "render"),

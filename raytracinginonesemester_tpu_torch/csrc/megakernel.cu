@@ -16,32 +16,46 @@
 // the cpuonly dialect: pixel-center jitter, sky-gradient misses,
 // disk-sampled soft shadows, the (kd + kr)-weighted throughput rules).
 //
-// Design.  One thread per ray, 128 threads per block.  Thread (tile, lane)
-// reads state row k at tile*16*rt + k*rt + lane, so each row load of a warp
-// is coalesced.  bounce_step_kernel (B) walks its flat closest hit and its
-// shadow rays warp-cooperatively, 8 rays to a warp (closest_coop,
-// occluded_coop below); the other kernels keep the one-thread-per-ray walk
-// (closest, occluded).  Triangle planes stay in global memory (frog at
-// 512-blocks is ~1.7 MB and lives in L2); block AABBs, lights and
-// materials are staged in shared memory.  Closest hit either scans blocks
-// 0..L-1 with a per-ray slab test against the running best t before each
-// block's triangle loop (the per-ray form of the Pallas tile-level gate),
-// or, at depth 0 with a binned camera plan (ops/binned.py), walks the
-// tile's candidate chunks: every thread of a CUDA block lies in one
-// 512-ray tile, so each load of a chunk's row is one address for the whole
-// warp (a broadcast); the chunks are read straight from global memory, not
-// staged in shared memory.  The lexicographic (t, global triangle id) take
-// rule makes the winner independent of visit order.  Shadow rays stop at
-// their first hit.  The hemisphere and disk samplers are the reference's
-// scalar rejection loops (query.h:51-71, raytracer.h:77-85), capped at 64
-// rounds.
+// Design.  A thread owns a ray (B: lanes 0-7 of a warp; A's first launch:
+// four threads a ray), 128 threads per block.  The owner of ray (tile, lane) reads state row k at
+// tile*16*rt + k*rt + lane, so each row load of a warp is coalesced.
+// Triangle planes stay in global memory (frog at 512-blocks is ~1.7 MB
+// and lives in L2); block AABBs, lights and materials are staged in
+// shared memory.  Closest hit either scans blocks 0..L-1 with a per-ray
+// slab test against the running best t before each block's triangle loop
+// (the per-ray form of the Pallas tile-level gate), or, at depth 0 with a
+// binned camera plan (ops/binned.py), walks the tile's candidate chunks.
+// The lexicographic (t, global triangle id) take rule makes the winner
+// independent of visit order.  Shadow rays stop at their first hit.  The
+// hemisphere and disk samplers are the reference's scalar rejection loops
+// (query.h:51-71, raytracer.h:77-85), capped at 64 rounds.
+//
+// The walks, kernel by kernel:
+// - emit (A), three launches: emit_kernel finds the closest hits (a CTA
+//   lies in one tile; a tile without work writes its dead rows before it
+//   stages anything; the binned walk reads the tile's chunks from shared
+//   memory, double-buffered with cp.async, split over four threads a ray,
+//   closest_binned_cta; the flat walk is closest_coop, 8 rays a warp),
+//   keeps them and lists the shadow rays that pass a slab test; emit_walk_kernel, a grid that fills the card, walks the
+//   list kListRays rays a warp (occluded_coop); emit_finish_kernel shades
+//   with the flags.
+// - bounce_step (B): the flat closest hit and the shadow rays are
+//   warp-cooperative, 8 rays to a warp (closest_coop, occluded_coop); its
+//   binned oracle depth 0 keeps a lane's own binned walk, 32 rays a warp.
+// - occluded (F), two launches: the rays that pass a slab test are
+//   listed, and the list is walked as emit's is.
+// - resume (C), render (D), closest (E): one thread per ray (closest,
+//   occluded, closest_binned).
 //
 // What bounds it on this card: divergent scalar FP32 work (Moller-Trumbore
-// per ray-triangle pair, shadow walks, rejection sampling) and L2-resident
-// triangle reads; there is nothing matrix-shaped for the tensor cores.
-// This version is deliberately simple: exact and readable, with the JAX
-// kernels' op order (built with -fmad=false and IEEE div/sqrt) so that it
-// can be held against them to the last ulp.
+// per ray-triangle pair, shadow walks, rejection sampling) and the latency
+// of L2-resident triangle reads that wait on each other; there is nothing
+// matrix-shaped for the tensor cores.  The cooperative walks make each
+// (ray, block) pair's 512 tests independent and coalesced; the shadow
+// lists spread the rays that must walk, which lie together in a few
+// tiles, over the whole card.  The kernels keep the JAX kernels' op order
+// (built with -fmad=false and IEEE div/sqrt), so that they can be held
+// against them to the last ulp.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,6 +67,9 @@ namespace {
 
 constexpr int kStRows = 16;
 constexpr int kCandRows = 16;
+// rows 0-11 of a candidate chunk (9 planes, id, home, slot), the ones
+// emit stages in shared memory
+constexpr int kStageRows = 12;
 constexpr int kThreads = 128;
 constexpr float kInvPi = 0.31830988618f;
 constexpr float kInv2Pi = 0.15915494309f;
@@ -60,6 +77,11 @@ constexpr unsigned kFull = 0xffffffffu;
 // rays a warp of bounce_step_kernel owns when its closest hit is the flat
 // walk; its 32 lanes test their pairs
 constexpr int kRaysPerWarp = 8;
+// entries of a shadow list a warp takes at a time (walk_list; measured:
+// 2, 4 and 8 within the noise of each other, 16 slower)
+constexpr int kListRays = 4;
+// threads of emit_kernel a ray has: they split its closest walk
+constexpr int kEmitSplit = 4;
 
 }  // namespace
 
@@ -93,7 +115,15 @@ struct Shared {
   const float* aabb;    // (L, 6)
   const float* lights;  // (NL, 8)
   const float* mats;    // (NO, 16)
+  float* chunks;        // emit, binned: two (kStageRows, C) chunk buffers
 };
+
+// How bounce() walks: one thread per ray (kSolo: resume, render), the
+// lanes of a warp together (kWarp: bounce_step), or emit's three
+// launches: the CTA finds its closest hits together and lists its shadow
+// rays (kList), a listed walk's ray is made again to be walked (kCapture),
+// and the flags of the walks are read back to shade (kFlags).
+enum Walk { kSolo, kWarp, kList, kCapture, kFlags };
 
 struct Ray {
   float bo[3], bd[3], tp[3], rd[3];
@@ -174,6 +204,126 @@ __device__ Hit closest_binned(const SceneArgs& s, int tile, const float* o,
       float u, v;
       float t = mt(rows + j, c_w, s.det_eps, o, d, s.tmin, h.t, &u, &v);
       take(h, t, u, v, id, (int)rows[11 * c_w + j]);
+    }
+  }
+  return h;
+}
+
+// The lexicographic (t, id, j) order; misses carry (kF32Max, kIntMax, j).
+__device__ __forceinline__ bool key_less(float t, int id, int j, float t2,
+                                         int id2, int j2) {
+  return t < t2 || (t == t2 && (id < id2 || (id == id2 && j < j2)));
+}
+
+// ---- emit's binned walk: the tile's chunks from shared memory ----
+//
+// Every thread of a CTA of emit lies in one tile, so all of them walk the
+// same chunks.  The CTA copies chunk c + 1's rows 0-11 into one buffer
+// (cp.async, 16 bytes a thread and copy) while its threads test chunk c
+// from the other; each thread then tests four candidates at the window
+// its running best t had before them and takes them in order.  That is
+// the sequential walk's winner: mt() computes t, u and v from the same
+// inputs whatever the window, and a t the wider window lets through but
+// the shrunken one would not is larger than the best t that shrank it,
+// which the take rule then keeps.
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Chunk c's rows 0-11 into dst, as one cp.async group (plain copies when
+// the chunk width or the stream's address does not allow 16-byte ones).
+__device__ void stage_chunk(const SceneArgs& s, int c, float* dst) {
+  const int words = kStageRows * s.cand_chunk;
+  const float* src = s.cand_stream + (size_t)c * kCandRows * s.cand_chunk;
+  if (s.cand_chunk % 4 == 0 && ((uintptr_t)s.cand_stream & 15) == 0) {
+    for (int i = 4 * threadIdx.x; i < words; i += 4 * blockDim.x)
+      cp_async16(dst + i, src + i);
+  } else {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
+  }
+  cp_async_commit();
+}
+
+// closest_binned() for the threads of a CTA together (every thread calls
+// it), kEmitSplit threads a ray: thread `sub` of a ray tests the groups of
+// four candidates g with g % kEmitSplit == sub (and the singles that end
+// a chunk of a width that is not a multiple of 4, in the same turn), and
+// the threads of the ray end with the first (t, id) minimum in walk order,
+// the sequential walk's winner (the take rule keeps a later equal (t, id)
+// out).
+__device__ Hit closest_binned_cta(const SceneArgs& s, const Shared& sh,
+                                  int tile, const float* o, const float* d) {
+  const int c_w = s.cand_chunk;
+  const int first = s.cand_meta[8 * tile];
+  const int count = s.cand_meta[8 * tile + 1];
+  const int words = kStageRows * c_w;
+  const int sub = threadIdx.x % kEmitSplit;
+  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
+  int pos = kIntMax;  // the taken candidate's place in walk order
+  if (count > 0) stage_chunk(s, first, sh.chunks);
+  for (int c = 0; c < count; ++c) {
+    const float* rows = sh.chunks + (c & 1) * words;
+    if (c + 1 < count) {
+      stage_chunk(s, first + c + 1, sh.chunks + ((c + 1) & 1) * words);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c is in
+    const int quads = c_w / 4 * 4;
+    for (int j = 4 * sub; j < quads; j += 4 * kEmitSplit) {
+      const float window = h.t;
+      float t[4], u[4], v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        t[q] = mt(rows + j + q, c_w, s.det_eps, o, d, s.tmin, window, &u[q],
+                  &v[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int id = (int)rows[9 * c_w + j + q];  // exact integers in f32
+        const Hit was = h;
+        if (id >= 0)
+          take(h, t[q], u[q], v[q], id, (int)rows[11 * c_w + j + q]);
+        if (h.id != was.id || h.t != was.t) pos = c * c_w + j + q;
+      }
+    }
+    for (int j = quads + sub; j < c_w; j += kEmitSplit) {
+      const int id = (int)rows[9 * c_w + j];
+      if (id < 0) continue;
+      float u, v;
+      const float t = mt(rows + j, c_w, s.det_eps, o, d, s.tmin, h.t, &u, &v);
+      const Hit was = h;
+      take(h, t, u, v, id, (int)rows[11 * c_w + j]);
+      if (h.id != was.id || h.t != was.t) pos = c * c_w + j;
+    }
+    __syncthreads();  // chunk c's buffer is free for chunk c + 2
+  }
+  // the ray's threads are kEmitSplit neighbouring lanes: a xor tree
+#pragma unroll
+  for (int off = 1; off < kEmitSplit; off <<= 1) {
+    const float ot = __shfl_xor_sync(kFull, h.t, off);
+    const float ou = __shfl_xor_sync(kFull, h.u, off);
+    const float ov = __shfl_xor_sync(kFull, h.v, off);
+    const int oid = __shfl_xor_sync(kFull, h.id, off);
+    const int ok = __shfl_xor_sync(kFull, h.k, off);
+    const int opos = __shfl_xor_sync(kFull, pos, off);
+    if (key_less(ot, oid >= 0 ? oid : kIntMax, opos, h.t,
+                 h.id >= 0 ? h.id : kIntMax, pos)) {
+      h = Hit{ot, ou, ov, oid, ok};
+      pos = opos;
     }
   }
   return h;
@@ -271,12 +421,6 @@ __device__ __forceinline__ int next_block(const SceneArgs& s,
                                           float t1, int b) {
   while (b < s.num_blocks && !slab(sh.aabb + 6 * b, o, inv, t0, t1)) ++b;
   return b;
-}
-
-// The lexicographic (t, id, j) order; misses carry (kF32Max, kIntMax, j).
-__device__ __forceinline__ bool key_less(float t, int id, int j, float t2,
-                                         int id2, int j2) {
-  return t < t2 || (t == t2 && (id < id2 || (id == id2 && j < j2)));
 }
 
 // All 32 lanes test the pair's block (ray o, d on [tmin, tmax]) and end
@@ -411,6 +555,80 @@ __device__ bool occluded_coop(const SceneArgs& s, const Shared& sh,
   return blocked;
 }
 
+// ---- shadow lists: the walks of A and F spread over the whole card ----
+//
+// Measured (scripts/profile_torch_main_path.py --kernels): a ray's shadow
+// walk tests 1 to 16 blocks (3.3 on the headline's facing rays), and the
+// rays that test many lie together, in a few CTAs; walked where their
+// CTA lies, the warps holding them set the kernel's time.  So the rays
+// that must walk (some block's slab test passes) are listed in device
+// memory, one atomicAdd a CTA, and a grid that fills the card walks the
+// list: each warp takes the next kListRays entries (one atomicAdd) and
+// walks them with occluded_coop until the list is done.  The flags come
+// out the same in any order: each ray's walk is its own.
+
+// The list of a launch: `counts` [0] entries, [1] groups taken (both 0
+// before the listing launch); entry e = gid * rounds + round, its flag at
+// flags[e] (1: blocked).  emit (A) keeps each ray's closest hit in `hits`
+// (5 planes of n_rays: t, u, v, and the bits of id and slot) between its
+// launches; F's flags are its output.
+struct Shadows {
+  int* counts;
+  int* list;
+  unsigned char* flags;
+  float* hits;
+  int rounds;  // walks a ray may make (A: a light's or each disk sample's)
+  int n_rays;
+};
+
+// Append the entries of the CTA's threads that `want` to the list (every
+// thread of the CTA calls it): one atomicAdd reserves their places.
+__device__ void list_append(const Shadows& q, bool want, int entry) {
+  __shared__ int l_count[kThreads / 32];
+  __shared__ int l_base;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const unsigned ball = __ballot_sync(kFull, want);
+  if (lane == 0) l_count[w] = __popc(ball);
+  __syncthreads();
+  int off = 0, total = 0;
+#pragma unroll
+  for (int k = 0; k < kThreads / 32; ++k) {
+    const int n = l_count[k];
+    off += k < w ? n : 0;
+    total += n;
+  }
+  if (threadIdx.x == 0) l_base = total ? atomicAdd(&q.counts[0], total) : 0;
+  __syncthreads();
+  if (want) q.list[l_base + off + __popc(ball & ((1u << lane) - 1u))] = entry;
+}
+
+// The walking launch: the warps take groups of kListRays entries until
+// the list is done; `ray_of(entry, row)` fills an entry's row (p, ld,
+// tmin, dist, tmax) on its lane, and the warp walks the group.
+template <class RayOf>
+__device__ void walk_list(const SceneArgs& s, const Shared& sh,
+                          const Shadows& q, RayOf ray_of) {
+  const int lane = threadIdx.x & 31;
+  const int total = q.counts[0];
+  for (;;) {
+    int g = 0;
+    if (lane == 0) g = atomicAdd(&q.counts[1], 1);
+    const int e0 = __shfl_sync(kFull, g, 0) * kListRays;
+    if (e0 >= total) return;
+    const int e = e0 + lane;
+    const bool active = lane < kListRays && e < total;
+    float row[9] = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
+    int entry = 0;
+    if (active) {
+      entry = q.list[e];
+      ray_of(entry, row);
+    }
+    if (occluded_coop(s, sh, row, row + 3, row[6], row[7], row[8], active) &&
+        active)
+      q.flags[entry] = 1;
+  }
+}
+
 // random_on_hemisphere (query.h:51-71): scalar rejection, <= 64 rounds.
 __device__ void hemisphere(uint32_t* rng, const float* n, float* h) {
   uint32_t st = *rng;
@@ -461,19 +679,84 @@ __device__ void disk_sample(uint32_t* rng, float* xo, float* yo) {
   *rng = st;
 }
 
+// A ray's place in emit's launches: its shadow walks counted in the one
+// order all three make them (a light's walk, or each of its disk
+// samples'), and, kCapture, the walk whose ray is wanted.
+struct ShadowCtx {
+  Shadows q;
+  int gid;     // the ray
+  int round;   // the walk about to be made
+  int target;  // kCapture: the walk to capture
+  float ray[9];  // kCapture: its p, ld, tmin, dist, tmax
+  bool owner = true;  // kList: the one of the ray's threads that writes
+};
+
+__device__ __forceinline__ void store_hit(const Shadows& q, int gid,
+                                          const Hit& h) {
+  const size_t n = q.n_rays;
+  q.hits[gid] = h.t;
+  q.hits[n + gid] = h.u;
+  q.hits[2 * n + gid] = h.v;
+  q.hits[3 * n + gid] = __int_as_float(h.id);
+  q.hits[4 * n + gid] = __int_as_float(h.k);
+}
+
+__device__ __forceinline__ Hit load_hit(const Shadows& q, int gid) {
+  const size_t n = q.n_rays;
+  return Hit{q.hits[gid], q.hits[n + gid], q.hits[2 * n + gid],
+             __float_as_int(q.hits[3 * n + gid]),
+             __float_as_int(q.hits[4 * n + gid])};
+}
+
+// occluded() of a facing ray, as W makes it (W != kSolo: every lane or
+// thread calls it): kWarp, the warp walks it; kList, a ray one of whose
+// slab tests passes is listed, its flag cleared, and the walk reads as
+// unblocked; kCapture keeps the wanted walk's ray; kFlags reads the
+// walk's flag.
+template <Walk W>
+__device__ bool walk_occluded(const SceneArgs& s, const Shared& sh,
+                              const float* p, const float* ld, float tmin,
+                              float dist, float tmax, bool facing,
+                              ShadowCtx* c) {
+  if constexpr (W == kWarp) {
+    return occluded_coop(s, sh, p, ld, tmin, dist, tmax, facing);
+  } else {
+    const int entry = c->gid * c->q.rounds + c->round;
+    bool blocked = false;
+    if constexpr (W == kList) {
+      const float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};
+      const bool listed = c->owner && facing &&
+                          next_block(s, sh, p, inv, tmin, dist, 0) <
+                              s.num_blocks;
+      if (c->owner) c->q.flags[entry] = 0;
+      list_append(c->q, listed, entry);
+    } else if constexpr (W == kCapture) {
+      if (c->round == c->target) {
+        const float row[9] = {p[0],  p[1], p[2], ld[0], ld[1],
+                              ld[2], tmin, dist, tmax};
+        for (int k = 0; k < 9; ++k) c->ray[k] = row[k];
+      }
+    } else {
+      blocked = facing && c->q.flags[entry] != 0;
+    }
+    ++c->round;
+    return blocked;
+  }
+}
+
 // One cpuonly shadow walk from p along st (not normalised): 1 if nothing
-// blocks [shadow_tmin, |st| - shadow_eps], else 0.  COOP: the warp walks
-// together (every lane calls it).
-template <bool COOP>
+// blocks [shadow_tmin, |st| - shadow_eps], else 0.  W != kSolo: every
+// lane or thread calls it.
+template <Walk W>
 __device__ float soft_walk(const SceneArgs& s, const Shared& sh,
                            const float* p, float stx, float sty, float stz,
-                           bool facing) {
+                           bool facing, ShadowCtx* c) {
   float d_s = sqrtf(fmaxf(stx * stx + sty * sty + stz * stz, 1e-24f));
   float inv_s = 1.0f / d_s;
   float sld[3] = {stx * inv_s, sty * inv_s, stz * inv_s};
-  if (COOP)
-    return occluded_coop(s, sh, p, sld, s.shadow_tmin, d_s,
-                         d_s - s.shadow_eps, facing)
+  if constexpr (W != kSolo)
+    return walk_occluded<W>(s, sh, p, sld, s.shadow_tmin, d_s,
+                            d_s - s.shadow_eps, facing, c)
                ? 0.0f
                : 1.0f;
   if (!facing) return 1.0f;
@@ -485,16 +768,17 @@ __device__ float soft_walk(const SceneArgs& s, const Shared& sh,
 // ShadowVisibility (CPUOnly/raytracer.h:121-168): shadow_samples walks
 // toward disk samples of an area light (the draws advance the ray's rng),
 // one toward a point light's center.  Only a ray that hit calls it, or,
-// COOP, every lane of the warp, the draws advancing the rng of those that
-// hit.
-template <bool COOP>
+// W != kSolo, every lane or thread, the draws advancing the rng of those
+// that hit.
+template <Walk W>
 __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
                                  const float* L, const float* p,
                                  const float* to, const float* ld,
-                                 bool facing, bool hit, uint32_t* rng) {
+                                 bool facing, bool hit, uint32_t* rng,
+                                 ShadowCtx* c) {
   const float radius = L[6];
   if (!(radius > 0.0f))
-    return soft_walk<COOP>(s, sh, p, to[0], to[1], to[2], facing) / 1.0f;
+    return soft_walk<W>(s, sh, p, to[0], to[1], to[2], facing, c) / 1.0f;
   // disk basis around w = (p - light) / |p - light| (raytracer.h:88-93)
   const float wx = -ld[0], wy = -ld[1], wz = -ld[2];
   const bool use_y = fabsf(wx) > 0.9f;
@@ -517,8 +801,8 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
     const float spx = L[0] + (tx * dxs + bx * dys) * radius;
     const float spy = L[1] + (ty * dxs + by * dys) * radius;
     const float spz = L[2] + (tz * dxs + bz * dys) * radius;
-    unocc = unocc + soft_walk<COOP>(s, sh, p, spx - p[0], spy - p[1],
-                                    spz - p[2], facing);
+    unocc = unocc + soft_walk<W>(s, sh, p, spx - p[0], spy - p[1],
+                                 spz - p[2], facing, c);
   }
   return unocc / (float)s.shadow_samples;
 }
@@ -527,22 +811,45 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
 // (the loop body of TraceRayIterative, query.h:165-216, or of CPUOnly's
 // TraceRay).  tile >= 0: closest hit walks that tile's binned candidates.
 // DIFF (gpu dialect only): also fill *cap with the oracle rows; the other
-// instantiations compile without it.  COOP: every lane of the warp calls
-// it, the flat closest hit and the shadow rays take the warp-cooperative
-// walks, and `live` marks the lanes whose ray bounces (the others find
-// no hit, trace nothing, and the caller drops what they computed).
-template <bool CPU, bool DIFF = false, bool COOP = false>
+// instantiations compile without it.  W = kWarp: every lane of the warp
+// calls it, the flat closest hit and the shadow rays take the
+// warp-cooperative walks, and `live` marks the lanes whose ray bounces
+// (the others find no hit, trace nothing, and the caller drops what they
+// computed).  W = kList: every thread of the CTA calls it, kEmitSplit
+// threads a live ray (*c: its place; `live`: c->owner); the binned walk
+// reads the chunks the CTA stages, split over the ray's threads, the flat
+// one is the warp-cooperative walk of the owners, 8 a warp; all of the
+// ray's threads end with its hit, and its owner keeps the hit and lists
+// the shadow rays; the bounce ends after the lights.  kCapture: the hit
+// read back, the bounce ends after the lights with the wanted walk's ray
+// in c->ray.  kFlags: the hit read back, the walks' flags read.
+template <bool CPU, bool DIFF = false, Walk W = kSolo>
 __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
                        Ray& r, int tile, Capture* cap = nullptr,
-                       bool live = true) {
+                       bool live = true, ShadowCtx* c = nullptr) {
+  constexpr bool ALL = W != kSolo;  // every lane or thread walks
   const float* o = r.bo;
   const float* d = r.bd;
   Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
-  if (tile >= 0) {
-    if (live) h = closest_binned(s, tile, o, d);
+  if constexpr (W == kCapture || W == kFlags) {
+    h = load_hit(c->q, c->gid);
+  } else if (tile >= 0) {
+    if constexpr (W == kList)
+      h = closest_binned_cta(s, sh, tile, o, d);
+    else if (live)
+      h = closest_binned(s, tile, o, d);
   } else {
-    h = COOP ? closest_coop(s, sh, o, d, s.tmin, live)
-             : closest(s, sh, o, d, s.tmin);
+    h = ALL ? closest_coop(s, sh, o, d, s.tmin, live)
+            : closest(s, sh, o, d, s.tmin);
+  }
+  if constexpr (W == kList) {
+    if (tile < 0) {  // the owner's flat walk, to the ray's other threads
+      const int src = (threadIdx.x & 31) & ~(kEmitSplit - 1);
+      h = Hit{__shfl_sync(kFull, h.t, src), __shfl_sync(kFull, h.u, src),
+              __shfl_sync(kFull, h.v, src), __shfl_sync(kFull, h.id, src),
+              __shfl_sync(kFull, h.k, src)};
+    }
+    if (c->owner) store_hit(c->q, c->gid, h);
   }
   const bool hit = h.t < kF32Max;
   float n[3] = {0.0f, 0.0f, 1.0f};
@@ -573,16 +880,18 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
     float ndotl = fmaxf(n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2], 0.0f);
     bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
     float vis = 1.0f;
-    if (CPU && COOP)  // every lane walks; a miss draws nothing
-      vis = soft_visibility<true>(s, sh, L, p, to, ld, facing, hit, &r.rng);
+    if (CPU && ALL)  // every lane walks; a miss draws nothing
+      vis = soft_visibility<W>(s, sh, L, p, to, ld, facing, hit, &r.rng, c);
     if (CPU && !hit) continue;  // a miss adds nothing
-    if (CPU && !COOP)
-      vis = soft_visibility<false>(s, sh, L, p, to, ld, facing, true, &r.rng);
+    if (CPU && !ALL)
+      vis = soft_visibility<kSolo>(s, sh, L, p, to, ld, facing, true, &r.rng,
+                                   c);
     bool blocked = false;
-    if (!CPU && COOP)
-      blocked = occluded_coop(s, sh, p, ld, s.shadow_tmin, dist, dist, facing);
+    if constexpr (!CPU && ALL)
+      blocked = walk_occluded<W>(s, sh, p, ld, s.shadow_tmin, dist, dist,
+                                 facing, c);
     if (!facing) continue;  // scale == 0: adds exactly 0
-    if (!CPU && !COOP)
+    if (!CPU && !ALL)
       blocked = occluded(s, sh, p, ld, s.shadow_tmin, dist, dist);
     if (!CPU) vis = blocked ? 0.0f : 1.0f;
     if (DIFF && vis > 0.0f) cap->vis |= 1 << li;
@@ -597,6 +906,7 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
     for (int c = 0; c < 3; ++c)
       lo[c] = lo[c] + scale * L[3 + c] * (m[c] * fd + m[4 + c] * lobe);
   }
+  if constexpr (W == kList || W == kCapture) return;
 
   // ---- radiance and the Russian-roulette split (query.h:188-212) ----
   float ms[3];
@@ -694,8 +1004,11 @@ __device__ void primary(const float* cam, int xi, int yi, uint32_t sample,
 
 // ---- kernels ----
 
-__device__ Shared stage_shared(const SceneArgs& s) {
-  extern __shared__ float smem[];
+// Block AABBs, lights and materials into the dynamic shared memory (and,
+// `chunks`, the place of emit's two chunk buffers after them, 16-byte
+// aligned; emit_shared_bytes() sizes it).
+__device__ Shared stage_shared(const SceneArgs& s, bool chunks = false) {
+  extern __shared__ __align__(16) float smem[];
   float* aabb = smem;
   float* lights = aabb + 6 * s.num_blocks;
   float* mats = lights + 8 * s.n_lights;
@@ -706,7 +1019,13 @@ __device__ Shared stage_shared(const SceneArgs& s) {
   for (int i = threadIdx.x; i < 16 * s.n_objects; i += blockDim.x)
     mats[i] = s.mats[i];
   __syncthreads();
-  return Shared{aabb, lights, mats};
+  float* buf = nullptr;
+  if (chunks) {
+    const size_t used = 6 * (size_t)s.num_blocks + 8 * (size_t)s.n_lights +
+                        16 * (size_t)s.n_objects;
+    buf = smem + (used + 3) / 4 * 4;
+  }
+  return Shared{aabb, lights, mats, buf};
 }
 
 __device__ __forceinline__ void load_ray(const float* st, const int* rng,
@@ -737,20 +1056,25 @@ __device__ __forceinline__ void store_ray(const Ray& r, int rt, float* st,
   for (int k = 1; k < 8; ++k) rng[k * rt] = 0;
 }
 
+// Depth 0 (_emit_kernel), the first of emit's three launches (rt_emit):
+// kEmitSplit threads a ray.  rt and n_rays are multiples of a CTA's rays
+// (rt_emit checks), so a CTA lies in one tile and every ray of a tile
+// with work is alive: the CTA finds its closest hits together, keeps them
+// and lists its shadow rays (bounce<.., kList>).  A CTA of a tile without
+// work writes its dead rows before it stages anything, and is done.
 template <bool CPU>
 __global__ void __launch_bounds__(kThreads)
 emit_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
             int n_rays, int rt, int sample_offset, int center, float* st_out,
-            int* rng_out) {
-  const Shared sh = stage_shared(s);
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rays) return;
+            int* rng_out, Shadows q) {
+  const int thread = blockIdx.x * kThreads + threadIdx.x;
+  const int gid = thread / kEmitSplit;
+  const bool owner = thread % kEmitSplit == 0;
   const int tile = gid / rt, lane = gid % rt;
-  float* so = st_out + (size_t)tile * kStRows * rt + lane;
-  int* ro = rng_out + (size_t)tile * 8 * rt + lane;
   const float* cam = s.cam;
   Ray r;
-  if (!has_work[tile]) {
+  if (!has_work[tile]) {  // CTA-uniform
+    if (!owner) return;
     // no ray of this tile can hit: dead, unit direction, miss radiance
     for (int c = 0; c < 3; ++c) {
       r.bo[c] = 0.0f;
@@ -760,12 +1084,52 @@ emit_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
     }
     r.alive = 0.0f;
     r.rng = 0u;
-    store_ray(r, rt, so, ro);
+    store_ray(r, rt, st_out + (size_t)tile * kStRows * rt + lane,
+              rng_out + (size_t)tile * 8 * rt + lane);
     return;
   }
+  const Shared sh = stage_shared(s, s.cand_chunk != 0);
   primary(cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0, r);
-  bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);
-  store_ray(r, rt, so, ro);
+  ShadowCtx c{q, gid, 0, -1, {}, owner};
+  bounce<CPU, false, kList>(s, sh, cam, r, s.cand_chunk ? tile : -1, nullptr,
+                            owner, &c);
+}
+
+// emit's second launch: a grid that fills the card walks the shadow list.
+// A listed walk's ray is made again from the ray's pixel and kept hit
+// (bounce<.., kCapture>, which stops after the lights).
+template <bool CPU>
+__global__ void __launch_bounds__(kThreads)
+emit_walk_kernel(SceneArgs s, const int* xs, const int* ys,
+                 int sample_offset, int center, Shadows q) {
+  const Shared sh = stage_shared(s);
+  walk_list(s, sh, q, [&](int entry, float* row) {
+    const int gid = entry / q.rounds;
+    Ray r;
+    primary(s.cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0, r);
+    ShadowCtx c{q, gid, 0, entry % q.rounds, {}};
+    bounce<CPU, false, kCapture>(s, sh, s.cam, r, -1, nullptr, true, &c);
+    for (int k = 0; k < 9; ++k) row[k] = c.ray[k];
+  });
+}
+
+// emit's last launch: each ray of a tile with work shades its kept hit
+// with its walks' flags (bounce<.., kFlags>) and stores its state.
+template <bool CPU>
+__global__ void __launch_bounds__(kThreads)
+emit_finish_kernel(SceneArgs s, const int* xs, const int* ys,
+                   const int* has_work, int rt, int sample_offset, int center,
+                   float* st_out, int* rng_out, Shadows q) {
+  const int gid = blockIdx.x * kThreads + threadIdx.x;
+  const int tile = gid / rt, lane = gid % rt;
+  if (!has_work[tile]) return;  // CTA-uniform: emit_kernel stored it
+  const Shared sh = stage_shared(s);
+  Ray r;
+  primary(s.cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0, r);
+  ShadowCtx c{q, gid, 0, -1, {}};
+  bounce<CPU, false, kFlags>(s, sh, s.cam, r, -1, nullptr, true, &c);
+  store_ray(r, rt, st_out + (size_t)tile * kStRows * rt + lane,
+            rng_out + (size_t)tile * 8 * rt + lane);
 }
 
 // One bounce on packed state.  DIFF (the detached oracle of the
@@ -798,9 +1162,9 @@ bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
   if (__any_sync(kFull, live)) {  // warp-uniform
     Ray w = r;
     Capture c;
-    bounce<CPU, DIFF, true>(s, sh, s.cam, w,
-                            DIFF && s.cand_chunk ? tile : -1,
-                            DIFF ? &c : nullptr, live);
+    bounce<CPU, DIFF, kWarp>(s, sh, s.cam, w,
+                             DIFF && s.cand_chunk ? tile : -1,
+                             DIFF ? &c : nullptr, live);
     if (live) {
       r = w;
       cap = c;
@@ -929,19 +1293,43 @@ closest_kernel(SceneArgs s, const float* orig, const float* dir,
   }
 }
 
-// The staged integrator's any-hit test (F, _occluded_kernel): one thread
-// per ray walks the blocks on [tmin[i], tmax[i]] and stops at its first
-// blocker.  Bound as closest_kernel.
+// The staged integrator's any-hit test (F, _occluded_kernel), every ray
+// on [tmin[i], tmax[i]] (blocks culled and triangles tested on it), in
+// two launches (rt_occluded): a ray a thread clears its flag and is
+// listed if one of its slab tests passes (the parked rays, and most
+// rays toward the sky, are done after their slab tests); then a grid
+// that fills the card walks the list.
 __global__ void __launch_bounds__(kThreads)
 occluded_kernel(SceneArgs s, const float* orig, const float* dir,
                 const float* tmin, const float* tmax, int n_rays,
-                unsigned char* blocked) {
+                Shadows q) {
   const Shared sh = stage_shared(s);
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rays) return;
-  const float o[3] = {orig[3 * gid], orig[3 * gid + 1], orig[3 * gid + 2]};
-  const float d[3] = {dir[3 * gid], dir[3 * gid + 1], dir[3 * gid + 2]};
-  blocked[gid] = occluded(s, sh, o, d, tmin[gid], tmax[gid], tmax[gid]);
+  const int gid = blockIdx.x * kThreads + threadIdx.x;
+  bool listed = false;
+  if (gid < n_rays) {
+    const float o[3] = {orig[3 * gid], orig[3 * gid + 1], orig[3 * gid + 2]};
+    const float inv[3] = {1.0f / dir[3 * gid], 1.0f / dir[3 * gid + 1],
+                          1.0f / dir[3 * gid + 2]};
+    listed =
+        next_block(s, sh, o, inv, tmin[gid], tmax[gid], 0) < s.num_blocks;
+    q.flags[gid] = 0;
+  }
+  list_append(q, listed, gid);
+}
+
+__global__ void __launch_bounds__(kThreads)
+occluded_walk_kernel(SceneArgs s, const float* orig, const float* dir,
+                     const float* tmin, const float* tmax, Shadows q) {
+  const Shared sh = stage_shared(s);
+  walk_list(s, sh, q, [&](int gid, float* row) {
+    for (int c = 0; c < 3; ++c) {
+      row[c] = orig[3 * gid + c];
+      row[3 + c] = dir[3 * gid + c];
+    }
+    row[6] = tmin[gid];
+    row[7] = tmax[gid];
+    row[8] = tmax[gid];
+  });
 }
 
 // ---- C interface (loaded with ctypes) ----
@@ -954,13 +1342,24 @@ size_t shared_bytes(const SceneArgs& s) {
           16 * (size_t)s.n_objects);
 }
 
+// emit: the staged rows, then (binned) two chunk buffers, 16-byte aligned
+size_t emit_shared_bytes(const SceneArgs& s) {
+  if (!s.cand_chunk) return shared_bytes(s);
+  return (shared_bytes(s) + 15) / 16 * 16 +
+         2 * sizeof(float) * kStageRows * (size_t)s.cand_chunk;
+}
+
 template <typename K>
-int prepare(K kernel, const SceneArgs& s) {
-  size_t smem = shared_bytes(s);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int prepare(K kernel, const SceneArgs& s, size_t smem) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
+  const size_t total = smem + fa.sharedSizeBytes;  // dynamic + static
+  if (total > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (total > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (s.cand_chunk && (!s.cand_meta || !s.cand_stream))
@@ -969,6 +1368,20 @@ int prepare(K kernel, const SceneArgs& s) {
 }
 
 int blocks_for(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
+
+// a list walk's grid: as many CTAs as the card holds at once
+template <typename K>
+int fill_blocks(K kernel, size_t smem, int* blocks) {
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads,
+                                                       smem);
+  *blocks = sms * (per > 0 ? per : 1);
+  return (int)e;
+}
 
 // bounce_step_kernel: a warp for each `rays` rays
 int coop_blocks_for(int n_rays, int rays) {
@@ -980,15 +1393,38 @@ int coop_blocks_for(int n_rays, int rays) {
 
 extern "C" {
 
+// Scratch of emit's three launches, from the caller: counts (2,), list
+// (n_rays * rounds,), flags (n_rays * rounds,), hits (5 * n_rays,);
+// rounds: the walks a ray may make (the lights, or, cpuonly, their disk
+// samples).
 int rt_emit(const SceneArgs* s, const int* xs, const int* ys,
             const int* has_work, int n_rays, int rt, int sample_offset,
-            int center, float* st_out, int* rng_out, void* stream) {
-  auto kernel = s->cpuonly ? &emit_kernel<true> : &emit_kernel<false>;
-  int e = prepare(kernel, *s);
+            int center, float* st_out, int* rng_out, int* counts, int* list,
+            unsigned char* flags, float* hits, int rounds, void* stream) {
+  // a CTA must lie in one tile (emit_kernel)
+  if (rt % (kThreads / kEmitSplit) || n_rays % rt)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Shadows q{counts, list, flags, hits, rounds, n_rays};
+  auto hit_k = s->cpuonly ? &emit_kernel<true> : &emit_kernel<false>;
+  auto walk_k = s->cpuonly ? &emit_walk_kernel<true> : &emit_walk_kernel<false>;
+  auto finish_k =
+      s->cpuonly ? &emit_finish_kernel<true> : &emit_finish_kernel<false>;
+  const size_t smem = emit_shared_bytes(*s), smem_rows = shared_bytes(*s);
+  int walk_blocks = 0;
+  int e = prepare(hit_k, *s, smem);
+  if (!e) e = prepare(walk_k, *s, smem_rows);
+  if (!e) e = prepare(finish_k, *s, smem_rows);
+  if (!e) e = fill_blocks(walk_k, smem_rows, &walk_blocks);
+  if (!e) e = (int)cudaMemsetAsync(counts, 0, 2 * sizeof(int), st);
   if (e) return e;
-  kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
-           (cudaStream_t)stream>>>(*s, xs, ys, has_work, n_rays, rt,
-                                   sample_offset, center, st_out, rng_out);
+  hit_k<<<blocks_for(n_rays * kEmitSplit), kThreads, smem, st>>>(
+      *s, xs, ys, has_work, n_rays, rt, sample_offset, center, st_out,
+      rng_out, q);
+  walk_k<<<walk_blocks, kThreads, smem_rows, st>>>(*s, xs, ys, sample_offset,
+                                                   center, q);
+  finish_k<<<blocks_for(n_rays), kThreads, smem_rows, st>>>(
+      *s, xs, ys, has_work, rt, sample_offset, center, st_out, rng_out, q);
   return (int)cudaGetLastError();
 }
 
@@ -1004,7 +1440,7 @@ int rt_bounce_step(const SceneArgs* s, const float* st_in, const int* rng_in,
                 : binned   ? &bounce_step_kernel<false, true, 32>
                 : diff_out ? &bounce_step_kernel<false, true, kRaysPerWarp>
                            : &bounce_step_kernel<false, false, kRaysPerWarp>;
-  int e = prepare(kernel, *s);
+  int e = prepare(kernel, *s, shared_bytes(*s));
   if (e) return e;
   kernel<<<coop_blocks_for(n_rays, binned ? 32 : kRaysPerWarp), kThreads,
            shared_bytes(*s), (cudaStream_t)stream>>>(
@@ -1016,7 +1452,7 @@ int rt_resume(const SceneArgs* s, const float* st_in, const int* rng_in,
               int n_rays, int rt, int max_depth, float* r_out, float* g_out,
               float* b_out, void* stream) {
   auto kernel = s->cpuonly ? &resume_kernel<true> : &resume_kernel<false>;
-  int e = prepare(kernel, *s);
+  int e = prepare(kernel, *s, shared_bytes(*s));
   if (e) return e;
   kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
            (cudaStream_t)stream>>>(*s, st_in, rng_in, n_rays, rt, max_depth,
@@ -1029,7 +1465,7 @@ int rt_render(const SceneArgs* s, const int* xs, const int* ys,
               int sample_offset, int center, int terminal, int max_depth,
               float* r_out, float* g_out, float* b_out, void* stream) {
   auto kernel = s->cpuonly ? &render_kernel<true> : &render_kernel<false>;
-  int e = prepare(kernel, *s);
+  int e = prepare(kernel, *s, shared_bytes(*s));
   if (e) return e;
   kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
            (cudaStream_t)stream>>>(*s, xs, ys, has_work, n_rays, rt, spp,
@@ -1043,7 +1479,7 @@ int rt_closest(const SceneArgs* s, const float* orig, const float* dir,
                const float* shadow_lights, int n_shadow, float* t_out,
                float* u_out, float* v_out, int* idx_out, float* n_out,
                float* vis_out, void* stream) {
-  int e = prepare(&closest_kernel, *s);
+  int e = prepare(&closest_kernel, *s, shared_bytes(*s));
   if (e) return e;
   closest_kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
                    (cudaStream_t)stream>>>(
@@ -1052,14 +1488,24 @@ int rt_closest(const SceneArgs* s, const float* orig, const float* dir,
   return (int)cudaGetLastError();
 }
 
+// Scratch from the caller: counts (2,), list (n_rays,).
 int rt_occluded(const SceneArgs* s, const float* orig, const float* dir,
                 const float* tmin, const float* tmax, int n_rays,
-                unsigned char* blocked, void* stream) {
-  int e = prepare(&occluded_kernel, *s);
+                unsigned char* blocked, int* counts, int* list,
+                void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Shadows q{counts, list, blocked, nullptr, 1, n_rays};
+  const size_t smem = shared_bytes(*s);
+  int walk_blocks = 0;
+  int e = prepare(&occluded_kernel, *s, smem);
+  if (!e) e = prepare(&occluded_walk_kernel, *s, smem);
+  if (!e) e = fill_blocks(&occluded_walk_kernel, smem, &walk_blocks);
+  if (!e) e = (int)cudaMemsetAsync(counts, 0, 2 * sizeof(int), st);
   if (e) return e;
-  occluded_kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
-                    (cudaStream_t)stream>>>(*s, orig, dir, tmin, tmax, n_rays,
-                                            blocked);
+  occluded_kernel<<<blocks_for(n_rays), kThreads, smem, st>>>(
+      *s, orig, dir, tmin, tmax, n_rays, q);
+  occluded_walk_kernel<<<walk_blocks, kThreads, smem, st>>>(*s, orig, dir,
+                                                            tmin, tmax, q);
   return (int)cudaGetLastError();
 }
 

@@ -142,14 +142,15 @@ def _declare(name: str, lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     if name == "megakernel":
         sp = ctypes.POINTER(SceneArgs)
-        lib.rt_emit.argtypes = [sp, vp, vp, vp, i, i, i, i, vp, vp, vp]
+        lib.rt_emit.argtypes = [sp, vp, vp, vp, i, i, i, i, vp, vp, vp, vp,
+                                vp, vp, i, vp]
         lib.rt_bounce_step.argtypes = [sp, vp, vp, i, i, vp, vp, vp, vp]
         lib.rt_resume.argtypes = [sp, vp, vp, i, i, i, vp, vp, vp, vp]
         lib.rt_render.argtypes = [sp, vp, vp, vp, i, i, i, i, i, i, i,
                                   vp, vp, vp, vp]
         lib.rt_closest.argtypes = [sp, vp, vp, vp, i, i, vp, i, vp, vp, vp,
                                    vp, vp, vp, vp]
-        lib.rt_occluded.argtypes = [sp, vp, vp, vp, vp, i, vp, vp]
+        lib.rt_occluded.argtypes = [sp, vp, vp, vp, vp, i, vp, vp, vp, vp]
         fns = (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
                lib.rt_render, lib.rt_closest, lib.rt_occluded)
     elif name == "block_stream":

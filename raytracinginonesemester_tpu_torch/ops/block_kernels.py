@@ -267,10 +267,13 @@ def block_occluded(origins, dirs, grid: BlockGrid, tmin=1e-4, tmax=F32_MAX,
         lib = load()
         o, d = origins.contiguous(), dirs.contiguous()
         args = _scene_args(rows, _Shade(False, det_eps))
+        # scratch: the list of rays to walk and its two counters
+        counts = torch.empty(2, dtype=torch.int32, device=dev)
+        walks = torch.empty(r, dtype=torch.int32, device=dev)
         err = lib.rt_occluded(ctypes.byref(args), _ptr(o), _ptr(d),
                               _ptr(_per_ray(tmin, r, dev)),
                               _ptr(_per_ray(tmax, r, dev)), r, _ptr(blocked),
-                              _stream())
+                              _ptr(counts), _ptr(walks), _stream())
         _raise_on(lib, err, "occluded")
         block_occluded.launches += 1
     return blocked

@@ -1031,14 +1031,25 @@ def emit_tiles(scene, xs, ys, sample_offset=0, *, det_eps: float = 1e-8,
     from ._native import load
 
     lib = load()
+    dev = xs.device
     hw = has_work.to(torch.int32).contiguous()
-    st = torch.empty(nt * _ST_ROWS, RAY_TILE, dtype=torch.float32,
-                     device=xs.device)
-    rng = torch.empty(nt * 8, RAY_TILE, dtype=torch.int32, device=xs.device)
+    st = torch.empty(nt * _ST_ROWS, RAY_TILE, dtype=torch.float32, device=dev)
+    rng = torch.empty(nt * 8, RAY_TILE, dtype=torch.int32, device=dev)
+    # scratch of the kernel's three launches: the shadow list (a ray's
+    # walks: one a light, or, cpuonly, up to one a disk sample), its
+    # flags, and each ray's closest hit
+    rounds = int(rows.lights.shape[0]) * (sh.shadow_samples if sh.cpuonly
+                                          else 1)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    walks = torch.empty(np_rays * rounds, dtype=torch.int32, device=dev)
+    flags = torch.empty(np_rays * rounds, dtype=torch.uint8, device=dev)
+    hits = torch.empty(5 * np_rays, dtype=torch.float32, device=dev)
     args = _scene_args(rows, sh, cand_plan)
     err = lib.rt_emit(ctypes.byref(args), _ptr(xs), _ptr(ys), _ptr(hw),
                       np_rays, RAY_TILE, int(sample_offset),
-                      int(jitter == "center"), _ptr(st), _ptr(rng), _stream())
+                      int(jitter == "center"), _ptr(st), _ptr(rng),
+                      _ptr(counts), _ptr(walks), _ptr(flags), _ptr(hits),
+                      rounds, _stream())
     _raise_on(lib, err, "emit")
     emit_tiles.launches += 1
     return st, rng

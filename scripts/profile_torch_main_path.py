@@ -4,7 +4,8 @@
         [--jitter wang|reference_cpu]
     python scripts/profile_torch_main_path.py --grad [--frames 8]
     python scripts/profile_torch_main_path.py --large
-    python scripts/profile_torch_main_path.py --kernels
+    python scripts/profile_torch_main_path.py --kernels [--parent DIR]
+    python scripts/profile_torch_main_path.py --times [--root DIR]
 
 Renders the frog scene (depth 8, diffuse) with
 ``render_scene_frames`` once to warm up, then once under
@@ -36,21 +37,42 @@ plane budget), through the staged integrator and the streamed kernels G
 and I.  Besides the profile it times, with CUDA events over one frame,
 G and I (their wrappers, the plan built on the card included) and the
 hit frame's gathers (``make_hit_frame``), the rest being the glue.
-``--kernels`` profiles kernels B and J at ``chip_smoke.py`` phase 11's
-full-width inputs.  B (gpu dialect) on the headline frog's 4,080 sorted
+``--kernels`` profiles kernels A, F, B and J at ``chip_smoke.py`` phase
+11's full-width inputs.  A (emit) on the headline frog, binned and with
+the flat scan, and on ``cpuonly_mirror`` (binned): each timed, also
+without its lights, and kernel F on its facing shadow rays (its shadow
+walk alone); its plain version, run on the card with its walks recorded,
+counts the tiles with work, live rays, hits, facing rays and the pairs
+of its closest and shadow walks, and a SIMT count of the one-thread
+shadow walk (a warp of 32 consecutive rays steps through a block's slots
+as long as its slowest walking lane, up to that lane's first blocker).
+F on the first shadow launch of phase 8's 32-sample cpuonly render:
+parked rays, rays that pass some block's slab test (live), its time and
+the time of each part alone.
+B (gpu dialect) on the headline frog's 4,080 sorted
 tiles at depth 1 and B (cpuonly) on ``cpuonly_mirror``'s: each timed,
 also without its lights (the closest-hit walk and the shading alone);
 kernel E without normals on B's live rays (the one-thread-per-ray
 closest-hit walk); a SIMT count of that walk from the plain version's
 (ray, block) tests (a warp of 32 rays runs a block's triangle loop when
 any of its lanes passes the slab test) against the pairs the
-warp-cooperative walk tests, 32 lanes to a pair; and ``clock64()``
-cycles of B's walks per warp, with ``%globaltimer`` spans, from an
-instrumented copy of ``csrc/megakernel.cu`` (built apart under
-``build/walk_clocks/``; its results must equal the kernel's).  J on the
+warp-cooperative walk tests, 32 lanes to a pair.  ``clock64()``
+cycles per warp of A's walks and of B's, with ``%globaltimer`` spans,
+come from an instrumented copy of ``csrc/megakernel.cu`` (built apart
+under ``build/walk_clocks/`` by exact text edits, ``_CLOCK_EDITS`` and
+one of the ``_A_EDITS_*`` sets, the one that matches A's design in the
+source: a change to these walks must keep an edit set matching, or the
+mode stops and names the edit; its results must equal the kernel's).
+J on the
 inputs of its launches in one grad-bench step (the material and vertex
 tables): the wrapper (kernel + its sort glue), the glue alone, the
 kernels alone on the glue's plan, and ``index_add_``.
+``--parent DIR`` (with ``--kernels``) also times A (each variant) and F
+as the tree at ``DIR`` computes them (e.g. the parent commit unpacked
+with ``git archive`` into ``build/parent``), in a process of its own
+that imports ``DIR``'s package (``--times --root DIR``), in turns with
+this tree's (parent, this, this, parent; medians of 5), the outputs
+compared by digest.
 The full table is also written to ``chiprun_out/profile_main_path.txt``
 (``profile_grad.txt`` with ``--grad``, ``profile_large.txt`` with
 ``--large``).
@@ -76,9 +98,23 @@ def main():
     ap.add_argument("--grad", action="store_true")
     ap.add_argument("--large", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--parent", default=None,
+                    help="with --kernels: a tree of the port (e.g. the parent "
+                         "commit unpacked with git archive) whose kernels A "
+                         "and F are timed in turns with this tree's")
+    ap.add_argument("--times", action="store_true",
+                    help="print the --parent timings of A and F as JSON")
+    ap.add_argument("--root", default=None,
+                    help="with --times: import the package from this tree")
     args = ap.parse_args()
+    if args.times:
+        if args.root:
+            sys.path.insert(0, os.path.abspath(args.root))
+        import json
+        print(json.dumps(kernel_times()))
+        return None
     if args.kernels:
-        return profile_kernels()
+        return profile_kernels(args.parent)
     if args.grad:
         return profile_grad(args.frames or 8, args.width or 960,
                             args.height or 540)
@@ -449,7 +485,7 @@ def _profile_b(label, frame, st, rng):
 # counters to kernel B's walks; each (old, new) edit must find its text
 _CLOCK_EDITS = [
     ('#include "trace_common.cuh"\n',
-     '#include "trace_common.cuh"\n__device__ unsigned long long g_prof[16];\n'
+     '#include "trace_common.cuh"\n__device__ unsigned long long g_prof[32];\n'
      '__device__ __forceinline__ void prof_add(int k, long long v) {\n'
      '  if ((threadIdx.x & 31) == 0) atomicAdd(&g_prof[k], '
      '(unsigned long long)v);\n}\n'),
@@ -491,11 +527,11 @@ _CLOCK_EDITS = [
      '      const int src = __ffs(todo) - 1;\n      float pp[3], pl[3];'),
     ('        blocked = true;\n    }\n',
      '        blocked = true;\n    }\n    qp += clock64() - q1;\n'),
-    ('  }\n  return blocked;\n}\n\n// random_on_hemisphere',
+    ('  }\n  return blocked;\n}\n\n// ---- shadow lists',
      '  }\n  if (np) {\n    prof_add(4, clock64() - q0);\n'
      '    prof_add(5, qp);\n    prof_add(6, np);\n    prof_add(7, 1);\n'
      '  }\n  return blocked;\n}\n\n'
-     '// random_on_hemisphere'),
+     '// ---- shadow lists'),
     # block_closest_warp: the triangle tests before the shuffle tree
     ('  int bid = kIntMax, bj = kIntMax;\n#pragma unroll 4\n',
      '  int bid = kIntMax, bj = kIntMax;\n  const long long q2 = clock64();\n'
@@ -528,40 +564,155 @@ extern "C" int rt_walk_clocks(unsigned long long* host, int reset) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e != cudaSuccess) return (int)e;
   if (reset) {
-    unsigned long long z[16] = {0};
+    unsigned long long z[32] = {0};
     return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
   }
   return (int)cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
 }
 """
+# counters 16-31: kernel A.  prof_sum adds a value over the lanes that
+# run it together (one atomic per warp); clock_warp waits for the warp.
+_A_HELPERS = (
+    '__device__ __forceinline__ void prof_sum(int k, long long v) {\n'
+    '  const unsigned m = __activemask();\n'
+    '  const unsigned s = __reduce_add_sync(m, (unsigned)v);\n'
+    '  if ((threadIdx.x & 31) == __ffs(m) - 1) atomicAdd(&g_prof[k], '
+    '(unsigned long long)s);\n}\n'
+    '__device__ __forceinline__ long long clock_warp() {\n'
+    '  __syncwarp();\n  return clock64();\n}\n'
+    '__device__ __forceinline__ void prof_span(unsigned long long g0) {\n'
+    '  unsigned long long g1;\n'
+    '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));\n'
+    '  if ((threadIdx.x & 31) == 0) {\n'
+    '    atomicMax(&g_prof[24], ~g0);\n    atomicMax(&g_prof[25], g1);\n'
+    '  }\n}\n')
+# A as first ported (one thread per ray, a single launch): per warp with
+# work, the whole bounce (16, 17), the closest walk (18), the light loop
+# (19); per shadow walk of one thread (20, 21); globaltimer of every warp
+# (24, 25) and of the warps with work (26, 27)
+_A_EDITS_SOLO = [
+    ('__device__ Hit closest(const SceneArgs& s,',
+     _A_HELPERS + '__device__ Hit closest(const SceneArgs& s,'),
+    ('  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};\n  if (tile >= 0) {\n'
+     '    if (live) h = closest_binned(s, tile, o, d);\n',
+     '  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};\n'
+     '  const long long qa = COOP ? 0 : clock_warp();\n  if (tile >= 0) {\n'
+     '    if (live) h = closest_binned(s, tile, o, d);\n'),
+    ('  const bool hit = h.t < kF32Max;\n  float n[3] = {0.0f, 0.0f, 1.0f};\n'
+     '  int obj = 0;\n',
+     '  if (!COOP) prof_add(18, clock_warp() - qa);\n'
+     '  const bool hit = h.t < kF32Max;\n  float n[3] = {0.0f, 0.0f, 1.0f};\n'
+     '  int obj = 0;\n'),
+    ('  for (int li = 0; li < s.n_lights; ++li) {\n'
+     '    const float* L = sh.lights + 8 * li;\n',
+     '  const long long ql = COOP ? 0 : clock_warp();\n'
+     '  for (int li = 0; li < s.n_lights; ++li) {\n'
+     '    const float* L = sh.lights + 8 * li;\n'),
+    ('  }\n\n  // ---- radiance and the Russian-roulette split',
+     '  }\n  if (!COOP) prof_add(19, clock_warp() - ql);\n\n'
+     '  // ---- radiance and the Russian-roulette split'),
+    ('  float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};\n'
+     '  for (int b = 0; b < s.num_blocks; ++b) {\n'
+     '    if (!slab(sh.aabb + 6 * b, p, inv, tmin, dist)) continue;\n',
+     '  const long long qo = clock64();\n'
+     '  float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};\n'
+     '  for (int b = 0; b < s.num_blocks; ++b) {\n'
+     '    if (!slab(sh.aabb + 6 * b, p, inv, tmin, dist)) continue;\n'),
+    ('          kF32Max)\n        return true;\n    }\n  }\n'
+     '  return false;\n}\n',
+     '          kF32Max) {\n        prof_sum(20, clock64() - qo);\n'
+     '        prof_sum(21, 1);\n        return true;\n      }\n    }\n  }\n'
+     '  prof_sum(20, clock64() - qo);\n  prof_sum(21, 1);\n'
+     '  return false;\n}\n'),
+    ('            int* rng_out) {\n  const Shared sh = stage_shared(s);\n'
+     '  const int gid = blockIdx.x * blockDim.x + threadIdx.x;\n'
+     '  if (gid >= n_rays) return;\n'
+     '  const int tile = gid / rt, lane = gid % rt;\n  float* so',
+     '            int* rng_out) {\n  unsigned long long gk;\n'
+     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gk));\n'
+     '  const Shared sh = stage_shared(s);\n'
+     '  const int gid = blockIdx.x * blockDim.x + threadIdx.x;\n'
+     '  if (gid >= n_rays) return;\n'
+     '  const int tile = gid / rt, lane = gid % rt;\n  float* so'),
+    ('    store_ray(r, rt, so, ro);\n    return;\n  }\n'
+     '  primary(cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0, '
+     'r);\n  bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);\n',
+     '    store_ray(r, rt, so, ro);\n    prof_span(gk);\n    return;\n  }\n'
+     '  const long long qe = clock_warp();\n'
+     '  primary(cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0, '
+     'r);\n  bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);\n'
+     '  prof_add(16, clock_warp() - qe);\n  prof_add(17, 1);\n'
+     '  prof_span(gk);\n  if ((threadIdx.x & 31) == 0) {\n'
+     '    atomicMax(&g_prof[26], ~gk);\n'
+     '    unsigned long long g1;\n'
+     '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));\n'
+     '    atomicMax(&g_prof[27], g1);\n  }\n'),
+]
 
 
-def _clock_lib():
-    """Build the instrumented copy of megakernel.cu -> its library."""
+def _build_apart(text, name, include):
+    """Compile megakernel.cu source ``text`` into build/walk_clocks/ (never
+    used by the package) -> the loaded library, its C interface declared."""
     import ctypes
 
     from raytracinginonesemester_tpu_torch.ops import _native
 
-    csrc = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc")
-    with open(os.path.join(csrc, "megakernel.cu")) as f:
-        text = f.read()
-    for old, new in _CLOCK_EDITS:
-        if text.count(old) != 1:
-            raise SystemExit(f"walk clocks: the source changed near {old!r}")
-        text = text.replace(old, new)
     out = os.path.join(REPO, "build", "walk_clocks")
     os.makedirs(out, exist_ok=True)
-    src = os.path.join(out, "megakernel_clocks.cu")
+    src = os.path.join(out, f"{name}.cu")
     with open(src, "w") as f:
-        f.write(text + _CLOCK_READ)
-    lib_path = os.path.join(out, "librt_megakernel_clocks.so")
-    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-I", csrc, "-o",
+        f.write(text)
+    lib_path = os.path.join(out, f"lib{name}.so")
+    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-I", include, "-o",
                     lib_path, src], check=True, capture_output=True)
     lib = ctypes.CDLL(lib_path)
     _native._declare("megakernel", lib)
+    return lib
+
+
+def _clock_lib():
+    """Build the instrumented copy of megakernel.cu -> (its library, the
+    name of kernel A's design it instruments)."""
+    import ctypes
+
+    csrc = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "megakernel.cu")) as f:
+        text = f.read()
+    a_sets = {"one thread per ray": _A_EDITS_SOLO,
+              "shadow lists": _A_EDITS_LIST}
+    found = [k for k, edits in a_sets.items()
+             if all(text.count(old) == 1 for old, _ in edits)]
+    if not found:
+        raise SystemExit("walk clocks: kernel A's source matches no edit set")
+    for old, new in _CLOCK_EDITS + a_sets[found[0]]:
+        if text.count(old) != 1:
+            raise SystemExit(f"walk clocks: the source changed near {old!r}")
+        text = text.replace(old, new)
+    lib = _build_apart(text + _CLOCK_READ, "megakernel_clocks", csrc)
     lib.rt_walk_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.rt_walk_clocks.restype = ctypes.c_int
-    return lib
+    return lib, found[0]
+
+
+class _using:
+    """Within the block, the megakernel wrappers launch through ``lib``."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        from raytracinginonesemester_tpu_torch.ops import _native
+
+        self.real = _native.load("megakernel")
+        if self.lib is not None:
+            _native._LIBS["megakernel"] = self.lib
+        return self
+
+    def __exit__(self, *exc):
+        from raytracinginonesemester_tpu_torch.ops import _native
+
+        _native._LIBS["megakernel"] = self.real
+        return False
 
 
 def _walk_clocks(label, frame, st, rng, lib):
@@ -571,20 +722,14 @@ def _walk_clocks(label, frame, st, rng, lib):
 
     import torch
 
-    from raytracinginonesemester_tpu_torch.ops import _native
-
-    real = _native._LIBS.get("megakernel")
     want = frame.bounce(st, rng)
-    buf = (ctypes.c_ulonglong * 16)()
-    _native._LIBS["megakernel"] = lib
-    try:
+    buf = (ctypes.c_ulonglong * 32)()
+    with _using(lib):
         frame.bounce(st, rng)  # warm
         lib.rt_walk_clocks(buf, 1)
         got = frame.bounce(st, rng)
         if lib.rt_walk_clocks(buf, 0):
             raise SystemExit("walk clocks: reading the counters failed")
-    finally:
-        _native._LIBS["megakernel"] = real
     same = all(torch.equal(a, b) for a, b in zip(got, want))
     c = list(buf)
     per = lambda a, b: a / max(b, 1)
@@ -605,9 +750,523 @@ def _walk_clocks(label, frame, st, rng, lib):
           f"{(c[15] - t0) / 1e3:.1f} us and end by {(c[14] - t0) / 1e3:.1f} "
           "us")
 
+# A as it is now (three launches, the shadow rays listed; kEmitSplit
+# threads a ray in the first): per warp of
+# emit_kernel with work, the kernel after its sky test (16, 17), the
+# closest walk (18), the light loop, which lists the shadow rays (19);
+# per group of the list walk, its cycles (20) and the groups (21);
+# entries listed (22); globaltimer of emit_kernel's warps (24, 25) and
+# of those with work (26, 27), of the list walk's first and last group
+# (28, 29).  The walk kernel is F's too: counters 20-22, 28 and 29 count
+# whichever list walk runs.
+_A_EDITS_LIST = [
+    _A_EDITS_SOLO[0],
+    ('  } else if (tile >= 0) {\n    if constexpr (W == kList)\n',
+     '  }\n  const long long qa = W == kList ? clock_warp() : 0;\n'
+     '  if constexpr (W == kCapture || W == kFlags) {\n'
+     '  } else if (tile >= 0) {\n    if constexpr (W == kList)\n'),
+    ('    if (c->owner) store_hit(c->q, c->gid, h);\n  }\n',
+     '    if (c->owner) store_hit(c->q, c->gid, h);\n  }\n'
+     '  if (W == kList) prof_add(18, clock_warp() - qa);\n'),
+    ('  for (int li = 0; li < s.n_lights; ++li) {\n'
+     '    const float* L = sh.lights + 8 * li;\n',
+     '  const long long ql = W == kList ? clock_warp() : 0;\n'
+     '  for (int li = 0; li < s.n_lights; ++li) {\n'
+     '    const float* L = sh.lights + 8 * li;\n'),
+    ('  }\n  if constexpr (W == kList || W == kCapture) return;\n',
+     '  }\n  if (W == kList) prof_add(19, clock_warp() - ql);\n'
+     '  if constexpr (W == kList || W == kCapture) return;\n'),
+    ('  const int total = q.counts[0];\n  for (;;) {\n',
+     '  const int total = q.counts[0];\n'
+     '  if (threadIdx.x == 0 && blockIdx.x == 0)\n'
+     '    atomicAdd(&g_prof[22], (unsigned long long)total);\n'
+     '  for (;;) {\n    const long long qg = clock64();\n'
+     '    unsigned long long gg;\n'
+     '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gg));\n'),
+    ('    if (e0 >= total) return;\n',
+     '    if (e0 >= total) return;\n'
+     '    if (lane == 0) atomicMax(&g_prof[28], ~gg);\n'),
+    ('        active)\n      q.flags[entry] = 1;\n  }\n}\n',
+     '        active)\n      q.flags[entry] = 1;\n'
+     '    prof_add(20, clock64() - qg);\n    prof_add(21, 1);\n'
+     '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gg));\n'
+     '    if (lane == 0) atomicMax(&g_prof[29], gg);\n  }\n}\n'),
+    ('            int* rng_out, Shadows q) {\n'
+     '  const int thread = blockIdx.x * kThreads + threadIdx.x;\n',
+     '            int* rng_out, Shadows q) {\n  unsigned long long gk;\n'
+     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gk));\n'
+     '  const int thread = blockIdx.x * kThreads + threadIdx.x;\n'),
+    ('              rng_out + (size_t)tile * 8 * rt + lane);\n    return;\n'
+     '  }\n  const Shared sh = stage_shared(s, s.cand_chunk != 0);\n',
+     '              rng_out + (size_t)tile * 8 * rt + lane);\n'
+     '    prof_span(gk);\n    return;\n  }\n'
+     '  const long long qe = clock_warp();\n'
+     '  const Shared sh = stage_shared(s, s.cand_chunk != 0);\n'),
+    ('  bounce<CPU, false, kList>(s, sh, cam, r, s.cand_chunk ? tile : -1, '
+     'nullptr,\n                            owner, &c);\n',
+     '  bounce<CPU, false, kList>(s, sh, cam, r, s.cand_chunk ? tile : -1, '
+     'nullptr,\n                            owner, &c);\n'
+     '  prof_add(16, clock_warp() - qe);\n  prof_add(17, 1);\n'
+     '  prof_span(gk);\n  if ((threadIdx.x & 31) == 0) {\n'
+     '    atomicMax(&g_prof[26], ~gk);\n'
+     '    unsigned long long g1;\n'
+     '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));\n'
+     '    atomicMax(&g_prof[27], g1);\n  }\n'),
+]
 
-def profile_kernels():
-    """Kernels B and J at phase 11's full-width inputs (module
+
+# F as the direct cooperative walk (a variant, timed beside the kernel):
+# lanes 0-7 of a warp own a ray each and walk it with occluded_coop in
+# the first launch; nothing is listed, so the list walk has nothing to do
+_F_EDITS_DIRECT = [
+    ('  const int gid = blockIdx.x * kThreads + threadIdx.x;\n'
+     '  bool listed = false;\n  if (gid < n_rays) {\n'
+     '    const float o[3] = {orig[3 * gid], orig[3 * gid + 1], '
+     'orig[3 * gid + 2]};\n',
+     '  const int wl = threadIdx.x & 31;\n'
+     '  const int gid =\n'
+     '      (blockIdx.x * kThreads + threadIdx.x) / 32 * kRaysPerWarp + wl;\n'
+     '  const bool in_range = wl < kRaysPerWarp && gid < n_rays;\n'
+     '  float row[9] = {0, 0, 0, 1, 1, 1, 0, 0, 0};\n'
+     '  if (in_range) {\n    for (int c = 0; c < 3; ++c) {\n'
+     '      row[c] = orig[3 * gid + c];\n      row[3 + c] = dir[3 * gid + c];\n'
+     '    }\n    row[6] = tmin[gid];\n    row[7] = row[8] = tmax[gid];\n  }\n'
+     '  const bool b = occluded_coop(s, sh, row, row + 3, row[6], row[7], '
+     'row[8],\n                               in_range);\n'
+     '  if (in_range) q.flags[gid] = b;\n  bool listed = false;\n'
+     '  if (false) {\n'
+     '    const float o[3] = {orig[3 * gid], orig[3 * gid + 1], '
+     'orig[3 * gid + 2]};\n'),
+    ('    q.flags[gid] = 0;\n  }\n  list_append(q, listed, gid);\n',
+     '  }\n'),
+    ('  occluded_kernel<<<blocks_for(n_rays), kThreads, smem, st>>>(',
+     '  occluded_kernel<<<coop_blocks_for(n_rays, kRaysPerWarp), kThreads, '
+     'smem, st>>>('),
+]
+
+
+def _group_edits(n):
+    """This tree's list walk with groups of ``n`` entries a warp (a
+    variant) in place of kListRays."""
+    return [('    const int e0 = __shfl_sync(kFull, g, 0) * kListRays;\n',
+             f'    const int e0 = __shfl_sync(kFull, g, 0) * {n};\n'),
+            ('    const bool active = lane < kListRays && e < total;\n',
+             f'    const bool active = lane < {n} && e < total;\n')]
+
+
+def _variant_lib(edits, name):
+    """This tree's megakernel.cu with ``edits`` applied, built apart ->
+    its library (None when an edit does not find its text)."""
+    csrc = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "megakernel.cu")) as f:
+        text = f.read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            return None
+        text = text.replace(old, new)
+    return _build_apart(text, name, csrc)
+
+def _simt_shadow(rows, p, ld, dist, facing, det_eps, tmin, tmax):
+    """The one-thread-per-ray shadow walk of ``megakernel._occluded_plain``
+    counted SIMT-wise over warps of 32 consecutive rays -> (warp steps,
+    lane steps, the facing rays, the blocks each walks): a lane that
+    passes a block's slab test steps through its slots up to its first
+    blocker (every slot if none), and its warp steps as long as its
+    slowest such lane; a ray walks the blocks whose slab test passes up
+    to and including its first with a blocker."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+    tmax = dist if tmax is None else tmax
+    sel = facing.nonzero().squeeze(1)
+    warp = sel // 32
+    n_warps = facing.numel() // 32 + 1
+    pf = tuple(c[sel] for c in p)
+    lf = tuple(c[sel] for c in ld)
+    inv = tuple(1.0 / c for c in lf)
+    tmin_t = torch.full_like(dist[sel], tmin)
+    dist_f, tmax_f = dist[sel], tmax[sel]
+    walking = torch.ones(sel.numel(), dtype=torch.bool, device=sel.device)
+    bs = rows.block_size
+    warp_steps = lane_steps = 0
+    blocks = torch.zeros(sel.numel(), dtype=torch.int64, device=sel.device)
+    for b in range(rows.num_blocks):
+        idx = (mk._slab(rows.aabb[b], pf, inv, tmin_t, dist_f)
+               & walking).nonzero().squeeze(1)
+        if idx.numel() == 0:
+            continue
+        blocks[idx] += 1
+        tri = tuple(rows.tri[k, b][None, :] for k in range(9))
+        live = rows.ids[b][None, :] >= 0
+        n = torch.zeros(sel.numel(), dtype=torch.int64, device=sel.device)
+        for ch in idx.split(8192):
+            t, _, _ = mk._mt(tuple(c[ch, None] for c in pf),
+                             tuple(c[ch, None] for c in lf), tri, det_eps,
+                             tmin, tmax_f[ch, None])
+            hits = live & (t < mk.F32_MAX)
+            hit = hits.any(dim=1)
+            first = hits.to(torch.int32).argmax(dim=1).to(torch.int64)
+            n[ch] = torch.where(hit, first + 1, bs)
+            walking[ch] = walking[ch] & ~hit
+        lane_steps += int(n.sum())
+        per_warp = torch.zeros(n_warps, dtype=torch.int64,
+                               device=sel.device).scatter_reduce_(
+            0, warp, n, "amax")
+        warp_steps += int(per_warp.sum())
+    return warp_steps, lane_steps, sel, blocks
+
+
+def _schedules(walked):
+    """The (ray, block) pairs of the cooperative shadow walk (each ray's
+    blocks up to its first with a blocker) as three schedules would give
+    them to warps: the rays of a CTA of 128 listed and walked by its 4
+    warps, 8 rays a group in turn; 8 rays a warp by ray index (B's); and
+    one list of every ray, 8 to a group, which the warps of a full card
+    take in turn."""
+    import torch
+
+    ray = torch.cat([r for r, _ in walked])
+    blk = torch.cat([b for _, b in walked])
+    on = blk > 0
+    ray, blk = ray[on], blk[on]
+    if ray.numel() == 0:
+        return
+    cta_max = 0
+    for c in torch.unique(ray // 128).tolist():
+        groups = blk[ray // 128 == c].split(8)
+        sums = [int(g.sum()) for g in groups]
+        cta_max = max(cta_max, max(sum(sums[w::4]) for w in range(4)))
+    by8 = torch.zeros(int(ray.max()) // 8 + 1, dtype=torch.int64,
+                      device=ray.device).index_add_(0, ray // 8, blk)
+    groups = blk.split(8)
+    print(f"  cooperative shadow walk: {ray.numel()} rays walk "
+          f"{int(blk.sum())} (ray, block) pairs, {float(blk.float().mean()):.2f}"
+          f" a ray, at most {int(blk.max())}; the most pairs a warp walks: "
+          f"{cta_max} (a CTA's list on its 4 warps), {int(by8.max())} (8 rays "
+          f"a warp by index), {max(int(g.sum()) for g in groups)} a group "
+          f"of one list (mean {int(blk.sum()) / len(groups):.1f})")
+
+
+def _emit_call(frame, binned, rows=None):
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+    return lambda: mk.emit_tiles(
+        frame.scene, frame.xs, frame.ys, 0, plan=frame.plan,
+        cand_plan=frame.cand if binned else None,
+        rows=frame.rows if rows is None else rows, **frame.kw)
+
+
+def _profile_a(label, frame, binned, clocks):
+    """Kernel A on one full-width input (``chip_smoke.py`` phase 11's):
+    its time, its time without the scene's lights, F on its facing shadow
+    rays (its shadow walk alone); live tiles, rays, hits, facing rays and
+    the pairs of its closest and shadow walks, counted by its plain
+    version on the card; the SIMT count of the one-thread shadow walk;
+    and the instrumented copy's clock64() counters."""
+    import dataclasses
+
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = frame.rows
+    dark = dataclasses.replace(rows, lights=rows.lights[:0].contiguous())
+    emit = _emit_call(frame, binned)
+    t_a = cuda_time_ms(emit, warmup=1, iters=5)
+    t_dark = cuda_time_ms(_emit_call(frame, binned, dark), warmup=1, iters=5)
+
+    # the plain version, its closest and shadow walks recorded
+    rec = {"closest": [], "occluded": []}
+    c_name = "_closest_binned_plain" if binned else "_closest_plain"
+    real = {c_name: getattr(mk, c_name), "_occluded_plain": mk._occluded_plain}
+
+    def recording(name, key):
+        def f(*a, **k):
+            out = real[name](*a, **k)
+            rec[key].append((a, k, out))
+            return out
+        return f
+
+    setattr(mk, c_name, recording(c_name, "closest"))
+    mk._occluded_plain = recording("_occluded_plain", "occluded")
+    try:
+        stats = {}
+        want = frame.emit_plain(binned, stats=stats)
+    finally:
+        for name, f in real.items():
+            setattr(mk, name, f)
+    got = emit()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    (_, _, _, alive, _, _), _, best = rec["closest"][0]
+    tiles = alive.view(-1, mk.RAY_TILE).any(dim=1)
+    hits = int((best.t < mk.F32_MAX).sum())
+    chunks = (int(frame.cand.meta[:, 1][tiles].sum()) if binned else None)
+    facing = shadow_pairs = blocked = warp_steps = lane_steps = 0
+    walks, walked = [], []
+    for a, k, (blk, pairs) in rec["occluded"]:
+        _, p, ld, dist, fac, det_eps, tmin = a[:7]
+        tmax = a[7] if len(a) > 7 else k.get("tmax")
+        facing += int(fac.sum())
+        shadow_pairs += int(pairs)
+        blocked += int((blk & fac).sum())
+        ws, ls, ray, n_blocks = _simt_shadow(rows, p, ld, dist, fac,
+                                             det_eps, tmin, tmax)
+        warp_steps, lane_steps = warp_steps + ws, lane_steps + ls
+        walked.append((ray, n_blocks))
+        sel = fac.nonzero().squeeze(1)
+        walks.append((torch.stack(p, 1)[sel].contiguous(),
+                      torch.stack(ld, 1)[sel].contiguous(), float(tmin),
+                      (dist if tmax is None else tmax)[sel].contiguous(),
+                      blk[sel]))
+    grid = frame.scene.accel
+    f_same = all(torch.equal(bk.block_occluded(o, d, grid, t0, t1), b)
+                 for o, d, t0, t1, b in walks)
+    t_f = cuda_time_ms(lambda: [bk.block_occluded(o, d, grid, t0, t1)
+                                for o, d, t0, t1, _ in walks],
+                       warmup=1, iters=5)
+    closest_pairs = int(best.pairs)
+    print(f"A {label}: {frame.nt} tiles x 512, {int(tiles.sum())} with "
+          f"work, {int(alive.sum())} live rays, {hits} hits, {facing} "
+          f"facing shadow rays ({blocked} blocked)"
+          + (f", {chunks} candidate chunks" if binned else "")
+          + f"; pairs {int(stats['pairs'])}: closest walk {closest_pairs}, "
+          f"shadow walks {shadow_pairs} "
+          f"({shadow_pairs / max(facing, 1):.1f} a facing ray); kernel "
+          f"{t_a['median_ms']:.3f} ms, without lights "
+          f"{t_dark['median_ms']:.3f} ms, F on its facing shadow rays "
+          f"{t_f['median_ms']:.3f} ms (medians of 5; samples "
+          f"{[round(x, 3) for x in t_a['samples_ms']]}, "
+          f"{[round(x, 3) for x in t_dark['samples_ms']]}, "
+          f"{[round(x, 3) for x in t_f['samples_ms']]}); kernel "
+          f"{'equals' if same else 'DIFFERS from'} its plain version, F's "
+          f"flags {'equal' if f_same else 'DIFFER from'} A's walks'")
+    print(f"  one-thread shadow walk, counted from the plain walk: "
+          f"{warp_steps} warp steps of one triangle, {lane_steps} lane "
+          f"steps, {lane_steps / max(warp_steps, 1):.2f} of 32 lanes active "
+          f"a step; {warp_steps / max(facing / 32, 1):.0f} steps a warp's "
+          "worth of facing rays")
+    _schedules(walked)
+    _launch_split(f"A {label}", emit)
+    _a_clocks(label, emit, clocks)
+
+
+def _launch_split(label, fn, calls=5):
+    """The device time of each CUDA kernel that ``fn`` launches, a call,
+    from ``torch.profiler`` over ``calls`` calls after a warm one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / calls / 1e3)
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    print(f"  {label}, device time a call by kernel (torch.profiler, "
+          f"{calls} calls): " + "; ".join(
+              f"{k.split('(')[0]} {ms:.3f} ms" for k, ms in
+              sorted(rows, key=lambda r: -r[1])[:6]))
+
+
+def _a_clocks(label, emit, clocks):
+    """Kernel A through the instrumented library: clock64() cycles per
+    warp with work, split into the closest walk and the light loop, the
+    shadow walks' cycles, and globaltimer spans."""
+    import ctypes
+
+    import torch
+
+    lib, design = clocks
+    want = emit()
+    buf = (ctypes.c_ulonglong * 32)()
+    with _using(lib):
+        emit()  # warm
+        lib.rt_walk_clocks(buf, 1)
+        got = emit()
+        if lib.rt_walk_clocks(buf, 0):
+            raise SystemExit("walk clocks: reading the counters failed")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    c = list(buf)
+    per = lambda a, b: a / max(b, 1)
+    mask = 2 ** 64 - 1
+    t0 = ~c[24] & mask  # the first warp's start (globaltimer ns)
+    print(f"  clock64 counters, A {label} ({design}; instrumented copy, "
+          f"results {'equal to' if same else 'DIFFER from'} the kernel's): "
+          f"{c[17]} warps with work, {per(c[16], c[17]):.0f} cycles each: "
+          f"closest walk {per(c[18], c[17]):.0f}, light loop "
+          f"{per(c[19], c[17]):.0f}; "
+          + (f"shadow walks {c[21]}, {per(c[20], c[21]):.0f} cycles each "
+             "(a thread's)" if design == "one thread per ray" else
+             f"{c[22]} shadow rays listed, walked in {c[21]} groups (4 rays "
+             f"a warp), {per(c[20], c[21]):.0f} cycles a group, from "
+             f"{((~c[28] & mask) - t0) / 1e3:.1f} to "
+             f"{(c[29] - t0) / 1e3:.1f} us")
+          + "; globaltimer: the kernel's "
+          f"warps span {(c[25] - t0) / 1e3:.1f} us, the warps with work "
+          f"start from {((~c[26] & mask) - t0) / 1e3:.1f} us and end by "
+          f"{(c[27] - t0) / 1e3:.1f} us")
+
+
+def _turns(label, fn, parent, name="parent"):
+    """``fn`` through the ``parent`` library (the parent tree's, or a
+    variant's) and through this tree's, in turns (parent, this, this,
+    parent), medians of 5 each; outputs compared."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    def run(lib):
+        with _using(lib):
+            out = fn()
+            return out, cuda_time_ms(fn, warmup=1, iters=5)["median_ms"]
+
+    want, p1 = run(parent)
+    got, c1 = run(None)
+    _, c2 = run(None)
+    _, p2 = run(parent)
+    out = got if isinstance(got, (tuple, list)) else (got,)
+    ref = want if isinstance(want, (tuple, list)) else (want,)
+    same = all(torch.equal(a, b) for a, b in zip(out, ref))
+    print(f"  {label}, {name} vs this tree in turns: {name} {p1:.3f}, "
+          f"this {c1:.3f}, this {c2:.3f}, {name} {p2:.3f} ms; outputs "
+          f"{'equal' if same else 'DIFFER'}")
+
+
+def _f_call():
+    """Kernel F on phase 11's input (``_profile_f``'s) -> a call of it."""
+    from chip_smoke import H, W, cpuonly_scene, record_calls
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.ops import integrator
+    from raytracinginonesemester_tpu_torch.render.renderer import render_scene
+
+    soft = cpuonly_scene("cpuonly_mirror", "cuda", W, H, radius=0.15,
+                         shadow_samples=32, diffuse_bounce=True)
+    (fo, fd, grid, ftmin, ftmax), fkw = record_calls(
+        integrator, ["block_occluded"], lambda: render_scene(soft),
+        keep=1)["block_occluded"][0]
+    return lambda: bk.block_occluded(fo, fd, grid, ftmin, ftmax, **fkw)
+
+
+def _profile_f():
+    """Kernel F on ``chip_smoke.py`` phase 11's input: the first shadow
+    launch (depth 0, first disk sample) of the staged cpuonly_mirror
+    render with a 32-sample area light; its rays split into parked ones
+    (origin off the grid, as the integrator parks missed shade points),
+    the ones whose slab test passes some block (live), and the rest."""
+    import torch
+
+    from chip_smoke import H, W, cpuonly_scene, record_calls
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.ops import integrator
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+    from raytracinginonesemester_tpu_torch.render.renderer import render_scene
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    soft = cpuonly_scene("cpuonly_mirror", "cuda", W, H, radius=0.15,
+                         shadow_samples=32, diffuse_bounce=True)
+    call = record_calls(integrator, ["block_occluded"],
+                        lambda: render_scene(soft), keep=1)["block_occluded"]
+    (fo, fd, grid, ftmin, ftmax), fkw = call[0]
+    r, dev = fo.shape[0], fo.device
+    rows = bk.grid_rows(grid)
+    t0, t1 = bk._per_ray(ftmin, r, dev), bk._per_ray(ftmax, r, dev)
+    parked = ~(fo.abs() < 1e29).all(dim=1)
+    inv = tuple(1.0 / fd[:, k, None] for k in range(3))
+    live = mk._slab(rows.aabb.T[:, None, :],
+                    tuple(fo[:, k, None] for k in range(3)), inv,
+                    t0[:, None], t1[:, None]).any(dim=1)
+    stats = {}
+    want = bk.block_occluded_plain(fo, fd, grid, ftmin, ftmax, stats=stats,
+                                   **fkw)
+    fn = lambda: bk.block_occluded(fo, fd, grid, ftmin, ftmax, **fkw)
+    same = torch.equal(fn(), want)
+    t_f = cuda_time_ms(fn, warmup=1, iters=5)
+    parts = {}
+    for what, m in (("live", live), ("not live", ~live)):
+        i = m.nonzero().squeeze(1)
+        parts[what] = cuda_time_ms(
+            lambda: bk.block_occluded(fo[i], fd[i], grid, t0[i], t1[i],
+                                      **fkw), warmup=1, iters=5)["median_ms"]
+    print(f"F, {r} shadow rays (cpuonly_mirror 1080p, area light r=0.15 "
+          f"x32, depth 0, first disk sample): {int(parked.sum())} parked, "
+          f"{int(live.sum())} live (some block's slab test passes; "
+          f"{int((live & parked).sum())} of them parked), "
+          f"{int(want.sum())} blocked, {int(stats['pairs'])} pairs; kernel "
+          f"{t_f['median_ms']:.3f} ms (samples "
+          f"{[round(x, 3) for x in t_f['samples_ms']]}), live rays alone "
+          f"{parts['live']:.3f}, the others alone {parts['not live']:.3f} "
+          f"ms (medians of 5); kernel {'equals' if same else 'DIFFERS from'}"
+          " its plain version")
+    _launch_split("F", fn)
+    direct = _variant_lib(_F_EDITS_DIRECT, "megakernel_f_direct")
+    if direct is not None:
+        _turns("F", fn, direct, "the direct walk (8 rays a warp, no list)")
+
+
+def kernel_times():
+    """A (headline binned, flat, cpuonly binned) and F at phase 11's
+    inputs, as the imported package computes them -> {variant: [median
+    ms of 5, digest of the outputs]}."""
+    import hashlib
+
+    import torch
+
+    from chip_smoke import H, W, Frame, cpuonly_scene
+    from raytracinginonesemester_tpu_torch.render.renderer import frog_scene
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    def entry(fn):
+        out = fn()
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        digest = hashlib.sha1()
+        for t in out:
+            digest.update(t.cpu().numpy().tobytes())
+        return [cuda_time_ms(fn, warmup=1, iters=5)["median_ms"],
+                digest.hexdigest()[:16]]
+
+    main = Frame(frog_scene(W, H, device="cuda"))
+    cpu = Frame(cpuonly_scene("cpuonly_mirror", "cuda", W, H),
+                jitter="center")
+    times = {"A gpu binned": entry(_emit_call(main, True)),
+             "A gpu flat": entry(_emit_call(main, False)),
+             "A cpuonly binned": entry(_emit_call(cpu, True))}
+    times["F"] = entry(_f_call())
+    return times
+
+
+def _parent_turns(parent_dir):
+    """A and F as the tree at ``parent_dir`` computes them (a process of
+    its own) and as this one does, in turns: parent, this, this,
+    parent."""
+    import json
+
+    def parent():
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--times", "--root",
+             os.path.abspath(parent_dir)], capture_output=True, text=True,
+            check=True).stdout
+        return json.loads(out.strip().splitlines()[-1])
+
+    runs = [parent(), kernel_times(), kernel_times(), parent()]
+    for key in runs[1]:
+        ms = [r[key][0] for r in runs]
+        same = len({r[key][1] for r in runs}) == 1
+        print(f"{key}, the tree at {parent_dir} vs this tree in turns "
+              f"(medians of 5): parent {ms[0]:.3f}, this {ms[1]:.3f}, this "
+              f"{ms[2]:.3f}, parent {ms[3]:.3f} ms; outputs "
+              f"{'equal' if same else 'DIFFER'}")
+
+
+def profile_kernels(parent_dir=None):
+    """Kernels A, F, B and J at phase 11's full-width inputs (module
     docstring)."""
     import torch
 
@@ -624,18 +1283,32 @@ def profile_kernels():
     scene = frog_scene(W, H, device="cuda")
     _, cap = resolve_wavefront(scene, "wang", 1)
     main = Frame(scene)
-    st, rng, _ = main.sorted_state(*main.emit(False))
-    width = min(main.nt, (cap or main.nt) * FRAMES)
     clocks = _clock_lib()
-    st, rng = st[:width * 16], rng[:width * 8]
-    _profile_b("gpu, headline frog depth 1", main, st, rng)
-    _walk_clocks("gpu", main, st, rng, clocks)
-    del st, rng
     cpu = Frame(cpuonly_scene("cpuonly_mirror", "cuda", W, H),
                 jitter="center")
+    _profile_a("gpu binned (headline)", main, True, clocks)
+    _profile_a("gpu flat (RT_BINNED=0)", main, False, clocks)
+    _profile_a("cpuonly binned (cpuonly_mirror)", cpu, True, clocks)
+    _profile_f()
+    if parent_dir is not None:
+        _parent_turns(parent_dir)
+    f_call = _f_call()
+    for n in (2, 8, 16):
+        lib = _variant_lib(_group_edits(n), f"megakernel_groups{n}")
+        if lib is not None:
+            for label, fn in (("A gpu binned", _emit_call(main, True)),
+                              ("A cpuonly binned", _emit_call(cpu, True)),
+                              ("F", f_call)):
+                _turns(label, fn, lib, f"the list walked {n} rays a warp")
+    st, rng, _ = main.sorted_state(*main.emit(False))
+    width = min(main.nt, (cap or main.nt) * FRAMES)
+    st, rng = st[:width * 16], rng[:width * 8]
+    _profile_b("gpu, headline frog depth 1", main, st, rng)
+    _walk_clocks("gpu", main, st, rng, clocks[0])
+    del st, rng
     st, rng, _ = cpu.sorted_state(*cpu.emit(True))
     _profile_b("cpuonly, cpuonly_mirror depth 1", cpu, st, rng)
-    _walk_clocks("cpuonly", cpu, st, rng, clocks)
+    _walk_clocks("cpuonly", cpu, st, rng, clocks[0])
     del st, rng
 
     tr = Training(grad_scene("cuda"))

@@ -151,3 +151,55 @@ def ulp_close(a, b, ulps=4, atol=1e-5):
     mag = np.maximum(np.abs(a), np.abs(b))
     tol = np.maximum(np.float32(atol), ulps * np.spacing(mag))
     return np.abs(a.astype(np.float64) - b.astype(np.float64)) <= tol
+
+
+def list_occluded(rows, p, ld, dist, facing, det_eps, shadow_tmin,
+                  tmax=None):
+    """The shadow-list walk of ``csrc/megakernel.cu`` (emit's shadow rays,
+    kernel F), emulated with the signature of the port's
+    ``megakernel._occluded_plain`` -> (blocked, tests made).
+
+    Every ``facing`` ray whose slab test on [tmin, dist] passes for some
+    block is listed (the kernels list them in whatever order their CTAs
+    reach the list's counter; here in ray order), the others come out
+    unblocked; warps take the list 8 entries at a time and walk each
+    entry as ``occluded_coop`` does (blocks gated in order
+    on [tmin, dist], a passing block's triangles tested on [tmin, tmax]
+    128 between votes, the walk over at the first block holding a
+    blocker), and write its flag."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
+
+    tmax = dist if tmax is None else tmax
+    r, n_blocks, bs = dist.shape[0], rows.num_blocks, rows.block_size
+    tmin = (shadow_tmin if torch.is_tensor(shadow_tmin)
+            else torch.full_like(dist, shadow_tmin))
+    inv = tuple(1.0 / c for c in ld)
+    slabs = tmk._slab(rows.aabb.T[:, None, :], tuple(c[:, None] for c in p),
+                      tuple(c[:, None] for c in inv), tmin[:, None],
+                      dist[:, None]) & facing[:, None]  # (R, L)
+    listed = slabs.any(dim=1).nonzero().squeeze(1)
+    # each entry's walk is its own: the warps' groups of 8
+    # entries decide which warp walks it, not its flag, so the entries
+    # are walked here all at once
+    blocked = torch.zeros(listed.numel(), dtype=torch.bool)
+    tests = 0
+    for b in range(n_blocks):
+        walk = (slabs[listed, b] & ~blocked).nonzero().squeeze(1)
+        if walk.numel() == 0:
+            continue
+        e = listed[walk]
+        t, _, _ = tmk._mt(tuple(x[e, None] for x in p),
+                          tuple(x[e, None] for x in ld),
+                          tuple(rows.tri[k, b][None, :] for k in range(9)),
+                          det_eps, tmin[e, None], tmax[e, None])
+        hit = (rows.ids[b] >= 0)[None, :] & (t < tmk.F32_MAX)
+        done = torch.zeros(e.numel(), dtype=torch.bool)
+        for j0 in range(0, bs, 128):  # a vote every 128 slots
+            tests += int((~done).sum()) * min(128, bs - j0)
+            done = done | hit[:, j0:j0 + 128].any(dim=1)
+        blocked[walk] = done
+    flags = torch.zeros(r, dtype=torch.bool)
+    flags[listed] = blocked
+    return flags, torch.tensor(tests)

@@ -192,6 +192,38 @@ def test_occluded_matches_xla_block_walk(setup):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("rays", ["camera", "bounce", "shadow"])
+def test_cooperative_occluded_matches_the_plain_walk(setup, rays,
+                                                     monkeypatch):
+    """Kernel F's walk (the rays that pass some block's slab test listed,
+    the list walked 8 rays to a warp by ``occluded_coop``) gives the
+    plain version's flags bit for bit,
+    on per-ray windows with parked rays and with NaN windows (every 7th
+    ray's tmax, every 11th ray's tmin), which fail every slab test."""
+    from _torch_parity import list_occluded
+
+    ts = setup["ts"]
+    o, d, tmin, tmax = _occlusion_case(setup, rays)
+    tmin, tmax = tmin.copy(), tmax.copy()
+    tmax[::7] = np.nan
+    tmin[::11] = np.nan
+    args = (*_rays(o, d), ts.accel, torch.from_numpy(tmin),
+            torch.from_numpy(tmax))
+    want = bk.block_occluded_plain(*args)
+    listed = []
+
+    def walk(*a, **k):
+        got = list_occluded(*a, **k)
+        listed.append(int(got[0].sum()))
+        return got
+
+    monkeypatch.setattr(bk, "_occluded_plain", walk)
+    got = bk.block_occluded_plain(*args)
+    assert listed and torch.equal(got, want)
+    assert 0 < int(got.sum()) and not got[::7].any() and not got[::11].any()
+    assert not got[torch.from_numpy(o[:, 0] >= 1e29)].any()
+
+
 def test_slab_test_matches_reference_on_hazards():
     """The per-ray slab test keeps the reference's NaN -> +-inf rule and
     its ``far * 1.0000004`` stretch bit for bit: axis-parallel rays on a

@@ -374,6 +374,161 @@ def test_cooperative_walk_matches_the_plain_walk(block_size, dialect,
     assert sum(blocked) > 0  # the shadow walks found blockers
 
 
+# --- kernel A's walks, emulated on the CPU ----------------------------
+
+
+_SPLIT = 4  # kEmitSplit: the threads of a ray in emit's closest walk
+
+
+def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin):
+    """``closest_binned_cta`` of ``csrc/megakernel.cu``, emulated for
+    every tile at once: the tile's chunks in order, each chunk's
+    candidates four at a time (a width that is not a multiple of 4 ends
+    one at a time), group g to the ray's thread g % 4, which tests it at
+    the window its own running best t had before it and takes it in
+    order by the (t, id) rule (a take in order keeps the group's first
+    (t, id) minimum, which is what is taken here); the ray's four threads
+    then keep the first (t, id) minimum in walk order."""
+    r, dev = d[0].shape[0], d[0].device
+    best = tmk._Best(r, dev)
+    c = cand_plan.chunk
+    stream = cand_plan.stream.reshape(cand_plan.total_chunks, tmk.CAND_ROWS, c)
+    meta = cand_plan.meta[:, :2].to(torch.int64)
+    nt = meta.shape[0]
+    tiles = [t for t in range(nt)
+             if meta[t, 1] > 0 and bool(alive[t * tmk.RAY_TILE:(t + 1)
+                                              * tmk.RAY_TILE].any())]
+    rays = torch.cat([t * tmk.RAY_TILE + alive[t * tmk.RAY_TILE:(t + 1)
+                                               * tmk.RAY_TILE].nonzero()
+                      .squeeze(1) for t in tiles])
+    tile_of = rays // tmk.RAY_TILE
+    oc = tuple(x[rays, None] for x in o)
+    dc = tuple(x[rays, None] for x in d)
+    quads = c // 4 * 4
+    groups = [(j, 4, (j // 4) % _SPLIT) for j in range(0, quads, 4)]
+    groups += [(j, 1, (j - quads) % _SPLIT) for j in range(quads, c)]
+    n = rays.numel()
+    bt = torch.full((_SPLIT, n), tmk.F32_MAX)
+    bu, bv = torch.zeros(_SPLIT, n), torch.zeros(_SPLIT, n)
+    bi = torch.full((_SPLIT, n), -1, dtype=torch.int64)
+    bs = torch.zeros(_SPLIT, n, dtype=torch.int64)
+    bp = torch.full((_SPLIT, n), tmk._INT_MAX, dtype=torch.int64)
+    for k in range(int(meta[tiles, 1].max())):
+        on = (k < meta[tile_of, 1]).nonzero().squeeze(1)  # a k-th chunk
+        rows = stream[meta[tile_of[on], 0] + k]  # (n, 16, c)
+        # t, u, v do not depend on the window: test the chunk once
+        # without one, then apply each group's window to t
+        t, u, v = tmk._mt(tuple(x[on] for x in oc), tuple(x[on] for x in dc),
+                          tuple(rows[:, q] for q in range(9)), det_eps, tmin,
+                          float("inf"))
+        ids = torch.round(rows[:, 9]).to(torch.int64)
+        slots = torch.round(rows[:, 11]).to(torch.int64)
+        ok = (ids >= 0) & (t < tmk.F32_MAX)
+        rr = torch.arange(on.numel())
+        for j, m, sb in groups:
+            g = slice(j, j + m)
+            old_t, old_i = bt[sb, on], bi[sb, on]
+            tq = torch.where(ok[:, g] & (t[:, g] <= old_t[:, None]), t[:, g],
+                             tmk.F32_MAX)
+            tm = tq.amin(dim=1)
+            idk = torch.where((tq == tm[:, None]) & (tq < tmk.F32_MAX),
+                              ids[:, g], tmk._INT_MAX)
+            wid, q = idk.min(dim=1)
+            q = q + j
+            key = torch.where(old_i >= 0, old_i, tmk._INT_MAX)
+            take = (tm < tmk.F32_MAX) & ((tm < old_t) | ((tm == old_t)
+                                                         & (wid < key)))
+            bt[sb, on] = torch.where(take, tm, old_t)
+            bu[sb, on] = torch.where(take, u[rr, q], bu[sb, on])
+            bv[sb, on] = torch.where(take, v[rr, q], bv[sb, on])
+            bi[sb, on] = torch.where(take, wid, old_i)
+            bs[sb, on] = torch.where(take, slots[rr, q], bs[sb, on])
+            bp[sb, on] = torch.where(take, k * c + q, bp[sb, on])
+    # the four threads' first (t, id, place) minimum
+    w = torch.zeros(n, dtype=torch.int64)
+    for sb in range(1, _SPLIT):
+        cur = (bt[w, torch.arange(n)], bi[w, torch.arange(n)],
+               bp[w, torch.arange(n)])
+        ki = lambda i: torch.where(i >= 0, i, tmk._INT_MAX)
+        less = _key_less(bt[sb], ki(bi[sb]), bp[sb], cur[0], ki(cur[1]),
+                         cur[2])
+        w = torch.where(less, sb, w)
+    ar = torch.arange(n)
+    best.t[rays], best.u[rays], best.v[rays] = bt[w, ar], bu[w, ar], bv[w, ar]
+    best.id[rays], best.slot[rays] = bi[w, ar], bs[w, ar]
+    return best
+
+
+@pytest.mark.parametrize("dialect", ["gpu", "cpuonly"])
+@pytest.mark.parametrize("block_size,chunk", [(128, None), (512, 126)])
+def test_emit_walks_match_the_plain_walk(block_size, chunk, dialect,
+                                             monkeypatch):
+    """Kernel A's walks give every state and rng row of the plain
+    version's sequential walk, bit for bit: at 512-triangle blocks the
+    binned walk of staged chunks split over a ray's four threads (four
+    candidates a window; a chunk width of 126 ends with two one at a
+    time), at 128 the flat walk
+    (``closest_coop``), and at both the shadow rays listed and the list
+    walked 8 rays to a warp by ``occluded_coop``.  Two-frog 48x24 through a
+    135 mm lens (a tile sees part of the frog: ~12k candidates, not the
+    whole mesh); cpuonly with an area light of radius 0.15 and 2 disk
+    samples, so each sample's rays are a list of their own."""
+    import dataclasses
+
+    from raytracinginonesemester_tpu_torch.ops import binned
+    from raytracinginonesemester_tpu_torch.scene.build import build_scene
+    from raytracinginonesemester_tpu_torch.scene.config import (
+        SceneConfig, SceneNodeConfig)
+    from raytracinginonesemester_tpu_torch.scene.transform import Transform
+
+    from _torch_parity import list_occluded, two_frog_config
+
+    monkeypatch.setenv("RT_BLOCK_SIZE", str(block_size))
+    cfg = dataclasses.replace(
+        two_frog_config(SceneConfig, SceneNodeConfig, Transform, width=48,
+                        height=24, dialect=dialect), focal_length_mm=135.0)
+    samples = 2 if dialect == "cpuonly" else 1
+    if dialect == "cpuonly":
+        cfg = dataclasses.replace(cfg, lights=[
+            {**l, "radius": 0.15, "shadow_samples": samples}
+            for l in cfg.lights])
+    ts = build_scene(cfg, device="cpu")
+    rows = tmk._scene_rows(ts, ts.accel)
+    assert rows.block_size == block_size
+    xs, ys, _ = t_grid(48, 24)
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    pkw = {k: v for k, v in tmk.megakernel_kwargs(ts, "wang").items()
+           if k != "jitter"}
+    plan = chunk and binned.build_camera_candidate_plan(
+        ts.camera, xs_p, ys_p, ts.accel, tmk.RAY_TILE, chunk=chunk)
+    sh = tmk._Shade(ts.diffuse_bounce, dialect=dialect,
+                    shadow_samples=samples)
+    work = tmk._has_work(ts, xs_p, ys_p, sh, None, plan)
+
+    def emit():
+        return tmk.emit_tiles_plain(rows, xs_p, ys_p, work, 0,
+                                    ts.diffuse_bounce, cand_plan=plan, **pkw)
+
+    shadows = []
+    real_occ = tmk._occluded_plain
+
+    def walk(*a, **k):
+        got = list_occluded(*a, **k)
+        assert torch.equal(got[0], real_occ(*a, **k)[0])
+        shadows.append((int(a[4].sum()), int(got[0].sum())))
+        return got
+
+    want = emit()
+    monkeypatch.setattr(tmk, "_closest_binned_plain", _cta_closest_binned)
+    monkeypatch.setattr(tmk, "_closest_plain", _coop_closest)
+    monkeypatch.setattr(tmk, "_occluded_plain", walk)
+    got = emit()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert len(shadows) == samples * rows.lights.shape[0]
+    assert all(f > 0 for f, _ in shadows) and sum(b for _, b in shadows) > 0
+
+
 # --- on the card: each CUDA kernel against its plain version ---------
 
 
