@@ -93,8 +93,13 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    of phase 9 (also its glue, the sort that plans
    the runs and chunks, and its kernels on that plan, each timed alone),
    G, I and H on phase 10's camera
-   and full-width shadow rays, and E and F on the large scene too (E on
-   the camera rays, F on the hits' shadow rays);
+   and full-width shadow rays (G and I with their glue -- the rays' rows,
+   the plan, the tile order -- and the kernel alone on operands built
+   once, each timed apart, and the tests and tested blocks of their own
+   walk beside the JAX walk's that the bound counts; a CTA of theirs that
+   stops has also copied up to two blocks it does not test), and E and F
+   on the large scene too
+   (E on the camera rays, F on the hits' shadow rays);
 12. the TPU probes of ``scripts/`` (``raytracinginonesemester_tpu_torch/
    probes``, ``csrc/probes.cu``), on no render or training path (their
    launch counters, set to 0 before phase 5 and read after phase 10,
@@ -894,6 +899,11 @@ def time_kernels(smi, errs, jobs):
         bf16_ops = stats.get("bf16_ops", 0)  # on the tensor cores
         check(errs, name, f"{key} at {shape}", got, want)
         del got, want
+        # G's and I's own walk, where it tests other amounts than the
+        # JAX kernel's walk that the bound counts (the blocks it tests; a
+        # CTA that stops has also copied up to two it does not test)
+        walk = {k: stats[k] for k in ("walk_pairs", "walk_tested_blocks")
+                if k in stats}
         k = cuda_time_ms(kern, warmup=1, iters=3)
         p = cuda_time_ms(plain, warmup=0, iters=1)
         lib = (cuda_time_ms(library, warmup=1, iters=3)["median_ms"]
@@ -911,7 +921,9 @@ def time_kernels(smi, errs, jobs):
             + f"; bound {bound:.4f} ms by {by} ({pairs} ray-primitive pairs, "
             f"{ops} FP32 operations, "
             + (f"{bf16_ops} bf16 tensor operations, " if bf16_ops else "")
-            + f"{nbytes} bytes) on {smi}")
+            + f"{nbytes} bytes"
+            + "".join(f"; the CUDA walk's {k} {v}" for k, v in walk.items())
+            + f") on {smi}")
         records[key] = {"name": name, "route": "cuda",
                         "source": SOURCES.get(name, SOURCE),
                         "replaces": REPLACES[name], "shape": shape,
@@ -919,6 +931,7 @@ def time_kernels(smi, errs, jobs):
                         "bound_ms": bound, "bound_by": by,
                         "library_ms": lib, "pairs": pairs}
         records[key].update(part_ms)
+        records[key].update(walk)
     return records
 
 
@@ -1310,6 +1323,19 @@ def large_scene(dev):
             t_grid)
 
 
+def large_rays(scene):
+    """``bench.py:204-207``: the pixel-center camera rays in scanline
+    order."""
+    import torch
+
+    dev = scene.device
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    o, d = scene.camera.get_rays(xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5)
+    return o.contiguous(), d.contiguous()
+
+
 def check_large(dev, smi):
     """Phase 10: the large-scene streamed path (module docstring) ->
     (frame times, launch counts, phase 11's jobs)."""
@@ -1341,12 +1367,7 @@ def check_large(dev, smi):
     if bk.fits_vmem(grid) or reason is None:
         raise AssertionError("the large scene must be over the plane budget")
 
-    # bench.py:204-207: pixel-center camera rays in scanline order
-    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
-                            torch.arange(W, device=dev, dtype=torch.float32),
-                            indexing="ij")
-    o, d = scene.camera.get_rays(xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5)
-    o, d = o.contiguous(), d.contiguous()
+    o, d = large_rays(scene)
     t0 = time.time()
     rays, rp = bk._prep_rays(o, d, 1e-4, bk.F32_MAX)
     order, _, count = tile_visit_plan_fast(rays[:, 0:3], rays[:, 3:6], grid,
@@ -1446,14 +1467,21 @@ def check_large(dev, smi):
     chunks = -(-rp // (bk.BM_CHUNK_TILES * RAY_TILE))
     gate_b = chunks * (-(-grid.num_blocks // bk.BM_SLAB_BLOCKS)) * 4
 
-    def g_job(name, rays_in, n_out, extra, kern, plain, shape):
+    def g_job(name, rays_in, n_out, extra, kern, plain, shape, parts=None):
         tiles = -(-rays_in // (8 * RAY_TILE)) * 8
         if "blockmajor" in name:
             tiles = -(-tiles // bk.BM_CHUNK_TILES) * bk.BM_CHUNK_TILES
         return (name, shape, kern,
                 lambda x=None: plain(stats=x), check_hits,
                 lambda st: extra + st["staged_blocks"] * blk
-                + tiles * RAY_TILE * (32 + n_out))
+                + tiles * RAY_TILE * (32 + n_out), None, parts or {})
+
+    # G and I apart: the glue (the rays' rows, the plan, the tile order;
+    # the planes are packed once a grid) and the kernel alone on operands
+    # built once
+    def streamed_parts(*args):
+        return {"glue_ms": lambda: bk._streamed_launch(*args),
+                "kernel_only_ms": bk._streamed_launch(*args)}
 
     cam = f"{W * H} camera rays (pixel centers), {nt} tiles"
     shadow = (f"{W * H} shadow rays to the frog light, {n_sh} of them the "
@@ -1465,12 +1493,14 @@ def check_large(dev, smi):
             "closest_streamed", W * H, 16, plan_b,
             lambda: bk.block_closest_streamed(o, d, grid, 1e-4),
             lambda stats: bk.block_closest_streamed_plain(
-                o, d, grid, 1e-4, stats=stats), cam),
+                o, d, grid, 1e-4, stats=stats), cam,
+            streamed_parts(o, d, grid, 1e-4, bk.F32_MAX, 1e-8, False)),
         "large occluded_streamed": g_job(
             "occluded_streamed", W * H, 1, plan_b,
             lambda: bk.block_occluded_streamed(so, sdir, grid, *sh[2:]),
             lambda stats: bk.block_occluded_streamed_plain(
-                so, sdir, grid, *sh[2:], stats=stats), shadow),
+                so, sdir, grid, *sh[2:], stats=stats), shadow,
+            streamed_parts(so, sdir, grid, *sh[2:], 1e-8, True)),
         "large closest_blockmajor": g_job(
             "closest_blockmajor", W * H, 16, gate_b,
             lambda: bk.block_closest_blockmajor(o, d, grid, 1e-4),
@@ -1611,6 +1641,7 @@ def time_mm22_matmul(win, qsel, smi):
 # others: the dialect); a second argument set marks the diff variant, a
 # third is bounce_step_kernel's rays a warp
 FLAG_LABELS = {"blockmajor_kernel": ("closest", "occluded"),
+               "streamed_kernel": ("closest", "occluded"),
                "dyn_reads_kernel": ("plane-major", "block-major"),
                "toy_mask_kernel": ("grid", "scalar", "both")}
 

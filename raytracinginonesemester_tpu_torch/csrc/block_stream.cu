@@ -11,34 +11,71 @@
 //   pallas_block_occluded_blockmajor), the slab-major sweep of each ray
 //   chunk's gated scene slabs.
 //
-// Design.  One CTA of 512 threads per 512-ray tile, one thread per ray; the
-// wrapper (ops/block_kernels.py) pads the rays to whole tiles with parked
-// filler (origin 1e30) and builds the plan (order, entry) or the (I, J) gate
-// with torch ops on the card.  The planes are block-major rows, so one
-// block (9 planes and its ids, 10 * B * 4 bytes: 20 KiB at B = 512) is one
-// contiguous run.  For each block of the walk every thread runs the slab
-// test against its own window (closest: its running best t; occlusion: its
-// [tmin, tmax] while unblocked); if any thread passes (__syncthreads_or),
-// the CTA stages the block into shared memory and the threads that passed
-// test its triangles with the (t, global id) take rule (closest) or until
-// their first hit (occlusion).  A superblock (8 blocks, 160 KiB) does not
-// fit twice into 227 KB, so the staging is block by block and not double
-// buffered.  G keeps the JAX early-exit rule: the walk goes on while the
-// next superblock's entry is <= the largest best t of the tile's lanes, so
-// a tile with a missed or padding lane (t = F32_MAX) never exits early.
-// None of this changes a winner: the take rule does not depend on the
-// order, and the culling is conservative.  A ray with a zero direction
-// skips every block: its Moller-Trumbore determinant is exactly 0, below
-// det_eps, so it cannot hit.  These are the shadow rays of parked shade
-// points (origin 1e30, distance inf, direction 0): their window [1e-4,
-// inf] passes every slab test, and the JAX kernels, whose dense tile test
-// costs the same for any lane count, test them against every block their
-// tile visits; here that would be the bulk of the work.
+// The operands.  The wrapper (ops/block_kernels.py) pads the rays to whole
+// 512-ray tiles with parked filler (origin 1e30) and builds the plan
+// (order, entry, the length of each tile's row) or the (I, J) gate with
+// torch ops on the card.  The planes are block-major rows, so one block
+// (9 planes and its ids, 10 * B * 4 bytes: 20 KiB at B = 512) is one
+// contiguous run.
 //
-// What bounds it on this card: the FP32 Moller-Trumbore work of the lanes
-// that pass their slab tests, and the block staging (each staged block is
-// read from L2 or HBM once per tile that visits it).  This version is
-// simple and exact; cp.async/TMA double buffering is later work.
+// What bounds G and I on this card (measured on an H100 80GB HBM3 at
+// 700 W, scripts/profile_torch_main_path.py --streamed, on the large
+// frog's 2,073,600 camera and shadow rays): the work is 1,063,102 (G) and
+// 421,204 (I) (ray, block) pairs of up to 512 Moller-Trumbore tests, 21
+// and 11 passing rays a staged block.  Walked as first ported, one thread
+// a ray, a pair was a chain of 512 dependent tests in one lane of its warp
+// while the CTA's other lanes waited at the block's barrier, and the
+// CTAs holding the most pairs ended at 2.1x (G) and 3.5x (I) the mean:
+// 34.0 and 41.2 ms for a walk whose FP32 work is 0.37 and 0.14 ms at the
+// card's peak rate, staging 1.7% of it.
+//
+// G and I (streamed_kernel<OCC>).  Two CTAs of 256 threads walk a tile,
+// CTA p of the tile taking its rays p, p + 2, ..., a thread holding a ray
+// for its slab tests (the plan is conservative for any subset of the
+// tile's rays); so a tile's pairs split evenly between two CTAs.  First a
+// CTA marks its candidates: every block of the tile's plan row whose slab
+// test passes for one of its active lanes on the lane's window at the
+// start (one ballot a block, no barrier).
+// Then it takes them in plan order, the next one staged with cp.async
+// into the other of two buffers while the current one is tested.  Before
+// each it stops, G once the superblock's entry exceeds every active lane's
+// best t, I once every active lane is blocked (its own lanes); otherwise
+// the lanes whose slab test passes on their window now are listed (ballot,
+// prefix), and the 8 warps take the list's (ray, block) pairs in turn, 32
+// lanes to a pair, lane l testing triangles l, l + 32, ... at the owner's
+// window.
+// G keeps a lane's first (t, id) minimum, a fixed xor tree the (t, id,
+// slot) minimum of the warp, and the owner takes it by the take rule:
+// that is the sequential walk's winner, since a triangle the shrunken
+// window would reject has a larger t than the hit that shrank it, and
+// mt() gives t, u and v from the same inputs either way.  I votes every
+// kVote triangles.  The tiles launch longest plan first, so that the
+// CTAs that walk the most start first: G 3.69-3.78 ms and I 2.83-2.84
+// against 4.04-4.07 and 3.18-3.19 in plan order (in turns, scripts/
+// profile_torch_main_path.py --streamed, H100 80GB HBM3, 700 W).  With
+// one CTA a tile the CTAs holding a heavy tile's pairs still ended last:
+// G took
+// 3.94-3.98 ms and I 3.28-3.34 against 3.65-3.79 and 2.82-2.85 with two
+// CTAs a tile, and 3.79-3.81 and 2.77 with four (in turns on the same
+// card; 34.0 and 41.2 as first ported).  Active lanes
+// are the real rays with a nonzero direction: a zero direction cannot
+// hit (its determinant is 0, below det_eps) and the padding is not a
+// ray, so leaving them out of the exit tests (the JAX kernels keep them,
+// which stops a G tile from ever leaving early) changes no output.  These
+// are the shadow rays of parked shade points (origin 1e30, distance inf,
+// direction 0), which the JAX kernels' dense tile test checks against
+// every block their tile visits.  The candidates are a superset of the
+// blocks the walk needs (the windows only shrink), the slab tests and the
+// take rule are the JAX kernels', and the culling is conservative, so
+// the winners and flags are the plain versions' bit for bit; G tests the
+// same (ray, block) pairs as the JAX walk, I up to the vote after a hit.
+//
+// H (blockmajor_kernel), as first ported: one CTA of 512 threads per tile,
+// one thread per ray; each tile sweeps its chunk's gated slabs in order,
+// and for each block every thread runs the slab test against its own
+// window; if any passes (__syncthreads_or), the CTA stages the block and
+// the threads that passed test its triangles with the take rule (closest)
+// or until their first hit (occlusion).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,8 +85,15 @@
 
 namespace {
 
-constexpr int kTile = 512;  // rays per tile = threads per CTA
-constexpr int kSuper = 8;   // blocks per superblock (ops/accel.py SUPER)
+constexpr int kTile = 512;      // rays per tile (H: threads per CTA)
+constexpr int kSplit = 2;       // G, I: CTAs a tile
+constexpr int kThreads = kTile / kSplit;  // G, I: threads (rays) a CTA
+constexpr int kWarps = kThreads / 32;
+constexpr int kSuper = 8;       // blocks per superblock (ops/accel.py SUPER)
+constexpr int kPairLanes = 32;  // G, I: lanes that test one (ray, block) pair
+constexpr int kVote = 128;      // I: triangles a pair tests between votes
+constexpr int kBuffers = 2;     // G, I: staged blocks in flight
+constexpr unsigned kFull = 0xffffffffu;
 
 struct TileRay {
   float o[3], d[3], inv[3], tmin, tmax;
@@ -111,99 +155,289 @@ __device__ __forceinline__ bool any_hit_block(const TileRay& r,
   return false;
 }
 
-// The largest value of x over the CTA (every thread gets it); red: one
-// float per warp in shared memory.
-__device__ __forceinline__ float tile_max(float x, float* red) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  __syncthreads();  // red's last readers are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
-  return m;
+// ---- G and I: the tile's plan walked by the whole CTA ----
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
 }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Block b's 9 plane rows and ids into dst (10 * bs words) as one cp.async
+// group (plain copies when bs or the operands' addresses do not allow
+// 16-byte ones).
+__device__ void stage_block_async(const float* __restrict__ tri,
+                                  const int* __restrict__ ids, int b, int bs,
+                                  float* dst) {
+  const float* src = tri + (size_t)b * 9 * bs;
+  const int* isrc = ids + (size_t)b * bs;
+  int* idst = reinterpret_cast<int*>(dst + 9 * bs);
+  if (bs % 4 == 0 && (((uintptr_t)tri | (uintptr_t)ids) & 15) == 0) {
+    for (int i = 4 * threadIdx.x; i < 9 * bs; i += 4 * kThreads)
+      cp_async16(dst + i, src + i);
+    for (int i = 4 * threadIdx.x; i < bs; i += 4 * kThreads)
+      cp_async16(idst + i, isrc + i);
+  } else {
+    for (int i = threadIdx.x; i < 9 * bs; i += kThreads) dst[i] = src[i];
+    for (int i = threadIdx.x; i < bs; i += kThreads) idst[i] = isrc[i];
+  }
+  cp_async_commit();
+}
+
+// The first candidate position at or after p (-1: none); bit p of the
+// mask is plan position p = k * kSuper + j (block j of the k-th superblock
+// of the tile's plan).
+__device__ __forceinline__ int next_candidate(const unsigned* mask, int words,
+                                              int p) {
+  for (int w = p >> 5; w < words; ++w) {
+    unsigned m = mask[w];
+    if (w == p >> 5) m &= kFull << (p & 31);
+    if (m) return 32 * w + __ffs(m) - 1;
+  }
+  return -1;
+}
+
+// All 32 lanes test the staged block for one pair (ray o, d on [tmin,
+// tmax]), lane l taking triangles l, l + 32, ..., and end with the block's
+// closest triangle on every lane: t (kF32Max if none), u, v, global id and
+// slot j (kIntMax if none).  A fixed xor tree keeps the lexicographic (t,
+// id, slot) minimum.
+__device__ __forceinline__ void pair_closest(const float* blk, int bs,
+                                             float det_eps, const float* o,
+                                             const float* d, float tmin,
+                                             float tmax, float* t_o,
+                                             float* u_o, float* v_o,
+                                             int* id_o, int* j_o) {
+  const int lane = threadIdx.x & 31;
+  const int* bid_s = reinterpret_cast<const int*>(blk + 9 * bs);
+  float bt = kF32Max, bu = 0.0f, bv = 0.0f;
+  int bid = kIntMax, bj = kIntMax;
+#pragma unroll 4
+  for (int j = lane; j < bs; j += kPairLanes) {
+    const int id = bid_s[j];
+    float u, v;
+    const float t = mt(blk + j, bs, det_eps, o, d, tmin, tmax, &u, &v);
+    // ascending j within the lane: a tie keeps the earlier slot
+    if (id >= 0 && t < kF32Max && (t < bt || (t == bt && id < bid))) {
+      bt = t;
+      bu = u;
+      bv = v;
+      bid = id;
+      bj = j;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(kFull, bt, off);
+    const int oid = __shfl_xor_sync(kFull, bid, off);
+    const int oj = __shfl_xor_sync(kFull, bj, off);
+    if (ot < bt || (ot == bt && (oid < bid || (oid == bid && oj < bj)))) {
+      bt = ot;
+      bid = oid;
+      bj = oj;
+    }
+  }
+  const int src = bj == kIntMax ? 0 : (bj & 31);  // the winner's lane
+  *u_o = __shfl_sync(kFull, bu, src);
+  *v_o = __shfl_sync(kFull, bv, src);
+  *t_o = bt;
+  *id_o = bid;
+  *j_o = bj;
+}
+
+// Any hit of the staged block for one pair on [tmin, tmax], on every lane;
+// the lanes test kVote triangles between votes.
+__device__ __forceinline__ bool pair_any(const float* blk, int bs,
+                                         float det_eps, const float* o,
+                                         const float* d, float tmin,
+                                         float tmax) {
+  const int lane = threadIdx.x & 31;
+  const int* bid_s = reinterpret_cast<const int*>(blk + 9 * bs);
+  for (int j0 = 0; j0 < bs; j0 += kVote) {
+    bool hit = false;
+#pragma unroll
+    for (int q = 0; q < kVote / kPairLanes; ++q) {
+      const int j = j0 + kPairLanes * q + lane;
+      if (j < bs && bid_s[j] >= 0) {
+        float u, v;
+        hit |= mt(blk + j, bs, det_eps, o, d, tmin, tmax, &u, &v) < kF32Max;
+      }
+    }
+    if (__any_sync(kFull, hit)) return true;
+  }
+  return false;
+}
+
+// The walk's shared state besides the staged blocks: the pair list of
+// the current block (the owners' threads), each pair's window and
+// result, and the per-warp counts of the listing.
+struct PairList {
+  int lane[kThreads];
+  float win[kThreads];
+  float t[kThreads], u[kThreads], v[kThreads];
+  int id[kThreads], j[kThreads];
+  int count[kWarps];
+  float red[kWarps];
+};
 
 }  // namespace
 
-// G: closest hit by the tile's front-to-back superblock plan.
-__global__ void __launch_bounds__(kTile)
-closest_streamed_kernel(const float* __restrict__ rays,
-                        const float* __restrict__ aabb,
-                        const int* __restrict__ order,
-                        const float* __restrict__ entry,
-                        const float* __restrict__ tri,
-                        const int* __restrict__ ids, int num_blocks,
-                        int num_supers, int bs, float det_eps, float* t_out,
-                        float* u_out, float* v_out, int* idx_out) {
-  extern __shared__ float smem[];
-  float* s_tri = smem;
-  int* s_ids = reinterpret_cast<int*>(smem + 9 * bs);
-  __shared__ float red[kTile / 32];
-  const int tile = blockIdx.x;
-  const size_t gid = (size_t)tile * kTile + threadIdx.x;
+// G (closest hit, OCC = false) and I (any hit, OCC = true) by the tile's
+// front-to-back superblock plan; see the design note.  CTA c walks rays
+// part, part + kSplit, ... of tile tiles[c / kSplit] (part = c % kSplit);
+// n_sup[tile] is the length of the tile's plan row.
+template <bool OCC>
+__global__ void __launch_bounds__(kThreads)
+streamed_kernel(const float* __restrict__ rays, const float* __restrict__ aabb,
+                const int* __restrict__ order,
+                const float* __restrict__ entry,
+                const int* __restrict__ n_sup, const int* __restrict__ tiles,
+                const float* __restrict__ tri, const int* __restrict__ ids,
+                int n_rays, int num_blocks, int num_supers, int bs,
+                float det_eps, float* t_out, float* u_out, float* v_out,
+                int* idx_out, unsigned char* blocked_out) {
+  extern __shared__ float smem[];  // kBuffers staged blocks, the mask
+  unsigned* mask = reinterpret_cast<unsigned*>(smem + kBuffers * 10 * bs);
+  __shared__ PairList pl;
+  const int words = (num_supers * kSuper + 31) / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = tiles[blockIdx.x / kSplit];
+  const size_t ray0 = (size_t)tile * kTile + blockIdx.x % kSplit;
+  const size_t gid = ray0 + kSplit * threadIdx.x;
   const TileRay r = load_ray(rays, gid);
+  // lanes that cannot hit count as done in the exit tests: a zero
+  // direction, and the padding past the real rays
+  const bool active = r.moving && gid < (size_t)n_rays;
   const int* ord = order + (size_t)tile * num_supers;
   const float* ent = entry + (size_t)tile * num_supers;
   Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
-  for (int k = 0; k < num_supers; ++k) {
-    if (!(ent[k] <= tile_max(h.t, red))) break;  // front-to-back early exit
-    const int sb = ord[k];
-    for (int j = 0; j < kSuper; ++j) {
-      const int b = sb * kSuper + j;
-      if (b >= num_blocks) break;
-      const bool pass =
-          r.moving && slab(aabb + 8 * b, r.o, r.inv, r.tmin, h.t);
-      if (!__syncthreads_or(pass)) continue;
-      stage_block(tri, ids, b, bs, s_tri, s_ids);
-      __syncthreads();
-      if (pass) closest_block(h, r, s_tri, s_ids, b, bs, det_eps);
-      __syncthreads();
-    }
-  }
-  t_out[gid] = h.t;
-  u_out[gid] = h.u;
-  v_out[gid] = h.v;
-  idx_out[gid] = h.id;
-}
-
-// I: any hit by the same plan; the tile stops once every lane is blocked.
-__global__ void __launch_bounds__(kTile)
-occluded_streamed_kernel(const float* __restrict__ rays,
-                         const float* __restrict__ aabb,
-                         const int* __restrict__ order,
-                         const float* __restrict__ entry,
-                         const float* __restrict__ tri,
-                         const int* __restrict__ ids, int num_blocks,
-                         int num_supers, int bs, float det_eps,
-                         unsigned char* blocked_out) {
-  extern __shared__ float smem[];
-  float* s_tri = smem;
-  int* s_ids = reinterpret_cast<int*>(smem + 9 * bs);
-  const int tile = blockIdx.x;
-  const size_t gid = (size_t)tile * kTile + threadIdx.x;
-  const TileRay r = load_ray(rays, gid);
-  const int* ord = order + (size_t)tile * num_supers;
-  const float* ent = entry + (size_t)tile * num_supers;
   bool blocked = false;
-  for (int k = 0; k < num_supers; ++k) {
-    if (!(ent[k] < INFINITY)) break;
-    if (!__syncthreads_or(!blocked)) break;
+
+  // 1. the candidates: every block of the plan whose slab test passes for
+  // some active lane on its window at the start (G: [tmin, F32_MAX])
+  for (int w = threadIdx.x; w < words; w += kThreads) mask[w] = 0u;
+  __syncthreads();
+  const int plan = n_sup[tile];
+  for (int k = 0; k < plan; ++k) {
     const int sb = ord[k];
     for (int j = 0; j < kSuper; ++j) {
       const int b = sb * kSuper + j;
       if (b >= num_blocks) break;
-      const bool pass = r.moving && !blocked &&
-                        slab(aabb + 8 * b, r.o, r.inv, r.tmin, r.tmax);
-      if (!__syncthreads_or(pass)) continue;
-      stage_block(tri, ids, b, bs, s_tri, s_ids);
-      __syncthreads();
-      if (pass) blocked = any_hit_block(r, s_tri, s_ids, bs, det_eps);
-      __syncthreads();
+      const bool pass = active && slab(aabb + 8 * b, r.o, r.inv, r.tmin,
+                                       OCC ? r.tmax : h.t);
+      if (__ballot_sync(kFull, pass) && lane == 0)
+        atomicOr(&mask[(k * kSuper + j) >> 5], 1u << ((k * kSuper + j) & 31));
     }
   }
-  blocked_out[gid] = blocked;
+  __syncthreads();
+
+  // 2. the candidates in plan order, the next one staged while the
+  // current one is tested
+  int p = next_candidate(mask, words, 0);
+  if (p >= 0)
+    stage_block_async(tri, ids, ord[p / kSuper] * kSuper + p % kSuper, bs,
+                      smem);
+  for (int i = 0; p >= 0; ++i) {
+    const int k = p / kSuper;
+    const int b = ord[k] * kSuper + p % kSuper;
+    const int pn = next_candidate(mask, words, p + 1);
+    if (pn >= 0)
+      stage_block_async(tri, ids, ord[pn / kSuper] * kSuper + pn % kSuper, bs,
+                        smem + ((i + 1) % kBuffers) * 10 * bs);
+    // the lanes whose slab test passes on their window now, and the exit
+    // test: G stops once the entry exceeds every active lane's best t, I
+    // once every active lane is blocked
+    const bool pass = active && (OCC ? !blocked && slab(aabb + 8 * b, r.o,
+                                                        r.inv, r.tmin, r.tmax)
+                                     : slab(aabb + 8 * b, r.o, r.inv, r.tmin,
+                                            h.t));
+    const unsigned ball = __ballot_sync(kFull, pass);
+    float open;
+    if (OCC) {
+      open = (float)__popc(__ballot_sync(kFull, active && !blocked));
+    } else {
+      open = active ? h.t : -INFINITY;
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        open = fmaxf(open, __shfl_xor_sync(kFull, open, off));
+    }
+    if (lane == 0) {
+      pl.count[warp] = __popc(ball);
+      pl.red[warp] = open;
+    }
+    __syncthreads();
+    int off = 0, total = 0;
+    float m = OCC ? 0.0f : -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int n = pl.count[w];
+      off += w < warp ? n : 0;
+      total += n;
+      m = OCC ? m + pl.red[w] : fmaxf(m, pl.red[w]);
+    }
+    if (OCC ? m == 0.0f : !(ent[k] <= m)) break;  // the same on every thread
+    const int q = off + __popc(ball & ((1u << lane) - 1u));
+    if (pass) {
+      pl.lane[q] = threadIdx.x;
+      pl.win[q] = OCC ? r.tmax : h.t;
+    }
+    if (pn >= 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // the list and block b in shared memory
+
+    // every warp takes pairs of the list in turn
+    const float* blk = smem + (i % kBuffers) * 10 * bs;
+    for (int e = warp; e < total; e += kWarps) {
+      const float* ray = rays + 8 * (ray0 + kSplit * pl.lane[e]);
+      const float o[3] = {ray[0], ray[1], ray[2]};
+      const float d[3] = {ray[3], ray[4], ray[5]};
+      if (OCC) {
+        const bool hit = pair_any(blk, bs, det_eps, o, d, ray[6], pl.win[e]);
+        if (lane == 0) pl.id[e] = hit;
+      } else {
+        float t, u, v;
+        int id, j;
+        pair_closest(blk, bs, det_eps, o, d, ray[6], pl.win[e], &t, &u, &v,
+                     &id, &j);
+        if (lane == 0) {
+          pl.t[e] = t;
+          pl.u[e] = u;
+          pl.v[e] = v;
+          pl.id[e] = id;
+          pl.j[e] = j;
+        }
+      }
+    }
+    __syncthreads();  // the pairs' results; block b's buffer is free
+    if (pass) {
+      if (OCC)
+        blocked = pl.id[q] != 0;
+      else if (pl.j[q] != kIntMax)
+        take(h, pl.t[q], pl.u[q], pl.v[q], pl.id[q], b * bs + pl.j[q]);
+    }
+    p = pn;
+  }
+  cp_async_wait<0>();  // a block staged for a walk that stopped
+  if (OCC) {
+    blocked_out[gid] = blocked;
+  } else {
+    t_out[gid] = h.t;
+    u_out[gid] = h.u;
+    v_out[gid] = h.v;
+    idx_out[gid] = h.id;
+  }
 }
 
 // H: each tile sweeps its chunk's gated slabs in order, blocks in order.
@@ -261,13 +495,20 @@ blockmajor_kernel(const float* __restrict__ rays,
 
 namespace {
 
+// The kernel's dynamic shared memory: *smem bytes (at most what a CTA
+// may hold beside its static shared memory).
 template <typename K>
-int prepare(K kernel, int bs, size_t* smem) {
-  *smem = (size_t)10 * bs * sizeof(float);
-  if (*smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (*smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+int prepare(K kernel, size_t bytes, size_t* smem) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  *smem = bytes;
+  if (bytes + attr.sharedSizeBytes > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  if (bytes + attr.sharedSizeBytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
@@ -277,35 +518,29 @@ int prepare(K kernel, int bs, size_t* smem) {
 
 extern "C" {
 
-// rays (n_tiles * 512, 8); aabb (>= num_blocks, 8); order, entry
-// (n_tiles, num_supers); tri (>= num_blocks * 9, bs) and ids
-// (>= num_blocks, bs) block-major.
-int rt_closest_streamed(const float* rays, const float* aabb, const int* order,
-                        const float* entry, const float* tri, const int* ids,
-                        int n_tiles, int num_blocks, int num_supers, int bs,
-                        float det_eps, float* t_out, float* u_out,
-                        float* v_out, int* idx_out, void* stream) {
+// G (occluded = 0: t, u, v, idx) or I (occluded = 1: blocked_out).  rays
+// (n_tiles * 512, 8), the first n_rays real; aabb (>= num_blocks, 8);
+// order, entry (n_tiles, num_supers) and n_sup (n_tiles): the plan; tiles
+// (n_tiles): the tiles in launch order, kSplit CTAs each; tri (>=
+// num_blocks * 9, bs) and ids (>= num_blocks, bs) block-major.
+int rt_streamed(const float* rays, const float* aabb, const int* order,
+                const float* entry, const int* n_sup, const int* tiles,
+                const float* tri, const int* ids, int n_tiles, int n_rays,
+                int num_blocks, int num_supers, int bs, float det_eps,
+                int occluded, float* t_out, float* u_out, float* v_out,
+                int* idx_out, unsigned char* blocked_out, void* stream) {
+  if (bs <= 0 || num_supers < 0) return (int)cudaErrorInvalidValue;
+  auto kernel = occluded ? &streamed_kernel<true> : &streamed_kernel<false>;
+  const int words = (num_supers * kSuper + 31) / 32;
   size_t smem;
-  int e = prepare(&closest_streamed_kernel, bs, &smem);
+  int e = prepare(kernel,
+                  (size_t)kBuffers * 10 * bs * sizeof(float) +
+                      (size_t)words * sizeof(unsigned),
+                  &smem);
   if (e || n_tiles == 0) return e;
-  closest_streamed_kernel<<<n_tiles, kTile, smem, (cudaStream_t)stream>>>(
-      rays, aabb, order, entry, tri, ids, num_blocks, num_supers, bs, det_eps,
-      t_out, u_out, v_out, idx_out);
-  return (int)cudaGetLastError();
-}
-
-int rt_occluded_streamed(const float* rays, const float* aabb,
-                         const int* order, const float* entry,
-                         const float* tri, const int* ids, int n_tiles,
-                         int num_blocks, int num_supers, int bs,
-                         float det_eps, unsigned char* blocked_out,
-                         void* stream) {
-  size_t smem;
-  int e = prepare(&occluded_streamed_kernel, bs, &smem);
-  if (e || n_tiles == 0) return e;
-  occluded_streamed_kernel<<<n_tiles, kTile, smem, (cudaStream_t)stream>>>(
-      rays, aabb, order, entry, tri, ids, num_blocks, num_supers, bs, det_eps,
-      blocked_out);
+  kernel<<<n_tiles * kSplit, kThreads, smem, (cudaStream_t)stream>>>(
+      rays, aabb, order, entry, n_sup, tiles, tri, ids, n_rays, num_blocks,
+      num_supers, bs, det_eps, t_out, u_out, v_out, idx_out, blocked_out);
   return (int)cudaGetLastError();
 }
 
@@ -321,7 +556,7 @@ int rt_blockmajor(const float* rays, const float* aabb, const int* gate,
     return (int)cudaErrorInvalidValue;
   auto kernel = occluded ? &blockmajor_kernel<true> : &blockmajor_kernel<false>;
   size_t smem;
-  int e = prepare(kernel, bs, &smem);
+  int e = prepare(kernel, (size_t)10 * bs * sizeof(float), &smem);
   if (e || n_tiles == 0) return e;
   kernel<<<n_tiles, kTile, smem, (cudaStream_t)stream>>>(
       rays, aabb, gate, tri, ids, num_blocks, num_slabs, slab_blocks,

@@ -155,12 +155,10 @@ def _declare(name: str, lib) -> None:
                lib.rt_render, lib.rt_closest, lib.rt_occluded)
     elif name == "block_stream":
         f = ctypes.c_float
-        lib.rt_closest_streamed.argtypes = [vp] * 6 + [i] * 4 + [f] + [vp] * 5
-        lib.rt_occluded_streamed.argtypes = [vp] * 6 + [i] * 4 + [f] + [vp] * 2
+        lib.rt_streamed.argtypes = [vp] * 8 + [i] * 5 + [f, i] + [vp] * 6
         lib.rt_blockmajor.argtypes = ([vp] * 5 + [i] * 6 + [f, i]
                                       + [vp] * 6)
-        fns = (lib.rt_closest_streamed, lib.rt_occluded_streamed,
-               lib.rt_blockmajor)
+        fns = (lib.rt_streamed, lib.rt_blockmajor)
     elif name == "segment_accum":
         lib.rt_segment_accum.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp, vp]
         fns = (lib.rt_segment_accum,)

@@ -28,9 +28,14 @@ tensors; there is no other path.  E and F run the flat block scan of
 kernels A and B: a per-ray slab test against the running best t before
 each block, then the block's triangles with the lexicographic (t, global
 triangle id) take rule, so winners do not depend on visit order and equal
-the JAX kernels' superblock walk.  G, I and H keep their JAX walks (the
-plan's order and early exit, the gate) with the same per-ray slab test
-and take rule, so the five give the same winners and flags.
+the JAX kernels' superblock walk.  G and I walk the plan's order with the
+same per-ray slab test and take rule, a CTA's warps testing the (ray,
+block) pairs of each staged block together (``csrc/block_stream.cu``);
+H keeps its JAX sweep (the gate); so the five give the same winners and
+flags.  The plain versions of G and I walk the JAX kernels' schedule and
+count its tests and staged blocks, and, in ``stats``, the CUDA walk's
+tests and the blocks it tests (``walk_pairs``, ``walk_tested_blocks``;
+a CTA that stops has also copied up to two blocks it does not test).
 ``shared_origin`` is accepted for the JAX signature and ignored: a
 per-ray walk has no pair-invariant terms to hoist.
 """
@@ -283,6 +288,15 @@ def block_occluded(origins, dirs, grid: BlockGrid, tmin=1e-4, tmax=F32_MAX,
 
 BM_CHUNK_TILES = 64   # ray tiles per block-major ray chunk (32k rays)
 BM_SLAB_BLOCKS = 64   # blocks per block-major scene slab
+# G's and I's CUDA walk (csrc/block_stream.cu kSplit, kPairLanes, kVote,
+# kBuffers): the CTAs that share a tile (CTA p of a tile takes its rays
+# p, p + STREAM_SPLIT, ...), the lanes that test one (ray, block) pair,
+# the triangles an occlusion pair tests between votes, the blocks staged
+# in flight
+STREAM_SPLIT = 2
+STREAM_LANES = 32
+STREAM_VOTE = 128
+STREAM_BUFFERS = 2
 
 
 def _pad_rays(rays, multiple: int):
@@ -326,12 +340,17 @@ def _block_rows(grid: BlockGrid, blocks: int):
 def _stream_grid_operands(grid: BlockGrid):
     """Operands of G and I (``pallas_kernels.py:922-939``): (tri (LS*8*9,
     B), ids (LS*8, B), aabb rows (L8, 8), LS), the block axis padded to
-    whole superblocks."""
-    l = grid.num_blocks
-    ls = -(-l // SUPER)
-    tri, ids = _block_rows(grid, ls * SUPER)
-    aabb_rows = F.pad(grid.aabb.T, (0, 2, 0, (-l) % 8))
-    return tri, ids, aabb_rows.contiguous(), ls
+    whole superblocks.  Packed once a grid and kept on it (a grid is
+    frozen and its tensors are never written in place)."""
+    ops = grid.__dict__.get("_stream_operands")
+    if ops is None:
+        l = grid.num_blocks
+        ls = -(-l // SUPER)
+        tri, ids = _block_rows(grid, ls * SUPER)
+        aabb_rows = F.pad(grid.aabb.T, (0, 2, 0, (-l) % 8))
+        ops = (tri, ids, aabb_rows.contiguous(), ls)
+        object.__setattr__(grid, "_stream_operands", ops)
+    return ops
 
 
 def _blockmajor_operands(grid: BlockGrid, slab_blocks: int):
@@ -374,11 +393,18 @@ class _TileWalk:
     """A plain walk of padded (RP, 8) rays, tile by tile in lockstep: every
     tile visits one block per step (``visit``), in its own order.  Keeps
     the closest winners (``best``) or the blocked flags, the ray-triangle
-    pairs the kernel tests (lanes with a nonzero direction that pass
-    their slab test; an occlusion lane up to its first hit) and the
-    blocks the kernel stages (a tile's block with any lane passing)."""
+    pairs the JAX kernel's walk tests (lanes with a nonzero direction that
+    pass their slab test; an occlusion lane up to its first hit) and the
+    blocks it stages (a tile's block with any lane passing).  ``visit``'s
+    ``kernel`` counts apart what G's and I's CUDA walk tests
+    (``csrc/block_stream.cu``): each of a tile's STREAM_SPLIT CTAs still
+    walking tests the blocks that some active lane of its own passes on
+    the lane's window at the start (its candidates); I tests up to the
+    vote after the first hit.  A CTA that stops has also copied the
+    candidate it stops at and the one after it, which are not counted."""
 
-    def __init__(self, rows: SceneRows, rays, det_eps: float, closest: bool):
+    def __init__(self, rows: SceneRows, rays, det_eps: float, closest: bool,
+                 n_rays: int = None):
         dev = rays.device
         self.rows, self.det_eps, self.closest = rows, det_eps, closest
         self.o, self.d = _soa(rays[:, 0:3]), _soa(rays[:, 3:6])
@@ -388,18 +414,31 @@ class _TileWalk:
         self.moving = (rays[:, 3:6] != 0.0).any(dim=1)
         self.tmin, self.tmax = rays[:, 6], rays[:, 7]
         rp = int(rays.shape[0])
+        # the lanes that can hit: the CUDA walk's exit tests leave out the
+        # others and the padding past the real rays
+        real = torch.arange(rp, device=dev) < (rp if n_rays is None
+                                                else n_rays)
+        self.active = self.moving & real
         self.best = _Best(rp, dev)
         self.blocked = torch.zeros(rp, dtype=torch.bool, device=dev)
         self.occ_pairs = torch.zeros((), dtype=torch.int64, device=dev)
         self.staged = torch.zeros((), dtype=torch.int64, device=dev)
+        self.walk_pairs = torch.zeros((), dtype=torch.int64, device=dev)
+        self.walk_tested = torch.zeros((), dtype=torch.int64, device=dev)
+        self.live = (rows.ids >= 0).sum(dim=1)  # live slots a block
         self.lane = torch.arange(RAY_TILE, device=dev)
+        # optional callback (tiles, lanes, boxed) of every visit, for
+        # profiling the walk
+        self.log = None
 
     def lanes(self, tiles):
         return (tiles[:, None] * RAY_TILE + self.lane).reshape(-1)
 
-    def visit(self, tiles, blocks) -> None:
+    def visit(self, tiles, blocks, kernel=None) -> None:
         """Tile ``tiles[i]`` visits block ``blocks[i]``; blocks past the
-        grid are skipped, as the kernels skip them."""
+        grid are skipped, as the kernels skip them.  ``kernel``: (T,
+        STREAM_SPLIT) bool, whether each CUDA CTA of tile ``tiles[i]`` is
+        still walking."""
         rows = self.rows
         nb, bs = rows.num_blocks, rows.block_size
         lanes = self.lanes(tiles)
@@ -408,15 +447,29 @@ class _TileWalk:
         o = tuple(c[lanes] for c in self.o)
         inv = tuple(c[lanes] for c in self.inv)
         window = self.best.t[lanes] if self.closest else self.tmax[lanes]
+        in_grid = (blocks < nb).repeat_interleave(RAY_TILE)
         boxed = _slab(a, o, inv, self.tmin[lanes], window)
-        boxed &= ((blocks < nb).repeat_interleave(RAY_TILE)
-                  & self.moving[lanes])
+        boxed &= in_grid & self.moving[lanes]
         if not self.closest:
             boxed &= ~self.blocked[lanes]
+        if self.log is not None:
+            self.log(tiles, lanes, boxed)
         self.staged += boxed.reshape(-1, RAY_TILE).any(dim=1).sum()
+        counted = None
+        if kernel is not None:
+            start = (torch.full_like(window, F32_MAX) if self.closest
+                     else self.tmax[lanes])
+            cand = (_slab(a, o, inv, self.tmin[lanes], start) & in_grid
+                    & self.active[lanes]).reshape(
+                        -1, RAY_TILE // STREAM_SPLIT, STREAM_SPLIT).any(dim=1)
+            self.walk_tested += (cand & kernel).sum()
+            counted = kernel[:, None, :].expand(
+                -1, RAY_TILE // STREAM_SPLIT, -1).reshape(-1)[boxed]
         sub, sblk = lanes[boxed], blk[boxed]
         if sub.numel() == 0:
             return
+        if counted is not None and self.closest:
+            self.walk_pairs += self.live[sblk[counted]].sum()
         slot = torch.arange(bs, device=sub.device)
         for part in _chunks(torch.arange(sub.numel(), device=sub.device), bs):
             ch, cb = sub[part], sblk[part]
@@ -427,9 +480,10 @@ class _TileWalk:
                                 cb[:, None] * bs + slot, self.det_eps,
                                 self.tmin)
             else:
-                self._any_hit(ch, tri, ids)
+                self._any_hit(ch, tri, ids,
+                              None if counted is None else counted[part])
 
-    def _any_hit(self, ch, tri, ids) -> None:
+    def _any_hit(self, ch, tri, ids, counted) -> None:
         t, _, _ = _mt(tuple(c[ch, None] for c in self.o),
                       tuple(c[ch, None] for c in self.d), tri, self.det_eps,
                       self.tmin[ch, None], self.tmax[ch, None])
@@ -440,13 +494,23 @@ class _TileWalk:
         first = hits.to(torch.int32).argmax(dim=1, keepdim=True)
         self.occ_pairs += torch.where(hit, upto.gather(1, first)[:, 0],
                                       upto[:, -1]).sum()
+        if counted is not None:
+            # the CUDA walk's pair votes every STREAM_VOTE slots
+            last = torch.clamp((first // STREAM_VOTE + 1) * STREAM_VOTE,
+                               max=ids.shape[1]) - 1
+            tests = torch.where(hit, upto.gather(1, last)[:, 0], upto[:, -1])
+            self.walk_pairs += tests[counted].sum()
         self.blocked[ch] |= hit
 
-    def tally(self, stats) -> None:
+    def tally(self, stats, kernel: bool = False) -> None:
         _tally(stats, self.best.pairs + self.occ_pairs)
         if stats is not None:
             stats["staged_blocks"] = (stats.get("staged_blocks", 0)
                                       + int(self.staged))
+            if kernel:
+                for key, n in (("walk_pairs", self.walk_pairs),
+                               ("walk_tested_blocks", self.walk_tested)):
+                    stats[key] = stats.get(key, 0) + int(n)
 
     def hits(self, r: int) -> HitData:
         b = self.best
@@ -456,16 +520,26 @@ class _TileWalk:
 
 
 def _plan_walk_plain(rays, grid: BlockGrid, rows: SceneRows, det_eps: float,
-                     closest: bool, stats) -> _TileWalk:
+                     closest: bool, stats, n_rays: int, log=None) -> _TileWalk:
     """G's (``closest``) or I's walk: each tile's plan row in order, while
     the next entry is <= the tile's largest best t (G), or is finite and
-    a lane of the tile is unblocked (I)."""
+    a lane of the tile is unblocked (I).  With ``stats``, the CUDA walk's
+    tests and tested blocks too: each CTA of a tile stops once the entry
+    exceeds every active lane's best t (G) or every active lane is blocked
+    (I), its own lanes, tested before each block.  ``log``:
+    ``_TileWalk.log``."""
     rp = int(rays.shape[0])
     nt = rp // RAY_TILE
-    walk = _TileWalk(rows, rays, det_eps, closest)
+    walk = _TileWalk(rows, rays, det_eps, closest, n_rays)
+    walk.log = log
     order, entry, _ = tile_visit_plan_fast(
         rays[:, 0:3], rays[:, 3:6], grid, rays[:, 6], rays[:, 7], RAY_TILE)
     walking = torch.ones(nt, dtype=torch.bool, device=rays.device)
+    kernel = torch.ones(nt, STREAM_SPLIT, dtype=torch.bool,
+                        device=rays.device)
+    # (tile, ray of its CTA, CTA): CTA p holds the tile's rays p, p + S, ...
+    cta = (nt, RAY_TILE // STREAM_SPLIT, STREAM_SPLIT)
+    active = walk.active.reshape(cta)
     for k in range(int(order.shape[1])):
         if closest:
             walking &= entry[:, k] <= walk.best.t.reshape(nt, -1).amax(dim=1)
@@ -477,8 +551,18 @@ def _plan_walk_plain(rays, grid: BlockGrid, rows: SceneRows, det_eps: float,
             break
         sb = order[tiles, k].to(torch.int64)
         for j in range(SUPER):
-            walk.visit(tiles, sb * SUPER + j)
-    walk.tally(stats)
+            if stats is not None:
+                if closest:
+                    m = torch.where(active[tiles],
+                                    walk.best.t.reshape(cta)[tiles],
+                                    -float("inf")).amax(dim=1)
+                    kernel[tiles] &= entry[tiles, k, None] <= m
+                else:
+                    kernel[tiles] &= (active[tiles] & ~walk.blocked.reshape(
+                        cta)[tiles]).any(dim=1)
+            walk.visit(tiles, sb * SUPER + j,
+                       None if stats is None else kernel[tiles])
+    walk.tally(stats, kernel=True)
     return walk
 
 
@@ -515,8 +599,9 @@ def block_closest_streamed_plain(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
     kernel stages into shared memory."""
     rows = grid_rows(grid) if rows is None else rows
     rays, _ = _prep_rays(origins, dirs, tmin, F32_MAX)
-    walk = _plan_walk_plain(rays, grid, rows, det_eps, True, stats)
-    return walk.hits(int(origins.shape[0]))
+    r = int(origins.shape[0])
+    walk = _plan_walk_plain(rays, grid, rows, det_eps, True, stats, r)
+    return walk.hits(r)
 
 
 def block_occluded_streamed_plain(origins, dirs, grid: BlockGrid, tmin=1e-4,
@@ -526,8 +611,9 @@ def block_occluded_streamed_plain(origins, dirs, grid: BlockGrid, tmin=1e-4,
     """Plain version of ``block_occluded_streamed`` (I)."""
     rows = grid_rows(grid) if rows is None else rows
     rays, _ = _prep_rays(origins, dirs, tmin, tmax)
-    walk = _plan_walk_plain(rays, grid, rows, det_eps, False, stats)
-    return walk.blocked[:int(origins.shape[0])]
+    r = int(origins.shape[0])
+    walk = _plan_walk_plain(rays, grid, rows, det_eps, False, stats, r)
+    return walk.blocked[:r]
 
 
 def block_closest_blockmajor_plain(origins, dirs, grid: BlockGrid, tmin=1e-4,
@@ -571,13 +657,43 @@ def _check_grid(grid: BlockGrid, dev) -> None:
         raise ValueError("grid planes and AABBs must be float32")
 
 
-def _plan_operands(origins, dirs, grid: BlockGrid, tmin, tmax):
-    _check_grid(grid, origins.device)
+def _streamed_launch(origins, dirs, grid: BlockGrid, tmin, tmax,
+                     det_eps: float, occluded: bool):
+    """G's (``occluded`` False) or I's operands for (R, 3) rays on the
+    card: the rays padded to whole tiles, their plan, the tiles in
+    launch order (the longest plans first, so that the CTAs that walk
+    the most start first) and the grid's block-major operands -> a
+    function that launches the kernel on them and returns its padded
+    outputs: (t, u, v, idx), or the blocked flags."""
+    from ._native import load
+
+    dev = origins.device
+    _check_grid(grid, dev)
+    r = int(origins.shape[0])
     rays, rp = _prep_rays(origins.contiguous(), dirs.contiguous(), tmin, tmax)
-    order, entry, _ = tile_visit_plan_fast(
+    order, entry, count = tile_visit_plan_fast(
         rays[:, 0:3], rays[:, 3:6], grid, rays[:, 6], rays[:, 7], RAY_TILE)
+    count = count[:, 0].to(torch.int32).contiguous()
+    tiles = torch.sort(count, descending=True, stable=True)[1].to(
+        torch.int32)
     tri, ids, aabb, ls = _stream_grid_operands(grid)
-    return rays, rp // RAY_TILE, order, entry, tri, ids, aabb, ls
+    t = torch.empty(rp, dtype=torch.float32, device=dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    idx = torch.empty(rp, dtype=torch.int32, device=dev)
+    blocked = torch.empty(rp, dtype=torch.bool, device=dev)
+
+    def launch():
+        lib = load("block_stream")
+        err = lib.rt_streamed(
+            _ptr(rays), _ptr(aabb), _ptr(order), _ptr(entry), _ptr(count),
+            _ptr(tiles), _ptr(tri), _ptr(ids), rp // RAY_TILE, r,
+            grid.num_blocks, ls, grid.block_size, det_eps, int(occluded),
+            _ptr(t), _ptr(u), _ptr(v), _ptr(idx), _ptr(blocked), _stream())
+        _raise_on(lib, err, "occluded_streamed" if occluded
+                  else "closest_streamed")
+        return blocked if occluded else (t, u, v, idx)
+
+    return launch
 
 
 def block_closest_streamed(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
@@ -593,22 +709,13 @@ def block_closest_streamed(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
         return block_closest_streamed_plain(origins, dirs, grid, tmin,
                                             det_eps=det_eps, rows=rows)
     r = int(origins.shape[0])
-    rays, nt, order, entry, tri, ids, aabb, ls = _plan_operands(
-        origins, dirs, grid, tmin, F32_MAX)
-    rp = nt * RAY_TILE
-    t = torch.empty(rp, dtype=torch.float32, device=origins.device)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    idx = torch.empty(rp, dtype=torch.int32, device=origins.device)
-    if r:
-        from ._native import load
-
-        lib = load("block_stream")
-        err = lib.rt_closest_streamed(
-            _ptr(rays), _ptr(aabb), _ptr(order), _ptr(entry), _ptr(tri),
-            _ptr(ids), nt, grid.num_blocks, ls, grid.block_size, det_eps,
-            _ptr(t), _ptr(u), _ptr(v), _ptr(idx), _stream())
-        _raise_on(lib, err, "closest_streamed")
-        block_closest_streamed.launches += 1
+    if not r:
+        t = origins.new_empty(0)
+        i = torch.empty(0, dtype=torch.int32, device=origins.device)
+        return HitData(t=t, u=t, v=t, tri_idx=i, hit=i >= 0)
+    t, u, v, idx = _streamed_launch(origins, dirs, grid, tmin, F32_MAX,
+                                    det_eps, False)()
+    block_closest_streamed.launches += 1
     return HitData(t=t[:r], u=u[:r], v=v[:r], tri_idx=idx[:r],
                    hit=idx[:r] >= 0)
 
@@ -618,26 +725,17 @@ def block_occluded_streamed(origins, dirs, grid: BlockGrid, tmin=1e-4,
                             rows: SceneRows = None) -> torch.Tensor:
     """Any hit on [tmin, tmax] (each a float or (R,)) per ray by the same
     plan walk (I), each tile stopping once every lane is blocked -> (R,)
-    bool."""
+    bool; ``rows`` as in ``block_closest_streamed``."""
     _check_rays(origins, dirs)
     if origins.device.type == "cpu":
         return block_occluded_streamed_plain(origins, dirs, grid, tmin, tmax,
                                              det_eps=det_eps, rows=rows)
     r = int(origins.shape[0])
-    rays, nt, order, entry, tri, ids, aabb, ls = _plan_operands(
-        origins, dirs, grid, tmin, tmax)
-    blocked = torch.empty(nt * RAY_TILE, dtype=torch.bool,
-                          device=origins.device)
-    if r:
-        from ._native import load
-
-        lib = load("block_stream")
-        err = lib.rt_occluded_streamed(
-            _ptr(rays), _ptr(aabb), _ptr(order), _ptr(entry), _ptr(tri),
-            _ptr(ids), nt, grid.num_blocks, ls, grid.block_size, det_eps,
-            _ptr(blocked), _stream())
-        _raise_on(lib, err, "occluded_streamed")
-        block_occluded_streamed.launches += 1
+    if not r:
+        return torch.empty(0, dtype=torch.bool, device=origins.device)
+    blocked = _streamed_launch(origins, dirs, grid, tmin, tmax, det_eps,
+                               True)()
+    block_occluded_streamed.launches += 1
     return blocked[:r]
 
 

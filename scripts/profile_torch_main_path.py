@@ -5,7 +5,8 @@
     python scripts/profile_torch_main_path.py --grad [--frames 8]
     python scripts/profile_torch_main_path.py --large
     python scripts/profile_torch_main_path.py --kernels [--parent DIR]
-    python scripts/profile_torch_main_path.py --times [--root DIR]
+    python scripts/profile_torch_main_path.py --streamed [--parent DIR]
+    python scripts/profile_torch_main_path.py --times [--streamed] [--root DIR]
 
 Renders the frog scene (depth 8, diffuse) with
 ``render_scene_frames`` once to warm up, then once under
@@ -73,12 +74,38 @@ with ``git archive`` into ``build/parent``), in a process of its own
 that imports ``DIR``'s package (``--times --root DIR``), in turns with
 this tree's (parent, this, this, parent; medians of 5), the outputs
 compared by digest.
+``--streamed`` profiles kernels G and I at ``chip_smoke.py`` phase 10's
+full-width inputs (the large frog's 2,073,600 pixel-center camera rays
+for G, their shadow rays to the frog's light for I, the missed rays'
+shade points parked with a zero direction): each one's wrapper, the plan
+alone (the rays' rows and ``tile_visit_plan_fast``), the operand packing
+alone (``_stream_grid_operands``) and the kernel alone on operands built
+once, medians of 5; its plain walk, run on the card with every visit
+logged, counts the tiles with a plan and those that stage a block, the
+staged blocks (all, and the heaviest tile's), the lanes that pass a
+staged block's slab test, the (ray, block) pairs and the ray-triangle
+tests, the CUDA walk's own tests and tested blocks, and the moving,
+parked, hit or blocked rays; an instrumented copy of
+``csrc/block_stream.cu`` (built apart under ``build/walk_clocks/`` by
+exact text edits, ``_STREAM_EDITS``; its results must equal the
+kernel's) records
+per CTA its ``%globaltimer`` start and end, its ``clock64()`` cycles and
+those of its staging, testing and gating, from which it prints the
+CTAs resident at once, the shares, and when the last CTA ends against
+the mean; G's and I's kernels alone with the tiles launched longest
+plan first (the wrapper's order) and in plan order (tile 0, 1, ...), in
+turns, outputs compared by digest.  ``--parent DIR`` (with
+``--streamed``) times G's and I's
+wrappers and kernels alone as the tree at ``DIR`` computes them, in
+turns with this tree's (parent, this, this, parent), outputs compared
+by digest.
 The full table is also written to ``chiprun_out/profile_main_path.txt``
 (``profile_grad.txt`` with ``--grad``, ``profile_large.txt`` with
 ``--large``).
 """
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -98,12 +125,15 @@ def main():
     ap.add_argument("--grad", action="store_true")
     ap.add_argument("--large", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--streamed", action="store_true")
     ap.add_argument("--parent", default=None,
-                    help="with --kernels: a tree of the port (e.g. the parent "
-                         "commit unpacked with git archive) whose kernels A "
-                         "and F are timed in turns with this tree's")
+                    help="with --kernels or --streamed: a tree of the port "
+                         "(e.g. the parent commit unpacked with git archive) "
+                         "whose kernels A and F, or G and I, are timed in "
+                         "turns with this tree's")
     ap.add_argument("--times", action="store_true",
-                    help="print the --parent timings of A and F as JSON")
+                    help="print the --parent timings of A and F (with "
+                         "--streamed: G and I) as JSON")
     ap.add_argument("--root", default=None,
                     help="with --times: import the package from this tree")
     args = ap.parse_args()
@@ -111,8 +141,11 @@ def main():
         if args.root:
             sys.path.insert(0, os.path.abspath(args.root))
         import json
-        print(json.dumps(kernel_times()))
+        print(json.dumps(streamed_times() if args.streamed
+                         else kernel_times()))
         return None
+    if args.streamed:
+        return profile_streamed(args.parent)
     if args.kernels:
         return profile_kernels(args.parent)
     if args.grad:
@@ -370,8 +403,7 @@ def profile_large():
     launches = {k: v for k, v in {**mk.launch_counts(),
                                   **bk.launch_counts()}.items() if v}
     kernel_us = sum(us for us, _, key in rows
-                    if key.startswith(("closest_streamed_kernel",
-                                       "occluded_streamed_kernel")))
+                    if "streamed_kernel" in key)
     print(f"card: {smi}")
     print(f"large frog 1920x1080 depth 8 ({scene.geometry.num_triangles} "
           f"triangles, {scene.accel.num_blocks} blocks; subdivision "
@@ -650,8 +682,8 @@ _A_EDITS_SOLO = [
 ]
 
 
-def _build_apart(text, name, include):
-    """Compile megakernel.cu source ``text`` into build/walk_clocks/ (never
+def _build_apart(text, name, include, source="megakernel"):
+    """Compile ``source``.cu text ``text`` into build/walk_clocks/ (never
     used by the package) -> the loaded library, its C interface declared."""
     import ctypes
 
@@ -663,10 +695,14 @@ def _build_apart(text, name, include):
     with open(src, "w") as f:
         f.write(text)
     lib_path = os.path.join(out, f"lib{name}.so")
-    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-I", include, "-o",
-                    lib_path, src], check=True, capture_output=True)
+    built = subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-I",
+                            include, "-o", lib_path, src], check=True,
+                           capture_output=True, text=True)
+    from chip_smoke import ptxas_summary
+
+    print(f"  {name} (built apart): {ptxas_summary(built.stderr)}")
     lib = ctypes.CDLL(lib_path)
-    _native._declare("megakernel", lib)
+    _native._declare(source, lib)
     return lib
 
 
@@ -695,23 +731,24 @@ def _clock_lib():
 
 
 class _using:
-    """Within the block, the megakernel wrappers launch through ``lib``."""
+    """Within the block, the wrappers of ``source``.cu's kernels launch
+    through ``lib``."""
 
-    def __init__(self, lib):
-        self.lib = lib
+    def __init__(self, lib, source="megakernel"):
+        self.lib, self.source = lib, source
 
     def __enter__(self):
         from raytracinginonesemester_tpu_torch.ops import _native
 
-        self.real = _native.load("megakernel")
+        self.real = _native.load(self.source)
         if self.lib is not None:
-            _native._LIBS["megakernel"] = self.lib
+            _native._LIBS[self.source] = self.lib
         return self
 
     def __exit__(self, *exc):
         from raytracinginonesemester_tpu_torch.ops import _native
 
-        _native._LIBS["megakernel"] = self.real
+        _native._LIBS[self.source] = self.real
         return False
 
 
@@ -1339,6 +1376,477 @@ def profile_kernels(parent_dir=None):
               f"glue alone {t_glue['median_ms']:.4f}, the kernels alone on "
               f"its plan {t_kern['median_ms']:.4f}, index_add_ "
               f"{t_lib['median_ms']:.4f} ms (medians of 5)")
+
+
+# ``--streamed``: kernels G and I at phase 10's full-width inputs.  An
+# instrumented copy of csrc/block_stream.cu (built apart into
+# build/walk_clocks/, never used by the package) records, per CTA, the
+# globaltimer at its start and end, its clock64() cycles, the cycles of
+# its staging and of its triangle tests and the blocks it staged; each
+# (old, new) edit must find its text exactly once
+_CTA_SLOTS = 8192  # CTAs recorded (G and I launch one per tile)
+# per CTA: globaltimer at start and end, cycles in all, in staging, in
+# triangle tests, blocks staged, SM, tile, cycles in the walk's block
+# gating (the candidates, the listing), pairs
+_CTA_FIELDS = 10
+_CTA_HELPERS = (
+    '__device__ unsigned long long g_cta[8192 * 10];\n'
+    '__device__ __forceinline__ long long pclk() {\n'
+    '  long long t;\n'
+    '  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) :: "memory");\n'
+    '  return t;\n}\n'
+    '__device__ __forceinline__ unsigned long long gtime() {\n'
+    '  unsigned long long t;\n'
+    '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");\n'
+    '  return t;\n}\n'
+    '__device__ __forceinline__ void cta_record(unsigned long long g0,\n'
+    '    long long c0, long long st, long long te, long long n, int tile,\n'
+    '    long long gate, long long ng) {\n'
+    '  if (threadIdx.x != 0 || blockIdx.x >= 8192) return;\n'
+    '  unsigned long long* q = g_cta + 10 * blockIdx.x;\n'
+    '  unsigned sm;\n  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));\n'
+    '  q[0] = g0;\n  q[1] = gtime();\n  q[2] = pclk() - c0;\n'
+    '  q[3] = st;\n  q[4] = te;\n  q[5] = n;\n  q[6] = sm;\n  q[7] = tile;\n'
+    '  q[8] = gate;\n  q[9] = ng;\n}\n')
+_CTA_START = ('  const unsigned long long xg0 = gtime();\n'
+              '  const long long xc0 = pclk();\n'
+              '  long long xst = 0, xte = 0, xn = 0, xga = 0, xng = 0;\n')
+_CTA_READ = r"""
+extern "C" int rt_cta_clocks(unsigned long long* host, int reset) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e != cudaSuccess) return (int)e;
+  void* p;
+  e = cudaGetSymbolAddress(&p, g_cta);
+  if (e != cudaSuccess) return (int)e;
+  if (reset) return (int)cudaMemset(p, 0, sizeof(g_cta));
+  return (int)cudaMemcpy(host, p, sizeof(g_cta), cudaMemcpyDeviceToHost);
+}
+"""
+
+
+# G and I: candidates first, then the CTA's warps test the
+# pairs of each candidate block while the next one is staged.  Staging:
+# the wait for the staged block; testing: the pairs; gating: the
+# candidates and the listing; the last field counts pairs
+_STREAM_EDITS = [
+    ('#include "trace_common.cuh"\n',
+     '#include "trace_common.cuh"\n' + _CTA_HELPERS),
+    # the counters must not cost the kernel its occupancy (two tiles an
+    # SM)
+    ('template <bool OCC>\n__global__ void __launch_bounds__(kThreads)\n'
+     'streamed_kernel(',
+     'template <bool OCC>\n__global__ void __launch_bounds__(kThreads, '
+     '2 * kSplit)\nstreamed_kernel('),
+    ('  bool blocked = false;\n\n  // 1. the candidates',
+     '  bool blocked = false;\n' + _CTA_START
+     + '  const long long xqc = pclk();\n\n  // 1. the candidates'),
+    ('  __syncthreads();\n\n  // 2. the candidates in plan order',
+     '  __syncthreads();\n  xga += pclk() - xqc;\n\n'
+     '  // 2. the candidates in plan order'),
+    ('    const bool pass = active && (OCC ?',
+     '    const long long xq0 = pclk();\n'
+     '    const bool pass = active && (OCC ?'),
+    ('    if (pn >= 0)\n      cp_async_wait<1>();',
+     '    const long long xq1 = pclk();\n    xga += xq1 - xq0;\n'
+     '    if (pn >= 0)\n      cp_async_wait<1>();'),
+    ('    __syncthreads();  // the list and block b in shared memory\n',
+     '    __syncthreads();  // the list and block b in shared memory\n'
+     '    const long long xq2 = pclk();\n    xst += xq2 - xq1;\n'),
+    ('    __syncthreads();  // the pairs\' results; block b\'s buffer is free\n',
+     '    __syncthreads();  // the pairs\' results; block b\'s buffer is free\n'
+     '    xte += pclk() - xq2;\n    ++xn;\n    xng += total;\n'),
+    ('  cp_async_wait<0>();  // a block staged for a walk that stopped\n',
+     '  cta_record(xg0, xc0, xst, xte, xn, tile, xga, xng);\n'
+     '  cp_async_wait<0>();  // a block staged for a walk that stopped\n'),
+]
+
+
+def _stream_clock_lib():
+    """Build the instrumented copy of block_stream.cu -> its library."""
+    import ctypes
+
+    csrc = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "block_stream.cu")) as f:
+        text = f.read()
+    for old, new in _STREAM_EDITS:
+        if text.count(old) != 1:
+            raise SystemExit(f"stream clocks: no single match for {old!r}")
+        text = text.replace(old, new)
+    lib = _build_apart(text + _CTA_READ, "block_stream_clocks", csrc,
+                       "block_stream")
+    lib.rt_cta_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.rt_cta_clocks.restype = ctypes.c_int
+    return lib
+
+
+def _large_inputs():
+    """Phase 10's inputs on the card -> (grid, camera rays (o, d), their
+    shadow rays (p, dir, tmin, dist) at full width: the missed rays'
+    shade points parked at 1e30 with a zero direction)."""
+    from chip_smoke import large_rays, large_scene, shadow_rays
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+
+    scene, _, _ = large_scene("cuda")
+    grid = scene.accel
+    o, d = large_rays(scene)
+    hits, normal = bk.block_closest(o, d, grid, 1e-4, return_normal=True)
+    sh = shadow_rays(o, d, hits, normal, scene.lights.position[0])
+    return grid, (o, d), sh
+
+
+def _stream_jobs(bk, grid, cam, sh):
+    """G on the camera rays and I on the shadow rays, each as a dict of
+    calls: the wrapper; the plan alone (the rays' rows and
+    ``tile_visit_plan_fast``); the operand packing alone; the kernel alone
+    on operands built once.  The launch follows the imported package's
+    C interface."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import _native
+    from raytracinginonesemester_tpu_torch.ops.accel import (
+        tile_visit_plan_fast)
+    from raytracinginonesemester_tpu_torch.ops.megakernel import (
+        RAY_TILE, _ptr, _stream)
+
+    jobs = {}
+    for name, (o, d, tmin, tmax) in (("G", (*cam, 1e-4, bk.F32_MAX)),
+                                     ("I", sh)):
+        closest = name == "G"
+        wrapper = (bk.block_closest_streamed if closest
+                   else bk.block_occluded_streamed)
+        args = (o, d, grid, tmin) + (() if closest else (tmax,))
+
+        def plan(o=o, d=d, tmin=tmin, tmax=tmax):
+            rays, _ = bk._prep_rays(o, d, tmin, tmax)
+            return tile_visit_plan_fast(rays[:, 0:3], rays[:, 3:6], grid,
+                                        rays[:, 6], rays[:, 7], RAY_TILE)
+
+        if hasattr(bk, "_streamed_launch"):
+            kernel = bk._streamed_launch(o, d, grid, tmin, tmax, 1e-8,
+                                         not closest)
+        else:  # the interface as first ported
+            rays, nt, order, entry, tri, ids, aabb, ls = bk._plan_operands(
+                o, d, grid, tmin, tmax)
+            rp = nt * RAY_TILE
+            outs = [torch.empty(rp, device=o.device) for _ in range(3)]
+            outs.append(torch.empty(rp, dtype=torch.int32, device=o.device))
+            flags = torch.empty(rp, dtype=torch.bool, device=o.device)
+
+            def kernel(rays=rays, nt=nt, order=order, entry=entry, tri=tri,
+                       ids=ids, aabb=aabb, ls=ls, outs=outs, flags=flags,
+                       closest=closest):
+                lib = _native.load("block_stream")
+                head = (_ptr(rays), _ptr(aabb), _ptr(order), _ptr(entry),
+                        _ptr(tri), _ptr(ids), nt, grid.num_blocks, ls,
+                        grid.block_size, 1e-8)
+                if closest:
+                    err = lib.rt_closest_streamed(
+                        *head, *(_ptr(x) for x in outs), _stream())
+                else:
+                    err = lib.rt_occluded_streamed(*head, _ptr(flags),
+                                                   _stream())
+                if err:
+                    raise RuntimeError(f"streamed kernel: error {err}")
+                return tuple(outs) if closest else flags
+
+        # a copy of the grid, so that the packing kept on the grid is
+        # built anew
+        packing = lambda: bk._stream_grid_operands(dataclasses.replace(grid))
+        jobs[name] = {"wrapper": lambda w=wrapper, a=args: w(*a),
+                      "plan": plan, "packing": packing, "kernel": kernel}
+    return jobs
+
+
+def _digest(out):
+    import hashlib
+
+    digest = hashlib.sha1()
+    for t in out:
+        digest.update(t.cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def streamed_times():
+    """G and I as the imported package computes them -> {"G wrapper",
+    "G kernel", "I wrapper", "I kernel": [median ms of 5, digest]}."""
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    grid, cam, sh = _large_inputs()
+    out = {}
+    for name, job in _stream_jobs(bk, grid, cam, sh).items():
+        for part in ("wrapper", "kernel"):
+            fn = job[part]
+            # the real rays' outputs (the kernel's are padded to tiles)
+            digest = _digest(_rows(fn(), cam[0].shape[0]))
+            out[f"{name} {part}"] = [
+                cuda_time_ms(fn, warmup=1, iters=5)["median_ms"], digest]
+    return out
+
+
+def _rows(out, r):
+    """The first ``r`` rows of each output tensor (copies)."""
+    if hasattr(out, "tri_idx"):
+        out = (out.t, out.u, out.v, out.tri_idx)
+    out = out if isinstance(out, (tuple, list)) else (out,)
+    return tuple(x[:r].clone() for x in out)
+
+
+class _WalkLog:
+    """``_TileWalk.log`` of the plain walk: per tile the blocks it stages
+    and its (ray, block) pairs; per staged block the lanes that pass its
+    slab test; per ray its (ray, block) pairs."""
+
+    def __init__(self, nt, rp, dev):
+        import torch
+
+        self.staged = torch.zeros(nt, dtype=torch.int64, device=dev)
+        self.pairs = torch.zeros(nt, dtype=torch.int64, device=dev)
+        self.rounds = torch.zeros(nt, dtype=torch.int64, device=dev)
+        self.ray_pairs = torch.zeros(rp, dtype=torch.int64, device=dev)
+        self.edges = torch.tensor([1, 4, 16, 32, 64, 128, 512], device=dev)
+        self.hist = torch.zeros(len(self.edges), dtype=torch.int64,
+                                device=dev)
+        self.lane_max = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def __call__(self, tiles, lanes, boxed):
+        import torch
+
+        c = boxed.reshape(-1, 512).sum(dim=1)
+        self.staged.index_add_(0, tiles, (c > 0).long())
+        self.pairs.index_add_(0, tiles, c)
+        # pair rounds of a CTA's 16 warps, a pair a warp a round
+        self.rounds.index_add_(0, tiles, (c + 15) // 16)
+        self.ray_pairs.index_add_(0, lanes, boxed.long())
+        cs = c[c > 0]
+        self.hist += torch.bincount(torch.bucketize(cs, self.edges),
+                                    minlength=len(self.edges))[:len(self.edges)]
+        if cs.numel():
+            self.lane_max = torch.maximum(self.lane_max, cs.max())
+
+
+def _stream_counts(label, bk, grid, o, d, tmin, tmax, closest):
+    """The plain walk of G or I on the card, counted (``_WalkLog``)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops.accel import (
+        tile_visit_plan_fast)
+    from raytracinginonesemester_tpu_torch.ops.megakernel import RAY_TILE
+
+    rows = bk.grid_rows(grid)
+    rays, rp = bk._prep_rays(o, d, tmin, tmax)
+    nt = rp // RAY_TILE
+    _, _, count = tile_visit_plan_fast(rays[:, 0:3], rays[:, 3:6], grid,
+                                       rays[:, 6], rays[:, 7], RAY_TILE)
+    count = count[:, 0].long()
+    log = _WalkLog(nt, rp, o.device)
+    stats = {}
+    walk = bk._plan_walk_plain(rays, grid, rows, 1e-8, closest, stats,
+                               int(o.shape[0]), log=log)
+    staged = int(log.staged.sum())
+    heavy = int(log.staged.argmax())
+    work = count > 0
+    bounds = [1] + [int(x) + 1 for x in log.edges[:-1]]
+    hist = ", ".join(f"{lo}-{int(hi)}: {int(n)}" for lo, hi, n in
+                     zip(bounds, log.edges, log.hist))
+    rounds = log.rounds[work].float()
+    print(f"{label}: {nt} tiles, {int(work.sum())} with a plan "
+          f"(superblocks a tile mean {float(count.float().mean()):.1f}, max "
+          f"{int(count.max())}), {int((log.staged > 0).sum())} staging a "
+          f"block; {staged} staged blocks, the heaviest tile ({heavy}) "
+          f"{int(log.staged[heavy])} (plan {int(count[heavy])} superblocks, "
+          f"{int(log.pairs[heavy])} (ray, block) pairs); "
+          f"{int(log.pairs.sum())} (ray, block) pairs, "
+          f"{int(stats['pairs'])} ray-triangle tests; passing lanes a "
+          f"staged block mean {int(log.pairs.sum()) / max(staged, 1):.2f}, "
+          f"max {int(log.lane_max)} (blocks by lanes: {hist}); rounds of a "
+          f"pair a warp for 16 warps a tile: mean {float(rounds.mean()):.1f}"
+          f", max {int(log.rounds.max())}")
+    moving = (d != 0.0).any(dim=1)
+    tested = (log.ray_pairs[:o.shape[0]] > 0)
+    line = (f"  rays: {o.shape[0]}, {int(moving.sum())} with a nonzero "
+            f"direction, {int((~moving).sum())} parked (zero direction), "
+            f"{int(tested.sum())} test a block")
+    if closest:
+        line += f", {int((walk.best.id[:o.shape[0]] >= 0).sum())} hit"
+    else:
+        line += f", {int(walk.blocked[:o.shape[0]].sum())} blocked"
+    print(line)
+    print(f"  the CUDA walk's tests {stats['walk_pairs']} and tested blocks "
+          f"{stats['walk_tested_blocks']} (counted by the plain version; a "
+          "CTA that stops has also copied up to two blocks it does not "
+          "test)")
+
+
+def _stream_cta_clocks(label, fn, lib):
+    """``fn`` through the instrumented library: per CTA its span and
+    cycles, split into staging and testing."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    buf = (ctypes.c_ulonglong * (_CTA_SLOTS * _CTA_FIELDS))()
+    n = 1 << 30
+    want = _rows(fn(), n)
+    with _using(lib, "block_stream"):
+        fn()  # warm
+        if lib.rt_cta_clocks(buf, 1):
+            raise SystemExit("stream clocks: resetting the counters failed")
+        got = _rows(fn(), n)
+        if lib.rt_cta_clocks(buf, 0):
+            raise SystemExit("stream clocks: reading the counters failed")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    a = np.frombuffer(buf, dtype=np.uint64).reshape(_CTA_SLOTS, _CTA_FIELDS)
+    a = a[a[:, 0] > 0].astype(np.float64)
+    t0 = a[:, 0].min()
+    start, end = (a[:, 0] - t0) / 1e3, (a[:, 1] - t0) / 1e3
+    cyc, st, te, n, ga, ng = (a[:, k] for k in (2, 3, 4, 5, 8, 9))
+    w = n > 0
+    last = int(np.argmax(np.where(w, end, -1.0)))
+    heavy = int(np.argmax(cyc))
+    ghz = cyc[heavy] / max(a[heavy, 1] - a[heavy, 0], 1.0)
+    # the CTAs resident at once: on average over the span, and at most on
+    # one SM (from the start and end events of each SM's CTAs)
+    most = 0
+    for sm in np.unique(a[:, 6]):
+        i = a[:, 6] == sm
+        ev = sorted([(x, 1) for x in a[i, 0]] + [(x, -1) for x in a[i, 1]],
+                    key=lambda e: (e[0], e[1]))
+        most = max(most, int(np.max(np.cumsum([e[1] for e in ev]))))
+    print(f"  clocks, {label} (instrumented copy, results "
+          f"{'equal to' if same else 'DIFFER from'} the kernel's): "
+          f"{len(a)} CTAs span {end.max():.1f} us, "
+          f"{(end - start).sum() / end.max():.1f} resident on average, at "
+          f"most {most} on an SM; {int(w.sum())} staged a block: "
+          f"{cyc[w].mean():.0f} cycles each (max {cyc.max():.0f}, tile "
+          f"{int(a[heavy, 7])}, {int(n[heavy])} blocks, {ghz:.3f} "
+          f"cycles/ns), staging {st[w].sum() / cyc[w].sum():.3f}, testing "
+          f"{te[w].sum() / cyc[w].sum():.3f} and gating "
+          f"{ga[w].sum() / cyc[w].sum():.3f} of their cycles, "
+          f"{st[w].sum() / max(n.sum(), 1):.0f} and "
+          f"{te[w].sum() / max(n.sum(), 1):.0f} cycles a staged block, "
+          f"{ng[w].sum() / w.sum():.0f} pairs a CTA; they start from "
+          f"{start[w].min():.1f} to {start[w].max():.1f} us and end at "
+          f"{end[w].mean():.1f} us on average, the last at {end[last]:.1f} "
+          f"us (tile {int(a[last, 7])}, {int(n[last])} blocks)")
+    top = np.argsort(-cyc)[:5]
+    print("  the five longest CTAs (tile: staged blocks, pairs, cycles: "
+          "staging, testing, gating; start-end us): "
+          + "; ".join(f"{int(a[i, 7])}: {int(n[i])}, {int(ng[i])}, "
+                      f"{cyc[i]:.0f}: {st[i]:.0f}, {te[i]:.0f}, {ga[i]:.0f}; "
+                      f"{start[i]:.1f}-{end[i]:.1f}" for i in top))
+
+
+def _tile_order_turns(bk, grid, cam, sh):
+    """G's and I's kernels alone on operands built once, the tiles
+    launched longest plan first (the wrapper's order) or in plan order,
+    in turns: longest first, plan order, plan order, longest first
+    (medians of 5 each)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import _native
+    from raytracinginonesemester_tpu_torch.ops.accel import (
+        tile_visit_plan_fast)
+    from raytracinginonesemester_tpu_torch.ops.megakernel import (
+        RAY_TILE, _ptr, _stream)
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    tri, ids, aabb, ls = bk._stream_grid_operands(grid)
+    for name, (o, d, tmin, tmax) in (("G", (*cam, 1e-4, bk.F32_MAX)),
+                                     ("I", sh)):
+        rays, rp = bk._prep_rays(o, d, tmin, tmax)
+        order, entry, count = tile_visit_plan_fast(
+            rays[:, 0:3], rays[:, 3:6], grid, rays[:, 6], rays[:, 7],
+            RAY_TILE)
+        count = count[:, 0].to(torch.int32).contiguous()
+        orders = {
+            "longest first": torch.sort(count, descending=True,
+                                        stable=True)[1].to(torch.int32),
+            "plan order": torch.arange(count.numel(), dtype=torch.int32,
+                                       device=o.device)}
+        outs = [torch.empty(rp, device=o.device) for _ in range(3)]
+        outs += [torch.empty(rp, dtype=torch.int32, device=o.device),
+                 torch.empty(rp, dtype=torch.bool, device=o.device)]
+
+        def launch(tiles):
+            err = _native.load("block_stream").rt_streamed(
+                _ptr(rays), _ptr(aabb), _ptr(order), _ptr(entry),
+                _ptr(count), _ptr(tiles), _ptr(tri), _ptr(ids),
+                rp // RAY_TILE, int(o.shape[0]), grid.num_blocks, ls,
+                grid.block_size, 1e-8, int(name == "I"),
+                *(_ptr(x) for x in outs), _stream())
+            if err:
+                raise RuntimeError(f"streamed kernel: error {err}")
+            return outs[4:] if name == "I" else outs[:4]
+
+        runs = []
+        for key in ("longest first", "plan order", "plan order",
+                    "longest first"):
+            fn = lambda tiles=orders[key]: launch(tiles)
+            digest = _digest(_rows(fn(), o.shape[0]))
+            runs.append((key, cuda_time_ms(fn, warmup=1, iters=5)
+                         ["median_ms"], digest))
+        same = len({r[2] for r in runs}) == 1
+        print(f"{name} kernel alone, tile order in turns (medians of 5): "
+              + ", ".join(f"{k} {ms:.3f}" for k, ms, _ in runs)
+              + f" ms; outputs {'equal' if same else 'DIFFER'}")
+
+
+def _stream_turns(parent_dir):
+    """G and I as the tree at ``parent_dir`` computes them (a process of
+    its own) and as this one does, in turns: parent, this, this,
+    parent."""
+    import json
+
+    def parent():
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--times",
+             "--streamed", "--root", os.path.abspath(parent_dir)],
+            capture_output=True, text=True, check=True).stdout
+        return json.loads(out.strip().splitlines()[-1])
+
+    runs = [parent(), streamed_times(), streamed_times(), parent()]
+    for key in runs[1]:
+        ms = [r[key][0] for r in runs]
+        same = len({r[key][1] for r in runs}) == 1
+        print(f"{key}, the tree at {parent_dir} vs this tree in turns "
+              f"(medians of 5): parent {ms[0]:.3f}, this {ms[1]:.3f}, this "
+              f"{ms[2]:.3f}, parent {ms[3]:.3f} ms; outputs "
+              f"{'equal' if same else 'DIFFER'}")
+
+
+def profile_streamed(parent_dir=None):
+    """Kernels G and I at phase 10's full-width inputs (module
+    docstring)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(f"card: {_card()}")
+    grid, cam, sh = _large_inputs()
+    clocks = _stream_clock_lib()
+    jobs = _stream_jobs(bk, grid, cam, sh)
+    inputs = {"G": (*cam, 1e-4, bk.F32_MAX), "I": sh}
+    for name, job in jobs.items():
+        t = {k: cuda_time_ms(fn, warmup=1, iters=5)
+             for k, fn in job.items()}
+        print(f"{name}: wrapper {t['wrapper']['median_ms']:.3f} ms, the "
+              f"plan alone {t['plan']['median_ms']:.3f}, the operand "
+              f"packing alone {t['packing']['median_ms']:.3f}, the kernel "
+              f"alone on operands built once {t['kernel']['median_ms']:.3f} "
+              "(medians of 5; samples "
+              + "; ".join(f"{k} {[round(x, 3) for x in v['samples_ms']]}"
+                          for k, v in t.items()) + ")")
+        _stream_counts(f"{name}, counted by its plain walk on the card", bk,
+                       grid, *inputs[name], closest=name == "G")
+        _stream_cta_clocks(name, job["kernel"], clocks)
+    _tile_order_turns(bk, grid, cam, sh)
+    if parent_dir is not None:
+        _stream_turns(parent_dir)
 
 
 class _patched:

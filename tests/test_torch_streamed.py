@@ -520,14 +520,25 @@ def test_cuda_streamed_kernels_match_plain_versions(frog):
         got, want = kernel(o, d, tc.accel, 1e-4), plain(o, d, tc.accel, 1e-4)
         for a, b in ((got.t, want.t), (got.tri_idx, want.tri_idx)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # and the shadow rays of every camera ray toward the first light, as
+    # the integrator spawns them: the missed rays' shade points parked at
+    # 1e30, where the direction comes out 0 and the distance inf
+    hits = bk.block_closest_streamed_plain(o, d, tc.accel, 1e-4)
+    p = torch.where(hits.hit[:, None], o + hits.t[:, None] * d, 1e30)
+    to = tc.lights.position[0] - p
+    dist = torch.sqrt((to * to).sum(dim=1))
+    sd = to / torch.clamp(dist, min=1e-20)[:, None]
+    assert bool((sd[~hits.hit] == 0.0).all()) and bool(hits.hit.any())
     for kernel, plain in (
             (bk.block_occluded_streamed, bk.block_occluded_streamed_plain),
             (bk.block_occluded_blockmajor, bk.block_occluded_blockmajor_plain)):
         torch.testing.assert_close(kernel(o, d, tc.accel, 1e-4, tmax),
                                    plain(o, d, tc.accel, 1e-4, tmax),
                                    rtol=0, atol=0)
+        got = kernel(p, sd, tc.accel, 1e-4, dist)
+        torch.testing.assert_close(got, plain(p, sd, tc.accel, 1e-4, dist),
+                                   rtol=0, atol=0)
+        assert not bool(got[~hits.hit].any())
     counts = bk.launch_counts()
-    assert all(counts[k] == 1 for k in ("closest_streamed",
-                                        "occluded_streamed",
-                                        "closest_blockmajor",
-                                        "occluded_blockmajor"))
+    assert counts["closest_streamed"] == counts["closest_blockmajor"] == 1
+    assert counts["occluded_streamed"] == counts["occluded_blockmajor"] == 2
