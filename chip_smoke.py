@@ -93,11 +93,12 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    of phase 9 (also its glue, the sort that plans
    the runs and chunks, and its kernels on that plan, each timed alone),
    G, I and H on phase 10's camera
-   and full-width shadow rays (G and I with their glue -- the rays' rows,
-   the plan, the tile order -- and the kernel alone on operands built
-   once, each timed apart, and the tests and tested blocks of their own
-   walk beside the JAX walk's that the bound counts; a CTA of theirs that
-   stops has also copied up to two blocks it does not test), and E and F
+   and full-width shadow rays (each with its glue -- the rays' rows, G's
+   and I's plan or H's gate, the tile order -- and the kernel alone on
+   operands built once, each timed apart, and the tests and tested
+   blocks of its own walk beside the JAX walk's that the bound counts; a
+   CTA of theirs that stops has also copied up to two blocks it does not
+   test), and E and F
    on the large scene too
    (E on the camera rays, F on the hits' shadow rays);
 12. the TPU probes of ``scripts/`` (``raytracinginonesemester_tpu_torch/
@@ -899,7 +900,7 @@ def time_kernels(smi, errs, jobs):
         bf16_ops = stats.get("bf16_ops", 0)  # on the tensor cores
         check(errs, name, f"{key} at {shape}", got, want)
         del got, want
-        # G's and I's own walk, where it tests other amounts than the
+        # G's, I's and H's own walk, where it tests other amounts than the
         # JAX kernel's walk that the bound counts (the blocks it tests; a
         # CTA that stops has also copied up to two it does not test)
         walk = {k: stats[k] for k in ("walk_pairs", "walk_tested_blocks")
@@ -1476,12 +1477,17 @@ def check_large(dev, smi):
                 lambda st: extra + st["staged_blocks"] * blk
                 + tiles * RAY_TILE * (32 + n_out), None, parts or {})
 
-    # G and I apart: the glue (the rays' rows, the plan, the tile order;
-    # the planes are packed once a grid) and the kernel alone on operands
-    # built once
+    # G, I and H apart: the glue (the rays' rows, the plan or the gate,
+    # the tile order; the planes are packed once a grid) and the kernel
+    # alone on operands built once
     def streamed_parts(*args):
         return {"glue_ms": lambda: bk._streamed_launch(*args),
                 "kernel_only_ms": bk._streamed_launch(*args)}
+
+    def blockmajor_parts(*args):
+        args += (bk.BM_CHUNK_TILES, bk.BM_SLAB_BLOCKS)
+        return {"glue_ms": lambda: bk._blockmajor_launch(*args),
+                "kernel_only_ms": bk._blockmajor_launch(*args)}
 
     cam = f"{W * H} camera rays (pixel centers), {nt} tiles"
     shadow = (f"{W * H} shadow rays to the frog light, {n_sh} of them the "
@@ -1505,12 +1511,14 @@ def check_large(dev, smi):
             "closest_blockmajor", W * H, 16, gate_b,
             lambda: bk.block_closest_blockmajor(o, d, grid, 1e-4),
             lambda stats: bk.block_closest_blockmajor_plain(
-                o, d, grid, 1e-4, stats=stats), cam),
+                o, d, grid, 1e-4, stats=stats), cam,
+            blockmajor_parts(o, d, grid, 1e-4, bk.F32_MAX, 1e-8, False)),
         "large occluded_blockmajor": g_job(
             "occluded_blockmajor", W * H, 1, gate_b,
             lambda: bk.block_occluded_blockmajor(so, sdir, grid, *sh[2:]),
             lambda stats: bk.block_occluded_blockmajor_plain(
-                so, sdir, grid, *sh[2:], stats=stats), shadow),
+                so, sdir, grid, *sh[2:], stats=stats), shadow,
+            blockmajor_parts(so, sdir, grid, *sh[2:], 1e-8, True)),
         # E and F on the same function's inputs, beside G and I
         "large closest": (
             "closest", cam, lambda: bk.block_closest(o, d, grid, 1e-4),
@@ -1638,12 +1646,12 @@ def time_mm22_matmul(win, qsel, smi):
 
 
 # labels of an entry function's first template argument, by kernel (the
-# others: the dialect); a second argument set marks the diff variant, a
-# third is bounce_step_kernel's rays a warp
-FLAG_LABELS = {"blockmajor_kernel": ("closest", "occluded"),
-               "streamed_kernel": ("closest", "occluded"),
+# others: the dialect); of its second (the others: a set one marks the
+# diff variant); a third is bounce_step_kernel's rays a warp
+FLAG_LABELS = {"streamed_kernel": ("closest", "occluded"),
                "dyn_reads_kernel": ("plane-major", "block-major"),
                "toy_mask_kernel": ("grid", "scalar", "both")}
+FLAG2_LABELS = {"streamed_kernel": ("plan (G, I)", "gated slabs (H)")}
 
 
 def ptxas_summary(text):
@@ -1659,7 +1667,9 @@ def ptxas_summary(text):
                 flags = [int(a) for a in
                          re.findall(r"L[bi](\d+)E", args.group(1))]
                 labels = [FLAG_LABELS.get(name, ("gpu", "cpuonly"))[flags[0]]]
-                if flags[1:2] == [1]:
+                if name in FLAG2_LABELS and flags[1:]:
+                    labels.append(FLAG2_LABELS[name][flags[1]])
+                elif flags[1:2] == [1]:
                     labels.append("diff")
                 if flags[2:]:  # bounce_step_kernel: rays a warp
                     labels.append(f"{flags[2]} rays a warp")

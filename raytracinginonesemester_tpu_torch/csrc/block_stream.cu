@@ -13,10 +13,10 @@
 //
 // The operands.  The wrapper (ops/block_kernels.py) pads the rays to whole
 // 512-ray tiles with parked filler (origin 1e30) and builds the plan
-// (order, entry, the length of each tile's row) or the (I, J) gate with
-// torch ops on the card.  The planes are block-major rows, so one block
-// (9 planes and its ids, 10 * B * 4 bytes: 20 KiB at B = 512) is one
-// contiguous run.
+// (order, entry, the length of each tile's row) or the (I, J) gate, and
+// the tiles' launch order, with torch ops on the card.  The planes are
+// block-major rows, so one block (9 planes and its ids, 10 * B * 4 bytes:
+// 20 KiB at B = 512) is one contiguous run.
 //
 // What bounds G and I on this card (measured on an H100 80GB HBM3 at
 // 700 W, scripts/profile_torch_main_path.py --streamed, on the large
@@ -29,10 +29,10 @@
 // 34.0 and 41.2 ms for a walk whose FP32 work is 0.37 and 0.14 ms at the
 // card's peak rate, staging 1.7% of it.
 //
-// G and I (streamed_kernel<OCC>).  Two CTAs of 256 threads walk a tile,
-// CTA p of the tile taking its rays p, p + 2, ..., a thread holding a ray
-// for its slab tests (the plan is conservative for any subset of the
-// tile's rays); so a tile's pairs split evenly between two CTAs.  First a
+// G and I (streamed_kernel<OCC, false>).  Two CTAs of 256 threads walk a
+// tile, CTA p of the tile taking its rays p, p + 2, ..., a thread holding
+// a ray for its slab tests (the plan is conservative for any subset of
+// the tile's rays); so a tile's pairs split evenly between two CTAs.  First a
 // CTA marks its candidates: every block of the tile's plan row whose slab
 // test passes for one of its active lanes on the lane's window at the
 // start (one ballot a block, no barrier).
@@ -70,12 +70,16 @@
 // the winners and flags are the plain versions' bit for bit; G tests the
 // same (ray, block) pairs as the JAX walk, I up to the vote after a hit.
 //
-// H (blockmajor_kernel), as first ported: one CTA of 512 threads per tile,
-// one thread per ray; each tile sweeps its chunk's gated slabs in order,
-// and for each block every thread runs the slab test against its own
-// window; if any passes (__syncthreads_or), the CTA stages the block and
-// the threads that passed test its triangles with the take rule (closest)
-// or until their first hit (occlusion).
+// H (streamed_kernel<OCC, true>) walks the same way; its candidates are
+// the blocks of the slabs its chunk's gate lets through, in block order,
+// and its closest hit has no exit (the JAX sweep has none).  A warp first
+// tests a slab's union box and marks none of its blocks if no lane of it
+// passes (measured: marking every gated block took 0.55 of H closest's
+// cycles).  As first ported, one CTA of 512 threads a tile walked them a
+// thread a ray (a barrier a block, the block staged while nothing else
+// ran, a passing lane's 512 tests alone): 37.3 and 37.1 ms on the large
+// frog's camera and shadow rays, now 3.8 and 2.2 (in turns, scripts/
+// profile_torch_main_path.py --streamed --parent, H100 80GB HBM3, 700 W).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,14 +89,14 @@
 
 namespace {
 
-constexpr int kTile = 512;      // rays per tile (H: threads per CTA)
-constexpr int kSplit = 2;       // G, I: CTAs a tile
-constexpr int kThreads = kTile / kSplit;  // G, I: threads (rays) a CTA
+constexpr int kTile = 512;      // rays per tile
+constexpr int kSplit = 2;       // CTAs a tile
+constexpr int kThreads = kTile / kSplit;  // threads (rays) a CTA
 constexpr int kWarps = kThreads / 32;
 constexpr int kSuper = 8;       // blocks per superblock (ops/accel.py SUPER)
-constexpr int kPairLanes = 32;  // G, I: lanes that test one (ray, block) pair
-constexpr int kVote = 128;      // I: triangles a pair tests between votes
-constexpr int kBuffers = 2;     // G, I: staged blocks in flight
+constexpr int kPairLanes = 32;  // lanes that test one (ray, block) pair
+constexpr int kVote = 128;      // I, H: triangles a pair tests between votes
+constexpr int kBuffers = 2;     // staged blocks in flight
 constexpr unsigned kFull = 0xffffffffu;
 
 struct TileRay {
@@ -115,47 +119,7 @@ __device__ __forceinline__ TileRay load_ray(const float* rays, size_t gid) {
   return t;
 }
 
-// Block b's 9 plane rows and ids into shared memory (coalesced).
-__device__ __forceinline__ void stage_block(const float* __restrict__ tri,
-                                            const int* __restrict__ ids,
-                                            int b, int bs, float* s_tri,
-                                            int* s_ids) {
-  const float* src = tri + (size_t)b * 9 * bs;
-  for (int q = threadIdx.x; q < 9 * bs; q += blockDim.x) s_tri[q] = src[q];
-  for (int q = threadIdx.x; q < bs; q += blockDim.x)
-    s_ids[q] = ids[(size_t)b * bs + q];
-}
-
-// Closest hit of this thread's ray over the staged block b.
-__device__ __forceinline__ void closest_block(Hit& h, const TileRay& r,
-                                              const float* s_tri,
-                                              const int* s_ids, int b, int bs,
-                                              float det_eps) {
-  for (int j = 0; j < bs; ++j) {
-    const int id = s_ids[j];
-    if (id < 0) continue;
-    float u, v;
-    const float t = mt(s_tri + j, bs, det_eps, r.o, r.d, r.tmin, h.t, &u, &v);
-    take(h, t, u, v, id, b * bs + j);
-  }
-}
-
-// Any hit of this thread's ray on [tmin, tmax] in the staged block.
-__device__ __forceinline__ bool any_hit_block(const TileRay& r,
-                                              const float* s_tri,
-                                              const int* s_ids, int bs,
-                                              float det_eps) {
-  for (int j = 0; j < bs; ++j) {
-    if (s_ids[j] < 0) continue;
-    float u, v;
-    if (mt(s_tri + j, bs, det_eps, r.o, r.d, r.tmin, r.tmax, &u, &v) <
-        kF32Max)
-      return true;
-  }
-  return false;
-}
-
-// ---- G and I: the tile's plan walked by the whole CTA ----
+// ---- G, I and H: the candidates walked by the whole CTA ----
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -195,8 +159,8 @@ __device__ void stage_block_async(const float* __restrict__ tri,
 }
 
 // The first candidate position at or after p (-1: none); bit p of the
-// mask is plan position p = k * kSuper + j (block j of the k-th superblock
-// of the tile's plan).
+// mask is position p: G and I plan position p = k * kSuper + j (block j
+// of the k-th superblock of the tile's plan), H block p.
 __device__ __forceinline__ int next_candidate(const unsigned* mask, int words,
                                               int p) {
   for (int w = p >> 5; w < words; ++w) {
@@ -278,6 +242,23 @@ __device__ __forceinline__ bool pair_any(const float* blk, int bs,
   return false;
 }
 
+// Mark position p a candidate (bit p of mask) if block box `box` passes
+// the slab test of an active lane of the warp on [tmin, t1].
+__device__ __forceinline__ void mark(unsigned* mask, int p, const float* box,
+                                     const TileRay& r, bool active,
+                                     float t1) {
+  const bool pass = active && slab(box, r.o, r.inv, r.tmin, t1);
+  if (__ballot_sync(kFull, pass) && (threadIdx.x & 31) == 0)
+    atomicOr(&mask[p >> 5], 1u << (p & 31));
+}
+
+// The block at candidate position p: G and I, block p % kSuper of the
+// plan's superblock ord[p / kSuper]; H (GATE), block p.
+template <bool GATE>
+__device__ __forceinline__ int block_at(const int* __restrict__ ord, int p) {
+  return GATE ? p : ord[p / kSuper] * kSuper + p % kSuper;
+}
+
 // The walk's shared state besides the staged blocks: the pair list of
 // the current block (the owners' threads), each pair's window and
 // result, and the per-warp counts of the listing.
@@ -292,24 +273,42 @@ struct PairList {
 
 }  // namespace
 
+// Where a walk's candidates come from.  G and I: the tile's plan row
+// (order, entry (n_tiles, num_supers): superblocks front to back and
+// their entries; n_sup: the row's length).  H: the blocks of the slabs
+// that gate (n_tiles / chunk_tiles, num_slabs) lets through for the
+// tile's chunk, slab_blocks blocks a slab, in block order; unions
+// (num_slabs, 8): each slab's union box.
+struct Cands {
+  const int* order;
+  const float* entry;
+  const int* n_sup;
+  int num_supers;
+  const int* gate;
+  const float* unions;
+  int num_slabs, slab_blocks, chunk_tiles;
+};
+
 // G (closest hit, OCC = false) and I (any hit, OCC = true) by the tile's
-// front-to-back superblock plan; see the design note.  CTA c walks rays
-// part, part + kSplit, ... of tile tiles[c / kSplit] (part = c % kSplit);
-// n_sup[tile] is the length of the tile's plan row.
-template <bool OCC>
-__global__ void __launch_bounds__(kThreads)
+// front-to-back superblock plan, H (GATE) by its chunk's gated slabs; see
+// the design note.  CTA c walks rays part, part + kSplit, ... of tile
+// tiles[c / kSplit] (part = c % kSplit).  At least a tile's CTAs an SM:
+// with no minimum ptxas held G and I to 64 registers and spilled 22-32 B,
+// and I ran 7% slower (2.99-3.00 against 2.76-2.78 ms, in turns, H100
+// 80GB HBM3, 700 W); with it they take 79-80.
+template <bool OCC, bool GATE>
+__global__ void __launch_bounds__(kThreads, kSplit)
 streamed_kernel(const float* __restrict__ rays, const float* __restrict__ aabb,
-                const int* __restrict__ order,
-                const float* __restrict__ entry,
-                const int* __restrict__ n_sup, const int* __restrict__ tiles,
+                Cands cd, const int* __restrict__ tiles,
                 const float* __restrict__ tri, const int* __restrict__ ids,
-                int n_rays, int num_blocks, int num_supers, int bs,
-                float det_eps, float* t_out, float* u_out, float* v_out,
-                int* idx_out, unsigned char* blocked_out) {
+                int n_rays, int num_blocks, int bs, float det_eps,
+                float* t_out, float* u_out, float* v_out, int* idx_out,
+                unsigned char* blocked_out) {
   extern __shared__ float smem[];  // kBuffers staged blocks, the mask
   unsigned* mask = reinterpret_cast<unsigned*>(smem + kBuffers * 10 * bs);
   __shared__ PairList pl;
-  const int words = (num_supers * kSuper + 31) / 32;
+  const int n_pos = GATE ? num_blocks : cd.num_supers * kSuper;
+  const int words = (n_pos + 31) / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tile = tiles[blockIdx.x / kSplit];
   const size_t ray0 = (size_t)tile * kTile + blockIdx.x % kSplit;
@@ -318,45 +317,57 @@ streamed_kernel(const float* __restrict__ rays, const float* __restrict__ aabb,
   // lanes that cannot hit count as done in the exit tests: a zero
   // direction, and the padding past the real rays
   const bool active = r.moving && gid < (size_t)n_rays;
-  const int* ord = order + (size_t)tile * num_supers;
-  const float* ent = entry + (size_t)tile * num_supers;
+  const int* __restrict__ ord =
+      cd.order + (GATE ? 0 : (size_t)tile * cd.num_supers);
+  const float* __restrict__ ent =
+      cd.entry + (GATE ? 0 : (size_t)tile * cd.num_supers);
   Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
   bool blocked = false;
 
-  // 1. the candidates: every block of the plan whose slab test passes for
-  // some active lane on its window at the start (G: [tmin, F32_MAX])
+  // 1. the candidates: every block whose slab test passes for some active
+  // lane on its window at the start (G, H closest: [tmin, F32_MAX])
+  const float start = OCC ? r.tmax : kF32Max;
   for (int w = threadIdx.x; w < words; w += kThreads) mask[w] = 0u;
   __syncthreads();
-  const int plan = n_sup[tile];
-  for (int k = 0; k < plan; ++k) {
-    const int sb = ord[k];
-    for (int j = 0; j < kSuper; ++j) {
-      const int b = sb * kSuper + j;
-      if (b >= num_blocks) break;
-      const bool pass = active && slab(aabb + 8 * b, r.o, r.inv, r.tmin,
-                                       OCC ? r.tmax : h.t);
-      if (__ballot_sync(kFull, pass) && lane == 0)
-        atomicOr(&mask[(k * kSuper + j) >> 5], 1u << ((k * kSuper + j) & 31));
+  if constexpr (GATE) {
+    // a box inside a slab's union box passes no lane's slab test that the
+    // union box fails, so a warp skips the slabs no lane of it may enter
+    const int* __restrict__ row =
+        cd.gate + (size_t)(tile / cd.chunk_tiles) * cd.num_slabs;
+    for (int j = 0; j < cd.num_slabs; ++j) {
+      if (!row[j] || !__any_sync(kFull, active && slab(cd.unions + 8 * j, r.o,
+                                                       r.inv, r.tmin, start)))
+        continue;
+      const int end = min((j + 1) * cd.slab_blocks, num_blocks);
+      for (int b = j * cd.slab_blocks; b < end; ++b)
+        mark(mask, b, aabb + 8 * b, r, active, start);
+    }
+  } else {
+    const int plan = cd.n_sup[tile];
+    for (int k = 0; k < plan; ++k) {
+      const int sb = ord[k];
+      for (int j = 0; j < kSuper; ++j) {
+        const int b = sb * kSuper + j;
+        if (b >= num_blocks) break;
+        mark(mask, k * kSuper + j, aabb + 8 * b, r, active, start);
+      }
     }
   }
   __syncthreads();
 
-  // 2. the candidates in plan order, the next one staged while the
-  // current one is tested
+  // 2. the candidates in order, the next one staged while the current
+  // one is tested
   int p = next_candidate(mask, words, 0);
-  if (p >= 0)
-    stage_block_async(tri, ids, ord[p / kSuper] * kSuper + p % kSuper, bs,
-                      smem);
+  if (p >= 0) stage_block_async(tri, ids, block_at<GATE>(ord, p), bs, smem);
   for (int i = 0; p >= 0; ++i) {
-    const int k = p / kSuper;
-    const int b = ord[k] * kSuper + p % kSuper;
+    const int b = block_at<GATE>(ord, p);
     const int pn = next_candidate(mask, words, p + 1);
     if (pn >= 0)
-      stage_block_async(tri, ids, ord[pn / kSuper] * kSuper + pn % kSuper, bs,
+      stage_block_async(tri, ids, block_at<GATE>(ord, pn), bs,
                         smem + ((i + 1) % kBuffers) * 10 * bs);
     // the lanes whose slab test passes on their window now, and the exit
     // test: G stops once the entry exceeds every active lane's best t, I
-    // once every active lane is blocked
+    // and H once every active lane is blocked
     const bool pass = active && (OCC ? !blocked && slab(aabb + 8 * b, r.o,
                                                         r.inv, r.tmin, r.tmax)
                                      : slab(aabb + 8 * b, r.o, r.inv, r.tmin,
@@ -385,7 +396,8 @@ streamed_kernel(const float* __restrict__ rays, const float* __restrict__ aabb,
       total += n;
       m = OCC ? m + pl.red[w] : fmaxf(m, pl.red[w]);
     }
-    if (OCC ? m == 0.0f : !(ent[k] <= m)) break;  // the same on every thread
+    // the same on every thread
+    if (OCC ? m == 0.0f : !GATE && !(ent[p / kSuper] <= m)) break;
     const int q = off + __popc(ball & ((1u << lane) - 1u));
     if (pass) {
       pl.lane[q] = threadIdx.x;
@@ -440,57 +452,6 @@ streamed_kernel(const float* __restrict__ rays, const float* __restrict__ aabb,
   }
 }
 
-// H: each tile sweeps its chunk's gated slabs in order, blocks in order.
-template <bool OCC>
-__global__ void __launch_bounds__(kTile)
-blockmajor_kernel(const float* __restrict__ rays,
-                  const float* __restrict__ aabb,
-                  const int* __restrict__ gate, const float* __restrict__ tri,
-                  const int* __restrict__ ids, int num_blocks, int num_slabs,
-                  int slab_blocks, int chunk_tiles, int bs, float det_eps,
-                  float* t_out, float* u_out, float* v_out, int* idx_out,
-                  unsigned char* blocked_out) {
-  extern __shared__ float smem[];
-  float* s_tri = smem;
-  int* s_ids = reinterpret_cast<int*>(smem + 9 * bs);
-  const int tile = blockIdx.x;
-  const size_t gid = (size_t)tile * kTile + threadIdx.x;
-  const TileRay r = load_ray(rays, gid);
-  const int* gate_row = gate + (size_t)(tile / chunk_tiles) * num_slabs;
-  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
-  bool blocked = false;
-  for (int j = 0; j < num_slabs; ++j) {
-    if (!gate_row[j]) continue;
-    for (int bb = 0; bb < slab_blocks; ++bb) {
-      const int b = j * slab_blocks + bb;
-      if (b >= num_blocks) break;  // padding blocks hold no triangle
-      // occlusion: a blocked ray's window is closed
-      const bool pass =
-          r.moving &&
-          (OCC ? !blocked && slab(aabb + 8 * b, r.o, r.inv, r.tmin, r.tmax)
-               : slab(aabb + 8 * b, r.o, r.inv, r.tmin, h.t));
-      if (!__syncthreads_or(pass)) continue;
-      stage_block(tri, ids, b, bs, s_tri, s_ids);
-      __syncthreads();
-      if (pass) {
-        if (OCC)
-          blocked = any_hit_block(r, s_tri, s_ids, bs, det_eps);
-        else
-          closest_block(h, r, s_tri, s_ids, b, bs, det_eps);
-      }
-      __syncthreads();
-    }
-  }
-  if (OCC) {
-    blocked_out[gid] = blocked;
-  } else {
-    t_out[gid] = h.t;
-    u_out[gid] = h.u;
-    v_out[gid] = h.v;
-    idx_out[gid] = h.id;
-  }
-}
-
 // ---- C interface (loaded with ctypes) ----
 
 namespace {
@@ -514,6 +475,31 @@ int prepare(K kernel, size_t bytes, size_t* smem) {
   return 0;
 }
 
+// Launch G, I or H (the template's OCC, GATE) on n_tiles tiles.
+template <bool GATE>
+int launch_walk(const float* rays, const float* aabb, const Cands& cd,
+                const int* tiles, const float* tri, const int* ids,
+                int n_tiles, int n_rays, int num_blocks, int bs,
+                float det_eps, int occluded, float* t_out, float* u_out,
+                float* v_out, int* idx_out, unsigned char* blocked_out,
+                cudaStream_t stream) {
+  if (bs <= 0) return (int)cudaErrorInvalidValue;
+  auto kernel = occluded ? &streamed_kernel<true, GATE>
+                         : &streamed_kernel<false, GATE>;
+  const int n_pos = GATE ? num_blocks : cd.num_supers * kSuper;
+  const int words = (n_pos + 31) / 32;
+  size_t smem;
+  int e = prepare(kernel,
+                  (size_t)kBuffers * 10 * bs * sizeof(float) +
+                      (size_t)words * sizeof(unsigned),
+                  &smem);
+  if (e || n_tiles == 0) return e;
+  kernel<<<n_tiles * kSplit, kThreads, smem, stream>>>(
+      rays, aabb, cd, tiles, tri, ids, n_rays, num_blocks, bs, det_eps, t_out,
+      u_out, v_out, idx_out, blocked_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -529,39 +515,33 @@ int rt_streamed(const float* rays, const float* aabb, const int* order,
                 int num_blocks, int num_supers, int bs, float det_eps,
                 int occluded, float* t_out, float* u_out, float* v_out,
                 int* idx_out, unsigned char* blocked_out, void* stream) {
-  if (bs <= 0 || num_supers < 0) return (int)cudaErrorInvalidValue;
-  auto kernel = occluded ? &streamed_kernel<true> : &streamed_kernel<false>;
-  const int words = (num_supers * kSuper + 31) / 32;
-  size_t smem;
-  int e = prepare(kernel,
-                  (size_t)kBuffers * 10 * bs * sizeof(float) +
-                      (size_t)words * sizeof(unsigned),
-                  &smem);
-  if (e || n_tiles == 0) return e;
-  kernel<<<n_tiles * kSplit, kThreads, smem, (cudaStream_t)stream>>>(
-      rays, aabb, order, entry, n_sup, tiles, tri, ids, n_rays, num_blocks,
-      num_supers, bs, det_eps, t_out, u_out, v_out, idx_out, blocked_out);
-  return (int)cudaGetLastError();
+  if (num_supers < 0) return (int)cudaErrorInvalidValue;
+  const Cands cd{order, entry, n_sup, num_supers, nullptr, nullptr, 0, 0, 1};
+  return launch_walk<false>(rays, aabb, cd, tiles, tri, ids, n_tiles, n_rays,
+                            num_blocks, bs, det_eps, occluded, t_out, u_out,
+                            v_out, idx_out, blocked_out,
+                            (cudaStream_t)stream);
 }
 
-// gate (n_tiles / chunk_tiles, num_slabs) int32; occluded: write
+// H: rays, aabb, tiles, tri and ids as for rt_streamed; gate (n_tiles /
+// chunk_tiles, num_slabs) int32, slab j holding blocks j * slab_blocks
+// ..., unions (num_slabs, 8) their union boxes; occluded: write
 // blocked_out, else t, u, v, idx.
 int rt_blockmajor(const float* rays, const float* aabb, const int* gate,
-                  const float* tri, const int* ids, int n_tiles,
-                  int num_blocks, int num_slabs, int slab_blocks,
-                  int chunk_tiles, int bs, float det_eps, int occluded,
-                  float* t_out, float* u_out, float* v_out, int* idx_out,
-                  unsigned char* blocked_out, void* stream) {
-  if (chunk_tiles <= 0 || slab_blocks <= 0 || n_tiles % chunk_tiles)
+                  const float* unions, const int* tiles, const float* tri,
+                  const int* ids,
+                  int n_tiles, int n_rays, int num_blocks, int num_slabs,
+                  int slab_blocks, int chunk_tiles, int bs, float det_eps,
+                  int occluded, float* t_out, float* u_out, float* v_out,
+                  int* idx_out, unsigned char* blocked_out, void* stream) {
+  if (chunk_tiles <= 0 || slab_blocks <= 0 || n_tiles % chunk_tiles ||
+      num_slabs * slab_blocks < num_blocks)
     return (int)cudaErrorInvalidValue;
-  auto kernel = occluded ? &blockmajor_kernel<true> : &blockmajor_kernel<false>;
-  size_t smem;
-  int e = prepare(kernel, (size_t)10 * bs * sizeof(float), &smem);
-  if (e || n_tiles == 0) return e;
-  kernel<<<n_tiles, kTile, smem, (cudaStream_t)stream>>>(
-      rays, aabb, gate, tri, ids, num_blocks, num_slabs, slab_blocks,
-      chunk_tiles, bs, det_eps, t_out, u_out, v_out, idx_out, blocked_out);
-  return (int)cudaGetLastError();
+  const Cands cd{nullptr, nullptr, nullptr, 0, gate, unions, num_slabs,
+                 slab_blocks, chunk_tiles};
+  return launch_walk<true>(rays, aabb, cd, tiles, tri, ids, n_tiles, n_rays,
+                           num_blocks, bs, det_eps, occluded, t_out, u_out,
+                           v_out, idx_out, blocked_out, (cudaStream_t)stream);
 }
 
 const char* rt_error_string(int err) {

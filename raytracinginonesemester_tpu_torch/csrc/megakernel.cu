@@ -44,8 +44,12 @@
 //   binned oracle depth 0 keeps a lane's own binned walk, 32 rays a warp.
 // - occluded (F), two launches: the rays that pass a slab test are
 //   listed, and the list is walked as emit's is.
-// - resume (C), render (D), closest (E): one thread per ray (closest,
-//   occluded, closest_binned).
+// - render (D): kRenderSplit threads a pixel over its samples; depth 0
+//   with a binned plan reads the tile's chunks staged by the CTA, split
+//   over the path's threads (closest_binned_cta), the flat walks and the
+//   shadow rays are warp-cooperative, 8 paths a warp (bounce<..,
+//   kRender>).
+// - resume (C), closest (E): one thread per ray (closest, occluded).
 //
 // What bounds it on this card: divergent scalar FP32 work (Moller-Trumbore
 // per ray-triangle pair, shadow walks, rejection sampling) and the latency
@@ -82,6 +86,11 @@ constexpr int kRaysPerWarp = 8;
 constexpr int kListRays = 4;
 // threads of emit_kernel a ray has: they split its closest walk
 constexpr int kEmitSplit = 4;
+// threads of render_kernel a path has: they split its binned depth 0, and
+// the path's first thread walks it after that, 8 paths a warp (measured:
+// 32 and 16 paths a warp 1.3-2.1x slower on the frog, 8 within 5% of 16
+// on cpuonly_mirror)
+constexpr int kRenderSplit = 4;
 
 }  // namespace
 
@@ -118,12 +127,13 @@ struct Shared {
   float* chunks;        // emit, binned: two (kStageRows, C) chunk buffers
 };
 
-// How bounce() walks: one thread per ray (kSolo: resume, render), the
-// lanes of a warp together (kWarp: bounce_step), or emit's three
-// launches: the CTA finds its closest hits together and lists its shadow
-// rays (kList), a listed walk's ray is made again to be walked (kCapture),
-// and the flags of the walks are read back to shade (kFlags).
-enum Walk { kSolo, kWarp, kList, kCapture, kFlags };
+// How bounce() walks: one thread per ray (kSolo: resume), the lanes of a
+// warp together (kWarp: bounce_step), or emit's three launches: the CTA
+// finds its closest hits together and lists its shadow rays (kList), a
+// listed walk's ray is made again to be walked (kCapture), and the flags
+// of the walks are read back to shade (kFlags); the render (kRender) walks
+// as kWarp does, but a binned depth 0 reads the chunks the CTA stages.
+enum Walk { kSolo, kWarp, kList, kCapture, kFlags, kRender };
 
 struct Ray {
   float bo[3], bd[3], tp[3], rd[3];
@@ -258,19 +268,21 @@ __device__ void stage_chunk(const SceneArgs& s, int c, float* dst) {
 }
 
 // closest_binned() for the threads of a CTA together (every thread calls
-// it), kEmitSplit threads a ray: thread `sub` of a ray tests the groups of
-// four candidates g with g % kEmitSplit == sub (and the singles that end
-// a chunk of a width that is not a multiple of 4, in the same turn), and
-// the threads of the ray end with the first (t, id) minimum in walk order,
-// the sequential walk's winner (the take rule keeps a later equal (t, id)
+// it), SPLIT neighbouring threads a ray (emit: kEmitSplit; the render:
+// kRenderSplit): thread `sub` of a ray tests the groups of four
+// candidates g with g % SPLIT == sub (and the singles that end a chunk of
+// a width that is not a multiple of 4, in the same turn), and the threads
+// of the ray end with the first (t, id) minimum in walk order, the
+// sequential walk's winner (the take rule keeps a later equal (t, id)
 // out).
+template <int SPLIT>
 __device__ Hit closest_binned_cta(const SceneArgs& s, const Shared& sh,
                                   int tile, const float* o, const float* d) {
   const int c_w = s.cand_chunk;
   const int first = s.cand_meta[8 * tile];
   const int count = s.cand_meta[8 * tile + 1];
   const int words = kStageRows * c_w;
-  const int sub = threadIdx.x % kEmitSplit;
+  const int sub = threadIdx.x % SPLIT;
   Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
   int pos = kIntMax;  // the taken candidate's place in walk order
   if (count > 0) stage_chunk(s, first, sh.chunks);
@@ -284,7 +296,7 @@ __device__ Hit closest_binned_cta(const SceneArgs& s, const Shared& sh,
     }
     __syncthreads();  // chunk c is in
     const int quads = c_w / 4 * 4;
-    for (int j = 4 * sub; j < quads; j += 4 * kEmitSplit) {
+    for (int j = 4 * sub; j < quads; j += 4 * SPLIT) {
       const float window = h.t;
       float t[4], u[4], v[4];
 #pragma unroll
@@ -300,7 +312,7 @@ __device__ Hit closest_binned_cta(const SceneArgs& s, const Shared& sh,
         if (h.id != was.id || h.t != was.t) pos = c * c_w + j + q;
       }
     }
-    for (int j = quads + sub; j < c_w; j += kEmitSplit) {
+    for (int j = quads + sub; j < c_w; j += SPLIT) {
       const int id = (int)rows[9 * c_w + j];
       if (id < 0) continue;
       float u, v;
@@ -311,9 +323,9 @@ __device__ Hit closest_binned_cta(const SceneArgs& s, const Shared& sh,
     }
     __syncthreads();  // chunk c's buffer is free for chunk c + 2
   }
-  // the ray's threads are kEmitSplit neighbouring lanes: a xor tree
+  // the ray's threads are SPLIT neighbouring lanes: a xor tree
 #pragma unroll
-  for (int off = 1; off < kEmitSplit; off <<= 1) {
+  for (int off = 1; off < SPLIT; off <<= 1) {
     const float ot = __shfl_xor_sync(kFull, h.t, off);
     const float ou = __shfl_xor_sync(kFull, h.u, off);
     const float ov = __shfl_xor_sync(kFull, h.v, off);
@@ -327,6 +339,12 @@ __device__ Hit closest_binned_cta(const SceneArgs& s, const Shared& sh,
     }
   }
   return h;
+}
+
+// The hit of a walk every thread of the CTA made, kept by `live` lanes
+// (the render: a path's other threads go on with a miss).
+__device__ __forceinline__ Hit cta_hit(const Hit& h, bool live) {
+  return live ? h : Hit{kF32Max, 0.0f, 0.0f, -1, 0};
 }
 
 // Shading normal of the winner.  gpu: geometric sidedness, zero-length
@@ -709,16 +727,16 @@ __device__ __forceinline__ Hit load_hit(const Shadows& q, int gid) {
 }
 
 // occluded() of a facing ray, as W makes it (W != kSolo: every lane or
-// thread calls it): kWarp, the warp walks it; kList, a ray one of whose
-// slab tests passes is listed, its flag cleared, and the walk reads as
-// unblocked; kCapture keeps the wanted walk's ray; kFlags reads the
-// walk's flag.
+// thread calls it): kWarp and kRender, the warp walks it; kList, a ray
+// one of whose slab tests passes is listed, its flag cleared, and the
+// walk reads as unblocked; kCapture keeps the wanted walk's ray; kFlags
+// reads the walk's flag.
 template <Walk W>
 __device__ bool walk_occluded(const SceneArgs& s, const Shared& sh,
                               const float* p, const float* ld, float tmin,
                               float dist, float tmax, bool facing,
                               ShadowCtx* c) {
-  if constexpr (W == kWarp) {
+  if constexpr (W == kWarp || W == kRender) {
     return occluded_coop(s, sh, p, ld, tmin, dist, tmax, facing);
   } else {
     const int entry = c->gid * c->q.rounds + c->round;
@@ -822,7 +840,10 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
 // ray's threads end with its hit, and its owner keeps the hit and lists
 // the shadow rays; the bounce ends after the lights.  kCapture: the hit
 // read back, the bounce ends after the lights with the wanted walk's ray
-// in c->ray.  kFlags: the hit read back, the walks' flags read.
+// in c->ray.  kFlags: the hit read back, the walks' flags read.  kRender:
+// as kWarp, but with a binned plan every thread of the CTA calls it and
+// reads the chunks the CTA stages, kRenderSplit threads a ray, of which
+// `live` marks the one that goes on with the hit.
 template <bool CPU, bool DIFF = false, Walk W = kSolo>
 __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
                        Ray& r, int tile, Capture* cap = nullptr,
@@ -835,7 +856,9 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
     h = load_hit(c->q, c->gid);
   } else if (tile >= 0) {
     if constexpr (W == kList)
-      h = closest_binned_cta(s, sh, tile, o, d);
+      h = closest_binned_cta<kEmitSplit>(s, sh, tile, o, d);
+    else if constexpr (W == kRender)
+      h = cta_hit(closest_binned_cta<kRenderSplit>(s, sh, tile, o, d), live);
     else if (live)
       h = closest_binned(s, tile, o, d);
   } else {
@@ -1204,39 +1227,72 @@ resume_kernel(SceneArgs s, const float* st_in, const int* rng_in, int n_rays,
   b_out[gid] = r.rd[2];
 }
 
-// The monolithic render (_render_kernel): one thread owns one pixel over
-// all spp samples and writes the r, g, b sums.  gpu sky tiles add
-// clip(miss) per sample; other rays run depth 0 (binned or flat) and,
-// unless terminal, bounces 1..max-1, and add clip(rd) (gpu) or rd
-// (cpuonly, no per-sample clamp).
+// The monolithic render (_render_kernel): kRenderSplit neighbouring
+// threads own a pixel over all spp samples, and its first thread writes
+// the r, g, b sums; rt is a multiple of a CTA's pixels (rt_render
+// checks), so a CTA lies in one tile.  gpu sky tiles add clip(miss) per
+// sample.  Every other pixel runs depth 0 (binned or flat) and, unless
+// terminal, bounces 1..max-1, and adds clip(rd) (gpu) or rd (cpuonly, no
+// per-sample clamp), the samples in ascending order.
+//
+// Measured first (scripts/profile_torch_main_path.py --render, H100 80GB
+// HBM3, 700 W, the 1080p frog at depth 8, binned): as first ported, one
+// thread a pixel walking alone, the closest-hit walks took 0.76 of a
+// warp's cycles and the light loops 0.24 (0.67 in the terminal frog), the
+// rest of the bounces 0.00; the 872 CTAs with work ended at 4.95 ms on
+// average and the last at 41.5 (8.4x; the terminal frog 3.9x, cpuonly
+// 9.1x): the warps holding the paths that bounce longest, walking a
+// block's 512 triangles one a step, set the time.  A warp's loop ran
+// 2.52 depths against its lanes' 1.69, but the lanes of dead paths cost
+// only the walks they waited through.  The paths now walk as
+// bounce_step's rays do (bounce<.., kRender>): a (ray, block) pair's
+// triangles on the warp's 32 lanes (closest_coop, occluded_coop,
+// soft_visibility<kRender>), 8 paths a warp, so that the few CTAs whose
+// paths bounce longest hold a quarter of the pairs they held with 32;
+// a binned depth 0 reads the tile's chunks staged by the CTA, split over
+// the path's four threads (closest_binned_cta<kRenderSplit>, A's walk).
+// The depth loop runs while a path of the warp is alive; a lane without
+// a live path (a path's other threads, or one that has died) passes live
+// = false, still tests the others' pairs, and keeps its state.  The
+// branches around the collectives are uniform: has_work over the CTA,
+// the sample loop and the depth loop over the warp.
 template <bool CPU>
 __global__ void __launch_bounds__(kThreads)
 render_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
               int n_rays, int rt, int spp, int sample_offset, int center,
               int terminal, int max_depth, float* r_out, float* g_out,
               float* b_out) {
-  const Shared sh = stage_shared(s);
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rays) return;
+  const int thread = blockIdx.x * kThreads + threadIdx.x;
+  const int gid = thread / kRenderSplit;
+  const bool owner = thread % kRenderSplit == 0;
   const int tile = gid / rt;
   const float* cam = s.cam;
   float acc[3] = {0.0f, 0.0f, 0.0f};
-  if (!CPU && !has_work[tile]) {
+  if (!CPU && !has_work[tile]) {  // CTA-uniform
     for (int k = 0; k < spp; ++k)
       for (int c = 0; c < 3; ++c) acc[c] = acc[c] + clip01(cam[12 + c]);
   } else {
+    const Shared sh = stage_shared(s, s.cand_chunk != 0);
     for (int k = 0; k < spp; ++k) {
       Ray r;
       primary(cam, xs[gid], ys[gid], (uint32_t)(sample_offset + k),
               center != 0, r);
-      bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);
-      if (!terminal)
-        for (int depth = 1; depth < max_depth && r.alive > 0.0f; ++depth)
-          bounce<CPU>(s, sh, cam, r, -1);
+      bounce<CPU, false, kRender>(s, sh, cam, r, s.cand_chunk ? tile : -1,
+                                  nullptr, owner);
+      bool live = owner && r.alive > 0.0f;
+      for (int depth = 1;
+           !terminal && depth < max_depth && __any_sync(kFull, live);
+           ++depth) {
+        Ray w = r;
+        bounce<CPU, false, kRender>(s, sh, cam, w, -1, nullptr, live);
+        if (live) r = w;
+        live = r.alive > 0.0f;
+      }
       for (int c = 0; c < 3; ++c)
         acc[c] = acc[c] + (CPU ? r.rd[c] : clip01(r.rd[c]));
     }
   }
+  if (!owner) return;
   r_out[gid] = acc[0];
   g_out[gid] = acc[1];
   b_out[gid] = acc[2];
@@ -1342,7 +1398,8 @@ size_t shared_bytes(const SceneArgs& s) {
           16 * (size_t)s.n_objects);
 }
 
-// emit: the staged rows, then (binned) two chunk buffers, 16-byte aligned
+// emit and the render: the staged rows, then (binned) two chunk buffers,
+// 16-byte aligned
 size_t emit_shared_bytes(const SceneArgs& s) {
   if (!s.cand_chunk) return shared_bytes(s);
   return (shared_bytes(s) + 15) / 16 * 16 +
@@ -1464,13 +1521,17 @@ int rt_render(const SceneArgs* s, const int* xs, const int* ys,
               const int* has_work, int n_rays, int rt, int spp,
               int sample_offset, int center, int terminal, int max_depth,
               float* r_out, float* g_out, float* b_out, void* stream) {
+  // a CTA must lie in one tile (render_kernel)
+  if (rt % (kThreads / kRenderSplit) || n_rays % rt)
+    return (int)cudaErrorInvalidValue;
   auto kernel = s->cpuonly ? &render_kernel<true> : &render_kernel<false>;
-  int e = prepare(kernel, *s, shared_bytes(*s));
-  if (e) return e;
-  kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
-           (cudaStream_t)stream>>>(*s, xs, ys, has_work, n_rays, rt, spp,
-                                   sample_offset, center, terminal,
-                                   max_depth, r_out, g_out, b_out);
+  const size_t smem = emit_shared_bytes(*s);  // and the chunk buffers
+  int e = prepare(kernel, *s, smem);
+  if (e || n_rays == 0) return e;
+  kernel<<<n_rays / (kThreads / kRenderSplit), kThreads, smem,
+           (cudaStream_t)stream>>>(
+      *s, xs, ys, has_work, n_rays, rt, spp, sample_offset, center, terminal,
+      max_depth, r_out, g_out, b_out);
   return (int)cudaGetLastError();
 }
 

@@ -156,7 +156,7 @@ def _declare(name: str, lib) -> None:
     elif name == "block_stream":
         f = ctypes.c_float
         lib.rt_streamed.argtypes = [vp] * 8 + [i] * 5 + [f, i] + [vp] * 6
-        lib.rt_blockmajor.argtypes = ([vp] * 5 + [i] * 6 + [f, i]
+        lib.rt_blockmajor.argtypes = ([vp] * 7 + [i] * 7 + [f, i]
                                       + [vp] * 6)
         fns = (lib.rt_streamed, lib.rt_blockmajor)
     elif name == "segment_accum":

@@ -31,11 +31,12 @@ triangle id) take rule, so winners do not depend on visit order and equal
 the JAX kernels' superblock walk.  G and I walk the plan's order with the
 same per-ray slab test and take rule, a CTA's warps testing the (ray,
 block) pairs of each staged block together (``csrc/block_stream.cu``);
-H keeps its JAX sweep (the gate); so the five give the same winners and
-flags.  The plain versions of G and I walk the JAX kernels' schedule and
-count its tests and staged blocks, and, in ``stats``, the CUDA walk's
-tests and the blocks it tests (``walk_pairs``, ``walk_tested_blocks``;
-a CTA that stops has also copied up to two blocks it does not test).
+H walks the same way the blocks of the slabs its JAX gate lets through;
+so the five give the same winners and flags.  The plain versions of G,
+I and H walk the JAX kernels' schedule and count its tests and staged
+blocks, and, in ``stats``, the CUDA walk's tests and the blocks it tests
+(``walk_pairs``, ``walk_tested_blocks``; a CTA that stops has also
+copied up to two blocks it does not test).
 ``shared_origin`` is accepted for the JAX signature and ignored: a
 per-ray walk has no pair-invariant terms to hoist.
 """
@@ -288,9 +289,9 @@ def block_occluded(origins, dirs, grid: BlockGrid, tmin=1e-4, tmax=F32_MAX,
 
 BM_CHUNK_TILES = 64   # ray tiles per block-major ray chunk (32k rays)
 BM_SLAB_BLOCKS = 64   # blocks per block-major scene slab
-# G's and I's CUDA walk (csrc/block_stream.cu kSplit, kPairLanes, kVote,
-# kBuffers): the CTAs that share a tile (CTA p of a tile takes its rays
-# p, p + STREAM_SPLIT, ...), the lanes that test one (ray, block) pair,
+# G's, I's and H's CUDA walk (csrc/block_stream.cu kSplit, kPairLanes,
+# kVote, kBuffers): the CTAs that share a tile (CTA p of a tile takes its
+# rays p, p + STREAM_SPLIT, ...), the lanes that test one (ray, block) pair,
 # the triangles an occlusion pair tests between votes, the blocks staged
 # in flight
 STREAM_SPLIT = 2
@@ -353,25 +354,24 @@ def _stream_grid_operands(grid: BlockGrid):
     return ops
 
 
-def _blockmajor_operands(grid: BlockGrid, slab_blocks: int):
-    """Operands of H (``pallas_kernels.py:1155-1182``): (tri (Lp*9, B),
-    ids (Lp, B), aabb rows (Lp8, 8), union rows (J8, 8), J); padding blocks
-    get empty AABBs (min inf, max -inf)."""
+def _slab_aabbs(grid: BlockGrid, slab_blocks: int):
+    """H's slabs (``pallas_kernels.py:1155-1182``): the block AABBs (6,
+    Lp) with the block axis padded to whole slabs (padding blocks empty:
+    min inf, max -inf) and the slabs' union rows (J8, 8) -> (aabb, union
+    rows, J).  H reads G's packed planes (``_stream_grid_operands``)."""
     l = grid.num_blocks
     j = -(-l // slab_blocks)
     lp = j * slab_blocks
-    tri, ids = _block_rows(grid, lp)
     aabb = grid.aabb
     if lp > l:
         dev = aabb.device
         aabb = torch.cat([aabb, torch.cat([
             torch.full((3, lp - l), float("inf"), device=dev),
             torch.full((3, lp - l), float("-inf"), device=dev)])], dim=1)
-    aabb_rows = F.pad(aabb.T, (0, 2, 0, (-lp) % 8))
     umin = aabb[:3].reshape(3, j, slab_blocks).amin(dim=2)
     umax = aabb[3:].reshape(3, j, slab_blocks).amax(dim=2)
     union_rows = F.pad(torch.cat([umin, umax]).T, (0, 2, 0, (-j) % 8))
-    return tri, ids, aabb_rows.contiguous(), union_rows.contiguous(), j
+    return aabb, union_rows.contiguous(), j
 
 
 def _chunk_slab_gate(rays, chunk_rays: int, union_rows, num_slabs: int):
@@ -568,14 +568,23 @@ def _plan_walk_plain(rays, grid: BlockGrid, rows: SceneRows, det_eps: float,
 
 def _blockmajor_plain(rays, grid: BlockGrid, rows: SceneRows, det_eps: float,
                       closest: bool, chunk_tiles: int, slab_blocks: int,
-                      stats) -> _TileWalk:
+                      stats, n_rays: int, log=None) -> _TileWalk:
     """H's sweep: the rays padded to whole chunks, the (I, J) gate, then
     for each slab j the tiles of the chunks the gate lets through, blocks
-    of the slab in order."""
+    of the slab in order.  With ``stats``, the CUDA walk's tests and
+    tested blocks too: its candidates are the same blocks, each tile's in
+    block order, and each CTA of a tile stops once every active lane of
+    its own is blocked (occlusion; closest hit has no exit).  ``log``:
+    ``_TileWalk.log``."""
     rays, rp = _pad_rays(rays, chunk_tiles * RAY_TILE)
-    _, _, _, union_rows, nj = _blockmajor_operands(grid, slab_blocks)
+    _, union_rows, nj = _slab_aabbs(grid, slab_blocks)
     gate = _chunk_slab_gate(rays, chunk_tiles * RAY_TILE, union_rows, nj)
-    walk = _TileWalk(rows, rays, det_eps, closest)
+    walk = _TileWalk(rows, rays, det_eps, closest, n_rays)
+    walk.log = log
+    nt = rp // RAY_TILE
+    kernel = torch.ones(nt, STREAM_SPLIT, dtype=torch.bool,
+                        device=rays.device)
+    active = walk.active.reshape(nt, RAY_TILE // STREAM_SPLIT, STREAM_SPLIT)
     in_chunk = torch.arange(chunk_tiles, device=rays.device)
     for j in range(nj):
         chunks = gate[:, j].nonzero().squeeze(1)
@@ -586,8 +595,12 @@ def _blockmajor_plain(rays, grid: BlockGrid, rows: SceneRows, det_eps: float,
             gb = j * slab_blocks + bb
             if gb >= rows.num_blocks:
                 break  # padding blocks hold no triangle
-            walk.visit(tiles, torch.full_like(tiles, gb))
-    walk.tally(stats)
+            if stats is not None and not closest:
+                kernel[tiles] &= (active[tiles] & ~walk.blocked.reshape(
+                    active.shape)[tiles]).any(dim=1)
+            walk.visit(tiles, torch.full_like(tiles, gb),
+                       None if stats is None else kernel[tiles])
+    walk.tally(stats, kernel=True)
     return walk
 
 
@@ -625,9 +638,10 @@ def block_closest_blockmajor_plain(origins, dirs, grid: BlockGrid, tmin=1e-4,
     """Plain version of ``block_closest_blockmajor`` (H, closest)."""
     rows = grid_rows(grid) if rows is None else rows
     rays, _ = _prep_rays(origins, dirs, tmin, F32_MAX)
+    r = int(origins.shape[0])
     walk = _blockmajor_plain(rays, grid, rows, det_eps, True, chunk_tiles,
-                             slab_blocks, stats)
-    return walk.hits(int(origins.shape[0]))
+                             slab_blocks, stats, r)
+    return walk.hits(r)
 
 
 def block_occluded_blockmajor_plain(origins, dirs, grid: BlockGrid, tmin=1e-4,
@@ -639,9 +653,10 @@ def block_occluded_blockmajor_plain(origins, dirs, grid: BlockGrid, tmin=1e-4,
     """Plain version of ``block_occluded_blockmajor`` (H, occlusion)."""
     rows = grid_rows(grid) if rows is None else rows
     rays, _ = _prep_rays(origins, dirs, tmin, tmax)
+    r = int(origins.shape[0])
     walk = _blockmajor_plain(rays, grid, rows, det_eps, False, chunk_tiles,
-                             slab_blocks, stats)
-    return walk.blocked[:int(origins.shape[0])]
+                             slab_blocks, stats, r)
+    return walk.blocked[:r]
 
 
 # --- streamed kernels: wrappers --------------------------------------------
@@ -739,31 +754,51 @@ def block_occluded_streamed(origins, dirs, grid: BlockGrid, tmin=1e-4,
     return blocked[:r]
 
 
-def _blockmajor(origins, dirs, grid: BlockGrid, tmin, tmax, det_eps: float,
-                occluded: bool, chunk_tiles: int, slab_blocks: int):
-    """Launch H -> its (RP,) outputs: (t, u, v, idx) or blocked."""
+def _blockmajor_launch(origins, dirs, grid: BlockGrid, tmin, tmax,
+                       det_eps: float, occluded: bool, chunk_tiles: int,
+                       slab_blocks: int):
+    """H's operands for (R, 3) rays on the card: the rays padded to whole
+    chunks, the (I, J) gate and the slabs' union boxes, the tiles in
+    launch order (the most gated blocks first, so that the CTAs that walk
+    the most start first) and G's packed planes -> a function that
+    launches the kernel on them and returns its padded outputs: (t, u,
+    v, idx), or the blocked flags."""
+    from ._native import load
+
     if chunk_tiles <= 0 or slab_blocks <= 0:
         raise ValueError("chunk_tiles and slab_blocks must be positive")
     dev = origins.device
     _check_grid(grid, dev)
+    r = int(origins.shape[0])
     rays, _ = _prep_rays(origins.contiguous(), dirs.contiguous(), tmin, tmax)
     rays, rp = _pad_rays(rays, chunk_tiles * RAY_TILE)
-    tri, ids, aabb, union_rows, nj = _blockmajor_operands(grid, slab_blocks)
-    gate = _chunk_slab_gate(rays, chunk_tiles * RAY_TILE, union_rows, nj)
+    _, union_rows, nj = _slab_aabbs(grid, slab_blocks)
+    gate = _chunk_slab_gate(rays, chunk_tiles * RAY_TILE, union_rows,
+                            nj).contiguous()
+    in_slab = torch.clamp(grid.num_blocks - slab_blocks * torch.arange(
+        nj, device=dev), max=slab_blocks)
+    gated = (gate * in_slab).sum(dim=1).repeat_interleave(chunk_tiles)
+    tiles = torch.sort(gated, descending=True, stable=True)[1].to(
+        torch.int32)
+    tri, ids, aabb, _ = _stream_grid_operands(grid)
     t = torch.empty(rp, dtype=torch.float32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
     idx = torch.empty(rp, dtype=torch.int32, device=dev)
     blocked = torch.empty(rp, dtype=torch.bool, device=dev)
-    from ._native import load
 
-    lib = load("block_stream")
-    err = lib.rt_blockmajor(
-        _ptr(rays), _ptr(aabb), _ptr(gate.contiguous()), _ptr(tri), _ptr(ids),
-        rp // RAY_TILE, grid.num_blocks, nj, slab_blocks, chunk_tiles,
-        grid.block_size, det_eps, int(occluded), _ptr(t), _ptr(u), _ptr(v),
-        _ptr(idx), _ptr(blocked), _stream())
-    _raise_on(lib, err, "blockmajor")
-    return blocked if occluded else (t, u, v, idx)
+    def launch():
+        lib = load("block_stream")
+        err = lib.rt_blockmajor(
+            _ptr(rays), _ptr(aabb), _ptr(gate), _ptr(union_rows),
+            _ptr(tiles), _ptr(tri), _ptr(ids), rp // RAY_TILE, r,
+            grid.num_blocks, nj, slab_blocks,
+            chunk_tiles, grid.block_size, det_eps, int(occluded), _ptr(t),
+            _ptr(u), _ptr(v), _ptr(idx), _ptr(blocked), _stream())
+        _raise_on(lib, err, "occluded_blockmajor" if occluded
+                  else "closest_blockmajor")
+        return blocked if occluded else (t, u, v, idx)
+
+    return launch
 
 
 def block_closest_blockmajor(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
@@ -784,8 +819,9 @@ def block_closest_blockmajor(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
         t = origins.new_empty(0)
         i = torch.empty(0, dtype=torch.int32, device=origins.device)
         return HitData(t=t, u=t, v=t, tri_idx=i, hit=i >= 0)
-    t, u, v, idx = _blockmajor(origins, dirs, grid, tmin, F32_MAX, det_eps,
-                               False, chunk_tiles, slab_blocks)
+    t, u, v, idx = _blockmajor_launch(origins, dirs, grid, tmin, F32_MAX,
+                                      det_eps, False, chunk_tiles,
+                                      slab_blocks)()
     block_closest_blockmajor.launches += 1
     return HitData(t=t[:r], u=u[:r], v=v[:r], tri_idx=idx[:r],
                    hit=idx[:r] >= 0)
@@ -806,8 +842,8 @@ def block_occluded_blockmajor(origins, dirs, grid: BlockGrid, tmin=1e-4,
     r = int(origins.shape[0])
     if not r:
         return torch.empty(0, dtype=torch.bool, device=origins.device)
-    blocked = _blockmajor(origins, dirs, grid, tmin, tmax, det_eps, True,
-                          chunk_tiles, slab_blocks)
+    blocked = _blockmajor_launch(origins, dirs, grid, tmin, tmax, det_eps,
+                                 True, chunk_tiles, slab_blocks)()
     block_occluded_blockmajor.launches += 1
     return blocked[:r]
 

@@ -6,7 +6,9 @@
     python scripts/profile_torch_main_path.py --large
     python scripts/profile_torch_main_path.py --kernels [--parent DIR]
     python scripts/profile_torch_main_path.py --streamed [--parent DIR]
-    python scripts/profile_torch_main_path.py --times [--streamed] [--root DIR]
+    python scripts/profile_torch_main_path.py --render [--parent DIR]
+    python scripts/profile_torch_main_path.py --times [--streamed | --render]
+        [--root DIR]
 
 Renders the frog scene (depth 8, diffuse) with
 ``render_scene_frames`` once to warm up, then once under
@@ -98,7 +100,30 @@ turns, outputs compared by digest.  ``--parent DIR`` (with
 ``--streamed``) times G's and I's
 wrappers and kernels alone as the tree at ``DIR`` computes them, in
 turns with this tree's (parent, this, this, parent), outputs compared
-by digest.
+by digest.  ``--streamed`` also profiles kernel H on the same rays
+(closest on the camera rays, occluded on the shadow rays): its wrapper,
+its glue alone (the rays padded to whole chunks, the gate, the tile
+order) and its kernel alone; its plain sweep, counted on the card (the
+gate's slabs and blocks a chunk, staged blocks, passing lanes a staged
+block, pairs, the CUDA walk's tests and tested blocks); per-CTA clocks
+(``_STREAM_EDITS``, or ``_H_EDITS_SOLO`` for H as first ported); its
+tiles most gated blocks first against index order, in turns; and, with
+``--parent``, its wrapper and kernel in the parent's turns.
+``--render`` profiles kernel D on ``chip_smoke.py`` phase 11's three
+rows (the frog 1080p at depth 8 with the binned plan, as
+``RT_WAVEFRONT=0`` renders it; the terminal frog at depth 4;
+``cpuonly_mirror`` at 1080p): the kernel alone and without its lights;
+its plain version on the card bounce by bounce (live paths,
+closest-walk and shadow-walk tests by depth; per warp of 32 pixels the
+depths its deepest path runs against its lanes' mean); ``clock64()``
+cycles per warp of an instrumented copy (built apart under
+``build/walk_clocks/`` by ``_D_EDITS_BOUNCE`` and the edit set of the
+design in the source, ``_D_EDITS_WARP`` or ``_D_EDITS_SOLO``) split into
+the closest-hit walks, the light loops and the rest of the bounces, the
+depths a warp runs, and each CTA's ``%globaltimer`` start and end; the
+variants of ``_D_VARIANTS`` (the binned depth 0 from device memory; 32,
+16 or 4 paths a warp) in turns with this tree's kernel; and, with
+``--parent DIR``, the three rows through ``DIR``'s tree in turns.
 The full table is also written to ``chiprun_out/profile_main_path.txt``
 (``profile_grad.txt`` with ``--grad``, ``profile_large.txt`` with
 ``--large``).
@@ -126,14 +151,15 @@ def main():
     ap.add_argument("--large", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--streamed", action="store_true")
+    ap.add_argument("--render", action="store_true")
     ap.add_argument("--parent", default=None,
-                    help="with --kernels or --streamed: a tree of the port "
-                         "(e.g. the parent commit unpacked with git archive) "
-                         "whose kernels A and F, or G and I, are timed in "
-                         "turns with this tree's")
+                    help="with --kernels, --streamed or --render: a tree of "
+                         "the port (e.g. the parent commit unpacked with git "
+                         "archive) whose kernels A and F, G, I and H, or D "
+                         "are timed in turns with this tree's")
     ap.add_argument("--times", action="store_true",
                     help="print the --parent timings of A and F (with "
-                         "--streamed: G and I) as JSON")
+                         "--streamed: G, I and H; with --render: D) as JSON")
     ap.add_argument("--root", default=None,
                     help="with --times: import the package from this tree")
     args = ap.parse_args()
@@ -142,8 +168,11 @@ def main():
             sys.path.insert(0, os.path.abspath(args.root))
         import json
         print(json.dumps(streamed_times() if args.streamed
+                         else render_times() if args.render
                          else kernel_times()))
         return None
+    if args.render:
+        return profile_render(args.parent)
     if args.streamed:
         return profile_streamed(args.parent)
     if args.kernels:
@@ -1378,6 +1407,437 @@ def profile_kernels(parent_dir=None):
               f"{t_lib['median_ms']:.4f} ms (medians of 5)")
 
 
+# ``--render``: kernel D at phase 11's full-width inputs.  An instrumented
+# copy of csrc/megakernel.cu (built apart into build/walk_clocks/, never
+# used by the package) records per warp of the render the cycles of its
+# closest-hit walks, of its light loops (the shadow walks and the direct
+# light) and of the rest of each bounce, the depths its loop runs against
+# its lanes' own, and per CTA its globaltimer start and end.  The bounce
+# edits are common to both designs of the render kernel; each design has
+# its own set for the kernel (whichever set matches is used), and each
+# (old, new) edit must find its text exactly once.
+_D_SLOTS = 65536  # CTAs recorded (4,080 tiles x 16 CTAs of 32 pixels)
+_D_HELPERS = (
+    '__device__ unsigned long long g_d[16];\n'
+    '__device__ unsigned long long g_dcta[65536 * 3];\n'
+    '__device__ __forceinline__ long long dclk() {\n'
+    '  __syncwarp(__activemask());\n  return clock64();\n}\n'
+    '__device__ __forceinline__ void dadd(int k, long long v) {\n'
+    '  const unsigned m = __activemask();\n'
+    '  if ((threadIdx.x & 31) == __ffs(m) - 1)\n'
+    '    atomicAdd(&g_d[k], (unsigned long long)v);\n}\n'
+    '__device__ __forceinline__ unsigned long long dgt() {\n'
+    '  unsigned long long t;\n'
+    '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");\n'
+    '  return t;\n}\n'
+    '__device__ __forceinline__ void dcta(unsigned long long g0, int work) {\n'
+    '  if ((threadIdx.x & 31) || blockIdx.x >= 65536) return;\n'
+    '  unsigned long long* q = g_dcta + 3 * blockIdx.x;\n'
+    '  atomicMax(&q[0], ~g0);\n  atomicMax(&q[1], dgt());\n'
+    '  q[2] = work;\n}\n')
+# counters: per warp-bounce of the render (DPW), its closest-hit walk (0),
+# its light loop (1), the rest (2), the warp-bounces (3); per warp and
+# sample, the depths its loop ran (4), the sum of its paths' (5) and its
+# paths (8; as first ported not counted: 32); per warp with work, its
+# cycles (6) and the warps (7)
+_D_EDITS_BOUNCE = [
+    ('  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};\n'
+     '  if constexpr (W == kCapture || W == kFlags) {\n',
+     '  const long long dq0 = DPW ? dclk() : 0;\n'
+     '  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};\n'
+     '  if constexpr (W == kCapture || W == kFlags) {\n'),
+    ('  const bool hit = h.t < kF32Max;\n  float n[3] = {0.0f, 0.0f, 1.0f};\n'
+     '  int obj = 0;\n',
+     '  if (DPW) dadd(0, dclk() - dq0);\n'
+     '  const bool hit = h.t < kF32Max;\n  float n[3] = {0.0f, 0.0f, 1.0f};\n'
+     '  int obj = 0;\n'),
+    ('  for (int li = 0; li < s.n_lights; ++li) {\n'
+     '    const float* L = sh.lights + 8 * li;\n',
+     '  const long long dq1 = DPW ? dclk() : 0;\n'
+     '  for (int li = 0; li < s.n_lights; ++li) {\n'
+     '    const float* L = sh.lights + 8 * li;\n'),
+    ('  }\n  if constexpr (W == kList || W == kCapture) return;\n',
+     '  }\n  if (DPW) dadd(1, dclk() - dq1);\n'
+     '  const long long dq2 = DPW ? dclk() : 0;\n'
+     '  if constexpr (W == kList || W == kCapture) return;\n'),
+    ('               (r.alive > 0.0f ? 8 : 0);\n  }\n}\n',
+     '               (r.alive > 0.0f ? 8 : 0);\n  }\n'
+     '  if (DPW) {\n    dadd(2, dclk() - dq2);\n    dadd(3, 1);\n  }\n}\n'),
+]
+_D_END = (
+    '  r_out[gid] = acc[0];\n  g_out[gid] = acc[1];\n  b_out[gid] = acc[2];\n'
+    '}\n\n// The staged integrator')
+_D_END_NEW = (
+    '  const bool dwork = CPU || has_work[tile];\n'
+    '  if (dwork) {\n    dadd(6, clock64() - dk0);\n    dadd(7, 1);\n  }\n'
+    '  dcta(dg0, dwork);\n' + _D_END)
+# D as first ported: one thread a pixel, its walks alone (W = kSolo)
+_D_EDITS_SOLO = [
+    ('#include "trace_common.cuh"\n',
+     '#include "trace_common.cuh"\n' + _D_HELPERS
+     + '#define DPW (W == kSolo)\n'),
+    ('              float* b_out) {\n  const Shared sh = stage_shared(s);\n'
+     '  const int gid = blockIdx.x * blockDim.x + threadIdx.x;\n'
+     '  if (gid >= n_rays) return;\n  const int tile = gid / rt;\n',
+     '              float* b_out) {\n  const unsigned long long dg0 = dgt();\n'
+     '  const long long dk0 = clock64();\n'
+     '  const Shared sh = stage_shared(s);\n'
+     '  const int gid = blockIdx.x * blockDim.x + threadIdx.x;\n'
+     '  if (gid >= n_rays) return;\n  const int tile = gid / rt;\n'),
+    ('      bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);\n'
+     '      if (!terminal)\n'
+     '        for (int depth = 1; depth < max_depth && r.alive > 0.0f; '
+     '++depth)\n          bounce<CPU>(s, sh, cam, r, -1);\n',
+     '      bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);\n'
+     '      int dd = 1;\n      if (!terminal)\n'
+     '        for (int depth = 1; depth < max_depth && r.alive > 0.0f; '
+     '++depth)\n          bounce<CPU>(s, sh, cam, r, -1), ++dd;\n'
+     '      __syncwarp();\n'
+     '      dadd(4, __reduce_max_sync(kFull, (unsigned)dd));\n'
+     '      dadd(5, __reduce_add_sync(kFull, (unsigned)dd));\n'),
+    (_D_END, _D_END_NEW),
+]
+# D as it is now: the walks of bounce<.., kRender>, the depth loop
+# warp-uniform
+_D_EDITS_WARP = [
+    ('#include "trace_common.cuh"\n',
+     '#include "trace_common.cuh"\n' + _D_HELPERS
+     + '#define DPW (W == kRender)\n'),
+    ('              float* b_out) {\n'
+     '  const int thread = blockIdx.x * kThreads + threadIdx.x;\n',
+     '              float* b_out) {\n  const unsigned long long dg0 = dgt();\n'
+     '  const long long dk0 = clock64();\n'
+     '  const int thread = blockIdx.x * kThreads + threadIdx.x;\n'),
+    ('      bool live = owner && r.alive > 0.0f;\n      for (int depth = 1;\n',
+     '      bool live = owner && r.alive > 0.0f;\n      int dd = 1, dw = 1;\n'
+     '      for (int depth = 1;\n'),
+    ('        if (live) r = w;\n        live = r.alive > 0.0f;\n      }\n',
+     '        if (live) r = w, ++dd;\n        live = r.alive > 0.0f;\n'
+     '        ++dw;\n      }\n      dadd(4, dw);\n'
+     '      dadd(5, __reduce_add_sync(kFull, owner ? (unsigned)dd : 0u));\n'
+     '      dadd(8, __popc(__ballot_sync(kFull, owner)));\n'),
+    (_D_END, _D_END_NEW),
+]
+_D_EDIT_SETS = {"one thread a pixel": _D_EDITS_SOLO,
+                "warp-cooperative walks": _D_EDITS_WARP}
+_D_READ = r"""
+extern "C" int rt_d_clocks(unsigned long long* host, unsigned long long* cta,
+                           int reset) {
+  cudaError_t e = cudaDeviceSynchronize();
+  void *p = nullptr, *q = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, g_d);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&q, g_dcta);
+  if (e != cudaSuccess) return (int)e;
+  if (reset) {
+    e = cudaMemset(p, 0, sizeof(g_d));
+    return (int)(e == cudaSuccess ? cudaMemset(q, 0, sizeof(g_dcta)) : e);
+  }
+  e = cudaMemcpy(host, p, sizeof(g_d), cudaMemcpyDeviceToHost);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpy(cta, q, sizeof(g_dcta), cudaMemcpyDeviceToHost);
+}
+"""
+
+
+def _d_clock_lib():
+    """Build the instrumented copy of megakernel.cu for kernel D -> (its
+    library, the name of the design it instruments)."""
+    import ctypes
+
+    csrc = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "megakernel.cu")) as f:
+        text = f.read()
+    found = [k for k, edits in _D_EDIT_SETS.items()
+             if all(text.count(old) == 1 for old, _ in edits)]
+    if not found:
+        raise SystemExit("render clocks: kernel D's source matches no edit "
+                         "set")
+    for old, new in _D_EDIT_SETS[found[0]] + _D_EDITS_BOUNCE:
+        if text.count(old) != 1:
+            raise SystemExit(f"render clocks: the source changed near {old!r}")
+        text = text.replace(old, new)
+    lib = _build_apart(text + _D_READ, "megakernel_render_clocks", csrc)
+    lib.rt_d_clocks.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int]
+    lib.rt_d_clocks.restype = ctypes.c_int
+    return lib, found[0]
+
+
+def _render_frames():
+    """D's three rows of phase 11: the headline frog (depth 8, binned),
+    the terminal frog (depth 4, diffuse off) and cpuonly_mirror, each at
+    1920x1080 with its binned plan."""
+    from chip_smoke import H, W, Frame, cpuonly_scene
+    from raytracinginonesemester_tpu_torch.render.renderer import frog_scene
+
+    return {
+        "frog depth 8 binned (RT_WAVEFRONT=0)": Frame(
+            frog_scene(W, H, device="cuda")),
+        "frog terminal depth 4": Frame(
+            frog_scene(W, H, max_bounces=4, diffuse_bounce=False,
+                       device="cuda")),
+        "cpuonly_mirror (RT_WAVEFRONT=0)": Frame(
+            cpuonly_scene("cpuonly_mirror", "cuda", W, H), jitter="center"),
+    }
+
+
+def _render_call(frame, rows=None):
+    """Kernel D on the frame's binned plan, launched as ``render_tiles``
+    launches it on operands built once -> a call of the kernel alone."""
+    import ctypes
+
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import _native
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+    rows = frame.rows if rows is None else rows
+    p = frame.pkw
+    sh = mk._Shade(bool(frame.scene.diffuse_bounce), p["det_eps"], 1e-4,
+                   p["shadow_eps"], p["shadow_tmin"], p["dialect"],
+                   int(p["shadow_samples"]))
+    hw = frame.has_work(True).to(torch.int32).contiguous()
+    xs = frame.xs.to(torch.int32).contiguous()
+    ys = frame.ys.to(torch.int32).contiguous()
+    args = mk._scene_args(rows, sh, frame.cand)
+
+    def call():
+        outs = [torch.empty(frame.nt, mk.RAY_TILE, device=hw.device)
+                for _ in range(3)]
+        lib = _native.load("megakernel")
+        err = lib.rt_render(
+            ctypes.byref(args), mk._ptr(xs), mk._ptr(ys), mk._ptr(hw),
+            frame.np_rays, mk.RAY_TILE, 1, 0,
+            int(frame.kw["jitter"] == "center"), int(frame.terminal),
+            int(frame.scene.max_bounces), *map(mk._ptr, outs), mk._stream())
+        if err:
+            raise RuntimeError(f"render kernel: error {err}")
+        return tuple(outs)
+
+    return call
+
+
+def _render_depths(label, frame):
+    """D's plain version on the card, bounce by bounce: the live paths
+    and the (ray, block) tests of the closest-hit and shadow walks by
+    depth, and per warp of 32 pixels the depths its loop runs (its
+    deepest path) against its lanes' mean."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+    p = frame.pkw
+    sh = mk._Shade(bool(frame.scene.diffuse_bounce), p["det_eps"], 1e-4,
+                   p["shadow_eps"], p["shadow_tmin"], p["dialect"],
+                   int(p["shadow_samples"]))
+    st = mk._primary_state(frame.rows, frame.xs, frame.ys, 0,
+                           frame.kw["jitter"], frame.has_work(True))
+    depths = torch.zeros(frame.np_rays, dtype=torch.int64,
+                         device=frame.xs.device)
+    shadow, rows_out = [], []
+    real = mk._occluded_plain
+
+    def recorded(*a, **k):
+        out = real(*a, **k)
+        shadow.append(int(out[1]))
+        return out
+
+    mk._occluded_plain = recorded
+    try:
+        for depth in range(1 if frame.terminal
+                           else int(frame.scene.max_bounces)):
+            alive = st["alive"] > 0.0
+            live = int(alive.sum())
+            if not live:
+                break
+            shadow.clear()
+            pairs = int(mk._bounce_plain(frame.rows, st, sh,
+                                         frame.cand if depth == 0 else None))
+            depths += alive.long()
+            rows_out.append((depth, live, pairs - sum(shadow), sum(shadow)))
+    finally:
+        mk._occluded_plain = real
+    w = depths.reshape(-1, 32)
+    work = w.max(dim=1).values > 0
+    w = w[work]
+    wmax = w.max(dim=1).values.float()
+    wmean = w.float().mean(dim=1)
+    print(f"  {label}, D's plain version on the card by depth (live paths, "
+          "closest-walk tests, shadow-walk tests): "
+          + "; ".join(f"{d}: {n}, {c}, {s}" for d, n, c, s in rows_out))
+    print(f"  per warp of 32 pixels ({int(work.sum())} with work): its loop "
+          f"runs {float(wmax.mean()):.3f} depths on average (its deepest "
+          f"path), its lanes' paths {float(wmean.mean()):.3f}; lanes busy "
+          f"in the depth loop "
+          f"{float(w.sum()) / max(32 * float(wmax.sum()), 1):.3f};"
+          f" warps whose deepest path runs past its lanes' mean by >= 2 "
+          f"depths: {int(((wmax - wmean) >= 2).sum())}")
+
+
+def _render_clocks(label, call, clocks):
+    """Kernel D through the instrumented library: clock64() cycles per
+    warp split into the closest-hit walks, the light loops and the rest,
+    the depths the warps run against their lanes', and when its CTAs
+    end."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    lib, design = clocks
+    want = call()
+    buf = (ctypes.c_ulonglong * 16)()
+    cta = (ctypes.c_ulonglong * (_D_SLOTS * 3))()
+    with _using(lib):
+        call()  # warm
+        if lib.rt_d_clocks(buf, cta, 1):
+            raise SystemExit("render clocks: resetting the counters failed")
+        got = call()
+        if lib.rt_d_clocks(buf, cta, 0):
+            raise SystemExit("render clocks: reading the counters failed")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    c = list(buf)
+    per = lambda a, b: a / max(b, 1)
+    paths = c[8] or 32 * c[7]  # counted, or 32 a warp as first ported
+    a = np.frombuffer(cta, dtype=np.uint64).reshape(_D_SLOTS, 3)
+    a = a[a[:, 1] > 0]
+    start = (~a[:, 0]).astype(np.float64)
+    end = a[:, 1].astype(np.float64)
+    t0 = start.min()
+    start, end = (start - t0) / 1e3, (end - t0) / 1e3
+    w = a[:, 2] > 0
+    print(f"  clock64 counters, D {label} ({design}; instrumented copy, "
+          f"results {'equal to' if same else 'DIFFER from'} the kernel's): "
+          f"{c[7]} warps with work, {per(c[6], c[7]):.0f} cycles each; of "
+          f"their cycles, closest-hit walks {per(c[0], c[6]):.3f}, light "
+          f"loops (shadow walks, direct light) {per(c[1], c[6]):.3f}, the "
+          f"rest of the bounces {per(c[2], c[6]):.3f}; {c[3]} warp-bounces "
+          f"({per(c[3], c[7]):.2f} a warp); depths a warp runs "
+          f"{per(c[4], c[7]):.3f}, its paths' mean {per(c[5], paths):.3f}"
+          f" (paths busy {per(c[5] * c[7], c[4] * paths):.3f})")
+    print(f"  globaltimer: {len(a)} CTAs span {end.max():.1f} us; the "
+          f"{int(w.sum())} with work start from {start[w].min():.1f} to "
+          f"{start[w].max():.1f} us and end at {end[w].mean():.1f} us on "
+          f"average, the last at {end[w].max():.1f} us "
+          f"({end[w].max() / max(end[w].mean(), 1e-9):.2f}x the mean); a CTA "
+          f"with work lasts {(end - start)[w].mean():.1f} us on average, at "
+          f"most {(end - start)[w].max():.1f}")
+
+
+# D's depth 0 with a binned plan the other way than the source's (a
+# variant, timed beside the kernel): each path's first thread walks its
+# candidates from device memory, as B's oracle rows do
+_D_EDITS_LANE_BINNED = [
+    ('    else if constexpr (W == kRender)\n'
+     '      h = cta_hit(closest_binned_cta<kRenderSplit>(s, sh, tile, o, d), '
+     'live);\n',
+     ''),
+    ('    const Shared sh = stage_shared(s, s.cand_chunk != 0);\n'
+     '    for (int k = 0; k < spp; ++k) {\n',
+     '    const Shared sh = stage_shared(s);\n'
+     '    for (int k = 0; k < spp; ++k) {\n'),
+    ('  const size_t smem = emit_shared_bytes(*s);  '
+     '// and the chunk buffers\n',
+     '  const size_t smem = shared_bytes(*s);\n'),
+]
+
+
+# D with 32, 16 or 4 paths a warp (variants, timed beside the kernel):
+# one, two or eight threads a path split its binned depth 0 (staged by
+# the CTA), and its first thread walks it after that
+def _d_split_edits(n):
+    return [('constexpr int kRenderSplit = 4;\n',
+             f'constexpr int kRenderSplit = {n};\n')]
+
+
+_D_VARIANTS = [
+    (_D_EDITS_LANE_BINNED, "megakernel_d_lane_binned",
+     "depth 0 walked by each path's first thread from device memory"),
+    (_d_split_edits(1), "megakernel_d_split1", "32 paths a warp"),
+    (_d_split_edits(2), "megakernel_d_split2", "16 paths a warp"),
+    (_d_split_edits(8), "megakernel_d_split8", "4 paths a warp"),
+]
+
+
+def render_times():
+    """D's three rows as the imported package computes them -> {row:
+    [median ms of 5 of the kernel alone, digest of its outputs]}."""
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    out = {}
+    for label, frame in _render_frames().items():
+        call = _render_call(frame)
+        out[label] = [cuda_time_ms(call, warmup=1, iters=5)["median_ms"],
+                      _digest(call())]
+    return out
+
+
+def _render_turns(parent_dir):
+    """D as the tree at ``parent_dir`` computes it (a process of its own)
+    and as this one does, in turns: parent, this, this, parent."""
+    import json
+
+    def parent():
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--times",
+             "--render", "--root", os.path.abspath(parent_dir)],
+            capture_output=True, text=True, check=True).stdout
+        return json.loads(out.strip().splitlines()[-1])
+
+    runs = [parent(), render_times(), render_times(), parent()]
+    for key in runs[1]:
+        ms = [r[key][0] for r in runs]
+        same = len({r[key][1] for r in runs}) == 1
+        print(f"D {key}, the tree at {parent_dir} vs this tree in turns "
+              f"(medians of 5): parent {ms[0]:.3f}, this {ms[1]:.3f}, this "
+              f"{ms[2]:.3f}, parent {ms[3]:.3f} ms; outputs "
+              f"{'equal' if same else 'DIFFER'}")
+
+
+def profile_render(parent_dir=None):
+    """Kernel D at phase 11's full-width inputs (module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(f"card: {_card()}")
+    frames = _render_frames()
+    clocks = _d_clock_lib()
+    variants = [(_variant_lib(edits, name), label)
+                for edits, name, label in _D_VARIANTS]
+    for label, frame in frames.items():
+        rows = frame.rows
+        call = _render_call(frame)
+        dark = _render_call(frame, dataclasses.replace(
+            rows, lights=rows.lights[:0].contiguous()))
+        stats = {}
+        want = frame.render_plain(True, stats=stats)
+        same = all(torch.equal(a, b) for a, b in zip(call(), want))
+        del want
+        t = cuda_time_ms(call, warmup=1, iters=5)
+        t_dark = cuda_time_ms(dark, warmup=1, iters=5)
+        print(f"D {label}: {frame.nt} tiles x 512, "
+              f"{int(frame.has_work(True).sum())} with work; kernel "
+              f"{t['median_ms']:.3f} ms, without its lights "
+              f"{t_dark['median_ms']:.3f} ms (medians of 5; samples "
+              f"{[round(x, 3) for x in t['samples_ms']]}, "
+              f"{[round(x, 3) for x in t_dark['samples_ms']]}); "
+              f"{int(stats['pairs'])} ray-triangle tests (plain version); "
+              f"kernel {'equals' if same else 'DIFFERS from'} its plain "
+              "version")
+        _render_depths(label, frame)
+        _render_clocks(label, call, clocks)
+        for lib, what in variants:
+            if lib is not None:
+                _turns(f"D {label}", call, lib, what)
+    if parent_dir is not None:
+        _render_turns(parent_dir)
+
+
 # ``--streamed``: kernels G and I at phase 10's full-width inputs.  An
 # instrumented copy of csrc/block_stream.cu (built apart into
 # build/walk_clocks/, never used by the package) records, per CTA, the
@@ -1424,7 +1884,7 @@ extern "C" int rt_cta_clocks(unsigned long long* host, int reset) {
 """
 
 
-# G and I: candidates first, then the CTA's warps test the
+# G, I and H: candidates first, then the CTA's warps test the
 # pairs of each candidate block while the next one is staged.  Staging:
 # the wait for the staged block; testing: the pairs; gating: the
 # candidates and the listing; the last field counts pairs
@@ -1433,16 +1893,17 @@ _STREAM_EDITS = [
      '#include "trace_common.cuh"\n' + _CTA_HELPERS),
     # the counters must not cost the kernel its occupancy (two tiles an
     # SM)
-    ('template <bool OCC>\n__global__ void __launch_bounds__(kThreads)\n'
-     'streamed_kernel(',
-     'template <bool OCC>\n__global__ void __launch_bounds__(kThreads, '
-     '2 * kSplit)\nstreamed_kernel('),
+    ('template <bool OCC, bool GATE>\n'
+     '__global__ void __launch_bounds__(kThreads, kSplit)\nstreamed_kernel(',
+     'template <bool OCC, bool GATE>\n'
+     '__global__ void __launch_bounds__(kThreads, 2 * kSplit)\n'
+     'streamed_kernel('),
     ('  bool blocked = false;\n\n  // 1. the candidates',
      '  bool blocked = false;\n' + _CTA_START
      + '  const long long xqc = pclk();\n\n  // 1. the candidates'),
-    ('  __syncthreads();\n\n  // 2. the candidates in plan order',
+    ('  __syncthreads();\n\n  // 2. the candidates in order',
      '  __syncthreads();\n  xga += pclk() - xqc;\n\n'
-     '  // 2. the candidates in plan order'),
+     '  // 2. the candidates in order'),
     ('    const bool pass = active && (OCC ?',
      '    const long long xq0 = pclk();\n'
      '    const bool pass = active && (OCC ?'),
@@ -1461,6 +1922,147 @@ _STREAM_EDITS = [
 ]
 
 
+# H as first ported (one CTA of 512 threads a tile, a thread a ray): per
+# CTA, as for G and I, staging (the copy of a block and its barrier),
+# testing (the passing threads' walks and the barrier after), gating (the
+# slab tests and the vote before each block), the blocks staged and the
+# passing lanes (pairs)
+_H_EDITS_SOLO = [
+    ('  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};\n  bool blocked = false;\n'
+     '  for (int j = 0; j < num_slabs; ++j) {\n',
+     '  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};\n  bool blocked = false;\n'
+     + _CTA_START + '  for (int j = 0; j < num_slabs; ++j) {\n'),
+    ('      const bool pass =\n          r.moving &&\n',
+     '      const long long xq0 = pclk();\n'
+     '      const bool pass =\n          r.moving &&\n'),
+    ('      if (!__syncthreads_or(pass)) continue;\n'
+     '      stage_block(tri, ids, b, bs, s_tri, s_ids);\n'
+     '      __syncthreads();\n',
+     '      const int xp = __syncthreads_count(pass);\n'
+     '      const long long xq1 = pclk();\n      xga += xq1 - xq0;\n'
+     '      if (!xp) continue;\n'
+     '      stage_block(tri, ids, b, bs, s_tri, s_ids);\n'
+     '      __syncthreads();\n'
+     '      const long long xq2 = pclk();\n      xst += xq2 - xq1;\n'
+     '      ++xn;\n      xng += xp;\n'),
+    ('      }\n      __syncthreads();\n    }\n  }\n  if (OCC) {\n',
+     '      }\n      __syncthreads();\n      xte += pclk() - xq2;\n    }\n'
+     '  }\n  cta_record(xg0, xc0, xst, xte, xn, tile, xga, xng);\n'
+     '  if (OCC) {\n'),
+]
+
+
+def _h_first_ported(bk, grid, o, d, tmin, tmax, occluded):
+    """H's glue and kernel through the C interface as first ported ->
+    (the glue alone, the kernel alone on operands built once)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import _native
+    from raytracinginonesemester_tpu_torch.ops.megakernel import (
+        RAY_TILE, _ptr, _stream)
+
+    ct, sb = bk.BM_CHUNK_TILES, bk.BM_SLAB_BLOCKS
+
+    def glue():
+        rays, _ = bk._prep_rays(o, d, tmin, tmax)
+        rays, rp = bk._pad_rays(rays, ct * RAY_TILE)
+        tri, ids, aabb, union_rows, nj = bk._blockmajor_operands(grid, sb)
+        gate = bk._chunk_slab_gate(rays, ct * RAY_TILE, union_rows, nj)
+        return rays, rp, tri, ids, aabb, nj, gate.contiguous()
+
+    rays, rp, tri, ids, aabb, nj, gate = glue()
+    outs = [torch.empty(rp, device=o.device) for _ in range(3)]
+    outs += [torch.empty(rp, dtype=torch.int32, device=o.device),
+             torch.empty(rp, dtype=torch.bool, device=o.device)]
+
+    def kernel():
+        err = _native.load("block_stream").rt_blockmajor(
+            _ptr(rays), _ptr(aabb), _ptr(gate), _ptr(tri), _ptr(ids),
+            rp // RAY_TILE, grid.num_blocks, nj, sb, ct, grid.block_size,
+            1e-8, int(occluded), *(_ptr(x) for x in outs), _stream())
+        if err:
+            raise RuntimeError(f"blockmajor kernel: error {err}")
+        return outs[4:] if occluded else outs[:4]
+
+    return glue, kernel
+
+
+def _h_jobs(bk, grid, cam, sh):
+    """H closest on the camera rays and H occluded on the shadow rays,
+    each as a dict of calls: the wrapper; the glue alone (the rays' rows
+    padded to whole chunks, the gate and what else the launch needs); the
+    kernel alone on operands built once."""
+    jobs = {}
+    for name, (o, d, tmin, tmax) in (("H closest", (*cam, 1e-4, bk.F32_MAX)),
+                                     ("H occluded", sh)):
+        occ = name == "H occluded"
+        args = (o, d, grid, tmin) + ((tmax,) if occ else ())
+        wrapper = (bk.block_occluded_blockmajor if occ
+                   else bk.block_closest_blockmajor)
+        if hasattr(bk, "_blockmajor_launch"):
+            def glue(o=o, d=d, tmin=tmin, tmax=tmax, occ=occ):
+                return bk._blockmajor_launch(o, d, grid, tmin, tmax, 1e-8,
+                                             occ, bk.BM_CHUNK_TILES,
+                                             bk.BM_SLAB_BLOCKS)
+            kernel = glue()
+        else:
+            glue, kernel = _h_first_ported(bk, grid, o, d, tmin, tmax, occ)
+        jobs[name] = {"wrapper": lambda w=wrapper, a=args: w(*a),
+                      "glue": glue, "kernel": kernel}
+    return jobs
+
+
+def _h_counts(label, bk, grid, o, d, tmin, tmax, closest):
+    """H's plain sweep on the card, counted (``_WalkLog``): the gate's
+    work and the pairs."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops.megakernel import RAY_TILE
+
+    ct, sb = bk.BM_CHUNK_TILES, bk.BM_SLAB_BLOCKS
+    rows = bk.grid_rows(grid)
+    nb = rows.num_blocks
+    rays, _ = bk._prep_rays(o, d, tmin, tmax)
+    padded, rp = bk._pad_rays(rays, ct * RAY_TILE)
+    _, union_rows, nj = bk._slab_aabbs(grid, sb)
+    gate = bk._chunk_slab_gate(padded, ct * RAY_TILE, union_rows, nj)
+    in_slab = torch.clamp(nb - torch.arange(nj, device=o.device) * sb,
+                          max=sb)
+    gated_blocks = (gate.long() * in_slab[None, :]).sum(dim=1)
+    nt = rp // RAY_TILE
+    log = _WalkLog(nt, rp, o.device)
+    stats = {}
+    walk = bk._blockmajor_plain(rays, grid, rows, 1e-8, closest, ct, sb,
+                                stats, int(o.shape[0]), log=log)
+    staged = int(log.staged.sum())
+    heavy = int(log.staged.argmax())
+    work = log.pairs > 0
+    print(f"{label}: {gate.shape[0]} chunks of {ct} tiles, {nj} slabs of "
+          f"{sb} blocks; gated slabs a chunk mean "
+          f"{float(gate.sum(dim=1).float().mean()):.1f}, max "
+          f"{int(gate.sum(dim=1).max())} "
+          f"({float(gated_blocks.float().mean()):.0f}"
+          f" and {int(gated_blocks.max())} blocks); {nt} tiles, "
+          f"{int((log.staged > 0).sum())} staging a block; {staged} staged "
+          f"blocks, the heaviest tile ({heavy}) {int(log.staged[heavy])} of "
+          f"its chunk's {int(gated_blocks[heavy // ct])} gated; "
+          f"{int(log.pairs.sum())} (ray, block) pairs, "
+          f"{int(stats['pairs'])} ray-triangle tests; passing lanes a staged "
+          f"block mean {int(log.pairs.sum()) / max(staged, 1):.2f}, max "
+          f"{int(log.lane_max)}; pairs a tile with any: mean "
+          f"{float(log.pairs[work].float().mean()):.0f}, max "
+          f"{int(log.pairs.max())}"
+          + "".join(f"; the CUDA walk's {k} {stats[k]}" for k in
+                    ("walk_pairs", "walk_tested_blocks") if k in stats))
+    r = int(o.shape[0])
+    line = f"  rays: {r}, {int((d != 0.0).any(dim=1).sum())} moving"
+    if closest:
+        line += f", {int((walk.best.id[:r] >= 0).sum())} hit"
+    else:
+        line += f", {int(walk.blocked[:r].sum())} blocked"
+    print(line)
+
+
 def _stream_clock_lib():
     """Build the instrumented copy of block_stream.cu -> its library."""
     import ctypes
@@ -1472,6 +2074,10 @@ def _stream_clock_lib():
         if text.count(old) != 1:
             raise SystemExit(f"stream clocks: no single match for {old!r}")
         text = text.replace(old, new)
+    # H as first ported is a kernel of its own
+    if all(text.count(old) == 1 for old, _ in _H_EDITS_SOLO):
+        for old, new in _H_EDITS_SOLO:
+            text = text.replace(old, new)
     lib = _build_apart(text + _CTA_READ, "block_stream_clocks", csrc,
                        "block_stream")
     lib.rt_cta_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -1567,14 +2173,16 @@ def _digest(out):
 
 
 def streamed_times():
-    """G and I as the imported package computes them -> {"G wrapper",
-    "G kernel", "I wrapper", "I kernel": [median ms of 5, digest]}."""
+    """G, I and H as the imported package computes them -> {"G wrapper",
+    "G kernel", "I wrapper", "I kernel", "H closest wrapper", ...:
+    [median ms of 5, digest]}."""
     from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
     from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
     grid, cam, sh = _large_inputs()
     out = {}
-    for name, job in _stream_jobs(bk, grid, cam, sh).items():
+    jobs = {**_stream_jobs(bk, grid, cam, sh), **_h_jobs(bk, grid, cam, sh)}
+    for name, job in jobs.items():
         for part in ("wrapper", "kernel"):
             fn = job[part]
             # the real rays' outputs (the kernel's are padded to tiles)
@@ -1742,7 +2350,8 @@ def _tile_order_turns(bk, grid, cam, sh):
     """G's and I's kernels alone on operands built once, the tiles
     launched longest plan first (the wrapper's order) or in plan order,
     in turns: longest first, plan order, plan order, longest first
-    (medians of 5 each)."""
+    (medians of 5 each); H's the same way, most gated blocks first (its
+    wrapper's order) or in index order."""
     import torch
 
     from raytracinginonesemester_tpu_torch.ops import _native
@@ -1783,6 +2392,50 @@ def _tile_order_turns(bk, grid, cam, sh):
         runs = []
         for key in ("longest first", "plan order", "plan order",
                     "longest first"):
+            fn = lambda tiles=orders[key]: launch(tiles)
+            digest = _digest(_rows(fn(), o.shape[0]))
+            runs.append((key, cuda_time_ms(fn, warmup=1, iters=5)
+                         ["median_ms"], digest))
+        same = len({r[2] for r in runs}) == 1
+        print(f"{name} kernel alone, tile order in turns (medians of 5): "
+              + ", ".join(f"{k} {ms:.3f}" for k, ms, _ in runs)
+              + f" ms; outputs {'equal' if same else 'DIFFER'}")
+    # H: the tiles most gated blocks first (the wrapper's order) or in
+    # index order
+    ct, sb = bk.BM_CHUNK_TILES, bk.BM_SLAB_BLOCKS
+    for name, (o, d, tmin, tmax) in (("H closest", (*cam, 1e-4, bk.F32_MAX)),
+                                     ("H occluded", sh)):
+        rays, _ = bk._prep_rays(o, d, tmin, tmax)
+        rays, rp = bk._pad_rays(rays, ct * RAY_TILE)
+        _, union, nj = bk._slab_aabbs(grid, sb)
+        gate = bk._chunk_slab_gate(rays, ct * RAY_TILE, union, nj).contiguous()
+        in_slab = torch.clamp(grid.num_blocks - sb * torch.arange(
+            nj, device=o.device), max=sb)
+        gated = (gate * in_slab).sum(dim=1).repeat_interleave(ct)
+        orders = {
+            "most gated first": torch.sort(gated, descending=True,
+                                           stable=True)[1].to(torch.int32),
+            "index order": torch.arange(gated.numel(), dtype=torch.int32,
+                                        device=o.device)}
+        outs = [torch.empty(rp, device=o.device) for _ in range(3)]
+        outs += [torch.empty(rp, dtype=torch.int32, device=o.device),
+                 torch.empty(rp, dtype=torch.bool, device=o.device)]
+        occ = name == "H occluded"
+
+        def launch(tiles):
+            err = _native.load("block_stream").rt_blockmajor(
+                _ptr(rays), _ptr(aabb), _ptr(gate), _ptr(union), _ptr(tiles),
+                _ptr(tri), _ptr(ids), rp // RAY_TILE, int(o.shape[0]),
+                grid.num_blocks,
+                nj, sb, ct, grid.block_size, 1e-8, int(occ),
+                *(_ptr(x) for x in outs), _stream())
+            if err:
+                raise RuntimeError(f"blockmajor kernel: error {err}")
+            return outs[4:] if occ else outs[:4]
+
+        runs = []
+        for key in ("most gated first", "index order", "index order",
+                    "most gated first"):
             fn = lambda tiles=orders[key]: launch(tiles)
             digest = _digest(_rows(fn(), o.shape[0]))
             runs.append((key, cuda_time_ms(fn, warmup=1, iters=5)
@@ -1843,6 +2496,19 @@ def profile_streamed(parent_dir=None):
                           for k, v in t.items()) + ")")
         _stream_counts(f"{name}, counted by its plain walk on the card", bk,
                        grid, *inputs[name], closest=name == "G")
+        _stream_cta_clocks(name, job["kernel"], clocks)
+    for name, job in _h_jobs(bk, grid, cam, sh).items():
+        t = {k: cuda_time_ms(fn, warmup=1, iters=5)
+             for k, fn in job.items()}
+        print(f"{name}: wrapper {t['wrapper']['median_ms']:.3f} ms, the "
+              f"glue alone {t['glue']['median_ms']:.3f}, the kernel alone "
+              f"on operands built once {t['kernel']['median_ms']:.3f} "
+              "(medians of 5; samples "
+              + "; ".join(f"{k} {[round(x, 3) for x in v['samples_ms']]}"
+                          for k, v in t.items()) + ")")
+        _h_counts(f"{name}, counted by its plain sweep on the card", bk,
+                  grid, *inputs["G" if name == "H closest" else "I"],
+                  closest=name == "H closest")
         _stream_cta_clocks(name, job["kernel"], clocks)
     _tile_order_turns(bk, grid, cam, sh)
     if parent_dir is not None:

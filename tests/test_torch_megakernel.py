@@ -380,15 +380,15 @@ def test_cooperative_walk_matches_the_plain_walk(block_size, dialect,
 _SPLIT = 4  # kEmitSplit: the threads of a ray in emit's closest walk
 
 
-def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin):
-    """``closest_binned_cta`` of ``csrc/megakernel.cu``, emulated for
-    every tile at once: the tile's chunks in order, each chunk's
+def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin, split=_SPLIT):
+    """``closest_binned_cta<split>`` of ``csrc/megakernel.cu``, emulated
+    for every tile at once: the tile's chunks in order, each chunk's
     candidates four at a time (a width that is not a multiple of 4 ends
-    one at a time), group g to the ray's thread g % 4, which tests it at
-    the window its own running best t had before it and takes it in
+    one at a time), group g to the ray's thread g % split, which tests it
+    at the window its own running best t had before it and takes it in
     order by the (t, id) rule (a take in order keeps the group's first
-    (t, id) minimum, which is what is taken here); the ray's four threads
-    then keep the first (t, id) minimum in walk order."""
+    (t, id) minimum, which is what is taken here); the ray's threads then
+    keep the first (t, id) minimum in walk order."""
     r, dev = d[0].shape[0], d[0].device
     best = tmk._Best(r, dev)
     c = cand_plan.chunk
@@ -405,14 +405,14 @@ def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin):
     oc = tuple(x[rays, None] for x in o)
     dc = tuple(x[rays, None] for x in d)
     quads = c // 4 * 4
-    groups = [(j, 4, (j // 4) % _SPLIT) for j in range(0, quads, 4)]
-    groups += [(j, 1, (j - quads) % _SPLIT) for j in range(quads, c)]
+    groups = [(j, 4, (j // 4) % split) for j in range(0, quads, 4)]
+    groups += [(j, 1, (j - quads) % split) for j in range(quads, c)]
     n = rays.numel()
-    bt = torch.full((_SPLIT, n), tmk.F32_MAX)
-    bu, bv = torch.zeros(_SPLIT, n), torch.zeros(_SPLIT, n)
-    bi = torch.full((_SPLIT, n), -1, dtype=torch.int64)
-    bs = torch.zeros(_SPLIT, n, dtype=torch.int64)
-    bp = torch.full((_SPLIT, n), tmk._INT_MAX, dtype=torch.int64)
+    bt = torch.full((split, n), tmk.F32_MAX)
+    bu, bv = torch.zeros(split, n), torch.zeros(split, n)
+    bi = torch.full((split, n), -1, dtype=torch.int64)
+    bs = torch.zeros(split, n, dtype=torch.int64)
+    bp = torch.full((split, n), tmk._INT_MAX, dtype=torch.int64)
     for k in range(int(meta[tiles, 1].max())):
         on = (k < meta[tile_of, 1]).nonzero().squeeze(1)  # a k-th chunk
         rows = stream[meta[tile_of[on], 0] + k]  # (n, 16, c)
@@ -444,9 +444,9 @@ def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin):
             bi[sb, on] = torch.where(take, wid, old_i)
             bs[sb, on] = torch.where(take, slots[rr, q], bs[sb, on])
             bp[sb, on] = torch.where(take, k * c + q, bp[sb, on])
-    # the four threads' first (t, id, place) minimum
+    # the ray's threads' first (t, id, place) minimum
     w = torch.zeros(n, dtype=torch.int64)
-    for sb in range(1, _SPLIT):
+    for sb in range(1, split):
         cur = (bt[w, torch.arange(n)], bi[w, torch.arange(n)],
                bp[w, torch.arange(n)])
         ki = lambda i: torch.where(i >= 0, i, tmk._INT_MAX)

@@ -178,9 +178,14 @@ def test_stream_operands_match_jax(frog):
     for got, want in zip(bk._stream_grid_operands(ts.accel),
                          pk._stream_grid_operands(js.accel)):
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    for got, want in zip(bk._blockmajor_operands(ts.accel, 8),
-                         pk._blockmajor_operands(js.accel, 8)):
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    # H's slabs: its padded block AABBs and the slabs' union rows
+    aabb, union, nj = bk._slab_aabbs(ts.accel, 8)
+    _, _, want_aabb, want_union, want_nj = pk._blockmajor_operands(
+        js.accel, 8)
+    np.testing.assert_array_equal(
+        aabb.T.numpy(), np.asarray(want_aabb)[:aabb.shape[1], :6])
+    np.testing.assert_array_equal(union.numpy(), np.asarray(want_union))
+    assert nj == want_nj
 
 
 # --- kernels G and I --------------------------------------------------
@@ -277,7 +282,7 @@ def test_blockmajor_kernels_and_gate_match_pallas(random_scene):
     _, _, _, union, nj = pk._blockmajor_operands(grid, 8)
     want_gate = np.asarray(pk._chunk_slab_gate(jrays, 2048, union, nj))
     trays, _ = bk._prep_rays(_t(o), _t(d), 1e-4, bk.F32_MAX)
-    _, _, _, tunion, tnj = bk._blockmajor_operands(tg, 8)
+    _, tunion, tnj = bk._slab_aabbs(tg, 8)
     gate = bk._chunk_slab_gate(trays, 2048, tunion, tnj).numpy()
     np.testing.assert_array_equal(gate, want_gate)
     assert gate.shape == (2, 4) and gate[0].all() and not gate[1].all()

@@ -1,14 +1,16 @@
-"""Kernels G and I of the PyTorch port as the card runs them
+"""Kernels G, I and H of the PyTorch port as the card runs them
 (``csrc/block_stream.cu`` ``streamed_kernel``), emulated on the CPU.
 
 A CTA walks one of the two halves of a 512-ray tile (rays p, p + 2, ...
 for CTA p).  It first marks its candidates: the blocks of the tile's plan
-row whose slab test passes for one of its active lanes (a nonzero
-direction, one of the real rays) on the lane's window at the start.  It
-then takes them in plan order; before each it stops once the entry
-exceeds every active lane's best t (G) or every active lane is blocked
-(I), its own lanes; otherwise the lanes whose slab test passes on their
-window now are listed, and each (ray, block) pair of the list is tested
+row (G, I), or of the slabs the gate lets through for the tile's chunk,
+in block order (H), whose slab test passes for one of its active lanes (a
+nonzero direction, one of the real rays) on the lane's window at the
+start.  It then takes them in order; before each it stops once the entry
+exceeds every active lane's best t (G; H's closest hit has no exit) or
+every active lane is blocked (I, H), its own lanes; otherwise the lanes
+whose slab test passes on their window now are listed, and each (ray,
+block) pair of the list is tested
 by 32 lanes, lane l taking slots l, l + 32, ... at the owner's window:
 G keeps a lane's first (t, id) minimum in ascending slot order, a xor
 tree (16, 8, 4, 2, 1) keeps the lexicographic (t, id, slot) minimum,
@@ -17,12 +19,12 @@ winner's lane; I votes every 128 slots and the owner is blocked if a
 vote finds a hit.
 The emulation does the same with torch ops, every CTA at once, and is
 held bit for bit against the plain versions (``block_closest_streamed_
-plain``, ``block_occluded_streamed_plain``), which walk the JAX
-kernels' schedule; the tests and tested blocks it counts are held to the
-plain versions' ``walk_pairs`` and ``walk_tested_blocks`` (a CTA that
-stops has also copied the candidate it stops at and the next one, which
-neither counts).  The C
-constants of that design are held to their Python counterparts.
+plain``, ``block_occluded_streamed_plain`` and the ``blockmajor`` ones),
+which walk the JAX kernels' schedule; the tests and tested blocks it
+counts are held to the plain versions' ``walk_pairs`` and
+``walk_tested_blocks`` (a CTA that stops has also copied the candidate
+it stops at and the next one, which neither counts).  The C constants of
+that design are held to their Python counterparts.
 """
 
 import os
@@ -107,21 +109,24 @@ def _pair_any(o, d, tmin, win, tri, ids, det_eps):
     return done, tests
 
 
-def _emulate(origins, dirs, grid, tmin, tmax, det_eps, closest):
+def _emulate(origins, dirs, grid, tmin, tmax, det_eps, closest, gate=None):
     """``streamed_kernel`` on (R, 3) rays -> (outputs of the R rays: (t,
-    u, v, id) or blocked, the ray-triangle tests, the tested blocks)."""
+    u, v, id) or blocked, the ray-triangle tests, the tested blocks).
+    ``gate``: None (G, I: the tiles' plan), or H's (chunk_tiles,
+    slab_blocks)."""
     rows = bk.grid_rows(grid)
     nb = rows.num_blocks
     r = int(origins.shape[0])
     rays, rp = bk._prep_rays(origins, dirs, tmin, tmax)
+    if gate is not None:
+        chunk_tiles, slab_blocks = gate
+        rays, rp = bk._pad_rays(rays, chunk_tiles * RAY_TILE)
     nt = rp // RAY_TILE
     o = tuple(rays[:, c] for c in range(3))
     d = tuple(rays[:, 3 + c] for c in range(3))
     inv = tuple(1.0 / c for c in d)
     t0, t1 = rays[:, 6], rays[:, 7]
     active = (rays[:, 3:6] != 0.0).any(dim=1) & (torch.arange(rp) < r)
-    order, entry, count = tile_visit_plan_fast(
-        rays[:, 0:3], rays[:, 3:6], grid, t0, t1, RAY_TILE)
     best_t = torch.full((rp,), F32_MAX)
     best_u, best_v = torch.zeros(rp), torch.zeros(rp)
     best_id = torch.full((rp,), -1, dtype=torch.int64)
@@ -130,20 +135,37 @@ def _emulate(origins, dirs, grid, tmin, tmax, det_eps, closest):
     split = bk.STREAM_SPLIT
     lanes_all = torch.arange(rp).reshape(nt, RAY_TILE // split, split)
     lanes_all = lanes_all.transpose(1, 2).reshape(nt * split, -1)
-    plan_row = torch.arange(nt * split) // split
-    order, entry, count = order[plan_row], entry[plan_row], count[plan_row]
+    tile_of = torch.arange(nt * split) // split
     n_cta = nt * split
+    if gate is None:
+        order, entry, count = tile_visit_plan_fast(
+            rays[:, 0:3], rays[:, 3:6], grid, t0, t1, RAY_TILE)
+        order, entry = order[tile_of].long(), entry[tile_of]
+        count = count[tile_of, 0]
+        n_pos = int(order.shape[1]) * SUPER
+
+        def block_at(p, ctas):  # -> (block, in the CTA's candidates)
+            b = order[ctas, p // SUPER] * SUPER + p % SUPER
+            return b, (p // SUPER < count[ctas]) & (b < nb)
+    else:
+        _, union, nj = bk._slab_aabbs(grid, slab_blocks)
+        gated = bk._chunk_slab_gate(rays, chunk_tiles * RAY_TILE, union,
+                                    nj)[tile_of // chunk_tiles] > 0
+        n_pos = nb
+
+        def block_at(p, ctas):
+            return (torch.full_like(ctas, p),
+                    gated[ctas, p // slab_blocks])
 
     def lane_rows(lanes, x):
         return tuple(c[lanes] for c in x)
 
     # 1. candidates on the starting windows
-    n_pos = int(order.shape[1]) * SUPER
     cand = torch.zeros(n_cta, n_pos, dtype=torch.bool)
     start = torch.full_like(t0, F32_MAX) if closest else t1
+    every = torch.arange(n_cta)
     for p in range(n_pos):
-        b = order[:, p // SUPER].long() * SUPER + p % SUPER
-        ok = (p // SUPER < count[:, 0]) & (b < nb)
+        b, ok = block_at(p, every)
         box = rows.aabb[b.clamp(max=nb - 1)]
         hit = _slab(box, lane_rows(lanes_all, o), lane_rows(lanes_all, inv),
                     t0[lanes_all], start[lanes_all]) & active[lanes_all]
@@ -157,19 +179,20 @@ def _emulate(origins, dirs, grid, tmin, tmax, det_eps, closest):
         if tl.numel() == 0:
             continue
         lanes = lanes_all[tl]
-        k = p // SUPER
-        if closest:
+        if not closest:
+            stop = ~(active[lanes] & ~blocked[lanes]).any(dim=1)
+        elif gate is None:
             m = torch.where(active[lanes], best_t[lanes],
                             -float("inf")).amax(dim=1)
-            stop = ~(entry[tl, k] <= m)
+            stop = ~(entry[tl, p // SUPER] <= m)
         else:
-            stop = ~(active[lanes] & ~blocked[lanes]).any(dim=1)
+            stop = torch.zeros_like(tl, dtype=torch.bool)
         walking[tl[stop]] = False
         tl, lanes = tl[~stop], lanes[~stop]
         if tl.numel() == 0:
             continue
         tested += tl.numel()
-        b = order[tl, k].long() * SUPER + p % SUPER
+        b = block_at(p, tl)[0]
         win = best_t[lanes] if closest else t1[lanes]
         passing = active[lanes] & _slab(rows.aabb[b], lane_rows(lanes, o),
                                         lane_rows(lanes, inv), t0[lanes], win)
@@ -265,15 +288,21 @@ def _shadow_rays(grid, o, d, light):
     return p, sd, torch.full_like(dist, 1e-4), dist
 
 
-def _check(grid, o, d, tmin, tmax, closest):
+def _check(grid, o, d, tmin, tmax, closest, gate=None):
     stats = {}
+    kw = {} if gate is None else dict(chunk_tiles=gate[0],
+                                      slab_blocks=gate[1])
     if closest:
-        want = bk.block_closest_streamed_plain(o, d, grid, tmin, stats=stats)
+        plain = (bk.block_closest_streamed_plain if gate is None
+                 else bk.block_closest_blockmajor_plain)
+        want = plain(o, d, grid, tmin, stats=stats, **kw)
         want = (want.t, want.u, want.v, want.tri_idx)
     else:
-        want = (bk.block_occluded_streamed_plain(o, d, grid, tmin, tmax,
-                                                 stats=stats),)
-    got, tests, tested = _emulate(o, d, grid, tmin, tmax, 1e-8, closest)
+        plain = (bk.block_occluded_streamed_plain if gate is None
+                 else bk.block_occluded_blockmajor_plain)
+        want = (plain(o, d, grid, tmin, tmax, stats=stats, **kw),)
+    got, tests, tested = _emulate(o, d, grid, tmin, tmax, 1e-8, closest,
+                                  gate)
     got = got if closest else (got,)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -297,6 +326,32 @@ def test_streamed_walk_matches_the_plain_walk(case, two_frog, random_scene):
     light = (0.0, 4.0, 3.0) if scene == "two_frog" else (0.5, 3.0, 0.5)
     blocked = _check(grid, *_shadow_rays(grid, o, d, light), False)[0]
     assert 0 < int(blocked.sum())
+
+
+@pytest.mark.parametrize("case,gate", [("two_frog camera", (1, 8)),
+                                       ("two_frog bounce", (2, 16)),
+                                       ("random camera", (1, 4))])
+def test_blockmajor_walk_matches_the_plain_sweep(case, gate, two_frog,
+                                                 random_scene):
+    """H on camera and bounce rays, then on their shadow rays toward a
+    light (parked and zero-direction lanes among them), bit for bit;
+    chunks of 1 or 2 tiles and slabs of 4-16 blocks, so that the gate
+    lets some slabs through and not others.  (The kernel's warps also
+    skip a slab whose union box none of their lanes passes: a box inside
+    it fails for those lanes too, so the candidates are the same.)"""
+    scene, rays = case.split()
+    grid, sets = two_frog if scene == "two_frog" else random_scene
+    o, d = sets[rays]
+    hits = _check(grid, o, d, 1e-4, F32_MAX, True, gate)
+    assert 0 < int((hits[3] >= 0).sum()) < o.shape[0]
+    light = (0.0, 4.0, 3.0) if scene == "two_frog" else (0.5, 3.0, 0.5)
+    blocked = _check(grid, *_shadow_rays(grid, o, d, light), False, gate)[0]
+    assert 0 < int(blocked.sum())
+    rays, _ = bk._prep_rays(o, d, 1e-4, F32_MAX)
+    rays, _ = bk._pad_rays(rays, gate[0] * RAY_TILE)
+    _, union, nj = bk._slab_aabbs(grid, gate[1])
+    g = bk._chunk_slab_gate(rays, gate[0] * RAY_TILE, union, nj)
+    assert 0 < int(g.sum()) < g.numel()
 
 
 def test_stream_constants_match_the_kernel_source():
