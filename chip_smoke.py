@@ -36,15 +36,18 @@ Phases, each printed on its own line; any failure raises (exit != 0):
 5. the main path: frog 1920x1080, depth 8, diffuse bounces,
    ``render_scene_frames`` with 16 frames at the calibrated capacity,
    with the binned camera plan (its build time and size logged) and
-   then with ``RT_BINNED=0``; frames compared.  Counted apart: one frame
-   at a capacity of 8 tiles, which overflows into the resume kernel;
+   then with ``RT_BINNED=0``; frames compared.  Counted and timed apart
+   (ms/frame, median of 3): one frame at a capacity of 8 tiles, which
+   overflows into the resume kernel, ``images_close`` to frame 0 of the
+   calibrated binned run (its max abs difference logged);
 6. kernel D at full width: frog 1080p terminal (diffuse off, depth 4),
    16 frames, and the headline with ``RT_WAVEFRONT=0``, one 16-frame
    call;
 7. the cpuonly dialect at full width: ``cpuonly_mirror.json`` at
    1920x1080 through whatever the dispatch picks, then with
    ``RT_WAVEFRONT=0`` (kernel D), and one frame at a capacity of 8
-   tiles (resume);
+   tiles (resume), timed and compared with frame 0 of the first run as
+   phase 5's is;
 8. the staged integrator at full width, 4 frames per call through
    ``render_scene_frames``: the frog 1920x1080 (depth 8, diffuse) with
    ``jitter_mode="reference_cpu"`` (E every depth; F never, the gpu
@@ -871,6 +874,46 @@ def timed_frames(label, scene, frames, smi, need, iters=3, jitter="auto",
         raise AssertionError(f"{label}: output not finite, black or of the "
                              "wrong shape")
     return ms, img, counts
+
+
+def timed_overflow(label, scene, smi, jitter, ref, iters=3):
+    """One frame at a capacity of 8 tiles, which overflows into the
+    resume kernel: a warm-up call, then ``iters`` timed calls counted as
+    one run; the frame must pass ``images_close`` against ``ref``, frame
+    0 of the calibrated run on the same arguments."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.io.image import quantize
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        render_scene_frames)
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    def render():
+        return render_scene_frames(scene, 1, jitter, 0, capacity_tiles=8)
+
+    render()
+    torch.cuda.synchronize()
+
+    def run():
+        return cuda_time_ms(render, warmup=0, iters=iters), render()
+
+    (t, img), counts = counted(f"{label} ({iters + 1} calls of 1 frame at "
+                               "cap=8)", run, ["resume"])
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: not finite")
+    ours, want = img[0].cpu().numpy(), ref.cpu().numpy()
+    ok, bad, mean = images_close(quantize(ours, scene.dialect),
+                                 quantize(want, scene.dialect))
+    ms = t["median_ms"]
+    log(f"{label}: 1 frame at cap=8: {ms:.3f} ms/frame (median of {iters} "
+        f"CUDA-event timings, samples "
+        f"{[round(x, 2) for x in t['samples_ms']]} ms) on {smi}; vs frame 0 "
+        f"of the calibrated run: bad_frac {bad:.5f} mean {mean:.4f} max abs "
+        f"diff {float(abs(ours - want).max()):.3e}")
+    if not ok:
+        raise AssertionError(f"{label}: the overflow frame is not close to "
+                             "the calibrated run's")
+    return ms, counts
 
 
 def time_kernels(smi, errs, jobs):
@@ -1758,14 +1801,11 @@ def main():
     if n_diff:
         raise AssertionError("binned frames differ from the RT_BINNED=0 "
                              "frames (the plans must give the same images)")
+    ref = frames_b[0].clone()
     del frames_b, frames_f, diff
-
-    overflow, over_counts = counted(
-        "overflow render (1 frame at cap=8)",
-        lambda: render_scene_frames(scene, 1, "wang", 0, capacity_tiles=8),
-        ["resume"])
-    if not bool(torch.isfinite(overflow).all()):
-        raise AssertionError("overflow render not finite")
+    ms_over, over_counts = timed_overflow("overflow render", scene, smi,
+                                          "wang", ref)
+    del ref
 
     # --- 6. kernel D at full width
     terminal = frog_scene(W, H, max_bounces=4, diffuse_bounce=False,
@@ -1783,18 +1823,19 @@ def main():
     cpu_scene = cpuonly_scene("cpuonly_mirror", dev, W, H)
     wf, cpu_cap = resolve_wavefront(cpu_scene, "auto", 1)
     path = "staged wavefront" if wf else "kernel D"
-    ms_cpu, _, cpu_counts = timed_frames(
+    ms_cpu, cpu_frames, cpu_counts = timed_frames(
         f"cpuonly_mirror 1080p ({path}, cap={cpu_cap})", cpu_scene, FRAMES,
         smi, ["emit"] if wf else ["render"])
+    ref = cpu_frames[0].clone()
+    del cpu_frames
     os.environ["RT_WAVEFRONT"] = "0"
     ms_cpu_d, _, cpu_d_counts = timed_frames(
         "cpuonly_mirror 1080p, RT_WAVEFRONT=0 (kernel D)", cpu_scene, FRAMES,
         smi, ["render"], iters=1)
     os.environ.pop("RT_WAVEFRONT")
-    _, cpu_over_counts = counted(
-        "cpuonly_mirror 1080p overflow render (1 frame at cap=8)",
-        lambda: render_scene_frames(cpu_scene, 1, "auto", 0, capacity_tiles=8),
-        ["resume"])
+    ms_cpu_over, cpu_over_counts = timed_overflow(
+        "cpuonly_mirror 1080p overflow render", cpu_scene, smi, "auto", ref)
+    del ref
 
     # --- 8. the staged integrator at full width
     ms_ref, _, ref_counts = timed_frames(
@@ -1966,7 +2007,8 @@ def main():
             "bounce_step": ("main path, binned", main_counts, "bounce_step"),
             "emit binned shadow walk": ("not on a path: A's shadow walk "
                                         "timed apart", {"none": 0}, "none"),
-            "resume": ("overflow render at cap=8", over_counts, "resume"),
+            "resume": ("overflow render at cap=8 (4 calls of 1 frame)",
+                       over_counts, "resume"),
             "render V2 binned": ("main path, RT_WAVEFRONT=0", d_counts,
                                  "render"),
             "render terminal binned": ("frog terminal depth 4", term_counts,
@@ -1976,7 +2018,8 @@ def main():
             "cpuonly bounce_step": ("cpuonly_mirror 1080p", cpu_counts,
                                     "bounce_step"),
             "cpuonly resume": ("cpuonly_mirror 1080p overflow render at "
-                               "cap=8", cpu_over_counts, "resume"),
+                               "cap=8 (4 calls of 1 frame)", cpu_over_counts,
+                               "resume"),
             "cpuonly render binned": ("cpuonly_mirror 1080p, RT_WAVEFRONT=0",
                                       cpu_d_counts, "render"),
             "closest": ("frog 1080p reference_cpu (staged)", ref_counts,
@@ -2031,7 +2074,9 @@ def main():
     log(f"ms/frame on {smi}: main path binned {ms_binned:.3f}, "
         f"RT_BINNED=0 {ms_flat:.3f}, RT_WAVEFRONT=0 {ms_d:.3f}, terminal "
         f"{ms_term:.3f}, cpuonly_mirror {ms_cpu:.3f}, cpuonly_mirror "
-        f"RT_WAVEFRONT=0 {ms_cpu_d:.3f}; staged integrator: frog "
+        f"RT_WAVEFRONT=0 {ms_cpu_d:.3f}; overflow at cap=8: frog "
+        f"{ms_over:.3f}, cpuonly_mirror {ms_cpu_over:.3f}; staged "
+        f"integrator: frog "
         f"reference_cpu {ms_ref:.3f}, cpuonly_mirror area light x32 "
         f"{ms_soft:.3f}; training, grad-bench config {train['ms_step']:.3f} "
         f"ms/step; large frog (1,270,912 triangles) G/I "

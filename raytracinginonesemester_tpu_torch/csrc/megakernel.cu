@@ -49,7 +49,15 @@
 //   over the path's threads (closest_binned_cta), the flat walks and the
 //   shadow rays are warp-cooperative, 8 paths a warp (bounce<..,
 //   kRender>).
-// - resume (C), closest (E): one thread per ray (closest, occluded).
+// - resume (C): bounce_step's walks (bounce<.., kWarp>), kResumeRays rays
+//   a warp, the depth loop running while a ray of the warp lives.
+// - closest (E), three launches: a ray a thread writes the miss of a ray
+//   whose slab test passes no block and lists the others;
+//   closest_walk_kernel, a grid that fills the card, walks the list
+//   kRaysPerWarp rays a warp (fewer when it is short; closest_coop),
+//   shades the hits and lists
+//   the facing (ray, light) entries that pass a slab test;
+//   closest_shadow_kernel walks that list as emit's is walked.
 //
 // What bounds it on this card: divergent scalar FP32 work (Moller-Trumbore
 // per ray-triangle pair, shadow walks, rejection sampling) and the latency
@@ -82,8 +90,12 @@ constexpr unsigned kFull = 0xffffffffu;
 // walk; its 32 lanes test their pairs
 constexpr int kRaysPerWarp = 8;
 // entries of a shadow list a warp takes at a time (walk_list; measured:
-// 2, 4 and 8 within the noise of each other, 16 slower)
+// 2, 4 and 8 within the noise of each other, 16 slower), fewer when the
+// list is short (take_groups)
 constexpr int kListRays = 4;
+// rays a warp of resume_kernel owns (measured on the frog's overflow
+// state: 4 rays a warp 31% faster than 8; on cpuonly_mirror's 2% slower)
+constexpr int kResumeRays = 4;
 // threads of emit_kernel a ray has: they split its closest walk
 constexpr int kEmitSplit = 4;
 // threads of render_kernel a path has: they split its binned depth 0, and
@@ -127,13 +139,13 @@ struct Shared {
   float* chunks;        // emit, binned: two (kStageRows, C) chunk buffers
 };
 
-// How bounce() walks: one thread per ray (kSolo: resume), the lanes of a
-// warp together (kWarp: bounce_step), or emit's three launches: the CTA
+// How bounce() walks: the lanes of a warp together (kWarp: bounce_step,
+// resume), or emit's three launches: the CTA
 // finds its closest hits together and lists its shadow rays (kList), a
 // listed walk's ray is made again to be walked (kCapture), and the flags
 // of the walks are read back to shade (kFlags); the render (kRender) walks
 // as kWarp does, but a binned depth 0 reads the chunks the CTA stages.
-enum Walk { kSolo, kWarp, kList, kCapture, kFlags, kRender };
+enum Walk { kWarp, kList, kCapture, kFlags, kRender };
 
 struct Ray {
   float bo[3], bd[3], tp[3], rd[3];
@@ -177,25 +189,6 @@ struct Capture {
   float t = kF32Max, u = 0.0f, v = 0.0f;
   int id = -1, vis = 0, dec = 0;
 };
-
-__device__ Hit closest(const SceneArgs& s, const Shared& sh, const float* o,
-                       const float* d, float tmin) {
-  const size_t plane = (size_t)s.num_blocks * s.block_size;
-  float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
-  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
-  for (int b = 0; b < s.num_blocks; ++b) {
-    if (!slab(sh.aabb + 6 * b, o, inv, tmin, h.t)) continue;
-    const int base = b * s.block_size;
-    for (int j = 0; j < s.block_size; ++j) {
-      const int id = s.ids[base + j];
-      if (id < 0) continue;
-      float u, v;
-      float t = mt(s.tri + base + j, plane, s.det_eps, o, d, tmin, h.t, &u, &v);
-      take(h, t, u, v, id, base + j);
-    }
-  }
-  return h;
-}
 
 // The binned walk (ops/binned.py): the tile's candidate chunks, dense
 // Moller-Trumbore on every live lane; the winner's grid slot (row 11) is
@@ -386,38 +379,22 @@ __device__ void shading_normal(const SceneArgs& s, const Hit& h,
   n[2] = snz * fs;
 }
 
-// Any hit (IsInShadow): blocks culled on [tmin, dist], triangles tested on
-// [tmin, tmax]; the walk stops at the first hit.
-__device__ bool occluded(const SceneArgs& s, const Shared& sh, const float* p,
-                         const float* ld, float tmin, float dist, float tmax) {
-  const size_t plane = (size_t)s.num_blocks * s.block_size;
-  float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};
-  for (int b = 0; b < s.num_blocks; ++b) {
-    if (!slab(sh.aabb + 6 * b, p, inv, tmin, dist)) continue;
-    const int base = b * s.block_size;
-    for (int j = 0; j < s.block_size; ++j) {
-      if (s.ids[base + j] < 0) continue;
-      float u, v;
-      if (mt(s.tri + base + j, plane, s.det_eps, p, ld, tmin, tmax, &u, &v) <
-          kF32Max)
-        return true;
-    }
-  }
-  return false;
-}
-
-// ---- the warp-cooperative walks of bounce_step_kernel ----
+// ---- the warp-cooperative walks ----
 //
-// Measured on the card (scripts/profile_torch_main_path.py --kernels): in
-// the one-thread-per-ray walk above, a warp runs a block's 512-step
-// triangle loop whenever any of its lanes passes the block's slab test
-// (half its lanes idle after a diffuse bounce), and each step is one
-// triangle whose test waits on the step before (the window shrinks with
-// the running best t), with few live warps to hide that.
+// The closest hit is the flat block scan: blocks 0..L-1 in order, each
+// gated by the ray's slab test on [tmin, best t], its triangles taken by
+// the (t, id) rule; the any-hit walk gates them on [tmin, dist], tests
+// the triangles on [tmin, tmax] and stops at the first blocker.
+// Measured on the card (scripts/profile_torch_main_path.py --kernels):
+// walked by one thread a ray, a warp runs a block's 512-step triangle
+// loop whenever any of its lanes passes the block's slab test (half its
+// lanes idle after a diffuse bounce), and each step is one triangle whose
+// test waits on the step before (the window shrinks with the running
+// best t), with few live warps to hide that.
 //
 // Here each lane keeps its ray, running hit and block cursor, and gates
-// the blocks in order 0..L-1 against its running best t exactly as
-// closest() does.  The warp takes the lowest block any lane waits on, and
+// the blocks in order against its running best t as that scan does.  The
+// warp takes the lowest block any lane waits on, and
 // all 32 lanes test the (ray, block) pairs waiting on it one after the
 // other, lane l taking triangles l, l + 32, ... (coalesced plane loads,
 // and independent tests: the window is the owner's best t when the block
@@ -487,7 +464,8 @@ __device__ void block_closest_warp(const SceneArgs& s, int b, const float* o,
   *j_o = bj;
 }
 
-// closest() for the lanes of a warp together.
+// The closest hit of each active lane's ray, for the lanes of a warp
+// together.
 __device__ Hit closest_coop(const SceneArgs& s, const Shared& sh,
                             const float* o, const float* d, float tmin,
                             bool active) {
@@ -542,8 +520,9 @@ __device__ bool block_any_warp(const SceneArgs& s, int b, const float* p,
   return false;
 }
 
-// occluded() for the lanes of a warp together: a lane leaves the walk at
-// the first block that holds a blocker.
+// Any hit (IsInShadow) of each active lane's ray, for the lanes of a warp
+// together: a lane leaves the walk at the first block that holds a
+// blocker.
 __device__ bool occluded_coop(const SceneArgs& s, const Shared& sh,
                               const float* p, const float* ld, float tmin,
                               float dist, float tmax, bool active) {
@@ -620,31 +599,44 @@ __device__ void list_append(const Shadows& q, bool want, int entry) {
   if (want) q.list[l_base + off + __popc(ball & ((1u << lane) - 1u))] = entry;
 }
 
-// The walking launch: the warps take groups of kListRays entries until
-// the list is done; `ray_of(entry, row)` fills an entry's row (p, ld,
-// tmin, dist, tmax) on its lane, and the warp walks the group.
-template <class RayOf>
-__device__ void walk_list(const SceneArgs& s, const Shared& sh,
-                          const Shadows& q, RayOf ray_of) {
+// A list-walking launch: its warps take groups of the list's entries
+// (one atomicAdd a group) until the list is done, and call
+// `walk(entry, active)` on every lane, the group's entries on its first
+// lanes (`active`).  A group is `most` entries, or fewer when the list
+// would not give each warp of the grid one: a short list's few warps
+// would walk their entries one pair after another while the others idle.
+// Each entry's walk is its own, so the grouping changes no result.
+template <class Body>
+__device__ void take_groups(const Shadows& q, int most, Body walk) {
   const int lane = threadIdx.x & 31;
   const int total = q.counts[0];
+  const int warps = gridDim.x * (blockDim.x / 32);
+  int n = most;
+  while (n > 1 && n * warps > total) n >>= 1;
   for (;;) {
     int g = 0;
     if (lane == 0) g = atomicAdd(&q.counts[1], 1);
-    const int e0 = __shfl_sync(kFull, g, 0) * kListRays;
+    const int e0 = __shfl_sync(kFull, g, 0) * n;
     if (e0 >= total) return;
     const int e = e0 + lane;
-    const bool active = lane < kListRays && e < total;
+    const bool active = lane < n && e < total;
+    walk(active ? q.list[e] : 0, active);
+  }
+}
+
+// The shadow walk of a list, kListRays entries a group: `ray_of(entry,
+// row)` fills an entry's row (p, ld, tmin, dist, tmax) on its lane, the
+// warp walks the group, and `mark(entry)` records a blocked entry.
+template <class RayOf, class Mark>
+__device__ void walk_list(const SceneArgs& s, const Shared& sh,
+                          const Shadows& q, RayOf ray_of, Mark mark) {
+  take_groups(q, kListRays, [&](int entry, bool active) {
     float row[9] = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
-    int entry = 0;
-    if (active) {
-      entry = q.list[e];
-      ray_of(entry, row);
-    }
+    if (active) ray_of(entry, row);
     if (occluded_coop(s, sh, row, row + 3, row[6], row[7], row[8], active) &&
         active)
-      q.flags[entry] = 1;
-  }
+      mark(entry);
+  });
 }
 
 // random_on_hemisphere (query.h:51-71): scalar rejection, <= 64 rounds.
@@ -726,8 +718,8 @@ __device__ __forceinline__ Hit load_hit(const Shadows& q, int gid) {
              __float_as_int(q.hits[4 * n + gid])};
 }
 
-// occluded() of a facing ray, as W makes it (W != kSolo: every lane or
-// thread calls it): kWarp and kRender, the warp walks it; kList, a ray
+// The any-hit walk of a facing ray, as W makes it (every lane or thread
+// calls it): kWarp and kRender, the warp walks it; kList, a ray
 // one of whose slab tests passes is listed, its flag cleared, and the
 // walk reads as unblocked; kCapture keeps the wanted walk's ray; kFlags
 // reads the walk's flag.
@@ -763,8 +755,8 @@ __device__ bool walk_occluded(const SceneArgs& s, const Shared& sh,
 }
 
 // One cpuonly shadow walk from p along st (not normalised): 1 if nothing
-// blocks [shadow_tmin, |st| - shadow_eps], else 0.  W != kSolo: every
-// lane or thread calls it.
+// blocks [shadow_tmin, |st| - shadow_eps], else 0.  Every lane or thread
+// calls it.
 template <Walk W>
 __device__ float soft_walk(const SceneArgs& s, const Shared& sh,
                            const float* p, float stx, float sty, float stz,
@@ -772,22 +764,16 @@ __device__ float soft_walk(const SceneArgs& s, const Shared& sh,
   float d_s = sqrtf(fmaxf(stx * stx + sty * sty + stz * stz, 1e-24f));
   float inv_s = 1.0f / d_s;
   float sld[3] = {stx * inv_s, sty * inv_s, stz * inv_s};
-  if constexpr (W != kSolo)
-    return walk_occluded<W>(s, sh, p, sld, s.shadow_tmin, d_s,
-                            d_s - s.shadow_eps, facing, c)
-               ? 0.0f
-               : 1.0f;
-  if (!facing) return 1.0f;
-  return occluded(s, sh, p, sld, s.shadow_tmin, d_s, d_s - s.shadow_eps)
+  return walk_occluded<W>(s, sh, p, sld, s.shadow_tmin, d_s,
+                          d_s - s.shadow_eps, facing, c)
              ? 0.0f
              : 1.0f;
 }
 
 // ShadowVisibility (CPUOnly/raytracer.h:121-168): shadow_samples walks
 // toward disk samples of an area light (the draws advance the ray's rng),
-// one toward a point light's center.  Only a ray that hit calls it, or,
-// W != kSolo, every lane or thread, the draws advancing the rng of those
-// that hit.
+// one toward a point light's center.  Every lane or thread calls it, the
+// draws advancing the rng of those that hit.
 template <Walk W>
 __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
                                  const float* L, const float* p,
@@ -844,11 +830,10 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
 // as kWarp, but with a binned plan every thread of the CTA calls it and
 // reads the chunks the CTA stages, kRenderSplit threads a ray, of which
 // `live` marks the one that goes on with the hit.
-template <bool CPU, bool DIFF = false, Walk W = kSolo>
+template <bool CPU, bool DIFF, Walk W>
 __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
                        Ray& r, int tile, Capture* cap = nullptr,
                        bool live = true, ShadowCtx* c = nullptr) {
-  constexpr bool ALL = W != kSolo;  // every lane or thread walks
   const float* o = r.bo;
   const float* d = r.bd;
   Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
@@ -862,8 +847,7 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
     else if (live)
       h = closest_binned(s, tile, o, d);
   } else {
-    h = ALL ? closest_coop(s, sh, o, d, s.tmin, live)
-            : closest(s, sh, o, d, s.tmin);
+    h = closest_coop(s, sh, o, d, s.tmin, live);
   }
   if constexpr (W == kList) {
     if (tile < 0) {  // the owner's flat walk, to the ray's other threads
@@ -903,19 +887,14 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
     float ndotl = fmaxf(n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2], 0.0f);
     bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
     float vis = 1.0f;
-    if (CPU && ALL)  // every lane walks; a miss draws nothing
+    if constexpr (CPU)  // every lane walks; a miss draws nothing
       vis = soft_visibility<W>(s, sh, L, p, to, ld, facing, hit, &r.rng, c);
     if (CPU && !hit) continue;  // a miss adds nothing
-    if (CPU && !ALL)
-      vis = soft_visibility<kSolo>(s, sh, L, p, to, ld, facing, true, &r.rng,
-                                   c);
     bool blocked = false;
-    if constexpr (!CPU && ALL)
+    if constexpr (!CPU)
       blocked = walk_occluded<W>(s, sh, p, ld, s.shadow_tmin, dist, dist,
                                  facing, c);
     if (!facing) continue;  // scale == 0: adds exactly 0
-    if (!CPU && !ALL)
-      blocked = occluded(s, sh, p, ld, s.shadow_tmin, dist, dist);
     if (!CPU) vis = blocked ? 0.0f : 1.0f;
     if (DIFF && vis > 0.0f) cap->vis |= 1 << li;
     float hx = ld[0] + vx, hy = ld[1] + vy, hz = ld[2] + vz;
@@ -1133,7 +1112,7 @@ emit_walk_kernel(SceneArgs s, const int* xs, const int* ys,
     ShadowCtx c{q, gid, 0, entry % q.rounds, {}};
     bounce<CPU, false, kCapture>(s, sh, s.cam, r, -1, nullptr, true, &c);
     for (int k = 0; k < 9; ++k) row[k] = c.ray[k];
-  });
+  }, [&](int entry) { q.flags[entry] = 1; });
 }
 
 // emit's last launch: each ray of a tile with work shades its kept hit
@@ -1208,20 +1187,39 @@ bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
   }
 }
 
-template <bool CPU>
+// The overflow resume (_resume_kernel): bounces 1..max_depth-1 of each
+// ray from its state rows, then its radiance.  Measured first
+// (scripts/profile_torch_main_path.py --staged): as first ported, one
+// thread a ray walking alone, the warps whose rays bounce longest,
+// walking a block's 512 triangles one a step, set the time.  The rays now
+// walk as bounce_step's do (bounce<.., kWarp>): lane l < RAYS of warp w
+// owns ray w * RAYS + l, a (ray, block) pair's triangles are tested on
+// the warp's 32 lanes, and the depth loop runs while a ray of the warp
+// lives; a lane without a live ray passes live = false, still tests the
+// others' pairs, and keeps its state.
+template <bool CPU, int RAYS>
 __global__ void __launch_bounds__(kThreads)
 resume_kernel(SceneArgs s, const float* st_in, const int* rng_in, int n_rays,
               int rt, int max_depth, float* r_out, float* g_out,
               float* b_out) {
   const Shared sh = stage_shared(s);
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rays) return;
+  const int wl = threadIdx.x & 31;
+  const int gid = (blockIdx.x * blockDim.x + threadIdx.x) / 32 * RAYS + wl;
+  const bool in_range = wl < RAYS && gid < n_rays;
   const int tile = gid / rt, lane = gid % rt;
-  Ray r;
-  load_ray(st_in + (size_t)tile * kStRows * rt + lane,
-           rng_in + (size_t)tile * 8 * rt + lane, rt, r);
-  for (int depth = 1; depth < max_depth && r.alive > 0.0f; ++depth)
-    bounce<CPU>(s, sh, s.cam, r, -1);
+  Ray r{};
+  if (in_range)
+    load_ray(st_in + (size_t)tile * kStRows * rt + lane,
+             rng_in + (size_t)tile * 8 * rt + lane, rt, r);
+  bool live = in_range && r.alive > 0.0f;
+  for (int depth = 1; depth < max_depth && __any_sync(kFull, live);
+       ++depth) {
+    Ray w = r;
+    bounce<CPU, false, kWarp>(s, sh, s.cam, w, -1, nullptr, live);
+    if (live) r = w;
+    live = live && r.alive > 0.0f;
+  }
+  if (!in_range) return;
   r_out[gid] = r.rd[0];
   g_out[gid] = r.rd[1];
   b_out[gid] = r.rd[2];
@@ -1298,55 +1296,175 @@ render_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
   b_out[gid] = acc[2];
 }
 
-// The staged integrator's closest hit (E, _closest_kernel): one thread per
-// ray runs the flat block scan on [tmin[i], best t]; with_normal adds the
-// gpu shading normal (0, 0, 1 on a miss); each of the n_shadow point lights
-// then gets the fused IsInShadow walk of _closest_kernel in its op order:
+// The staged integrator's closest hit (E, _closest_kernel): the flat block
+// scan on [tmin[i], best t] of each ray; with_normal adds the gpu shading
+// normal (0, 0, 1 on a miss); each of the n_shadow point lights then gets
+// the fused IsInShadow walk of _closest_kernel in its op order:
 // p = o + t d + n eps, dist = sqrt(max(|to|^2, 1e-38)), direction
 // to * (1 / dist), any hit on [shadow_tmin, dist]; lanes that miss or face
 // away (N.L <= 0 or N.V <= 0) trace nothing and get visibility 0.  The
 // Pallas kernel's superblock plan, early exit and quarter gating are TPU
 // schedules: the (t, id) take rule gives the same winners in any order.
-// Bound on this card: FP32 Moller-Trumbore per ray-triangle pair, planes
-// read from L2; nothing here for the tensor cores.
+//
+// Measured first (scripts/profile_torch_main_path.py --staged): as first
+// ported, one thread a ray walking alone, a block's 512 triangles were
+// tested one a step in one lane, and the warps holding the few rays with
+// long walks set the time (on the 1080p frog the last CTA ended at 3.7x
+// the mean at depth 0, 21-51x at depths 1-7); after depth 0 only a few
+// percent of the rays the integrator feeds live (the others are parked
+// off the grid), yet each depth took 6-8 ms.  So E runs as emit's shadow
+// walk does, in three launches (rt_closest): a ray a thread writes the
+// miss of a ray whose slab test passes no block (parked rays, rays to
+// the sky) and lists the others; a grid that fills the card walks that
+// list kRaysPerWarp rays a warp (fewer when the list is short), a (ray,
+// block) pair's triangles on the warp's 32 lanes (closest_coop), shades
+// the hits and lists the facing (ray, light) entries whose slab test
+// passes some block; a third launch walks that list (walk_list) and
+// clears the visibility of the blocked ones.  Bound on this card: FP32
+// Moller-Trumbore per ray-triangle pair, planes read from L2; nothing
+// here for the tensor cores.
+
+// E's rays and results (block_closest): n (R, 3) and vis (R, n_shadow)
+// only with with_normal, lights the (n_shadow, 3) point-light positions.
+struct ClosestIO {
+  const float* orig;
+  const float* dir;
+  const float* tmin;
+  const float* lights;
+  int n_shadow;
+  int with_normal;
+  float* t;
+  float* u;
+  float* v;
+  int* id;
+  float* n;
+  float* vis;
+};
+
+// Append the entries of a warp's lanes that `want` to the list (every
+// lane of the warp calls it): one atomicAdd a warp.
+__device__ void warp_append(const Shadows& q, bool want, int entry) {
+  const int lane = threadIdx.x & 31;
+  const unsigned ball = __ballot_sync(kFull, want);
+  int base = 0;
+  if (lane == 0 && ball) base = atomicAdd(&q.counts[0], __popc(ball));
+  base = __shfl_sync(kFull, base, 0);
+  if (want) q.list[base + __popc(ball & ((1u << lane) - 1u))] = entry;
+}
+
+// The shade point of a hit and its shadow ray toward point light L: unit
+// direction sd and distance, in _closest_kernel's op order (both launches
+// that need it compute it here, to the same bits).
+__device__ __forceinline__ void light_ray(const float* o, const float* d,
+                                          float t, const float* n,
+                                          float eps, const float* L,
+                                          float* p, float* sd,
+                                          float* dist) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) p[c] = o[c] + t * d[c] + n[c] * eps;
+  const float to[3] = {L[0] - p[0], L[1] - p[1], L[2] - p[2]};
+  *dist = sqrtf(fmaxf(to[0] * to[0] + to[1] * to[1] + to[2] * to[2], 1e-38f));
+  const float inv_dist = 1.0f / *dist;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) sd[c] = to[c] * inv_dist;
+}
+
+// E's first launch: a ray a thread.  The closest walk's first slab test
+// (closest_coop's, on [tmin, FLT_MAX]) passes no block: the ray misses and
+// traces no shadow, and its results are written here; else it is listed.
 __global__ void __launch_bounds__(kThreads)
-closest_kernel(SceneArgs s, const float* orig, const float* dir,
-               const float* tmin, int n_rays, int with_normal,
-               const float* shadow_lights, int n_shadow, float* t_out,
-               float* u_out, float* v_out, int* idx_out, float* n_out,
-               float* vis_out) {
+closest_kernel(SceneArgs s, ClosestIO io, int n_rays, Shadows q) {
   const Shared sh = stage_shared(s);
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rays) return;
-  const float o[3] = {orig[3 * gid], orig[3 * gid + 1], orig[3 * gid + 2]};
-  const float d[3] = {dir[3 * gid], dir[3 * gid + 1], dir[3 * gid + 2]};
-  const Hit h = closest(s, sh, o, d, tmin[gid]);
-  t_out[gid] = h.t;
-  u_out[gid] = h.u;
-  v_out[gid] = h.v;
-  idx_out[gid] = h.id;
-  if (!with_normal) return;
-  const bool hit = h.t < kF32Max;
-  float n[3] = {0.0f, 0.0f, 1.0f};
-  if (hit) shading_normal<false>(s, h, d, n);
-  for (int c = 0; c < 3; ++c) n_out[3 * gid + c] = n[c];
-  float p[3];
-  for (int c = 0; c < 3; ++c)
-    p[c] = hit ? o[c] + h.t * d[c] + n[c] * s.shadow_eps : 1e30f;
-  const float ndotv = -(n[0] * d[0] + n[1] * d[1] + n[2] * d[2]);
-  for (int li = 0; li < n_shadow; ++li) {
-    const float* L = shadow_lights + 3 * li;
-    const float to[3] = {L[0] - p[0], L[1] - p[1], L[2] - p[2]};
-    const float dist =
-        sqrtf(fmaxf(to[0] * to[0] + to[1] * to[1] + to[2] * to[2], 1e-38f));
-    const float inv_dist = 1.0f / dist;
-    const float sd[3] = {to[0] * inv_dist, to[1] * inv_dist, to[2] * inv_dist};
-    const float ndotl = n[0] * sd[0] + n[1] * sd[1] + n[2] * sd[2];
-    const bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
-    vis_out[(size_t)gid * n_shadow + li] =
-        facing && !occluded(s, sh, p, sd, s.shadow_tmin, dist, dist) ? 1.0f
-                                                                      : 0.0f;
+  const int gid = blockIdx.x * kThreads + threadIdx.x;
+  bool listed = false;
+  if (gid < n_rays) {
+    const float* o = io.orig + 3 * gid;
+    const float* d = io.dir + 3 * gid;
+    const float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
+    listed = next_block(s, sh, o, inv, io.tmin[gid], kF32Max, 0) <
+             s.num_blocks;
+    if (!listed) {
+      io.t[gid] = kF32Max;
+      io.u[gid] = 0.0f;
+      io.v[gid] = 0.0f;
+      io.id[gid] = -1;
+      if (io.with_normal) {
+        io.n[3 * gid] = 0.0f;
+        io.n[3 * gid + 1] = 0.0f;
+        io.n[3 * gid + 2] = 1.0f;
+        for (int li = 0; li < io.n_shadow; ++li)
+          io.vis[(size_t)gid * io.n_shadow + li] = 0.0f;
+      }
+    }
   }
+  list_append(q, listed, gid);
+}
+
+// E's second launch: the warps take up to kRaysPerWarp entries of the ray
+// list at a time until it is done and walk them together (closest_coop);
+// with with_normal each hit's normal, and per light its visibility: 1
+// where it faces the light, its entry gid * n_shadow + li listed in qs if
+// its slab test passes some block on [shadow_tmin, dist] (else nothing
+// can block it), 0 on a miss or facing away.
+__global__ void __launch_bounds__(kThreads)
+closest_walk_kernel(SceneArgs s, ClosestIO io, Shadows q, Shadows qs) {
+  const Shared sh = stage_shared(s);
+  take_groups(q, kRaysPerWarp, [&](int gid, bool active) {
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {1.0f, 1.0f, 1.0f}, tmin = 0.0f;
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        o[c] = io.orig[3 * gid + c];
+        d[c] = io.dir[3 * gid + c];
+      }
+      tmin = io.tmin[gid];
+    }
+    const Hit h = closest_coop(s, sh, o, d, tmin, active);
+    if (active) {
+      io.t[gid] = h.t;
+      io.u[gid] = h.u;
+      io.v[gid] = h.v;
+      io.id[gid] = h.id;
+    }
+    if (!io.with_normal) return;  // uniform
+    const bool hit = active && h.t < kF32Max;
+    float n[3] = {0.0f, 0.0f, 1.0f};
+    if (hit) shading_normal<false>(s, h, d, n);
+    if (active)
+      for (int c = 0; c < 3; ++c) io.n[3 * gid + c] = n[c];
+    const float ndotv = -(n[0] * d[0] + n[1] * d[1] + n[2] * d[2]);
+    for (int li = 0; li < io.n_shadow; ++li) {
+      float p[3], sd[3], dist;
+      light_ray(o, d, h.t, n, s.shadow_eps, io.lights + 3 * li, p, sd, &dist);
+      const float ndotl = n[0] * sd[0] + n[1] * sd[1] + n[2] * sd[2];
+      const bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
+      const float inv[3] = {1.0f / sd[0], 1.0f / sd[1], 1.0f / sd[2]};
+      const bool walks =
+          facing &&
+          next_block(s, sh, p, inv, s.shadow_tmin, dist, 0) < s.num_blocks;
+      if (active)
+        io.vis[(size_t)gid * io.n_shadow + li] = facing ? 1.0f : 0.0f;
+      warp_append(qs, walks, gid * io.n_shadow + li);
+    }
+  });
+}
+
+// E's third launch: the listed shadow rays, made again from the hits the
+// second launch wrote, walked as emit's are; a blocked one's visibility
+// is cleared.
+__global__ void __launch_bounds__(kThreads)
+closest_shadow_kernel(SceneArgs s, ClosestIO io, Shadows qs) {
+  const Shared sh = stage_shared(s);
+  walk_list(s, sh, qs, [&](int entry, float* row) {
+    const int gid = entry / io.n_shadow, li = entry % io.n_shadow;
+    const float* o = io.orig + 3 * gid;
+    const float* d = io.dir + 3 * gid;
+    const float* n = io.n + 3 * gid;
+    light_ray(o, d, io.t[gid], n, s.shadow_eps, io.lights + 3 * li, row,
+              row + 3, &row[7]);
+    row[6] = s.shadow_tmin;
+    row[8] = row[7];
+  }, [&](int entry) { io.vis[entry] = 0.0f; });
 }
 
 // The staged integrator's any-hit test (F, _occluded_kernel), every ray
@@ -1385,7 +1503,7 @@ occluded_walk_kernel(SceneArgs s, const float* orig, const float* dir,
     row[6] = tmin[gid];
     row[7] = tmax[gid];
     row[8] = tmax[gid];
-  });
+  }, [&](int gid) { q.flags[gid] = 1; });
 }
 
 // ---- C interface (loaded with ctypes) ----
@@ -1508,10 +1626,12 @@ int rt_bounce_step(const SceneArgs* s, const float* st_in, const int* rng_in,
 int rt_resume(const SceneArgs* s, const float* st_in, const int* rng_in,
               int n_rays, int rt, int max_depth, float* r_out, float* g_out,
               float* b_out, void* stream) {
-  auto kernel = s->cpuonly ? &resume_kernel<true> : &resume_kernel<false>;
+  constexpr int rays = kResumeRays;
+  auto kernel = s->cpuonly ? &resume_kernel<true, rays>
+                           : &resume_kernel<false, rays>;
   int e = prepare(kernel, *s, shared_bytes(*s));
-  if (e) return e;
-  kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
+  if (e || n_rays == 0) return e;
+  kernel<<<coop_blocks_for(n_rays, rays), kThreads, shared_bytes(*s),
            (cudaStream_t)stream>>>(*s, st_in, rng_in, n_rays, rt, max_depth,
                                    r_out, g_out, b_out);
   return (int)cudaGetLastError();
@@ -1535,17 +1655,35 @@ int rt_render(const SceneArgs* s, const int* xs, const int* ys,
   return (int)cudaGetLastError();
 }
 
+// Scratch from the caller: counts (4,), the ray list's two counters, then
+// the shadow list's; list (n_rays,); shadow_list (n_rays * n_shadow,).
 int rt_closest(const SceneArgs* s, const float* orig, const float* dir,
                const float* tmin, int n_rays, int with_normal,
                const float* shadow_lights, int n_shadow, float* t_out,
                float* u_out, float* v_out, int* idx_out, float* n_out,
-               float* vis_out, void* stream) {
-  int e = prepare(&closest_kernel, *s, shared_bytes(*s));
-  if (e) return e;
-  closest_kernel<<<blocks_for(n_rays), kThreads, shared_bytes(*s),
-                   (cudaStream_t)stream>>>(
-      *s, orig, dir, tmin, n_rays, with_normal, shadow_lights, n_shadow, t_out,
-      u_out, v_out, idx_out, n_out, vis_out);
+               float* vis_out, int* counts, int* list, int* shadow_list,
+               void* stream) {
+  if (n_shadow && !with_normal) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const ClosestIO io{orig,  dir,   tmin,  shadow_lights, n_shadow, with_normal,
+                     t_out, u_out, v_out, idx_out,       n_out,    vis_out};
+  const Shadows q{counts, list, nullptr, nullptr, 1, n_rays};
+  const Shadows qs{counts + 2, shadow_list, nullptr, nullptr, n_shadow,
+                   n_rays};
+  const size_t smem = shared_bytes(*s);
+  int walk_blocks = 0, shadow_blocks = 0;
+  int e = prepare(&closest_kernel, *s, smem);
+  if (!e) e = prepare(&closest_walk_kernel, *s, smem);
+  if (!e) e = prepare(&closest_shadow_kernel, *s, smem);
+  if (!e) e = fill_blocks(&closest_walk_kernel, smem, &walk_blocks);
+  if (!e) e = fill_blocks(&closest_shadow_kernel, smem, &shadow_blocks);
+  if (!e) e = (int)cudaMemsetAsync(counts, 0, 4 * sizeof(int), st);
+  if (e || n_rays == 0) return e;
+  closest_kernel<<<blocks_for(n_rays), kThreads, smem, st>>>(*s, io, n_rays,
+                                                             q);
+  closest_walk_kernel<<<walk_blocks, kThreads, smem, st>>>(*s, io, q, qs);
+  if (n_shadow)
+    closest_shadow_kernel<<<shadow_blocks, kThreads, smem, st>>>(*s, io, qs);
   return (int)cudaGetLastError();
 }
 

@@ -149,7 +149,7 @@ def _declare(name: str, lib) -> None:
         lib.rt_render.argtypes = [sp, vp, vp, vp, i, i, i, i, i, i, i,
                                   vp, vp, vp, vp]
         lib.rt_closest.argtypes = [sp, vp, vp, vp, i, i, vp, i, vp, vp, vp,
-                                   vp, vp, vp, vp]
+                                   vp, vp, vp, vp, vp, vp, vp]
         lib.rt_occluded.argtypes = [sp, vp, vp, vp, vp, i, vp, vp, vp, vp]
         fns = (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
                lib.rt_render, lib.rt_closest, lib.rt_occluded)

@@ -28,7 +28,10 @@ tensors; there is no other path.  E and F run the flat block scan of
 kernels A and B: a per-ray slab test against the running best t before
 each block, then the block's triangles with the lexicographic (t, global
 triangle id) take rule, so winners do not depend on visit order and equal
-the JAX kernels' superblock walk.  G and I walk the plan's order with the
+the JAX kernels' superblock walk.  Each lists the rays whose slab test
+passes some block, and a grid that fills the card walks the list, a (ray,
+block) pair's triangles on a warp's 32 lanes; E lists its fused shadow
+rays and walks them the same way.  G and I walk the plan's order with the
 same per-ray slab test and take rule, a CTA's warps testing the (ray,
 block) pairs of each staged block together (``csrc/block_stream.cu``);
 H walks the same way the blocks of the slabs its JAX gate lets through;
@@ -242,10 +245,17 @@ def block_closest(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
         tm = _per_ray(tmin, r, dev)
         args = _scene_args(rows, _Shade(False, det_eps, 1e-4, shadow_eps,
                                         shadow_tmin))
+        # scratch: the list of rays to walk, that of (ray, light) entries
+        # whose shadow ray walks, and their counters
+        counts = torch.empty(4, dtype=torch.int32, device=dev)
+        walks = torch.empty(r, dtype=torch.int32, device=dev)
+        shadows = torch.empty(max(r * n_shadow, 1), dtype=torch.int32,
+                              device=dev)
         err = lib.rt_closest(ctypes.byref(args), _ptr(o), _ptr(d), _ptr(tm), r,
                              int(with_normal), _ptr(lights), n_shadow,
                              _ptr(t), _ptr(u), _ptr(v), _ptr(idx),
-                             _ptr(normal), _ptr(vis), _stream())
+                             _ptr(normal), _ptr(vis), _ptr(counts),
+                             _ptr(walks), _ptr(shadows), _stream())
         _raise_on(lib, err, "closest")
         block_closest.launches += 1
     hits = HitData(t=t, u=u, v=v, tri_idx=idx, hit=idx >= 0)

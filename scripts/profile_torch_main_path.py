@@ -7,8 +7,9 @@
     python scripts/profile_torch_main_path.py --kernels [--parent DIR]
     python scripts/profile_torch_main_path.py --streamed [--parent DIR]
     python scripts/profile_torch_main_path.py --render [--parent DIR]
-    python scripts/profile_torch_main_path.py --times [--streamed | --render]
-        [--root DIR]
+    python scripts/profile_torch_main_path.py --staged [--parent DIR]
+    python scripts/profile_torch_main_path.py --times [--streamed | --render
+        | --staged] [--root DIR]
 
 Renders the frog scene (depth 8, diffuse) with
 ``render_scene_frames`` once to warm up, then once under
@@ -55,17 +56,17 @@ the time of each part alone.
 B (gpu dialect) on the headline frog's 4,080 sorted
 tiles at depth 1 and B (cpuonly) on ``cpuonly_mirror``'s: each timed,
 also without its lights (the closest-hit walk and the shading alone);
-kernel E without normals on B's live rays (the one-thread-per-ray
-closest-hit walk); a SIMT count of that walk from the plain version's
-(ray, block) tests (a warp of 32 rays runs a block's triangle loop when
-any of its lanes passes the slab test) against the pairs the
-warp-cooperative walk tests, 32 lanes to a pair.  ``clock64()``
+kernel E without normals on B's live rays (the same closest-hit walk,
+its rays listed); a SIMT count of a one-thread-per-ray walk from the
+plain version's (ray, block) tests (a warp of 32 rays runs a block's
+triangle loop when any of its lanes passes the slab test) against the
+pairs the warp-cooperative walk tests, 32 lanes to a pair.  ``clock64()``
 cycles per warp of A's walks and of B's, with ``%globaltimer`` spans,
 come from an instrumented copy of ``csrc/megakernel.cu`` (built apart
 under ``build/walk_clocks/`` by exact text edits, ``_CLOCK_EDITS`` and
-one of the ``_A_EDITS_*`` sets, the one that matches A's design in the
-source: a change to these walks must keep an edit set matching, or the
-mode stops and names the edit; its results must equal the kernel's).
+``_A_EDITS_LIST``: a change to these walks must keep the edits
+matching, or the mode stops and names the edit; its results must equal
+the kernel's).
 J on the
 inputs of its launches in one grad-bench step (the material and vertex
 tables): the wrapper (kernel + its sort glue), the glue alone, the
@@ -118,12 +119,35 @@ closest-walk and shadow-walk tests by depth; per warp of 32 pixels the
 depths its deepest path runs against its lanes' mean); ``clock64()``
 cycles per warp of an instrumented copy (built apart under
 ``build/walk_clocks/`` by ``_D_EDITS_BOUNCE`` and the edit set of the
-design in the source, ``_D_EDITS_WARP`` or ``_D_EDITS_SOLO``) split into
+design in the source, ``_D_EDITS_WARP``) split into
 the closest-hit walks, the light loops and the rest of the bounces, the
 depths a warp runs, and each CTA's ``%globaltimer`` start and end; the
 variants of ``_D_VARIANTS`` (the binned depth 0 from device memory; 32,
 16 or 4 paths a warp) in turns with this tree's kernel; and, with
 ``--parent DIR``, the three rows through ``DIR``'s tree in turns.
+``--staged`` profiles kernel E (the staged integrator's closest hit) on
+the inputs of each depth of one frog 1080p ``reference_cpu`` frame, on
+the first of phase 8's ``cpuonly_mirror`` (area light, 32 samples) and
+on the large frog's camera rays (off its path), and kernel C (the
+overflow resume) on phase 11's two rows (the headline frog's and
+``cpuonly_mirror``'s sorted depth-0 state at 1080p, as the cap-8
+overflow renders feed it): E's plain version on the card counts the
+rays, parked ones, those whose slab test passes some block, the hits,
+the closest-walk and shadow-walk pairs and the (ray, light) entries that
+face their light and those of them that pass a slab test; C's, bounce by
+bounce, the live rays and both walks' tests by depth and, per warp of
+32, 8 or 4 rays, the depths its loop runs against its rays'; each
+kernel's time (medians of 5) and the device time of each launch
+(``torch.profiler``); ``clock64()`` cycles per warp of an instrumented
+copy (built apart under ``build/walk_clocks/`` by the edit set of each
+kernel's design in the source, ``_E_EDIT_SETS``, ``_C_EDIT_SETS``, and
+``_D_EDITS_BOUNCE``): E's closest walk, shadow walks and the rest, C's
+closest walks, light loops and the rest with its depths, and each
+launch's CTAs' ``%globaltimer`` start and end; the variants of
+``_STAGED_VARIANTS`` in turns with this tree's kernels; and, with
+``--parent DIR``, every row, and the frames of C's two scenes at a
+capacity of 8 tiles (``chip_smoke.py`` phases 5 and 7, which overflow
+into C), through ``DIR``'s tree in turns.
 The full table is also written to ``chiprun_out/profile_main_path.txt``
 (``profile_grad.txt`` with ``--grad``, ``profile_large.txt`` with
 ``--large``).
@@ -152,14 +176,17 @@ def main():
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--streamed", action="store_true")
     ap.add_argument("--render", action="store_true")
+    ap.add_argument("--staged", action="store_true")
     ap.add_argument("--parent", default=None,
-                    help="with --kernels, --streamed or --render: a tree of "
-                         "the port (e.g. the parent commit unpacked with git "
-                         "archive) whose kernels A and F, G, I and H, or D "
-                         "are timed in turns with this tree's")
+                    help="with --kernels, --streamed, --render or "
+                         "--staged: a tree of the port (e.g. the parent "
+                         "commit unpacked with git archive) whose kernels A "
+                         "and F, G, I and H, D, or E and C are timed in "
+                         "turns with this tree's")
     ap.add_argument("--times", action="store_true",
                     help="print the --parent timings of A and F (with "
-                         "--streamed: G, I and H; with --render: D) as JSON")
+                         "--streamed: G, I and H; with --render: D; with "
+                         "--staged: E and C) as JSON")
     ap.add_argument("--root", default=None,
                     help="with --times: import the package from this tree")
     args = ap.parse_args()
@@ -169,8 +196,11 @@ def main():
         import json
         print(json.dumps(streamed_times() if args.streamed
                          else render_times() if args.render
+                         else staged_times() if args.staged
                          else kernel_times()))
         return None
+    if args.staged:
+        return profile_staged(args.parent)
     if args.render:
         return profile_render(args.parent)
     if args.streamed:
@@ -647,70 +677,6 @@ _A_HELPERS = (
     '  if ((threadIdx.x & 31) == 0) {\n'
     '    atomicMax(&g_prof[24], ~g0);\n    atomicMax(&g_prof[25], g1);\n'
     '  }\n}\n')
-# A as first ported (one thread per ray, a single launch): per warp with
-# work, the whole bounce (16, 17), the closest walk (18), the light loop
-# (19); per shadow walk of one thread (20, 21); globaltimer of every warp
-# (24, 25) and of the warps with work (26, 27)
-_A_EDITS_SOLO = [
-    ('__device__ Hit closest(const SceneArgs& s,',
-     _A_HELPERS + '__device__ Hit closest(const SceneArgs& s,'),
-    ('  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};\n  if (tile >= 0) {\n'
-     '    if (live) h = closest_binned(s, tile, o, d);\n',
-     '  Hit h{kF32Max, 0.0f, 0.0f, -1, 0};\n'
-     '  const long long qa = COOP ? 0 : clock_warp();\n  if (tile >= 0) {\n'
-     '    if (live) h = closest_binned(s, tile, o, d);\n'),
-    ('  const bool hit = h.t < kF32Max;\n  float n[3] = {0.0f, 0.0f, 1.0f};\n'
-     '  int obj = 0;\n',
-     '  if (!COOP) prof_add(18, clock_warp() - qa);\n'
-     '  const bool hit = h.t < kF32Max;\n  float n[3] = {0.0f, 0.0f, 1.0f};\n'
-     '  int obj = 0;\n'),
-    ('  for (int li = 0; li < s.n_lights; ++li) {\n'
-     '    const float* L = sh.lights + 8 * li;\n',
-     '  const long long ql = COOP ? 0 : clock_warp();\n'
-     '  for (int li = 0; li < s.n_lights; ++li) {\n'
-     '    const float* L = sh.lights + 8 * li;\n'),
-    ('  }\n\n  // ---- radiance and the Russian-roulette split',
-     '  }\n  if (!COOP) prof_add(19, clock_warp() - ql);\n\n'
-     '  // ---- radiance and the Russian-roulette split'),
-    ('  float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};\n'
-     '  for (int b = 0; b < s.num_blocks; ++b) {\n'
-     '    if (!slab(sh.aabb + 6 * b, p, inv, tmin, dist)) continue;\n',
-     '  const long long qo = clock64();\n'
-     '  float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};\n'
-     '  for (int b = 0; b < s.num_blocks; ++b) {\n'
-     '    if (!slab(sh.aabb + 6 * b, p, inv, tmin, dist)) continue;\n'),
-    ('          kF32Max)\n        return true;\n    }\n  }\n'
-     '  return false;\n}\n',
-     '          kF32Max) {\n        prof_sum(20, clock64() - qo);\n'
-     '        prof_sum(21, 1);\n        return true;\n      }\n    }\n  }\n'
-     '  prof_sum(20, clock64() - qo);\n  prof_sum(21, 1);\n'
-     '  return false;\n}\n'),
-    ('            int* rng_out) {\n  const Shared sh = stage_shared(s);\n'
-     '  const int gid = blockIdx.x * blockDim.x + threadIdx.x;\n'
-     '  if (gid >= n_rays) return;\n'
-     '  const int tile = gid / rt, lane = gid % rt;\n  float* so',
-     '            int* rng_out) {\n  unsigned long long gk;\n'
-     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gk));\n'
-     '  const Shared sh = stage_shared(s);\n'
-     '  const int gid = blockIdx.x * blockDim.x + threadIdx.x;\n'
-     '  if (gid >= n_rays) return;\n'
-     '  const int tile = gid / rt, lane = gid % rt;\n  float* so'),
-    ('    store_ray(r, rt, so, ro);\n    return;\n  }\n'
-     '  primary(cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0, '
-     'r);\n  bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);\n',
-     '    store_ray(r, rt, so, ro);\n    prof_span(gk);\n    return;\n  }\n'
-     '  const long long qe = clock_warp();\n'
-     '  primary(cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0, '
-     'r);\n  bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);\n'
-     '  prof_add(16, clock_warp() - qe);\n  prof_add(17, 1);\n'
-     '  prof_span(gk);\n  if ((threadIdx.x & 31) == 0) {\n'
-     '    atomicMax(&g_prof[26], ~gk);\n'
-     '    unsigned long long g1;\n'
-     '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));\n'
-     '    atomicMax(&g_prof[27], g1);\n  }\n'),
-]
-
-
 def _build_apart(text, name, include, source="megakernel"):
     """Compile ``source``.cu text ``text`` into build/walk_clocks/ (never
     used by the package) -> the loaded library, its C interface declared."""
@@ -743,8 +709,7 @@ def _clock_lib():
     csrc = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc")
     with open(os.path.join(csrc, "megakernel.cu")) as f:
         text = f.read()
-    a_sets = {"one thread per ray": _A_EDITS_SOLO,
-              "shadow lists": _A_EDITS_LIST}
+    a_sets = {"shadow lists": _A_EDITS_LIST}
     found = [k for k, edits in a_sets.items()
              if all(text.count(old) == 1 for old, _ in edits)]
     if not found:
@@ -823,10 +788,10 @@ def _walk_clocks(label, frame, st, rng, lib):
 # per group of the list walk, its cycles (20) and the groups (21);
 # entries listed (22); globaltimer of emit_kernel's warps (24, 25) and
 # of those with work (26, 27), of the list walk's first and last group
-# (28, 29).  The walk kernel is F's too: counters 20-22, 28 and 29 count
-# whichever list walk runs.
+# (28, 29).  The group loop (take_groups) is F's and E's too: counters
+# 20-22, 28 and 29 count whichever list walk runs.
 _A_EDITS_LIST = [
-    _A_EDITS_SOLO[0],
+    ('struct Ray {\n', _A_HELPERS + 'struct Ray {\n'),
     ('  } else if (tile >= 0) {\n    if constexpr (W == kList)\n',
      '  }\n  const long long qa = W == kList ? clock_warp() : 0;\n'
      '  if constexpr (W == kCapture || W == kFlags) {\n'
@@ -842,8 +807,8 @@ _A_EDITS_LIST = [
     ('  }\n  if constexpr (W == kList || W == kCapture) return;\n',
      '  }\n  if (W == kList) prof_add(19, clock_warp() - ql);\n'
      '  if constexpr (W == kList || W == kCapture) return;\n'),
-    ('  const int total = q.counts[0];\n  for (;;) {\n',
-     '  const int total = q.counts[0];\n'
+    ('  while (n > 1 && n * warps > total) n >>= 1;\n  for (;;) {\n',
+     '  while (n > 1 && n * warps > total) n >>= 1;\n'
      '  if (threadIdx.x == 0 && blockIdx.x == 0)\n'
      '    atomicAdd(&g_prof[22], (unsigned long long)total);\n'
      '  for (;;) {\n    const long long qg = clock64();\n'
@@ -852,8 +817,8 @@ _A_EDITS_LIST = [
     ('    if (e0 >= total) return;\n',
      '    if (e0 >= total) return;\n'
      '    if (lane == 0) atomicMax(&g_prof[28], ~gg);\n'),
-    ('        active)\n      q.flags[entry] = 1;\n  }\n}\n',
-     '        active)\n      q.flags[entry] = 1;\n'
+    ('    walk(active ? q.list[e] : 0, active);\n  }\n}\n',
+     '    walk(active ? q.list[e] : 0, active);\n'
      '    prof_add(20, clock64() - qg);\n    prof_add(21, 1);\n'
      '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gg));\n'
      '    if (lane == 0) atomicMax(&g_prof[29], gg);\n  }\n}\n'),
@@ -912,12 +877,10 @@ _F_EDITS_DIRECT = [
 
 
 def _group_edits(n):
-    """This tree's list walk with groups of ``n`` entries a warp (a
-    variant) in place of kListRays."""
-    return [('    const int e0 = __shfl_sync(kFull, g, 0) * kListRays;\n',
-             f'    const int e0 = __shfl_sync(kFull, g, 0) * {n};\n'),
-            ('    const bool active = lane < kListRays && e < total;\n',
-             f'    const bool active = lane < {n} && e < total;\n')]
+    """This tree's shadow-list walk with groups of up to ``n`` entries a
+    warp (a variant) in place of kListRays."""
+    return [('  take_groups(q, kListRays, [&](int entry, bool active) {\n',
+             f'  take_groups(q, {n}, [&](int entry, bool active) {{\n')]
 
 
 def _variant_lib(edits, name):
@@ -1169,12 +1132,10 @@ def _a_clocks(label, emit, clocks):
           f"{c[17]} warps with work, {per(c[16], c[17]):.0f} cycles each: "
           f"closest walk {per(c[18], c[17]):.0f}, light loop "
           f"{per(c[19], c[17]):.0f}; "
-          + (f"shadow walks {c[21]}, {per(c[20], c[21]):.0f} cycles each "
-             "(a thread's)" if design == "one thread per ray" else
-             f"{c[22]} shadow rays listed, walked in {c[21]} groups (4 rays "
-             f"a warp), {per(c[20], c[21]):.0f} cycles a group, from "
-             f"{((~c[28] & mask) - t0) / 1e3:.1f} to "
-             f"{(c[29] - t0) / 1e3:.1f} us")
+          + f"{c[22]} shadow rays listed, walked in {c[21]} groups (up "
+          f"to 4 rays a warp), {per(c[20], c[21]):.0f} cycles a group, from "
+          f"{((~c[28] & mask) - t0) / 1e3:.1f} to "
+          f"{(c[29] - t0) / 1e3:.1f} us"
           + "; globaltimer: the kernel's "
           f"warps span {(c[25] - t0) / 1e3:.1f} us, the warps with work "
           f"start from {((~c[26] & mask) - t0) / 1e3:.1f} us and end by "
@@ -1471,32 +1432,6 @@ _D_END_NEW = (
     '  const bool dwork = CPU || has_work[tile];\n'
     '  if (dwork) {\n    dadd(6, clock64() - dk0);\n    dadd(7, 1);\n  }\n'
     '  dcta(dg0, dwork);\n' + _D_END)
-# D as first ported: one thread a pixel, its walks alone (W = kSolo)
-_D_EDITS_SOLO = [
-    ('#include "trace_common.cuh"\n',
-     '#include "trace_common.cuh"\n' + _D_HELPERS
-     + '#define DPW (W == kSolo)\n'),
-    ('              float* b_out) {\n  const Shared sh = stage_shared(s);\n'
-     '  const int gid = blockIdx.x * blockDim.x + threadIdx.x;\n'
-     '  if (gid >= n_rays) return;\n  const int tile = gid / rt;\n',
-     '              float* b_out) {\n  const unsigned long long dg0 = dgt();\n'
-     '  const long long dk0 = clock64();\n'
-     '  const Shared sh = stage_shared(s);\n'
-     '  const int gid = blockIdx.x * blockDim.x + threadIdx.x;\n'
-     '  if (gid >= n_rays) return;\n  const int tile = gid / rt;\n'),
-    ('      bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);\n'
-     '      if (!terminal)\n'
-     '        for (int depth = 1; depth < max_depth && r.alive > 0.0f; '
-     '++depth)\n          bounce<CPU>(s, sh, cam, r, -1);\n',
-     '      bounce<CPU>(s, sh, cam, r, s.cand_chunk ? tile : -1);\n'
-     '      int dd = 1;\n      if (!terminal)\n'
-     '        for (int depth = 1; depth < max_depth && r.alive > 0.0f; '
-     '++depth)\n          bounce<CPU>(s, sh, cam, r, -1), ++dd;\n'
-     '      __syncwarp();\n'
-     '      dadd(4, __reduce_max_sync(kFull, (unsigned)dd));\n'
-     '      dadd(5, __reduce_add_sync(kFull, (unsigned)dd));\n'),
-    (_D_END, _D_END_NEW),
-]
 # D as it is now: the walks of bounce<.., kRender>, the depth loop
 # warp-uniform
 _D_EDITS_WARP = [
@@ -1518,8 +1453,7 @@ _D_EDITS_WARP = [
      '      dadd(8, __popc(__ballot_sync(kFull, owner)));\n'),
     (_D_END, _D_END_NEW),
 ]
-_D_EDIT_SETS = {"one thread a pixel": _D_EDITS_SOLO,
-                "warp-cooperative walks": _D_EDITS_WARP}
+_D_EDIT_SETS = {"warp-cooperative walks": _D_EDITS_WARP}
 _D_READ = r"""
 extern "C" int rt_d_clocks(unsigned long long* host, unsigned long long* cta,
                            int reset) {
@@ -1836,6 +1770,527 @@ def profile_render(parent_dir=None):
                 _turns(f"D {label}", call, lib, what)
     if parent_dir is not None:
         _render_turns(parent_dir)
+
+
+# ``--staged``: kernels E and C at phase 11's full-width inputs.  An
+# instrumented copy of csrc/megakernel.cu (built apart into
+# build/walk_clocks/, never used by the package; ``--render``'s helpers,
+# bounce edits and reading function) records per warp of E the cycles of
+# its closest walk, of its shadow walks and in all, per warp of C its
+# bounces' closest walks, light loops and the rest and the depths its
+# loop runs against its rays' own, and per CTA of either its globaltimer
+# start and end (E's launches in slot ranges of their own).  Each design
+# of E and of C has its own edit set (whichever matches the source is
+# used); each (old, new) edit must find its text exactly once.
+_S_HELPERS = (
+    '__device__ __forceinline__ void scta(unsigned long long g0, int base,\n'
+    '                                     int work) {\n'
+    '  const int slot = base + blockIdx.x;\n'
+    '  if ((threadIdx.x & 31) || slot >= 65536) return;\n'
+    '  unsigned long long* q = g_dcta + 3 * slot;\n'
+    '  atomicMax(&q[0], ~g0);\n  atomicMax(&q[1], dgt());\n'
+    '  atomicMax(&q[2], (unsigned long long)work);\n}\n'
+    # per warp: its depth loop ran `dw` depths, its rays `dd` each (`ray`:
+    # the lane holds one)
+    '__device__ __forceinline__ void sdepths(int dw, int dd, bool ray) {\n'
+    '  const unsigned m = __activemask();\n'
+    '  const unsigned live = __ballot_sync(m, ray && dd > 0);\n'
+    '  if (!live) return;\n'
+    '  dadd(4, dw);\n'
+    '  dadd(5, __reduce_add_sync(m, ray ? (unsigned)dd : 0u));\n'
+    '  dadd(8, __popc(live));\n  dadd(9, 1);\n}\n')
+# E's CTA slots: [0, 40000) its first (or only) launch, [40000, 50000)
+# its second, [50000, 65536) its third
+_E_SLOTS = ((0, 40000, "the first (or only) launch"),
+            (40000, 50000, "the second launch"),
+            (50000, 65536, "the third launch"))
+# E as first ported: one thread a ray walks alone; per warp its closest
+# walk (0), its shadow loop (1), its cycles from the start (6), the
+# warps (7)
+_E_EDITS_SOLO = [
+    ('               float* vis_out) {\n  const Shared sh = stage_shared(s);\n',
+     '               float* vis_out) {\n  const unsigned long long dg0 = dgt();\n'
+     '  const long long dk0 = clock64();\n'
+     '  const Shared sh = stage_shared(s);\n'),
+    ('  const Hit h = closest(s, sh, o, d, tmin[gid]);\n',
+     '  const long long eq0 = dclk();\n'
+     '  const Hit h = closest(s, sh, o, d, tmin[gid]);\n'
+     '  dadd(0, dclk() - eq0);\n'),
+    ('  if (!with_normal) return;\n  const bool hit',
+     '  if (!with_normal) {\n    dadd(6, clock64() - dk0);\n    dadd(7, 1);\n'
+     '    scta(dg0, 0, 1);\n    return;\n  }\n  const bool hit'),
+    ('  for (int li = 0; li < n_shadow; ++li) {\n'
+     '    const float* L = shadow_lights + 3 * li;\n',
+     '  const long long eq1 = dclk();\n'
+     '  for (int li = 0; li < n_shadow; ++li) {\n'
+     '    const float* L = shadow_lights + 3 * li;\n'),
+    ('                                                                      '
+     ': 0.0f;\n  }\n}\n',
+     '                                                                      '
+     ': 0.0f;\n  }\n  dadd(1, dclk() - eq1);\n  dadd(6, clock64() - dk0);\n'
+     '  dadd(7, 1);\n  scta(dg0, 0, 1);\n}\n'),
+]
+# E as it is now, three launches (the rays listed, the list walked by
+# the card, the shadow list walked): per warp of the walk its closest
+# walks (0), per warp of the shadow walk its walk (1), per warp of each
+# launch its cycles (6) and the warps (7)
+_E_EDITS_LIST = [
+    ('closest_kernel(SceneArgs s, ClosestIO io, int n_rays, Shadows q) {\n'
+     '  const Shared sh = stage_shared(s);\n',
+     'closest_kernel(SceneArgs s, ClosestIO io, int n_rays, Shadows q) {\n'
+     '  const unsigned long long dg0 = dgt();\n'
+     '  const long long dk0 = clock64();\n'
+     '  const Shared sh = stage_shared(s);\n'),
+    ("  list_append(q, listed, gid);\n}\n\n// E's second launch",
+     '  list_append(q, listed, gid);\n  dadd(6, clock64() - dk0);\n'
+     "  dadd(7, 1);\n  scta(dg0, 0, 1);\n}\n\n// E's second launch"),
+    ('closest_walk_kernel(SceneArgs s, ClosestIO io, Shadows q, Shadows qs) '
+     '{\n  const Shared sh = stage_shared(s);\n',
+     'closest_walk_kernel(SceneArgs s, ClosestIO io, Shadows q, Shadows qs) '
+     '{\n  const unsigned long long dg0 = dgt();\n'
+     '  const long long dk0 = clock64();\n'
+     '  const Shared sh = stage_shared(s);\n'),
+    ('      warp_append(qs, walks, gid * io.n_shadow + li);\n    }\n  });\n'
+     '}\n',
+     '      warp_append(qs, walks, gid * io.n_shadow + li);\n    }\n  });\n'
+     '  dadd(6, clock64() - dk0);\n  dadd(7, 1);\n  scta(dg0, 40000, 1);\n'
+     '}\n'),
+    ('    const Hit h = closest_coop(s, sh, o, d, tmin, active);\n',
+     '    const long long eq0 = clock64();\n'
+     '    const Hit h = closest_coop(s, sh, o, d, tmin, active);\n'
+     '    dadd(0, clock64() - eq0);\n'),
+    ('closest_shadow_kernel(SceneArgs s, ClosestIO io, Shadows qs) {\n'
+     '  const Shared sh = stage_shared(s);\n',
+     'closest_shadow_kernel(SceneArgs s, ClosestIO io, Shadows qs) {\n'
+     '  const unsigned long long dg0 = dgt();\n'
+     '  const long long dk0 = clock64();\n'
+     '  const Shared sh = stage_shared(s);\n'
+     '  const long long eq1 = clock64();\n'),
+    ('  }, [&](int entry) { io.vis[entry] = 0.0f; });\n}\n',
+     '  }, [&](int entry) { io.vis[entry] = 0.0f; });\n'
+     '  dadd(1, clock64() - eq1);\n  dadd(6, clock64() - dk0);\n'
+     '  dadd(7, 1);\n  scta(dg0, 50000, 1);\n}\n'),
+]
+_E_EDIT_SETS = {"one thread a ray": _E_EDITS_SOLO,
+                "the rays listed, walked up to 8 a warp": _E_EDITS_LIST}
+# C as first ported: one thread a ray, bounce<CPU> alone (W = kSolo); per
+# warp with a live ray its cycles (6) and the warps (7), the depths of
+# ``sdepths``; the bounce counters of ``_D_EDITS_BOUNCE``
+_C_EDITS_SOLO = [
+    ('#include "trace_common.cuh"\n',
+     '#include "trace_common.cuh"\n' + _D_HELPERS + _S_HELPERS
+     + '#define DPW (W == kSolo)\n'),
+    ('              float* b_out) {\n  const Shared sh = stage_shared(s);\n',
+     '              float* b_out) {\n  const unsigned long long dg0 = dgt();\n'
+     '  const long long dk0 = clock64();\n'
+     '  const Shared sh = stage_shared(s);\n'),
+    ('  for (int depth = 1; depth < max_depth && r.alive > 0.0f; ++depth)\n'
+     '    bounce<CPU>(s, sh, s.cam, r, -1);\n',
+     '  int dd = 0;\n'
+     '  for (int depth = 1; depth < max_depth && r.alive > 0.0f; ++depth)\n'
+     '    bounce<CPU>(s, sh, s.cam, r, -1), ++dd;\n'
+     '  __syncwarp();\n'
+     '  const int dw = __reduce_max_sync(kFull, (unsigned)dd);\n'
+     '  sdepths(dw, dd, true);\n'
+     '  if (dw) {\n    dadd(6, clock64() - dk0);\n    dadd(7, 1);\n  }\n'
+     '  scta(dg0, 0, dw > 0);\n'),
+]
+# C as it is now: bounce<.., kWarp>, kResumeRays rays a warp, the depth
+# loop warp-uniform
+_C_EDITS_WARP = [
+    ('#include "trace_common.cuh"\n',
+     '#include "trace_common.cuh"\n' + _D_HELPERS + _S_HELPERS
+     + '#define DPW (W == kWarp)\n'),
+    _C_EDITS_SOLO[1],
+    ('  bool live = in_range && r.alive > 0.0f;\n'
+     '  for (int depth = 1; depth < max_depth && __any_sync(kFull, live);\n'
+     '       ++depth) {\n',
+     '  bool live = in_range && r.alive > 0.0f;\n  int dd = 0, dw = 0;\n'
+     '  for (int depth = 1; depth < max_depth && __any_sync(kFull, live);\n'
+     '       ++depth) {\n    ++dw;\n'),
+    ('    if (live) r = w;\n    live = live && r.alive > 0.0f;\n  }\n',
+     '    if (live) r = w, ++dd;\n    live = live && r.alive > 0.0f;\n  }\n'
+     '  sdepths(dw, dd, in_range);\n'
+     '  if (dw) {\n    dadd(6, clock64() - dk0);\n    dadd(7, 1);\n  }\n'
+     '  scta(dg0, 0, dw > 0);\n'),
+]
+_C_EDIT_SETS = {"one thread a ray": _C_EDITS_SOLO,
+                "bounce<.., kWarp>": _C_EDITS_WARP}
+
+
+def _staged_clock_lib():
+    """Build the instrumented copy of megakernel.cu for kernels E and C ->
+    (its library, the names of the designs it instruments)."""
+    import ctypes
+
+    csrc = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "megakernel.cu")) as f:
+        text = f.read()
+    edits, names = [], []
+    for kernel, sets in (("C", _C_EDIT_SETS), ("E", _E_EDIT_SETS)):
+        found = [k for k, e in sets.items()
+                 if all(text.count(old) == 1 for old, _ in e)]
+        if not found:
+            raise SystemExit(f"staged clocks: kernel {kernel}'s source "
+                             "matches no edit set")
+        edits += sets[found[0]]
+        names.append(f"{kernel}: {found[0]}")
+    for old, new in edits + _D_EDITS_BOUNCE:
+        if text.count(old) != 1:
+            raise SystemExit(f"staged clocks: the source changed near {old!r}")
+        text = text.replace(old, new)
+    lib = _build_apart(text + _D_READ, "megakernel_staged_clocks", csrc)
+    lib.rt_d_clocks.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int]
+    lib.rt_d_clocks.restype = ctypes.c_int
+    return lib, "; ".join(names)
+
+
+def _staged_e_inputs():
+    """E's inputs of phase 11 and more -> {label: ((origins, dirs, grid,
+    tmin), kwargs)}: each depth of one frog 1080p ``reference_cpu``
+    frame, ``cpuonly_mirror``'s depth 0 (phase 8's area light, 32
+    samples), and the large frog's camera rays (off its path)."""
+    from chip_smoke import (H, W, cpuonly_scene, large_rays, large_scene,
+                            record_calls)
+    from raytracinginonesemester_tpu_torch.ops import integrator
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        frog_scene, render_scene)
+
+    scene = frog_scene(W, H, device="cuda")
+    calls = record_calls(integrator, ["block_closest"], lambda: render_scene(
+        scene, "reference_cpu"), keep=8)["block_closest"]
+    out = {f"frog reference_cpu depth {k}": c for k, c in enumerate(calls)}
+    soft = cpuonly_scene("cpuonly_mirror", "cuda", W, H, radius=0.15,
+                         shadow_samples=32, diffuse_bounce=True)
+    out["cpuonly_mirror depth 0"] = record_calls(
+        integrator, ["block_closest"], lambda: render_scene(soft),
+        keep=1)["block_closest"][0]
+    large, _, _ = large_scene("cuda")
+    o, d = large_rays(large)
+    out["large frog camera rays (off its path)"] = ((o, d, large.accel,
+                                                     1e-4), {})
+    return out
+
+
+def _staged_c_inputs():
+    """C's inputs of phase 11, the overflow renders' -> {label: (frame,
+    sorted state, rng rows)}: the headline frog's and cpuonly_mirror's
+    depth-0 state at 1080p, every tile, sorted."""
+    from chip_smoke import H, W, Frame, cpuonly_scene
+    from raytracinginonesemester_tpu_torch.render.renderer import frog_scene
+
+    main = Frame(frog_scene(W, H, device="cuda"))
+    cpu = Frame(cpuonly_scene("cpuonly_mirror", "cuda", W, H),
+                jitter="center")
+    out = {}
+    for label, frame, binned in (("gpu (frog depth 8)", main, False),
+                                 ("cpuonly (cpuonly_mirror)", cpu, True)):
+        st, rng, _ = frame.sorted_state(*frame.emit(binned))
+        out[label] = (frame, st, rng)
+    return out
+
+
+def _e_call(call):
+    """A call of E's wrapper on ``call``'s inputs -> every tensor of its
+    result, in order."""
+    from chip_smoke import _fields
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+
+    (o, d, grid, tmin), kw = call
+    return lambda: _fields(bk.block_closest(o, d, grid, tmin, **kw))
+
+
+def _any_slab(rows, o, d, t0, t1, chunk=8192):
+    """(R,) bool: some block's slab test passes for ray (o, d) on [t0,
+    t1] (each (R,) or (R, 3)), in chunks of rays."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
+    out = []
+    box = rows.aabb.T[:, None, :]
+    for s in range(0, o.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        out.append(mk._slab(box, tuple(o[sl, k, None] for k in range(3)),
+                            tuple(1.0 / d[sl, k, None] for k in range(3)),
+                            t0[sl, None], t1[sl, None]).any(dim=1))
+    return torch.cat(out)
+
+
+def _e_counts(label, call):
+    """E's plain version on the card: the rays, parked ones (origin off
+    the grid), those whose slab test passes some block (the ones that
+    walk), the hits, the pairs of the closest walk and of the shadow
+    walks, the facing (ray, light) entries and those whose slab test
+    passes some block on [shadow_tmin, dist]; the kernel's time and
+    whether it equals its plain version."""
+    import torch
+
+    from chip_smoke import _fields
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    (o, d, grid, tmin), kw = call
+    r, dev = o.shape[0], o.device
+    rows = bk.grid_rows(grid)
+    tm = bk._per_ray(tmin, r, dev)
+    parked = ~(o.abs() < 1e29).all(dim=1)
+    walks = _any_slab(rows, o, d, tm, torch.full_like(tm, bk.F32_MAX))
+    shadow = []
+    real = bk._occluded_plain
+
+    def recorded(rows_, p, ld, dist, facing, det_eps, shadow_tmin,
+                 tmax=None):
+        out = real(rows_, p, ld, dist, facing, det_eps, shadow_tmin, tmax)
+        ps, ls = torch.stack(p, 1), torch.stack(ld, 1)
+        listed = facing & _any_slab(rows_, ps, ls,
+                                    torch.full_like(dist, shadow_tmin), dist)
+        shadow.append((int(out[1]), int(facing.sum()), int(listed.sum())))
+        return out
+
+    stats = {}
+    bk._occluded_plain = recorded
+    try:
+        want = bk.block_closest_plain(o, d, grid, tmin, stats=stats, **kw)
+    finally:
+        bk._occluded_plain = real
+    fn = _e_call(call)
+    same = all(torch.equal(a, b) for a, b in zip(fn(), _fields(want)))
+    t = cuda_time_ms(fn, warmup=1, iters=5)
+    hits = int(_fields(want)[4].sum())
+    s_pairs = sum(x[0] for x in shadow)
+    print(f"E {label}: {r} rays, {int(parked.sum())} parked, "
+          f"{int(walks.sum())} pass some block's slab test (they walk), "
+          f"{hits} hits; pairs: closest walk "
+          f"{int(stats['pairs']) - s_pairs}, shadow walks {s_pairs}; "
+          f"{len(shadow)} lights: facing entries "
+          f"{[x[1] for x in shadow]}, of them passing some slab test on "
+          f"[shadow_tmin, dist] {[x[2] for x in shadow]}; kernel "
+          f"{t['median_ms']:.3f} ms (median of 5; samples "
+          f"{[round(x, 3) for x in t['samples_ms']]}); kernel "
+          f"{'equals' if same else 'DIFFERS from'} its plain version")
+
+
+def _c_call(frame, st, rng):
+    return lambda: frame.resume(st, rng)
+
+
+def _c_counts(label, frame, st, rng):
+    """C's plain version on the card bounce by bounce: live rays and the
+    closest-walk and shadow-walk tests by depth; per warp of 32, 8 and 4
+    rays the depths its loop runs (its deepest ray) against its rays'
+    mean; the kernel's time and whether it equals its plain version."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    p = frame.pkw
+    sh = mk._plain_shade(frame.scene.diffuse_bounce, p["det_eps"], 1e-4,
+                         p["shadow_eps"], p["shadow_tmin"], p["dialect"],
+                         p["shadow_samples"])
+    flat = mk._unpack(st, rng)
+    depths = torch.zeros_like(flat["alive"], dtype=torch.int64)
+    shadow, rows_out = [], []
+    real = mk._occluded_plain
+
+    def recorded(*a, **k):
+        out = real(*a, **k)
+        shadow.append(int(out[1]))
+        return out
+
+    mk._occluded_plain = recorded
+    try:
+        for depth in range(1, int(frame.scene.max_bounces)):
+            alive = flat["alive"] > 0.0
+            live = int(alive.sum())
+            if not live:
+                break
+            shadow.clear()
+            pairs = int(mk._bounce_plain(frame.rows, flat, sh))
+            depths += alive.long()
+            rows_out.append((depth, live, pairs - sum(shadow), sum(shadow)))
+    finally:
+        mk._occluded_plain = real
+    fn = _c_call(frame, st, rng)
+    want = frame.resume_plain(st, rng)
+    same = all(torch.equal(a, b) for a, b in zip(fn(), want))
+    t = cuda_time_ms(fn, warmup=1, iters=5)
+    print(f"C {label}: {st.shape[0] // 16} sorted tiles x 512, depths "
+          f"1..{int(frame.scene.max_bounces) - 1}; kernel "
+          f"{t['median_ms']:.3f} ms (median of 5; samples "
+          f"{[round(x, 3) for x in t['samples_ms']]}); kernel "
+          f"{'equals' if same else 'DIFFERS from'} its plain version")
+    print(f"  C {label}, the plain version on the card by depth (live "
+          "rays, closest-walk tests, shadow-walk tests): "
+          + "; ".join(f"{d}: {n}, {c}, {s}" for d, n, c, s in rows_out))
+    for g in (32, 8, 4):
+        w = depths.reshape(-1, g)
+        w = w[w.max(dim=1).values > 0]
+        wmax = w.max(dim=1).values.float()
+        mean_live = float(w.sum()) / max(int((w > 0).sum()), 1)
+        print(f"  per warp of {g} rays ({w.shape[0]} with a live ray): its "
+              f"loop runs {float(wmax.mean()):.3f} depths on average, its "
+              f"live rays {mean_live:.3f}; lanes busy in the loop "
+              f"{float(w.sum()) / max(g * float(wmax.sum()), 1):.3f}")
+
+
+def _staged_clocks(label, call, clocks, slots):
+    """E or C through the instrumented library: clock64() cycles per warp
+    by part, the depths C's warps run, and when each launch's CTAs end
+    (``slots``: (first, end, name) ranges of the CTA slots)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    lib, design = clocks
+    want = call()
+    buf = (ctypes.c_ulonglong * 16)()
+    cta = (ctypes.c_ulonglong * (_D_SLOTS * 3))()
+    with _using(lib):
+        call()  # warm
+        if lib.rt_d_clocks(buf, cta, 1):
+            raise SystemExit("staged clocks: resetting the counters failed")
+        got = call()
+        if lib.rt_d_clocks(buf, cta, 0):
+            raise SystemExit("staged clocks: reading the counters failed")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    c = list(buf)
+    per = lambda a, b: a / max(b, 1)
+    msg = (f"  clock64 counters, {label} ({design}; instrumented copy, "
+           f"results {'equal to' if same else 'DIFFER from'} the kernel's): "
+           f"{c[7]} warps timed, {per(c[6], c[7]):.0f} cycles each; of "
+           "their cycles ")
+    if c[3]:  # C: the bounces' parts, the depths
+        msg += (f"closest-hit walks {per(c[0], c[6]):.3f}, light loops "
+                f"{per(c[1], c[6]):.3f}, the rest of the bounces "
+                f"{per(c[2], c[6]):.3f}; {c[3]} warp-bounces; {c[9]} warps "
+                f"with a live ray run {per(c[4], c[9]):.3f} depths, their "
+                f"{c[8]} live rays {per(c[5], c[8]):.3f}")
+    else:
+        msg += (f"the closest walk {per(c[0], c[6]):.3f}, the shadow walks "
+                f"{per(c[1], c[6]):.3f}, the rest "
+                f"{1 - per(c[0] + c[1], c[6]):.3f}")
+    print(msg)
+    a = np.frombuffer(cta, dtype=np.uint64).reshape(_D_SLOTS, 3)
+    seen = a[:, 1] > 0
+    t0 = (~a[seen, 0]).astype(np.float64).min()
+    for first, end, name in slots:
+        b = a[first:end]
+        b = b[(b[:, 1] > 0) & (b[:, 2] > 0)]
+        if not len(b):
+            continue
+        start = ((~b[:, 0]).astype(np.float64) - t0) / 1e3
+        stop = (b[:, 1].astype(np.float64) - t0) / 1e3
+        print(f"  globaltimer, {name}: {len(b)} CTAs with work start from "
+              f"{start.min():.1f} to {start.max():.1f} us and end at "
+              f"{stop.mean():.1f} us on average, the last at "
+              f"{stop.max():.1f} us ({stop.max() / max(stop.mean(), 1e-9):.2f}"
+              f"x the mean); a CTA lasts {(stop - start).mean():.1f} us on "
+              f"average, at most {(stop - start).max():.1f}")
+
+
+# variants of E and C (timed beside the kernels, in turns): E with every
+# ray listed, so that its second launch walks the rays 8 a warp in ray
+# order, parked ones included (B's layout); E with its lists walked in
+# groups of kRaysPerWarp and kListRays however short; C with 2, 8 or 16
+# rays a warp
+def _c_rays_edits(n):
+    return [("constexpr int kResumeRays = 4;\n",
+             f"constexpr int kResumeRays = {n};\n")]
+
+
+_STAGED_VARIANTS = [
+    ([('    listed = next_block(s, sh, o, inv, io.tmin[gid], kF32Max, 0) <\n'
+       '             s.num_blocks;\n', '    listed = true;\n')],
+     "megakernel_e_every_ray", "E", "every ray walked, 8 a warp in ray order"),
+    ([('  while (n > 1 && n * warps > total) n >>= 1;\n', '')],
+     "megakernel_e_fixed_groups", "E", "groups of a fixed size"),
+    (_c_rays_edits(2), "megakernel_c_rays2", "C", "2 rays a warp"),
+    (_c_rays_edits(8), "megakernel_c_rays8", "C", "8 rays a warp"),
+    (_c_rays_edits(16), "megakernel_c_rays16", "C", "16 rays a warp"),
+]
+
+
+def staged_times():
+    """E's and C's rows as the imported package computes them, and the
+    frame of each of C's scenes at a capacity of 8 tiles (``chip_smoke.py``
+    phases 5 and 7: it overflows into C) -> {row: [median ms of 5,
+    digest of the outputs]}."""
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        render_scene_frames)
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    def entry(fn):
+        return [cuda_time_ms(fn, warmup=1, iters=5)["median_ms"],
+                _digest(fn())]
+
+    out = {}
+    for label, call in _staged_e_inputs().items():
+        out[f"E {label}"] = entry(_e_call(call))
+    for label, (frame, st, rng) in _staged_c_inputs().items():
+        out[f"C {label}"] = entry(_c_call(frame, st, rng))
+        jitter = "auto" if frame.cpuonly else "wang"  # phases 7 and 5
+        out[f"overflow frame at cap=8, {label}"] = entry(
+            lambda: (render_scene_frames(frame.scene, 1, jitter, 0,
+                                         capacity_tiles=8),))
+    return out
+
+
+def _staged_turns(parent_dir):
+    """E and C as the tree at ``parent_dir`` computes them (a process of
+    its own) and as this one does, in turns: parent, this, this,
+    parent."""
+    import json
+
+    def parent():
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--times",
+             "--staged", "--root", os.path.abspath(parent_dir)],
+            capture_output=True, text=True, check=True).stdout
+        return json.loads(out.strip().splitlines()[-1])
+
+    runs = [parent(), staged_times(), staged_times(), parent()]
+    for key in runs[1]:
+        ms = [r[key][0] for r in runs]
+        same = len({r[key][1] for r in runs}) == 1
+        print(f"{key}, the tree at {parent_dir} vs this tree in turns "
+              f"(medians of 5): parent {ms[0]:.3f}, this {ms[1]:.3f}, this "
+              f"{ms[2]:.3f}, parent {ms[3]:.3f} ms; outputs "
+              f"{'equal' if same else 'DIFFER'}")
+
+
+def profile_staged(parent_dir=None):
+    """Kernels E and C at phase 11's full-width inputs (module
+    docstring)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(f"card: {_card()}")
+    clocks = _staged_clock_lib()
+    variants = [(_variant_lib(edits, name), kernel, label)
+                for edits, name, kernel, label in _STAGED_VARIANTS]
+    for label, call in _staged_e_inputs().items():
+        _e_counts(label, call)
+        fn = _e_call(call)
+        _launch_split(f"E {label}", fn)
+        _staged_clocks(f"E {label}", fn, clocks, _E_SLOTS)
+        for lib, kernel, what in variants:
+            if lib is not None and kernel == "E":
+                _turns(f"E {label}", fn, lib, what)
+    for label, (frame, st, rng) in _staged_c_inputs().items():
+        _c_counts(label, frame, st, rng)
+        fn = _c_call(frame, st, rng)
+        _staged_clocks(f"C {label}", fn, clocks,
+                       ((0, _D_SLOTS, "the kernel"),))
+        for lib, kernel, what in variants:
+            if lib is not None and kernel == "C":
+                _turns(f"C {label}", fn, lib, what)
+    if parent_dir is not None:
+        _staged_turns(parent_dir)
 
 
 # ``--streamed``: kernels G and I at phase 10's full-width inputs.  An

@@ -162,8 +162,8 @@ def list_occluded(rows, p, ld, dist, facing, det_eps, shadow_tmin,
     Every ``facing`` ray whose slab test on [tmin, dist] passes for some
     block is listed (the kernels list them in whatever order their CTAs
     reach the list's counter; here in ray order), the others come out
-    unblocked; warps take the list 8 entries at a time and walk each
-    entry as ``occluded_coop`` does (blocks gated in order
+    unblocked; warps take the list kListRays entries at a time and walk
+    each entry as ``occluded_coop`` does (blocks gated in order
     on [tmin, dist], a passing block's triangles tested on [tmin, tmax]
     128 between votes, the walk over at the first block holding a
     blocker), and write its flag."""

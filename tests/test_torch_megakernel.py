@@ -225,11 +225,12 @@ def _coop_closest(rows, o, d, alive, det_eps, tmin):
     block-start best t, lane l taking slots l, l + 32, ... with a
     sequential take in ascending slot, the xor tree (16, 8, 4, 2, 1)
     keeps the lexicographic (t, id, slot) minimum on every lane, and the
-    ray takes it by the take rule, u and v from the winner's lane."""
+    ray takes it by the take rule, u and v from the winner's lane.
+    ``tmin``: a float or a per-ray (R,) tensor."""
     r, dev, bs = d[0].shape[0], d[0].device, rows.block_size
     inv = tuple(1.0 / c for c in d)
     best = tmk._Best(r, dev)
-    tmin_t = torch.full((r,), tmin)
+    tmin_t = tmin if torch.is_tensor(tmin) else torch.full((r,), tmin)
     big = torch.iinfo(torch.int64).max
     rounds = -(-bs // _LANES)
     lane = torch.arange(_LANES)
@@ -243,7 +244,9 @@ def _coop_closest(rows, o, d, alive, det_eps, tmin):
         t, u, v = tmk._mt(tuple(c[sub, None] for c in o),
                           tuple(c[sub, None] for c in d),
                           tuple(rows.tri[k, b][None, :] for k in range(9)),
-                          det_eps, tmin, best.t[sub, None])
+                          det_eps,
+                          tmin_t[sub, None] if torch.is_tensor(tmin) else tmin,
+                          best.t[sub, None])
         lt = torch.full((n, _LANES), tmk.F32_MAX)
         lu, lv = torch.zeros(n, _LANES), torch.zeros(n, _LANES)
         li = torch.full((n, _LANES), big)
