@@ -116,12 +116,43 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    then each bit for bit against its plain version, timed as in phase
    11 (``mm22``'s bound at the card's bf16 tensor rate), and
    ``torch.matmul`` of ``mm22``'s stacked picks by qsel timed beside it
-   (the product alone).
+   (the product alone);
+13. the LBVH and the treelet block layout at full width: ``build_lbvh``
+   on the frog (19,968 triangles with its padding) and on the large frog
+   (1,270,912), each timed on the card and checked (every triangle a
+   leaf once, every child's box inside its parent's; the frog's tree
+   equal to the same build on the CPU exactly); ``bvh_closest`` (plain
+   PyTorch) on each one's 1080p pixel-centre camera rays against kernel
+   E's winners (hit flags equal, t within 4 ulp, ids equal except on
+   ties of t), its rounds, overflowed rays and milliseconds logged; the
+   headline of phase 5 with ``RT_BLOCK_LAYOUT=treelet`` (A and B must
+   launch; ms/frame median of 3 beside phase 5's runs layout; block
+   count and lane fill logged), its frames equal to phase 5's binned
+   frames bit for bit; the terminal frog through D with both layouts,
+   bit for bit;
+14. the front ends and the soft path: ``render_hw1`` of the sphere and
+   the frog at 320x180 against ``tests/goldens/hw1_{sphere,frog}.png``
+   (``assert_images_close``'s rule); ``render_progressive`` on
+   ``gpu_spheres.json`` (chunk 1 equal to the one-shot render bit for
+   bit, and a run resumed from its state directory after one sample);
+   the CLI in subprocesses on the card (``gpu_spheres.json --jitter
+   reference_cpu`` against ``tests/goldens/gpu_spheres.png``, E must
+   launch and A-D must not, with ``--export-bvh`` writing one box per
+   grid block; ``--progressive 1``'s PNG equal to the one-shot render's);
+   ``soft_render_loss`` on ``gpu_spheres.json`` at 160x90 (image and the
+   gradients of vertices, albedo, camera center and light intensity, on
+   the card against the CPU: the image within 1e-3, the gradients within
+   1e-3 of each one's largest entry, finite and nonzero; float32 itself
+   is that far from float64 there, ROADMAP.md section 3); 5 Adam steps (ms/step), and a run resumed from a checkpoint
+   after step 2 equal to the straight run bit for bit; and
+   ``examples/inverse_render_torch.py --steps 20`` in a temporary
+   directory.
 
-Every render of phases 4-8 and 10 runs with the launch counters set to 0
-just before it and read just after; a kernel of that render that did not
-run fails the script, and so does a kernel that must not run there;
-phase 9's training call likewise.  The line before the last is the JSON
+Every render of phases 4-8, 10, 13 and 14 runs with the launch counters
+set to 0 just before it and read just after (the CLI's and the example's
+in their subprocesses); a kernel of that render that did not run fails
+the script, and so does a kernel that must not run there; phase 9's
+training call likewise.  The line before the last is the JSON
 record of the kernels (emit, bounce_step, resume, render, closest,
 occluded, segment_accum, closest_streamed, occluded_streamed,
 closest_blockmajor, occluded_blockmajor, toy_mask, sel7, mm22, dyn12,
@@ -1688,6 +1719,473 @@ def time_mm22_matmul(win, qsel, smi):
     return t["median_ms"]
 
 
+def check_tree(label, bvh, n):
+    """An LBVH's invariants on its device: every triangle a leaf once,
+    internal nodes without an object, each child's box inside its
+    parent's."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops.lbvh import INVALID
+
+    p = bvh.num_leaves
+    leaves = torch.sort(bvh.object_idx[p - 1:]).values
+    ok_leaves = p == n and bool((leaves == torch.arange(
+        n, device=leaves.device)).all())
+    ok_internal = bool((bvh.object_idx[:p - 1] == INVALID).all())
+    inside = True
+    for child in (bvh.left[:p - 1], bvh.right[:p - 1]):
+        inside &= bool((bvh.aabb_min[child] >= bvh.aabb_min[:p - 1]).all())
+        inside &= bool((bvh.aabb_max[child] <= bvh.aabb_max[:p - 1]).all())
+    log(f"{label}: {p} leaves ({2 * p - 1} nodes); every triangle a leaf "
+        f"once {ok_leaves}, internal nodes without objects {ok_internal}, "
+        f"children's boxes inside their parents' {inside}")
+    if not (ok_leaves and ok_internal and inside):
+        raise AssertionError(f"{label}: the tree is malformed")
+
+
+def timed_build(label, vertices):
+    """``build_lbvh`` on the card, timed on the host clock (its refit
+    loop reads the card once a round) after a warm-up build."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops.lbvh import build_lbvh
+
+    build_lbvh(vertices)
+    times = []
+    for _ in range(3):
+        _sync()
+        t0 = time.time()
+        bvh = build_lbvh(vertices)
+        _sync()
+        times.append((time.time() - t0) * 1e3)
+    log(f"{label}: build_lbvh of {int(vertices.shape[0])} triangles on the "
+        f"card: {sorted(times)[1]:.3f} ms (median of 3; samples "
+        f"{[round(t, 3) for t in times]}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return bvh, sorted(times)[1]
+
+
+def check_bvh_walk(label, scene, bvh, smi):
+    """``bvh_closest`` on the pixel-centre camera rays against kernel E's
+    winners: hit flags equal, t within 4 ulp or 1e-5, ids equal where t
+    is unique (a ray whose ids differ must hit both triangles at t
+    within 4 ulp: the walk keeps the last leaf of equal t, E the lowest
+    id) -> the walk's ms, rounds, overflowed rays."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+    from raytracinginonesemester_tpu_torch.ops.intersect import mt_single
+    from raytracinginonesemester_tpu_torch.ops.traversal import bvh_closest
+
+    o, d = large_rays(scene)
+    verts = scene.geometry.vertices
+    hits_e, _ = counted(f"{label}: kernel E on {o.shape[0]} camera rays",
+                        lambda: bk.block_closest(o, d, scene.accel, 1e-4),
+                        ["closest"])
+    stats = {}
+    _sync()
+    t0 = time.time()
+    hits_b, _ = counted(f"{label}: bvh_closest (plain PyTorch, no kernel)",
+                        lambda: bvh_closest(o, d, bvh, verts, 1e-4,
+                                            stats=stats), [])
+    ms = (time.time() - t0) * 1e3
+    flags = int((hits_b.hit != hits_e.hit).sum())
+    hit = hits_e.hit
+    n_t, t_max = ulp_bad(hits_b.t[hit], hits_e.t[hit])
+    differ = hit & (hits_b.tri_idx != hits_e.tri_idx)
+    n_id = int(differ.sum())
+    not_tie = 0
+    if n_id:
+        od, dd = o[differ], d[differ]
+        t_e = mt_single(od, dd, verts[hits_e.tri_idx[differ].long()], 1e-8)[0]
+        t_b = mt_single(od, dd, verts[hits_b.tri_idx[differ].long()], 1e-8)[0]
+        not_tie = ulp_bad(t_b, t_e)[0]
+    log(f"{label}: bvh_closest vs kernel E on {o.shape[0]} pixel-centre "
+        f"camera rays ({int(hit.sum())} hit): hit flags differ {flags}, t "
+        f"beyond 4 ulp {n_t} (max abs {t_max:.3e}), ids differ {n_id} "
+        f"(all ties of t within 4 ulp: {not_tie == 0}); walk "
+        f"{stats['rounds']} rounds, {stats['overflowed']} overflowed rays, "
+        f"{ms:.1f} ms (host clock, one call) on {smi}")
+    if flags or n_t or not_tie:
+        raise AssertionError(f"{label}: bvh_closest disagrees with kernel E")
+    del hits_e, hits_b
+    torch.cuda.empty_cache()
+    return ms, stats
+
+
+def check_treelet(dev, smi, runs_frames, ms_runs_binned, terminal):
+    """Phase 13: the LBVH builds and walks on the frog and the large frog,
+    the treelet headline and the treelet terminal frog (module
+    docstring)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops.lbvh import build_lbvh
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        frog_scene, render_scene_frames)
+
+    out = {}
+    os.environ["RT_BLOCK_LAYOUT"] = "treelet"
+    t0 = time.time()
+    tree = frog_scene(W, H, device=dev)
+    tree_term = frog_scene(W, H, max_bounces=4, diffuse_bounce=False,
+                           device=dev)
+    _sync()
+    os.environ.pop("RT_BLOCK_LAYOUT")
+    g = tree.accel
+    fill = float((g.tri_index >= 0).float().mean())
+    log(f"treelet frog 1080p: {g.num_blocks} blocks of {g.block_size} at "
+        f"{fill:.4f} lane fill, two scenes built in {time.time() - t0:.2f} s")
+
+    # the LBVH of the frog on the card, and the same build on the CPU
+    verts = tree.geometry.vertices
+    torch.cuda.reset_peak_memory_stats()
+    bvh, out["build_ms"] = timed_build("frog LBVH", verts)
+    check_tree("frog LBVH", bvh, int(verts.shape[0]))
+    cpu = build_lbvh(verts.cpu())
+    same = all(bool((getattr(bvh, f).cpu() == getattr(cpu, f)).all())
+               for f in ("parent", "left", "right", "object_idx", "aabb_min",
+                         "aabb_max"))
+    log(f"frog LBVH: the card's tree equals the CPU's exactly: {same}")
+    if not same:
+        raise AssertionError("the card's LBVH differs from the CPU's")
+    out["walk_ms"], out["walk"] = check_bvh_walk("frog", tree, bvh, smi)
+    del bvh, cpu
+
+    large, _, _ = large_scene(dev)
+    lverts = large.geometry.vertices
+    torch.cuda.reset_peak_memory_stats()
+    lbvh, out["large_build_ms"] = timed_build("large frog LBVH", lverts)
+    check_tree("large frog LBVH", lbvh, int(lverts.shape[0]))
+    out["large_walk_ms"], out["large_walk"] = check_bvh_walk(
+        "large frog", large, lbvh, smi)
+    del lbvh, large
+    torch.cuda.empty_cache()
+
+    # the headline with the treelet grid: A and B, frames bit for bit
+    ms_tree, frames_t, out["counts"] = timed_frames(
+        "main path, RT_BLOCK_LAYOUT=treelet", tree, FRAMES, smi,
+        ["emit", "bounce_step"])
+    n_diff = int((frames_t.cpu() != runs_frames).any(dim=-1).sum())
+    log(f"treelet vs runs (phase 5) headline frames: differing pixels "
+        f"{n_diff} of {FRAMES * W * H}; {ms_tree:.3f} vs {ms_runs_binned:.3f} "
+        f"ms/frame on {smi}")
+    if n_diff:
+        raise AssertionError("treelet frames differ from the runs frames")
+    del frames_t
+    out["ms_tree"] = ms_tree
+
+    # the terminal frog through D with both grids
+    imgs = {}
+    for name, s in (("runs", terminal), ("treelet", tree_term)):
+        imgs[name], _ = counted(
+            f"frog terminal depth 4, {name} grid (kernel D)",
+            lambda: render_scene_frames(s, 2, "wang", 0), ["render"])
+    n_diff = int((imgs["runs"] != imgs["treelet"]).any(dim=-1).sum())
+    log(f"treelet vs runs terminal frog (kernel D), 2 frames: differing "
+        f"pixels {n_diff}")
+    if n_diff:
+        raise AssertionError("treelet terminal frames differ from runs")
+    out["blocks"], out["fill"] = g.num_blocks, fill
+    return out
+
+
+# a subprocess of the front ends: the launch counters set to 0, the module
+# or script run as __main__ with ``argv``, the counts printed last
+_SUB = """
+import json, runpy, sys
+sys.path.insert(0, {repo!r})
+import torch
+from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+from raytracinginonesemester_tpu_torch.ops import diff_gather as dg
+from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+for m in (mk, bk, dg):
+    m.reset_launch_counts()
+sys.argv = {argv!r}
+try:
+    if {module!r}:
+        runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+    else:
+        runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    if e.code not in (0, None):
+        raise
+torch.cuda.synchronize()
+print(json.dumps({{**mk.launch_counts(), **bk.launch_counts(),
+                  **dg.launch_counts()}}))
+"""
+
+
+def run_sub(label, cwd, argv, need, never=(), module=None):
+    """``argv`` in a subprocess on the card (``_SUB``) in ``cwd``; every
+    kernel in ``need`` must have launched there, none in ``never``."""
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-c", _SUB.format(repo=REPO, argv=argv,
+                                           module=module or "")],
+        cwd=cwd, capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        raise AssertionError(f"{label}: exit {res.returncode}\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    counts = json.loads(lines[-1])
+    log(f"{label}: {time.time() - t0:.1f} s; stdout {lines[:-1][-3:]}; "
+        f"launch counts {counts}")
+    missing = [k for k in need if not counts[k]]
+    extra = [k for k in never if counts[k]]
+    if missing or extra:
+        raise AssertionError(f"{label}: {missing} never launched, {extra} "
+                             f"launched but must not ({counts})")
+    return counts
+
+
+# the soft path's parameters, and the bounds of its card-against-CPU
+# image and gradients (relative to each one's largest entry): the
+# triangles nearly edge-on to the camera make both ill-conditioned in
+# float32 (ROADMAP.md section 3; scripts/soft_grad_precision.py)
+SOFT_KEYS = ("vertices", "albedo", "camera_center", "light_intensity")
+SOFT_GRAD_TOL = 1e-3
+SOFT_IMAGE_TOL = 1e-3  # absolute, on the linear image
+
+
+def soft_problem(device, dtype=None):
+    """Phase 14's soft problem on ``device``: ``gpu_spheres.json`` without
+    a grid, at 160x90 through ``bench.py --grad``'s camera; the target is
+    the soft render (sigma 0.02) from the camera moved by 2 cm, made on
+    the CPU; ``SOFT_KEYS`` as leaves -> (scene, target, params).
+    ``dtype=torch.float64`` converts every float tensor of the scene."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.core.camera import Camera
+    from raytracinginonesemester_tpu_torch.diff.inverse import extract_params
+    from raytracinginonesemester_tpu_torch.diff.soft import render_soft
+    from raytracinginonesemester_tpu_torch.scene.build import load_scene
+
+    def scene_on(dev):
+        s = load_scene(os.path.join(SCENES, "gpu_spheres.json"), accel="none",
+                       device=dev)
+        cam = Camera.create(position=(0.0, -2.5, 1.2),
+                            look_at=(0.0, 0.0, 0.5), up=(0, 0, 1),
+                            focal_length_mm=24.0, width=160, height=90,
+                            device=dev)
+        return dataclasses.replace(s, camera=cam)
+
+    def cast(obj):
+        kw = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                kw[f.name] = v.to(dtype)
+            elif dataclasses.is_dataclass(v):
+                kw[f.name] = cast(v)
+        return dataclasses.replace(obj, **kw)
+
+    cpu = scene_on(torch.device("cpu"))
+    with torch.no_grad():
+        target = render_soft(dataclasses.replace(cpu, camera=dataclasses.replace(
+            cpu.camera, center=cpu.camera.center + 0.02,
+            pixel00_loc=cpu.camera.pixel00_loc + 0.02)), sigma=0.02)
+    s = scene_on(device)
+    if dtype is not None:
+        s, target = cast(s), target.to(dtype)
+    return s, target.to(device), extract_params(s, keys=SOFT_KEYS)
+
+
+def check_frontends(dev, smi):
+    """Phase 14: HW1, progressive, the CLI, the soft path and the
+    inverse-render example on the card (module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from raytracinginonesemester_tpu_torch.core.camera import Camera
+    from raytracinginonesemester_tpu_torch.diff.checkpoint import (
+        load_checkpoint, save_checkpoint, to_tensors)
+    from raytracinginonesemester_tpu_torch.diff.inverse import extract_params
+    from raytracinginonesemester_tpu_torch.diff.soft import (render_soft,
+                                                              soft_render_loss)
+    from raytracinginonesemester_tpu_torch.io.image import quantize, read_png
+    from raytracinginonesemester_tpu_torch.io.obj import (load_obj,
+                                                          mesh_to_triangles)
+    from raytracinginonesemester_tpu_torch.render.progressive import (
+        render_progressive)
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        render_hw1, render_scene)
+    from raytracinginonesemester_tpu_torch.scene.build import (
+        geometry_from_mesh, load_scene)
+
+    goldens = os.path.join(REPO, "tests", "goldens")
+    out = {}
+    # HW1 against the C++ oracle's PNGs
+    for name in ("sphere", "frog"):
+        mesh, _ = load_obj(os.path.join(REPO, "tests", "assets", "meshes",
+                                        f"{name}.obj"))
+        geom = geometry_from_mesh(*mesh_to_triangles(mesh), device=dev)
+        cam = Camera.create(position=(0.0, -1.0, 1.0),
+                            look_at=(0.0, 0.15, 0.0), up=(0.0, 0.0, 1.0),
+                            focal_length_mm=255.0, sensor_height_mm=24.0,
+                            width=320, height=180, device=dev)
+        _sync()
+        t0 = time.time()
+        img, _ = counted(f"render_hw1 {name} 320x180 (plain PyTorch)",
+                         lambda: render_hw1(geom.vertices, geom.normals, cam,
+                                            [-3.0, 0.0, 1.0],
+                                            [1.0, 0.0, 1.0], 320, 180), [])
+        ms = (time.time() - t0) * 1e3
+        ok, bad, mean = images_close(
+            quantize(img.cpu().numpy(), "hw1"),
+            read_png(os.path.join(goldens, f"hw1_{name}.png")))
+        log(f"render_hw1 {name} 320x180 vs hw1_{name}.png (C++ oracle): "
+            f"bad_frac {bad:.5f} mean {mean:.4f}; {ms:.1f} ms (host clock, "
+            f"first call) on {smi}")
+        if not ok:
+            raise AssertionError(f"render_hw1 {name} disagrees with the "
+                                 "C++ oracle")
+
+    # progressive rendering on gpu_spheres.json (spp 2)
+    spheres = os.path.join(SCENES, "gpu_spheres.json")
+    scene = load_scene(spheres, device=dev)
+    one, _ = counted("gpu_spheres one-shot (render_scene)",
+                     lambda: render_scene(scene).cpu().numpy(), [])
+    prog, counts = counted("gpu_spheres render_progressive chunk 1",
+                           lambda: render_progressive(scene, chunk=1), [])
+    if not any(counts[k] for k in FUSED):
+        raise AssertionError("render_progressive took no fused kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "state")
+
+        class Stop(Exception):
+            pass
+
+        def stop_after_one(done, _preview):
+            if done == 1:
+                raise Stop
+
+        try:
+            render_progressive(scene, chunk=1, state_dir=state,
+                               on_chunk=stop_after_one)
+        except Stop:
+            pass
+        resumed = render_progressive(scene, chunk=1, state_dir=state)
+    same = [bool(np.array_equal(one, prog)), bool(np.array_equal(one,
+                                                                 resumed))]
+    log(f"gpu_spheres progressive chunk 1 equals the one-shot render bit for "
+        f"bit: {same[0]}; resumed after 1 of 2 samples: {same[1]}")
+    if not all(same):
+        raise AssertionError("progressive render differs from one-shot")
+
+    # the CLI in subprocesses on the card
+    cli = "raytracinginonesemester_tpu_torch.render.cli"
+    with tempfile.TemporaryDirectory() as tmp:
+        png, boxes = os.path.join(tmp, "ref.png"), os.path.join(tmp, "b.obj")
+        run_sub("CLI gpu_spheres --jitter reference_cpu --export-bvh", tmp,
+                [cli, spheres, "--jitter", "reference_cpu", "-o", png,
+                 "--export-bvh", boxes], ["closest"], FUSED, module=cli)
+        ok, bad, mean = images_close(
+            read_png(png), read_png(os.path.join(goldens, "gpu_spheres.png")))
+        n_boxes = sum(1 for line in open(boxes) if line.startswith("v ")) // 8
+        log(f"CLI gpu_spheres reference_cpu vs gpu_spheres.png (C++ "
+            f"oracle): bad_frac {bad:.5f} mean {mean:.4f}; --export-bvh "
+            f"{n_boxes} boxes, grid {scene.accel.num_blocks} blocks")
+        if not ok or n_boxes != scene.accel.num_blocks:
+            raise AssertionError("CLI render or export is wrong")
+        prog_png = os.path.join(tmp, "prog.png")
+        counts = run_sub("CLI gpu_spheres --progressive 1", tmp,
+                         [cli, spheres, "--progressive", "1", "-o",
+                          prog_png], [], module=cli)
+        if not any(counts[k] for k in FUSED):
+            raise AssertionError("CLI --progressive took no fused kernel")
+        want = quantize(one, "gpu")
+        got = read_png(prog_png)
+        log(f"CLI --progressive 1 PNG equals the one-shot render's: "
+            f"{bool(np.array_equal(got, want))}")
+        if not np.array_equal(got, want):
+            raise AssertionError("CLI --progressive differs from one-shot")
+
+    # the soft path at 160x90 on gpu_spheres: the card against the CPU
+    res = []
+    for device in (dev, torch.device("cpu")):
+        s, target, p = soft_problem(device)
+
+        def soft_eval():
+            with torch.no_grad():
+                img = render_soft(s, sigma=0.02)
+            loss = soft_render_loss(p, s, target, sigma=0.02)
+            return img, loss, torch.autograd.grad(loss, list(p.values()))
+
+        (img, loss, grads), _ = counted(
+            f"render_soft and soft_render_loss's gradients, gpu_spheres "
+            f"160x90 on {device.type} (plain PyTorch)", soft_eval, [])
+        res.append((img.cpu(), loss.detach().cpu(), [g.cpu() for g in grads],
+                    s, target))
+    (img_c, loss_c, g_c, s, target), (img_h, loss_h, g_h, _, _) = res
+    n_img, img_err = ulp_bad(img_c, img_h)
+    worst = []
+    for key, a, b in zip(SOFT_KEYS, g_c, g_h):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst.append((key, err / max(scale, 1e-30)))
+        if not (bool(torch.isfinite(a).all()) and scale > 0.0
+                and err <= SOFT_GRAD_TOL * scale):
+            raise AssertionError(f"soft gradient {key}: card vs CPU {err} "
+                                 f"of {scale}")
+    log(f"soft_render_loss gpu_spheres 160x90, card vs CPU: image channels "
+        f"beyond 4 ulp or 1e-5 {n_img} of {img_c.numel()} (max abs "
+        f"{img_err:.3e}, bound {SOFT_IMAGE_TOL}), loss "
+        f"{float(loss_c):.6e} vs {float(loss_h):.6e}, gradients' max abs "
+        f"difference over their largest entry "
+        f"{[(k, f'{r:.2e}') for k, r in worst]}")
+    if not img_err <= SOFT_IMAGE_TOL:
+        raise AssertionError("soft image differs between card and CPU")
+
+    def train(steps, params=None, state=None):
+        if params is None:
+            params = extract_params(s, keys=("vertices", "albedo"))
+        opt = torch.optim.Adam(list(params.values()), lr=1e-3)
+        if state is not None:
+            opt.load_state_dict(state)
+        losses = []
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss = soft_render_loss(params, s, target, sigma=0.02)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        return params, opt, losses
+
+    _sync()
+    t0 = time.time()
+    (straight, _, l_straight), _ = counted(
+        "soft training, 5 Adam steps", lambda: train(5), [])
+    _sync()
+    out["soft_ms_step"] = (time.time() - t0) * 1e3 / 5
+    p2, opt2, l_first = train(2)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, 2, p2, opt2.state_dict(), l_first)
+        _, saved, opt_state, losses = load_checkpoint(tmp)
+    params = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+              for k, v in saved.items()}
+    params, _, l_rest = train(3, params, to_tensors(opt_state, dev))
+    exact = (losses + l_rest == l_straight and all(
+        bool(torch.equal(params[k], straight[k])) for k in straight))
+    log(f"soft training gpu_spheres 160x90: {out['soft_ms_step']:.1f} ms/step "
+        f"(host clock, 5 Adam steps) on {smi}; losses {l_straight}; resumed "
+        f"from a checkpoint after step 2 equals the straight run bit for "
+        f"bit: {exact}")
+    if not exact:
+        raise AssertionError("the resumed soft training differs")
+
+    # the inverse-render example in a temporary directory
+    with tempfile.TemporaryDirectory() as tmp:
+        example = os.path.join(REPO, "examples", "inverse_render_torch.py")
+        run_sub("examples/inverse_render_torch.py --steps 20", tmp,
+                [example, "--steps", "20"], [])
+        made = sorted(os.listdir(tmp))
+        log(f"inverse_render_torch.py wrote {made}")
+        if not {"inverse_target.png", "inverse_result.png"} <= set(made):
+            raise AssertionError("the example wrote no images")
+    return out
+
 # labels of an entry function's first template argument, by kernel (the
 # others: the dialect); of its second (the others: a set one marks the
 # diff variant); a third is bounce_step_kernel's rays a warp
@@ -1802,6 +2300,7 @@ def main():
         raise AssertionError("binned frames differ from the RT_BINNED=0 "
                              "frames (the plans must give the same images)")
     ref = frames_b[0].clone()
+    runs_frames = frames_b.cpu()  # phase 13 holds the treelet frames to it
     del frames_b, frames_f, diff
     ms_over, over_counts = timed_overflow("overflow render", scene, smi,
                                           "wang", ref)
@@ -1999,6 +2498,13 @@ def main():
     probe_records["mm22"]["matmul_product_ms"] = time_mm22_matmul(
         p_win, p_qsel, smi)
 
+    # --- 13. the LBVH and the treelet block layout at full width
+    tl = check_treelet(dev, smi, runs_frames, ms_binned, terminal)
+    del runs_frames
+
+    # --- 14. the front ends and the soft path
+    fe = check_frontends(dev, smi)
+
     # which run's launches each record reports: (run, counts, counter)
     tc = train["counts"]
     training = f"training call, grad-bench config ({GRAD_STEPS} steps)"
@@ -2083,6 +2589,12 @@ def main():
         f"{large['ms_gi']:.3f}, H {large['ms_h']:.3f}, A/B off the dispatch "
         f"{large['ms_ab']:.3f}; large scene host seconds "
         f"{ {k: round(v, 4) for k, v in large['host_s'].items()} }; "
+        f"treelet headline {tl['ms_tree']:.3f} ({tl['blocks']} blocks at "
+        f"{tl['fill']:.4f} lane fill); build_lbvh frog {tl['build_ms']:.3f} "
+        f"ms, large frog {tl['large_build_ms']:.3f} ms; bvh_closest 1080p "
+        f"camera rays frog {tl['walk_ms']:.1f} ms ({tl['walk']}), large frog "
+        f"{tl['large_walk_ms']:.1f} ms ({tl['large_walk']}); soft training "
+        f"gpu_spheres 160x90 {fe['soft_ms_step']:.1f} ms/step; "
         f"whole run {time.time() - t_start:.0f} s")
     log(json.dumps({"variants": [r for k, r in records.items()
                                  if k not in main_keys]}))

@@ -1,6 +1,6 @@
-"""Differentiable rendering: parameter plumbing and inverse optimisation
-(PyTorch port of ``raytracinginonesemester_tpu.diff``; the soft renderer
-and checkpointing are not ported yet)."""
+"""Differentiable rendering: parameter plumbing, inverse optimisation,
+checkpointing (``diff.checkpoint``) and the edge-aware soft renderer
+(PyTorch port of ``raytracinginonesemester_tpu.diff``)."""
 
 from .inverse import (
     apply_params,
@@ -11,6 +11,7 @@ from .inverse import (
     params_from_numpy,
     render_loss,
 )
+from .soft import render_soft, soft_render_loss
 
 __all__ = [
     "apply_params",
@@ -20,4 +21,6 @@ __all__ = [
     "optimize",
     "params_from_numpy",
     "render_loss",
+    "render_soft",
+    "soft_render_loss",
 ]

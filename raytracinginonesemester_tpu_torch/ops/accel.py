@@ -1,24 +1,28 @@
 """Block grid: Morton-ordered triangle blocks in plane-SoA layout.
 
-PyTorch port of ``BlockGrid``, ``build_block_grid``, ``super_aabbs`` and
-``tile_visit_plan_fast`` (the streamed kernels' per-tile superblock plan)
-from ``raytracinginonesemester_tpu.ops.accel``.  Triangles are sorted by
+PyTorch port of ``BlockGrid``, ``build_block_grid``,
+``build_block_grid_treelet``, ``super_aabbs`` and ``tile_visit_plan_fast``
+(the streamed kernels' per-tile superblock plan) from
+``raytracinginonesemester_tpu.ops.accel``.  Triangles are sorted by
 centroid Morton code (stable, so equal codes keep their input order) and
-cut into runs of ``block_size``; each block's AABB is the union of its
-members'.  The plane layout is kept as it is, so the planes of the two
-packages can be compared element for element and handed across.
+cut into runs of ``block_size`` (the "runs" layout) or into LBVH
+treelets of at most ``block_size`` (the "treelet" layout); each block's
+AABB is the union of its members'.  The plane layout is kept as it is,
+so the planes of the two packages can be compared element for element
+and handed across.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .lbvh import morton_codes, triangle_aabbs
 
-__all__ = ["BlockGrid", "build_block_grid", "super_aabbs", "SUPER",
-           "PARK_THRESHOLD", "tile_visit_plan_fast"]
+__all__ = ["BlockGrid", "build_block_grid", "build_block_grid_treelet",
+           "super_aabbs", "SUPER", "PARK_THRESHOLD", "tile_visit_plan_fast"]
 
 # blocks per superblock (the camera plan's coarse level)
 SUPER = 8
@@ -41,6 +45,33 @@ class BlockGrid:
     @property
     def num_blocks(self) -> int:
         return int(self.tri.shape[1])
+
+
+def _planes(sv, sn, l: int, block_size: int):
+    """The (9, L, B) triangle planes and (12, L, B) normal planes of the
+    triangles ``sv`` (L*B, 3, 3) in slot order, with their vertex
+    normals ``sn``; a triangle of zero edges gets a zero geometric
+    normal (its length clamped at 1e-38)."""
+    v0 = sv[:, 0]
+    e1 = sv[:, 1] - v0
+    e2 = sv[:, 2] - v0
+    tri = torch.stack(
+        [v0[:, 0], v0[:, 1], v0[:, 2],
+         e1[:, 0], e1[:, 1], e1[:, 2],
+         e2[:, 0], e2[:, 1], e2[:, 2]]
+    ).reshape(9, l, block_size)
+    g = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
+    g_len_sq = g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]
+    g = g / torch.sqrt(torch.clamp(g_len_sq, min=1e-38))[:, None]
+    norm = torch.stack(
+        [sn[:, 0, 0], sn[:, 0, 1], sn[:, 0, 2],
+         sn[:, 1, 0], sn[:, 1, 1], sn[:, 1, 2],
+         sn[:, 2, 0], sn[:, 2, 1], sn[:, 2, 2],
+         g[:, 0], g[:, 1], g[:, 2]]
+    ).reshape(12, l, block_size)
+    return tri, norm
 
 
 def build_block_grid(vertices: torch.Tensor, num_valid: int,
@@ -71,28 +102,7 @@ def build_block_grid(vertices: torch.Tensor, num_valid: int,
     codes = torch.where(valid, codes, torch.full_like(codes, 0xFFFFFFFF))
     order = torch.argsort(codes, stable=True)
 
-    sv = vertices[order]
-    v0 = sv[:, 0]
-    e1 = sv[:, 1] - v0
-    e2 = sv[:, 2] - v0
-    tri = torch.stack(
-        [v0[:, 0], v0[:, 1], v0[:, 2],
-         e1[:, 0], e1[:, 1], e1[:, 2],
-         e2[:, 0], e2[:, 1], e2[:, 2]]
-    ).reshape(9, l, block_size)
-
-    sn = normals[order]
-    g = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
-                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
-                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
-    g_len_sq = g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]
-    g = g / torch.sqrt(torch.clamp(g_len_sq, min=1e-38))[:, None]
-    norm = torch.stack(
-        [sn[:, 0, 0], sn[:, 0, 1], sn[:, 0, 2],
-         sn[:, 1, 0], sn[:, 1, 1], sn[:, 1, 2],
-         sn[:, 2, 0], sn[:, 2, 1], sn[:, 2, 2],
-         g[:, 0], g[:, 1], g[:, 2]]
-    ).reshape(12, l, block_size)
+    tri, norm = _planes(vertices[order], normals[order], l, block_size)
 
     sorted_valid = valid[order]
     minus1 = torch.full_like(order, -1)
@@ -113,6 +123,108 @@ def build_block_grid(vertices: torch.Tensor, num_valid: int,
                      tri_index=tri_index.contiguous(),
                      obj=obj_plane.contiguous(), aabb=aabb,
                      block_size=int(block_size))
+
+
+
+def _find_split_np(codes: np.ndarray, lo: int, hi: int) -> int:
+    """Karras ``find_split`` on the host (``bvh.h:219-257``): the last
+    index in [lo, hi) sharing more leading Morton bits with ``codes[lo]``
+    than lo and hi share."""
+    first, last = int(codes[lo]), int(codes[hi])
+    if first == last:
+        return lo + (hi - lo + 1) // 2 - 1  # equal codes: median split
+    common = 32 - (first ^ last).bit_length()
+    split, step = lo, hi - lo + 1
+    while step > 1:
+        step = (step + 1) // 2
+        nxt = split + step
+        if nxt < hi:
+            code = int(codes[nxt])
+            prefix = 64 if code == first else 32 - (first ^ code).bit_length()
+            if prefix > common:
+                split = nxt
+    return split
+
+
+def _treelet_ranges(codes: np.ndarray, block_size: int):
+    """Cut the sorted leaves into LBVH-subtree-aligned ranges of at most
+    ``block_size``: split each range at its highest differing Morton bit
+    until it fits.  Each range is a complete Karras subtree, so its box
+    is an LBVH internal node's."""
+    out = []
+    stack = [(0, len(codes) - 1)]
+    while stack:
+        lo, hi = stack.pop()
+        if hi - lo + 1 <= block_size:
+            out.append((lo, hi))
+            continue
+        mid = _find_split_np(codes, lo, hi)
+        stack.append((mid + 1, hi))
+        stack.append((lo, mid))
+    out.sort()
+    return out
+
+
+def build_block_grid_treelet(vertices: torch.Tensor, num_valid: int,
+                             block_size: int = 512,
+                             normals: torch.Tensor = None,
+                             obj_ids: torch.Tensor = None) -> BlockGrid:
+    """Block grid whose blocks are LBVH treelets: complete Karras subtrees
+    of at most ``block_size`` triangles, each padded to ``block_size``
+    lanes with dead slots (id -1, zero triangles) -- inside every block,
+    not only the last.  The same planes as the JAX package's
+    ``build_block_grid_treelet``.  The cuts are a host-side numpy
+    recursion over the Morton codes; the planes are built on the
+    triangles' device."""
+    dev = vertices.device
+    t = int(vertices.shape[0])
+    nv = int(num_valid)
+    if normals is None:
+        normals = torch.zeros_like(vertices)
+    if obj_ids is None:
+        obj_ids = torch.zeros(t, dtype=torch.int32, device=dev)
+
+    leaf_min, leaf_max = triangle_aabbs(vertices)
+    lmin, lmax = leaf_min.cpu().numpy(), leaf_max.cpu().numpy()
+    valid = np.arange(t) < nv
+    smin = np.where(valid[:, None], lmin, np.inf).min(0)
+    smax = np.where(valid[:, None], lmax, -np.inf).max(0)
+    centroid = 0.5 * (lmin + lmax)
+    ext = np.where(smax - smin == 0, 1.0, smax - smin)
+    unit = np.asarray((centroid - smin) / ext, dtype=np.float32)
+    codes = morton_codes(torch.from_numpy(unit)).numpy()
+    codes = np.where(valid, codes, 0xFFFFFFFF)
+    order = np.argsort(codes, kind="stable")
+    order = order[valid[order]]  # (nv,) the real triangles, sorted
+    ranges = _treelet_ranges(codes[order], block_size)
+
+    l = len(ranges)
+    slot_index = np.full((l, block_size), -1, np.int32)
+    for b, (lo, hi) in enumerate(ranges):
+        slot_index[b, : hi - lo + 1] = order[lo:hi + 1]
+    flat_np = slot_index.reshape(-1)
+    safe_np = np.maximum(flat_np, 0)
+
+    flat = torch.from_numpy(flat_np).to(dev)
+    safe = torch.from_numpy(safe_np).to(dev, torch.int64)
+    ok = flat >= 0
+    sv = torch.where(ok[:, None, None], vertices[safe], 0.0)
+    sn = torch.where(ok[:, None, None], normals[safe], 0.0)
+    tri, norm = _planes(sv, sn, l, block_size)
+    obj_plane = torch.where(ok, obj_ids.to(torch.int32)[safe], -1)
+
+    live = (flat_np >= 0)[:, None]
+    bmin = np.where(live, lmin[safe_np], np.inf)
+    bmax = np.where(live, lmax[safe_np], -np.inf)
+    block_min = bmin.reshape(l, block_size, 3).min(axis=1)
+    block_max = bmax.reshape(l, block_size, 3).max(axis=1)
+    aabb = torch.from_numpy(np.concatenate(
+        [block_min.T, block_max.T]).astype(np.float32)).to(dev)
+
+    return BlockGrid(tri=tri.contiguous(), norm=norm.contiguous(),
+                     tri_index=torch.from_numpy(slot_index).to(dev),
+                     obj=obj_plane.reshape(l, block_size).contiguous(),
+                     aabb=aabb.contiguous(), block_size=int(block_size))
 
 
 def super_aabbs(grid: BlockGrid) -> torch.Tensor:

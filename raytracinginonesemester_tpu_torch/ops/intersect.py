@@ -3,8 +3,9 @@
 PyTorch port of ``raytracinginonesemester_tpu.ops.intersect``: the hit
 record, the brute-force closest hit and any-hit over the whole triangle
 soup (the staged integrator's path for a scene without a block grid;
-the JAX package has no kernel there either), the per-ray single-triangle
-test, and the hit frame in the three reference dialects
+the JAX package has no kernel there either), the raw chunk algebra of
+the soft renderer (``chunk_tuv``), the per-ray single-triangle test,
+and the hit frame in the three reference dialects
 (``HW1/include/ray.h:67-117``, ``CPUOnly/include/ray.h:48-97``,
 ``GPUandCPU/include/query.h:72-132``).  Plain PyTorch on any device.
 """
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-__all__ = ["HitData", "FLT_EPSILON", "F32_MAX", "mt_single",
+__all__ = ["HitData", "FLT_EPSILON", "F32_MAX", "chunk_tuv", "mt_single",
            "intersect_closest", "occluded", "make_hit_frame"]
 
 FLT_EPSILON = 1.1920929e-7  # std::numeric_limits<float>::epsilon()
@@ -69,13 +70,21 @@ def mt_single(o, d, tri, det_eps: float):
     return t, u, v
 
 
-def _chunk_hits(o, d, tri, det_eps, tmin, tmax):
-    """(R, 3) rays vs a (C, 3, 3) triangle chunk -> (t, u, v, ok) (R, C)
-    with the hard inside test (``query.h:104-108``) and [tmin, tmax]."""
+def chunk_tuv(o, d, tri, det_eps: float):
+    """Raw ray x triangle-chunk Moller-Trumbore: o, d (R, 3), tri
+    (C, 3, 3) -> (t, u, v, det_ok) each (R, C), without the inside test
+    (callers apply their own: the hard bounds here, smoothed bounds in
+    ``diff.soft``)."""
     v0 = tri[None, :, 0]
     e1 = tri[None, :, 1] - v0
     e2 = tri[None, :, 2] - v0
-    t, u, v, det_ok = _tuv(o[:, None], d[:, None], v0, e1, e2, det_eps)
+    return _tuv(o[:, None], d[:, None], v0, e1, e2, det_eps)
+
+
+def _chunk_hits(o, d, tri, det_eps, tmin, tmax):
+    """(R, 3) rays vs a (C, 3, 3) triangle chunk -> (t, u, v, ok) (R, C)
+    with the hard inside test (``query.h:104-108``) and [tmin, tmax]."""
+    t, u, v, det_ok = chunk_tuv(o, d, tri, det_eps)
     ok = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
           & (t >= tmin[:, None]) & (t <= tmax[:, None]))
     return t, u, v, ok

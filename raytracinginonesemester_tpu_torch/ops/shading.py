@@ -3,10 +3,11 @@
 PyTorch port of ``raytracinginonesemester_tpu.ops.shading``:
 ``ShadeDirect`` with ``IsInShadow`` (``GPUandCPU/include/shader.h:44-110``)
 and with CPUOnly's disk-sampled ``ShadowVisibility``
-(``CPUOnly/include/raytracer.h:96-211``), and the sky-gradient miss
-shader.  Each light is one batched shadow-ray wavefront through the
-caller's ``occlude_fn`` (kernel F on the card).  HW1's fixed shader
-(``shade_hw1``) comes with ``render_hw1``.
+(``CPUOnly/include/raytracer.h:96-211``), the sky-gradient miss shader,
+and HW1's fixed shader ``shade_hw1`` (``HW1/include/raytracer.h:21-48``,
+for ``render.renderer.render_hw1``).  Each light is one batched
+shadow-ray wavefront through the caller's ``occlude_fn`` (kernel F on the
+card).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from ..core.vecmath import unit
 from ..scene.material import Lights, MaterialTable
 from .brdf import evaluate_brdf
 
-__all__ = ["RT_EPS_CPUONLY", "RT_EPS_GPU", "sky_gradient", "shade_direct"]
+__all__ = ["RT_EPS_CPUONLY", "RT_EPS_GPU", "sky_gradient", "shade_hw1",
+           "shade_direct"]
 
 # shadow-acne offsets: CPUOnly/include/raytracer.h:49, GPUandCPU/include/shader.h:22
 RT_EPS_CPUONLY = 1e-4
@@ -32,6 +34,27 @@ def sky_gradient(dirs) -> torch.Tensor:
     blue = torch.tensor([0.5, 0.7, 1.0], dtype=dirs.dtype, device=dirs.device)
     return (1.0 - t)[..., None] * torch.ones_like(blue) + t[..., None] * blue
 
+
+
+def shade_hw1(origins, dirs, p, normal, hit, light_position,
+              light_color) -> torch.Tensor:
+    """HW1's fixed shader: ambient 0.1 + Lambert + Blinn-Phong, clamped
+    at 1, with the hardcoded metal of ``HW1/include/ray.h:111-114``
+    (albedo (0.8, 0.2, 0.2), shininess 64); misses get the sky gradient."""
+    albedo = torch.tensor([0.8, 0.2, 0.2], device=p.device)
+    light_position = torch.as_tensor(light_position, dtype=torch.float32,
+                                     device=p.device)
+    light_color = torch.as_tensor(light_color, dtype=torch.float32,
+                                  device=p.device)
+    ambient = albedo * 0.1
+    l = unit(light_position - p)
+    diff = torch.clamp((normal * l).sum(dim=-1), min=0.0)
+    diffuse = (albedo * light_color) * diff[..., None]
+    half = unit(l + unit(origins - p))
+    spec = torch.pow(torch.clamp((normal * half).sum(dim=-1), min=0.0), 64.0)
+    specular = light_color * spec[..., None]
+    lit = torch.clamp(ambient + diffuse + specular, max=1.0)  # raytracer.h:12-18
+    return torch.where(hit[..., None], lit, sky_gradient(dirs))
 
 def _shadow_visibility_soft(p, n, light_pos, radius: float, num_samples: int,
                             occlude_fn, state, rt_eps: float):

@@ -12,7 +12,8 @@ kernels E and F, or G and I for a scene over the plane budget), with a
 one-time warning that names the reason.
 Differentiable scenes render there too, without a warning (the fused
 kernels have no gradient): through kernel B's oracle rows and kernel J
-in the backward pass (``ops.integrator``).
+in the backward pass (``ops.integrator``).  ``render_hw1`` is the HW1
+brute-force pipeline, in plain PyTorch on the triangles' device.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from ..core import rng as rnglib
 from ..ops.megakernel import megakernel_ineligible_reason, megakernel_kwargs
 from ..scene.build import Scene
 
-__all__ = ["render_scene", "render_scene_frames", "resolve_wavefront",
+__all__ = ["render_scene", "render_scene_frames", "render_hw1",
+           "resolve_wavefront",
            "resolve_candidate_plan", "resolve_jitter_mode",
            "accumulate_samples", "DEFAULT_RAY_TILE", "frog_scene", "entry"]
 
@@ -325,6 +327,48 @@ def render_scene(scene: Scene, jitter_mode: str = "auto",
     img = _unswizzle(accum, w, h, hp, wp)
     return img / float(spp) if normalize else img
 
+
+
+def render_hw1(vertices, normals, camera, light_position, light_color,
+               width: int, height: int, spp: int = 1, offsets=None,
+               ray_tile: int = DEFAULT_RAY_TILE) -> torch.Tensor:
+    """The HW1 pipeline (``HW1/src/render.cpp:72-116``): one brute-force
+    closest hit per sample over all triangles, t >= 0 with the
+    FLT_EPSILON det cutoff, the raw interpolated normal
+    (``make_hit_frame(mode="hw1")``) and ``shade_hw1`` -> (H, W, 3) on the
+    triangles' device.
+
+    The reference's jitter quirk is kept: render.cpp builds ``i + offset``
+    but HW1's camera has only an ``(int, int)`` ``get_pixel_position``
+    (``HW1/include/camera.h:33-35``), so the offsets truncate away.
+    ``offsets`` (spp, 2) in [0, 1), default the reference's mt19937(42)
+    stream, are floored (all to 0)."""
+    from ..ops import shading
+    from ..ops.intersect import FLT_EPSILON, intersect_closest, make_hit_frame
+
+    dev = vertices.device
+    if offsets is None:
+        offsets = rnglib.jittered_samples(spp, 42, centered=False)
+    offsets = torch.floor(torch.as_tensor(offsets, dtype=torch.float32,
+                                          device=dev))
+    ys, xs = torch.meshgrid(torch.arange(height, device=dev),
+                            torch.arange(width, device=dev), indexing="ij")
+    xs, ys = xs.reshape(-1).to(torch.float32), ys.reshape(-1).to(torch.float32)
+    num_rays = width * height
+
+    def tile_fn(args):
+        o, d = args
+        hits = intersect_closest(o, d, vertices, tmin=0.0,
+                                 det_eps=FLT_EPSILON)
+        p, n, _ = make_hit_frame(o, d, hits, vertices, normals, mode="hw1")
+        return shading.shade_hw1(o, d, p, n, hits.hit, light_position,
+                                 light_color)
+
+    accum = torch.zeros(num_rays, 3, device=dev)
+    for s in range(int(spp)):
+        o, d = camera.get_rays(xs + offsets[s, 0], ys + offsets[s, 1])
+        accum = accum + _tile_map(tile_fn, (o, d), num_rays, ray_tile)
+    return (accum / float(spp)).reshape(height, width, 3)
 
 def frog_scene(width=256, height=144, spp=1, max_bounces=8,
                diffuse_bounce=True, device="cuda") -> Scene:

@@ -21,7 +21,8 @@ import torch
 
 from ..core.camera import Camera
 from ..io.obj import MeshArrays, append_mesh, mesh_to_triangles
-from ..ops.accel import BlockGrid, build_block_grid
+from ..ops.accel import (BlockGrid, build_block_grid,
+                         build_block_grid_treelet)
 from .config import SceneConfig, load_scene_config, resolve_mesh_path
 from .material import Lights, MaterialTable
 from .transform import apply_transform
@@ -100,7 +101,8 @@ class Scene:
 def build_scene(config: SceneConfig, scene_path: str = ".",
                 accel: str = "blocks", device="cuda") -> Scene:
     """Load meshes, bake transforms and assemble the scene on ``device``.
-    ``RT_BLOCK_SIZE`` (default 512) sets the block grid's block size."""
+    ``RT_BLOCK_SIZE`` (default 512) sets the block grid's block size,
+    ``RT_BLOCK_LAYOUT`` its layout ("runs", the default, or "treelet")."""
     global_mesh: Optional[MeshArrays] = None
     materials: List[dict] = []
     next_object_id = 0
@@ -141,11 +143,13 @@ def build_scene(config: SceneConfig, scene_path: str = ".",
     accel_struct = None
     if accel == "blocks":
         block_size = int(os.environ.get("RT_BLOCK_SIZE", "512"))
-        if os.environ.get("RT_BLOCK_LAYOUT", "runs") != "runs":
-            raise NotImplementedError(
-                "only the Morton-run block layout is ported "
-                "(RT_BLOCK_LAYOUT=treelet is not)")
-        accel_struct = build_block_grid(
+        # RT_BLOCK_LAYOUT: "runs" (default), fixed Morton runs at full
+        # lane fill; "treelet", blocks cut at LBVH subtree boundaries and
+        # padded with dead lanes.  Frames are bit for bit the same.
+        layout = os.environ.get("RT_BLOCK_LAYOUT", "runs")
+        build = (build_block_grid_treelet if layout == "treelet"
+                 else build_block_grid)
+        accel_struct = build(
             geometry.vertices, geometry.num_triangles,
             normals=geometry.normals, obj_ids=geometry.obj_id,
             block_size=block_size)
