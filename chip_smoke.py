@@ -19,7 +19,13 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    the cpuonly case) and occlusion kernel F (camera, bounce and shadow
    rays with per-ray windows, parked rays included, and bounce rays with
    NaN windows, none of which may come out blocked), two-frog 128x64 at
-   block sizes 128 and 512;
+   block sizes 128 and 512; E with normals and no lights (the
+   model-sharded route) on camera and bounce rays; and on a grid padded
+   by ``shard_scene_blocks`` whose padding blocks hold a box of
+   triangles around the scene behind their empty AABBs
+   (``tests/_torch_parity.py`` ``poisoned_padding``), E, F, A (flat
+   emit) and B (bounce_step) must give the unpadded grid's results on
+   those ray sets: no kernel enters a padding block;
 4. reference images: the two-frog 128x64 render on the staged wavefront
    and with ``RT_WAVEFRONT=0`` (kernel D) against the JAX package's
    ``tests/goldens/torch_two_frog_128x64.npy``, the terminal two-frog
@@ -146,9 +152,29 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    is that far from float64 there, ROADMAP.md section 3); 5 Adam steps (ms/step), and a run resumed from a checkpoint
    after step 2 equal to the straight run bit for bit; and
    ``examples/inverse_render_torch.py --steps 20`` in a temporary
-   directory.
+   directory;
+15. sharding (``raytracinginonesemester_tpu_torch/parallel``): first NCCL
+   at world size 1 in this process (the dp1 fast path against
+   ``render_scene`` bit for bit; the frog 1080p ``reference_cpu`` frame
+   through the model-sharded route on one rank, "tp1": E without fused
+   shadows, F, the merges, ``images_close`` to phase 8's frame, whose
+   shadows E fuses from shadow rays of its own, so a grazing one may
+   flip, with at most 200 pixels beyond 2e-5 of it); then 4 gloo ranks sharing card 0, spawned, each render with
+   the counters set to 0 before it and read after it on every rank:
+   the dp4 fast path on the headline frog (``sample_offset`` 0-3, equal
+   to phase 5's frames bit for bit, A and B on every rank, E and F on
+   none; ms/frame median of 3), the dp2 x tp2 staged frog
+   (``reference_cpu``; compacted, ``RT_WAVEFRONT=0`` and compacted at
+   capacity 8, the overflow branch: each within 2e-5 of tp1, the
+   capacity-8 run equal to the compacted one, E and F on every rank,
+   A-D on none), and the dp4 training step on phase 9's workload (B's
+   oracle rows and J on every rank, loss and gradients finite, the
+   gradients within 1e-5 of each one's largest entry of phase 9's;
+   ms/step median of 3); last ``dryrun_multichip(4, "gloo", "cuda")``.
+   Every time of this phase is of 4 ranks sharing one card through
+   gloo, not a multi-chip time.
 
-Every render of phases 4-8, 10, 13 and 14 runs with the launch counters
+Every render of phases 4-8, 10 and 13-15 runs with the launch counters
 set to 0 just before it and read just after (the CLI's and the example's
 in their subprocesses); a kernel of that render that did not run fails
 the script, and so does a kernel that must not run there; phase 9's
@@ -710,6 +736,14 @@ def check_block_small(dev, errs):
                                               det_eps=FLT_EPSILON))
             if key == "bounce" and bool(got.hit[o[:, 0] >= 1e29].any()):
                 raise AssertionError("closest: a parked ray hit")
+        for key in ("camera", "bounce"):
+            # the model-sharded staged path's E: normals, no fused shadows
+            o, d = rays[key]
+            check_hits(errs, "closest", f"{where} {key} rays, normals, no "
+                       "lights (model-sharded)",
+                       bk.block_closest(o, d, grid, 1e-4, return_normal=True),
+                       bk.block_closest_plain(o, d, grid, 1e-4,
+                                              return_normal=True))
         hits, normal, _ = fused[False]
         tmin, tmax = (w.clone() for w in rays["window"])
         tmax[::7], tmin[::11] = float("nan"), float("nan")
@@ -728,6 +762,62 @@ def check_block_small(dev, errs):
                                                     or got[::11].any()):
                 raise AssertionError("occluded: a NaN window came out "
                                      "blocked")
+        check_padding(scene, rays, sets)
+
+
+def check_padding(scene, rays, sets):
+    """Phase 3: the padding blocks of a grid split over a model axis are
+    never entered: E (with and without normals) and F on the hazard ray
+    sets of ``check_block_small``, and A (flat emit) and B (bounce_step)
+    on the frame, each equal to the unpadded grid's results with the
+    padding blocks poisoned (``poisoned_padding``)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from _torch_parity import poisoned_padding
+
+    bad = []
+    padded = poisoned_padding(scene)
+    grid, pgrid = scene.accel, padded.accel
+    for key in ("camera", "bounce"):
+        o, d = rays[key]
+        for kw in (dict(), dict(return_normal=True)):
+            want = bk.block_closest(o, d, grid, 1e-4, **kw)
+            got = bk.block_closest(o, d, pgrid, 1e-4, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(_fields(got),
+                                                          _fields(want))):
+                bad.append(f"E {key} {kw}")
+    for key, (o, d, tmin, tmax) in sets.items():
+        if not torch.equal(bk.block_occluded(o, d, pgrid, tmin, tmax),
+                           bk.block_occluded(o, d, grid, tmin, tmax)):
+            bad.append(f"F {key}")
+    f, fp = Frame(scene), Frame(padded)
+    st, rng = f.emit(False)
+    st_p, rng_p = fp.emit(False)
+    if not (torch.equal(st, st_p) and torch.equal(rng, rng_p)):
+        bad.append("A (flat emit)")
+    st_s, rng_s, _ = f.sorted_state(st, rng)
+    b, b_p = f.bounce(st_s, rng_s), fp.bounce(st_s, rng_s)
+    if not all(torch.equal(x, y) for x, y in zip(b, b_p)):
+        bad.append("B (bounce_step)")
+    # the poison is live: with the padding blocks' AABBs around the box,
+    # E finds it
+    pgrid_open = dataclasses.replace(pgrid, aabb=pgrid.aabb.clone())
+    n0 = grid.num_blocks
+    pgrid_open.aabb[:, n0:] = torch.cat([grid.aabb[:3].amin(dim=1) - 1.0,
+                                         grid.aabb[3:].amax(dim=1) + 1.0]
+                                        )[:, None]
+    o, d = rays["bounce"]
+    live = int((bk.block_closest(o, d, pgrid_open, 1e-4).tri_idx
+                >= 10 ** 6).sum())
+    log(f"padding blocks ({pgrid.num_blocks - n0} of {pgrid.num_blocks}, "
+        f"block {grid.block_size}): entered by {bad or 'no kernel'}; with "
+        f"their AABBs opened E takes the poison box on {live} bounce rays")
+    if bad or not live:
+        raise AssertionError(f"padding blocks entered: {bad} (poison live on "
+                             f"{live} rays)")
 
 
 def record_calls(module, names, fn, keep=2):
@@ -764,10 +854,9 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def counted(label, fn, need, never=()):
+def launches(fn):
     """Run ``fn`` with the launch counters set to 0 just before it and
-    read just after; every kernel in ``need`` must have launched, and
-    none in ``never``."""
+    read just after -> (its result, the counts)."""
     from raytracinginonesemester_tpu_torch.ops import block_kernels as bk
     from raytracinginonesemester_tpu_torch.ops import diff_gather as dg
     from raytracinginonesemester_tpu_torch.ops import megakernel as mk
@@ -777,9 +866,12 @@ def counted(label, fn, need, never=()):
     dg.reset_launch_counts()
     out = fn()
     _sync()
-    counts = {**mk.launch_counts(), **mk.variant_launch_counts(),
-              **bk.launch_counts(), **dg.launch_counts()}
-    log(f"launch counts, {label}: {counts}")
+    return out, {**mk.launch_counts(), **mk.variant_launch_counts(),
+                 **bk.launch_counts(), **dg.launch_counts()}
+
+
+def check_counts(label, counts, need, never=()):
+    """Every kernel in ``need`` launched, and none in ``never``."""
     missing = [k for k in need if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: {missing} never launched ({counts})")
@@ -787,6 +879,13 @@ def counted(label, fn, need, never=()):
     if extra:
         raise AssertionError(f"{label}: {extra} launched, but this render "
                              f"must not take them ({counts})")
+
+
+def counted(label, fn, need, never=()):
+    """``launches`` of ``fn``, logged and checked by ``check_counts``."""
+    out, counts = launches(fn)
+    log(f"launch counts, {label}: {counts}")
+    check_counts(label, counts, need, never)
     return out, counts
 
 
@@ -2186,6 +2285,259 @@ def check_frontends(dev, smi):
             raise AssertionError("the example wrote no images")
     return out
 
+# phase 15: 4 gloo ranks sharing card 0 (NCCL refuses two ranks on one
+# device), the headline frames of phase 5 they render, the tp images'
+# bound against the same route on one rank (the JAX bound,
+# tests/test_parallel.py:57); against phase 8's frame, whose shadows E
+# fuses from its own shadow rays, so a grazing one may flip: images_close
+# and at most TP1_FAR_PIXELS pixels beyond TP_ATOL (44 of 2,073,600
+# measured on an H100 80GB HBM3 at 700 W, PERF.md section 6)
+# and the dp training gradients' bound against phase 9's (of each one's
+# largest entry: the ranks sum their pixels' shares in another order;
+# 1.1e-7 measured at 48x32 on the CPU, tests/test_torch_parallel.py)
+SHARD_RANKS, SHARD_FRAMES = 4, 4
+TP_ATOL, GRAD_REL, TP1_FAR_PIXELS = 2e-5, 1e-5, 200
+SHARED = "4 ranks sharing one card through gloo"
+
+
+def _timed(fn):
+    """(fn(), host milliseconds from a synchronised start to a
+    synchronised end)."""
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sharding_runs(tmp):
+    """Phase 15 on one rank: the dp4 fast path, the dp2 x tp2 staged path
+    (compacted, plain, compacted at capacity 8) and the dp4 training step,
+    each with the launch counters set to 0 before it and read after it
+    -> the rank's record (counts, differences, host milliseconds)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.diff import inverse
+    from raytracinginonesemester_tpu_torch.parallel.sharded import (
+        _render_sharded_staged, make_mesh, make_train_step_sharded,
+        render_scene_sharded)
+    from raytracinginonesemester_tpu_torch.render.renderer import frog_scene
+
+    ref = torch.load(os.path.join(tmp, "ref.pt"))
+    dev = torch.device(DEVICE)
+    mesh_dp = make_mesh((SHARD_RANKS,), ("data",))
+    mesh_tp = make_mesh((2, 2), ("data", "model"))
+    scene = frog_scene(W, H, device=dev)
+    rec = {}
+
+    frames, counts = launches(lambda: [
+        render_scene_sharded(scene, mesh_dp, sample_offset=k).cpu()
+        for k in range(SHARD_FRAMES)])
+    diff = [(f - ref["p5"][k]).abs() for k, f in enumerate(frames)]
+    rec["dp4"] = dict(
+        counts=counts, max_diff=max(float(x.max()) for x in diff),
+        n_diff=sum(int((x.amax(dim=-1) > 0).sum()) for x in diff),
+        ms=[_timed(lambda: render_scene_sharded(scene, mesh_dp))[1]
+            for _ in range(3)])
+    del frames, diff
+
+    def tp(**kw):
+        if kw:
+            return _render_sharded_staged(scene, mesh_tp, "reference_cpu", 0,
+                                          1, "model", **kw)
+        return render_scene_sharded(scene, mesh_tp, "reference_cpu",
+                                    model_axis="model")
+
+    runs = {}
+    for key, env, kw in (("compacted", None, {}), ("plain", "0", {}),
+                         ("cap8", None, dict(compacted=True, capacity=8))):
+        if env is not None:
+            os.environ["RT_WAVEFRONT"] = env
+        (img, ms), counts = launches(lambda: _timed(lambda: tp(**kw)))
+        os.environ.pop("RT_WAVEFRONT", None)
+        runs[key] = dict(img=img.cpu(), ms=ms, counts=counts)
+    rec["tp"] = {k: dict(ms=v["ms"], counts=v["counts"],
+                         tp1_diff=float((v["img"] - ref["tp1"]).abs().max()),
+                         p8_diff=float((v["img"] - ref["p8"]).abs().max()))
+                 for k, v in runs.items()}
+    rec["tp_cap8_equal"] = bool(torch.equal(runs["cap8"]["img"],
+                                            runs["compacted"]["img"]))
+    rec["tp_compacted_vs_plain"] = float(
+        (runs["compacted"]["img"] - runs["plain"]["img"]).abs().max())
+    del runs
+
+    scene_g = grad_scene(dev)
+    params = inverse.params_from_numpy(
+        {k: v.numpy() for k, v in ref["p0"].items()}, scene_g)
+    step = make_train_step_sharded(
+        torch.optim.Adam(list(params.values()), lr=1e-3), mesh_dp, "center",
+        spp_override=1)
+    target = ref["target"].to(dev)
+    (loss, ms), counts = launches(lambda: _timed(
+        lambda: step(params, scene_g, target)))
+    grads = {k: p.grad.detach().cpu() for k, p in params.items()}
+    rec["train"] = dict(
+        counts=counts, first_ms=ms, loss=float(loss),
+        finite=bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values()),
+        rel={k: float((g - ref["grads"][k]).abs().max()
+                      / ref["grads"][k].abs().max()) for k, g in grads.items()},
+        ms=[_timed(lambda: step(params, scene_g, target))[1]
+            for _ in range(3)])
+    return rec
+
+
+def sharding_rank(rank, tmp, port):
+    """One gloo rank of phase 15 on card 0; writes its record to
+    ``tmp/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=SHARD_RANKS, rank=rank)
+    try:
+        rec = sharding_runs(tmp)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def judge_sharding(recs, smi, loss1):
+    """Phase 15's checks of every rank's record (``sharding_runs``), and
+    its log lines -> rank 0's times."""
+    fused = ["emit", "bounce_step", "resume", "render"]
+    for r, rec in enumerate(recs):
+        dp, tp, t = rec["dp4"], rec["tp"], rec["train"]
+        log(f"rank {r}: dp4 fast path (frog {W}x{H} depth 8 binned, "
+            f"sample_offset 0-{SHARD_FRAMES - 1}) launches {dp['counts']}; "
+            f"vs phase 5's frames max abs diff {dp['max_diff']:.3e}, "
+            f"{dp['n_diff']} differing pixels")
+        check_counts(f"rank {r} dp4 fast path", dp["counts"],
+                     ["emit", "bounce_step"], ["closest", "occluded"])
+        if dp["n_diff"]:
+            raise AssertionError(f"rank {r}: dp4 frames differ from phase 5's")
+        for key, run in tp.items():
+            log(f"rank {r}: dp2 x tp2 staged, {key} (frog {W}x{H}, "
+                f"reference_cpu) launches {run['counts']}; vs tp1 max abs "
+                f"diff {run['tp1_diff']:.3e} (bound {TP_ATOL}), vs phase 8's "
+                f"frame {run['p8_diff']:.3e}")
+            check_counts(f"rank {r} dp2 x tp2 {key}", run["counts"],
+                         ["closest", "occluded"], fused)
+            if not run["tp1_diff"] <= TP_ATOL:
+                raise AssertionError(f"rank {r}: dp2 x tp2 {key} beyond "
+                                     f"{TP_ATOL} of the tp1 frame")
+        log(f"rank {r}: compacted vs plain max abs diff "
+            f"{rec['tp_compacted_vs_plain']:.3e}; capacity 8 (overflow) "
+            f"{'equals' if rec['tp_cap8_equal'] else 'DIFFERS FROM'} the "
+            "compacted run")
+        if not rec["tp_cap8_equal"]:
+            raise AssertionError(f"rank {r}: the overflow run differs")
+        log(f"rank {r}: dp4 training step (grad bench {GRAD_W}x{GRAD_H}) "
+            f"launches {t['counts']}; loss {t['loss']:.8f} vs phase 9's "
+            f"{float(loss1):.8f}; gradients vs phase 9's step, max |diff| "
+            f"of max |g|: {t['rel']} (bound {GRAD_REL})")
+        check_counts(f"rank {r} dp4 training step", t["counts"],
+                     ["bounce_step[diff]", "segment_accum"])
+        if not t["finite"] or not all(v <= GRAD_REL
+                                      for v in t["rel"].values()):
+            raise AssertionError(f"rank {r}: dp4 training step not finite "
+                                 f"or beyond {GRAD_REL} of phase 9's")
+    r0 = recs[0]
+    out = dict(
+        dp4_ms=_median(r0["dp4"]["ms"]),
+        tp_ms={k: v["ms"] for k, v in r0["tp"].items()},
+        train_ms=_median(r0["train"]["ms"]))
+    log(f"{SHARED} (not a multi-chip time) on {smi}, rank 0's host clock: "
+        f"dp4 fast path {out['dp4_ms']:.1f} ms/frame (median of 3, samples "
+        f"{[round(x, 1) for x in r0['dp4']['ms']]}); dp2 x tp2 staged, one "
+        f"frame each: {({k: round(v, 1) for k, v in out['tp_ms'].items()})} "
+        f"ms; dp4 training step {out['train_ms']:.1f} ms/step (median of 3, "
+        f"first step {r0['train']['first_ms']:.1f} ms)")
+    return out
+
+
+def check_sharding(smi, scene, p5, p8, train):
+    """Phase 15: sharding on the card (module docstring)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from raytracinginonesemester_tpu_torch.io.image import quantize
+    from raytracinginonesemester_tpu_torch.parallel.dryrun import (
+        dryrun_multichip, free_port)
+    from raytracinginonesemester_tpu_torch.parallel.sharded import (
+        make_mesh, render_scene_sharded)
+    from raytracinginonesemester_tpu_torch.render.renderer import (
+        render_scene)
+
+    # NCCL at world size 1: the fast path through a real NCCL group, and
+    # the staged frog through the model-sharded route (E without fused
+    # shadows, F, the merges) on one rank: the tp images' reference
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        img, _ = counted("NCCL world size 1, dp1 fast path", lambda:
+                         render_scene_sharded(scene, mesh),
+                         ["emit", "bounce_step"], ["closest", "occluded"])
+        tp1, _ = counted("NCCL world size 1, tp1 staged (reference_cpu)",
+                         lambda: render_scene_sharded(
+                             scene, mesh, "reference_cpu", model_axis="model"),
+                         ["closest", "occluded"], FUSED)
+    finally:
+        dist.destroy_process_group()
+    same = bool(torch.equal(img, render_scene(scene)))
+    log(f"NCCL world size 1: fast path {'equals' if same else 'DIFFERS FROM'}"
+        " render_scene bit for bit")
+    if not same:
+        raise AssertionError("NCCL world size 1 differs from render_scene")
+    tp1 = tp1.cpu()
+    ok, bad, mean = images_close(quantize(tp1.numpy(), "gpu"),
+                                 quantize(p8.numpy(), "gpu"))
+    d = (tp1 - p8).abs()
+    far = int((d.amax(dim=-1) > TP_ATOL).sum())
+    log(f"tp1 (E + F shadows) vs phase 8's frame (E's fused shadows): max "
+        f"abs diff {float(d.max()):.3e}, pixels beyond {TP_ATOL} {far} of "
+        f"{W * H} (bound {TP1_FAR_PIXELS}); images_close bad_frac "
+        f"{bad:.6f} mean {mean:.4f}")
+    if not ok or far > TP1_FAR_PIXELS:
+        raise AssertionError("tp1 is not close to phase 8's frame")
+
+    tr = train["tr"]
+    loss1, g1 = tr.grads()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(p5=p5, p8=p8, tp1=tp1, loss=loss1.cpu(),
+                        p0={k: torch.from_numpy(v) for k, v in tr.p0.items()},
+                        target=tr.target.cpu(),
+                        grads={k: v.cpu() for k, v in g1.items()}),
+                   os.path.join(tmp, "ref.pt"))
+        torch.multiprocessing.start_processes(
+            sharding_rank, args=(tmp, free_port()), nprocs=SHARD_RANKS,
+            join=True, start_method="spawn")
+        recs = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    log(f"phase 15: {SHARD_RANKS} ranks spawned, ran and joined in "
+        f"{time.time() - t0:.1f} s")
+    out = judge_sharding(recs, smi, loss1)
+
+    t0 = time.time()
+    dryrun_multichip(SHARD_RANKS, "gloo", "cuda")
+    out["dryrun_s"] = time.time() - t0
+    log(f"dryrun_multichip({SHARD_RANKS}, 'gloo', 'cuda'): "
+        f"{out['dryrun_s']:.1f} s ({SHARED})")
+    return out
+
+
 # labels of an entry function's first template argument, by kernel (the
 # others: the dialect); of its second (the others: a set one marks the
 # diff variant); a third is bounce_step_kernel's rays a warp
@@ -2301,6 +2653,7 @@ def main():
                              "frames (the plans must give the same images)")
     ref = frames_b[0].clone()
     runs_frames = frames_b.cpu()  # phase 13 holds the treelet frames to it
+    p5 = runs_frames[:SHARD_FRAMES].clone()  # phase 15 holds dp4's to them
     del frames_b, frames_f, diff
     ms_over, over_counts = timed_overflow("overflow render", scene, smi,
                                           "wang", ref)
@@ -2337,10 +2690,12 @@ def main():
     del ref
 
     # --- 8. the staged integrator at full width
-    ms_ref, _, ref_counts = timed_frames(
+    ms_ref, ref_frames, ref_counts = timed_frames(
         "frog 1080p depth 8, reference_cpu (staged integrator)", scene,
         STAGED_FRAMES, smi, ["closest"], iters=1, jitter="reference_cpu",
         never=FUSED + ["occluded"])
+    p8 = ref_frames[0].cpu()  # phase 15 holds dp2 x tp2 to it
+    del ref_frames
     soft = cpuonly_scene("cpuonly_mirror", dev, W, H, radius=0.15,
                          shadow_samples=32, diffuse_bounce=True)
     ms_soft, _, soft_counts = timed_frames(
@@ -2505,6 +2860,9 @@ def main():
     # --- 14. the front ends and the soft path
     fe = check_frontends(dev, smi)
 
+    # --- 15. sharding: gloo ranks sharing the card, NCCL at world size 1
+    sh = check_sharding(smi, scene, p5, p8, train)
+
     # which run's launches each record reports: (run, counts, counter)
     tc = train["counts"]
     training = f"training call, grad-bench config ({GRAD_STEPS} steps)"
@@ -2594,8 +2952,12 @@ def main():
         f"ms, large frog {tl['large_build_ms']:.3f} ms; bvh_closest 1080p "
         f"camera rays frog {tl['walk_ms']:.1f} ms ({tl['walk']}), large frog "
         f"{tl['large_walk_ms']:.1f} ms ({tl['large_walk']}); soft training "
-        f"gpu_spheres 160x90 {fe['soft_ms_step']:.1f} ms/step; "
-        f"whole run {time.time() - t_start:.0f} s")
+        f"gpu_spheres 160x90 {fe['soft_ms_step']:.1f} ms/step; {SHARED} "
+        f"(not multi-chip times): dp4 fast path {sh['dp4_ms']:.1f} ms/frame, "
+        f"dp2 x tp2 staged {({k: round(v, 1) for k, v in sh['tp_ms'].items()})}"
+        f" ms/frame, dp4 training step {sh['train_ms']:.1f} ms/step, "
+        f"dryrun {sh['dryrun_s']:.1f} s; whole run "
+        f"{time.time() - t_start:.0f} s")
     log(json.dumps({"variants": [r for k, r in records.items()
                                  if k not in main_keys]}))
     log(json.dumps({"kernels": [records[k] for k in main_keys]}))

@@ -19,9 +19,12 @@ constexpr int kIntMax = 2147483647;
 // A NaN window bound (the cpuonly soft-shadow rays of parked shade points
 // have NaN directions and tmax) stays NaN through jnp.maximum/minimum and
 // fails the test; fmaxf/fminf would drop it and open every block.
+// An empty box (min x > max x: the +inf/-inf padding blocks of a grid
+// split over a model axis) fails too: min/max of its +-inf slabs would
+// open every axis for every ray.
 __device__ __forceinline__ bool slab(const float* a, const float* o,
                                      const float* inv, float t0, float t1) {
-  if (isnan(t0) || isnan(t1)) return false;
+  if (isnan(t0) || isnan(t1) || !(a[0] <= a[3])) return false;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     float lo = (a[k] - o[k]) * inv[k];

@@ -34,6 +34,10 @@ In the first two, the winner's triangle and normals come from
 per-ray Moller-Trumbore on them carries the gradients while the primal t,
 u, v pass through bit for bit (``a + (b - b.detach())``).
 
+Under a model axis (``parallel.sharded``: the block grid sharded over a
+process group) each rank runs E and F on its blocks, and the ranks merge
+the closest hits (``merge_hits_over_axis``) and sum the occlusion flags.
+
 The glue between the kernels is plain PyTorch on the rays' device; the
 rng is the reference's per-ray uint32 stream in int64 storage
 (``core.rng``), drawn lane by lane only where a branch is taken.
@@ -53,12 +57,14 @@ from .block_kernels import (block_closest, block_closest_blockmajor,
                             block_occluded_blockmajor,
                             block_occluded_streamed, grid_rows,
                             num_chunks_for)
+from .comm import all_gather, all_reduce
 from .diff_gather import gather_int_rows, gather_rows
 from .intersect import (FLT_EPSILON, HitData, intersect_closest,
                         make_hit_frame, mt_single, occluded)
 from .shading import RT_EPS_CPUONLY, RT_EPS_GPU, shade_direct, sky_gradient
 
-__all__ = ["diff_candidate_plan", "make_bounce_step", "trace_rays"]
+__all__ = ["any_alive", "diff_candidate_plan", "make_bounce_step",
+           "merge_hits_over_axis", "select_hits", "trace_rays"]
 
 # Fused detached oracle for differentiable scenes: "0" keeps kernels E and
 # F.  Read once at import, as the JAX package does, like the two below.
@@ -122,14 +128,57 @@ def _diff_cand(scene, num_rays: int):
 
 
 def _check(scene, model_axis, oracle) -> None:
-    if model_axis is not None:
-        raise NotImplementedError(
-            "model_axis (triangle sharding) comes with the sharding slice")
+    if oracle is not None and model_axis is not None:
+        raise ValueError("an oracle serves no triangle-sharded scene: its "
+                         "winners would come from this shard's blocks only")
     if oracle is not None and not (
             getattr(scene, "differentiable", False)
             and scene.accel is not None and scene.dialect == "gpu"):
         raise ValueError("an oracle serves differentiable gpu scenes with a "
                          "block grid only")
+
+
+_I32_MAX = 2 ** 31 - 1
+
+
+def select_hits(t, u, v, idx, extra=None):
+    """The merge rule of ``merge_hits_over_axis`` on stacked per-shard
+    candidates: ``t``, ``u``, ``v``, ``idx`` (S, R), ``extra`` (S, R, K)
+    or None -> ``HitData`` (and the winners' ``extra`` rows).  Per ray
+    the least t wins, then the least global triangle id (ids >= 0), then
+    the lowest shard: the unsharded tie-break, whatever the partition."""
+    min_t = t.amin(dim=0, keepdim=True)
+    at_min = t == min_t
+    id_key = torch.where(at_min & (idx >= 0), idx, _I32_MAX)
+    best_id = id_key.amin(dim=0, keepdim=True)
+    # argmax returns the first maximal index: the lowest shard on ties
+    best = (at_min & (id_key == best_id)).to(torch.int8).argmax(dim=0)
+
+    def pick(a):
+        return a.gather(0, best[None]).squeeze(0)
+
+    tri_idx = pick(idx)
+    merged = HitData(t=pick(t), u=pick(u), v=pick(v), tri_idx=tri_idx,
+                     hit=tri_idx >= 0)
+    if extra is None:
+        return merged
+    k = extra.shape[2]
+    return merged, extra.gather(0, best[None, :, None].expand(1, -1, k)
+                                ).squeeze(0)
+
+
+def merge_hits_over_axis(hits, group, extra=None):
+    """Closest-hit merge over the ranks of ``group`` that each tested one
+    shard of the block grid: every rank's t, u, v and triangle id (and
+    ``extra`` (R, K), the kernel's normals) all-gathered, and the winner
+    of ``select_hits`` taken (``ops/integrator.py:112-146`` of the JAX
+    package).  Every rank of the group gets the same result."""
+    cols = [hits.t, hits.u, hits.v] + ([] if extra is None else
+                                       list(extra.unbind(1)))
+    f = all_gather(torch.stack(cols, dim=1), group)  # (S, R, 3 + K)
+    idx = all_gather(hits.tri_idx.to(torch.int32), group)
+    return select_hits(f[..., 0], f[..., 1], f[..., 2], idx,
+                       None if extra is None else f[..., 3:])
 
 
 def _passthrough(a, b):
@@ -142,7 +191,11 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
     ``bounce(carry, first=False, k=0) -> carry`` over the wavefront carry
     ``(origins, dirs, throughput, radiance, rng_state, alive)``, the loop
     body of ``TraceRayIterative`` (``query.h:165-216``) with the scene's
-    dialect rules.  ``model_axis`` raises ``NotImplementedError``.
+    dialect rules.  ``model_axis``: the process group over whose ranks
+    the block grid is sharded (``parallel.sharded``): each rank tests its
+    own blocks, closest hits merge by ``merge_hits_over_axis`` and
+    occlusion by a sum of the flags over the group; E then fuses no
+    shadows (a shard sees only its blocks), as in the JAX package.
 
     Forward scenes with a block grid run kernel E (in the gpu dialect with
     the shading normal and the point lights' shadow visibility) and
@@ -178,7 +231,8 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
         # the normal nor the fused shadows; shadows fuse only under the
         # budget (RT_STREAM=0 over it: E with normals, then F)
         fused = gpu and not differentiable and not streamed
-        lights = (scene.lights.position if fused and grid_chunks == 1
+        lights = (scene.lights.position
+                  if fused and grid_chunks == 1 and model_axis is None
                   else None)
 
         def closest_fn(o, d, shared=False):
@@ -212,6 +266,19 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
         def occlude_fn(o, d, s_tmin, s_tmax):
             return occluded(o, d, geom.vertices, s_tmin, s_tmax,
                             det_eps=det_eps)
+
+    if model_axis is not None:
+        closest_local, occlude_local = closest_fn, occlude_fn
+
+        def closest_fn(o, d, shared=False):
+            hits, normal, _ = closest_local(o, d, shared)
+            if normal is None:
+                return merge_hits_over_axis(hits, model_axis), None, None
+            return merge_hits_over_axis(hits, model_axis, normal) + (None,)
+
+        def occlude_fn(o, d, s_tmin, s_tmax):
+            blocked = occlude_local(o, d, s_tmin, s_tmax).to(torch.int32)
+            return all_reduce(blocked, model_axis) > 0
 
     def winner_closest(o, d, k, shared):
         """Detached or oracle winners, their gathered triangle and normals
@@ -356,6 +423,16 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
     return bounce
 
 
+def any_alive(alive, group=None) -> bool:
+    """Whether any ray of ``alive`` lives, on one host read; over the
+    ranks of ``group`` too (their MAX), so that ranks whose collectives
+    pair up always run the same number of depths."""
+    flag = alive.any().to(torch.int32).reshape(1)
+    if group is not None:
+        flag = all_reduce(flag, group, torch.distributed.ReduceOp.MAX)
+    return bool(flag)
+
+
 def trace_rays(origins, dirs, rng_state, scene, model_axis=None,
                shared_origin0: bool = False) -> torch.Tensor:
     """Trace a wavefront of (R, 3) rays to completion -> radiance (R, 3).
@@ -369,7 +446,9 @@ def trace_rays(origins, dirs, rng_state, scene, model_axis=None,
     starts at ``origins[0]`` (the pinhole camera pass), which kernel E
     accepts and does not need.  gpu dialect: the radiance is clamped to
     [0, 1] (``query.h:219``); cpuonly: not clamped.  ``rng_state``:
-    uint32 values (any integer tensor, ``core.rng.to_u32``)."""
+    uint32 values (any integer tensor, ``core.rng.to_u32``).
+    ``model_axis``: as in ``make_bounce_step``; the alive flag is then
+    read over the group (``any_alive``)."""
     _check(scene, model_axis, None)
     differentiable = bool(getattr(scene, "differentiable", False))
     max_depth = int(scene.max_bounces)
@@ -377,12 +456,12 @@ def trace_rays(origins, dirs, rng_state, scene, model_axis=None,
     if differentiable and _DIFF_ORACLE and max_depth <= _ORACLE_MAX_BOUNCES:
         from .diff_oracle import fused_bounce_oracle, oracle_eligible
 
-        if oracle_eligible(scene):
+        if oracle_eligible(scene, model_axis):
             oracle = fused_bounce_oracle(
                 origins, dirs, rng_state, scene, max_depth, det_eps=1e-8,
                 tmin=1e-4, shadow_eps=RT_EPS_GPU, shadow_tmin=1e-4,
                 cand_plan=_diff_cand(scene, int(origins.shape[0])))
-    bounce = make_bounce_step(scene, oracle=oracle)
+    bounce = make_bounce_step(scene, model_axis, oracle)
     r = origins.shape[0]
     dev = origins.device
     carry = (origins, dirs, torch.ones(r, 3, device=dev),
@@ -397,7 +476,7 @@ def trace_rays(origins, dirs, rng_state, scene, model_axis=None,
         if shared and max_depth >= 1:
             carry = bounce(carry, first=True)
             depth = 1
-        while depth < max_depth and bool(carry[5].any()):
+        while depth < max_depth and any_alive(carry[5], model_axis):
             carry = bounce(carry)
             depth += 1
     radiance = carry[3]

@@ -319,7 +319,9 @@ def _has_work(scene, xs_p, ys_p, sh: _Shade, plan, cand_plan):
 def _slab(a, o, inv, t0, t1):
     """Per-ray slab test against one block AABB row ``a`` (8,) (or rows
     broadcast against the rays), with the robust far-plane stretch (Ize
-    2013) of ``_tile_slab``."""
+    2013) of ``_tile_slab``.  An empty box (min x > max x, as the +inf/-inf
+    padding blocks of ``parallel.sharded.shard_scene_blocks``) fails: the
+    min/max of its infinite slabs would pass every ray."""
     for axis in range(3):
         lo = (a[axis] - o[axis]) * inv[axis]
         hi = (a[axis + 3] - o[axis]) * inv[axis]
@@ -329,7 +331,7 @@ def _slab(a, o, inv, t0, t1):
         far = torch.where(far.isnan(), float("inf"), far * 1.0000004)
         t0 = torch.maximum(t0, near)
         t1 = torch.minimum(t1, far)
-    return t0 <= t1
+    return (t0 <= t1) & (a[0] <= a[3])
 
 
 def _mt(o, d, tri, det_eps, tmin, tmax):

@@ -148,13 +148,18 @@ _CAND_PLAN_CACHE_MAX = 8
 
 
 def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
-                           spp_override: Optional[int] = None):
+                           spp_override: Optional[int] = None,
+                           align_tiles: int = 1):
     """Binned camera-candidate plan of a scene, built on its device once
     per (scene, camera) and cached.  ``RT_BINNED``: "auto"/"1" (default
     on), "0" off (returns None); ``RT_BINNED_CHUNK``: candidate lanes
     per chunk (default 256).  The depth-0 walk of emit and render then
     tests each tile's candidates instead of the block grid.  None for a
-    scene the fused kernels do not take."""
+    scene the fused kernels do not take.  ``align_tiles``: the plan's
+    tiles are padded to a multiple of ``align_tiles`` 8-tile groups, with
+    padding rays at pixel (0, 0), so that its meta rows split evenly over
+    that many data ranks (``parallel.sharded``; the chunk stream, whose
+    starts are global, is shared)."""
     if os.environ.get("RT_BINNED", "auto") == "0":
         return None
     spp_eff = spp_override if spp_override is not None else scene.spp
@@ -164,7 +169,8 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
     from ..ops.megakernel import RAY_TILE, _pad_tiles
 
     chunk = int(os.environ.get("RT_BINNED_CHUNK", "256"))
-    fp = plan_fingerprint(scene.camera, scene.accel, RAY_TILE, 1, chunk)
+    fp = (plan_fingerprint(scene.camera, scene.accel, RAY_TILE, 1, chunk),
+          int(align_tiles))
     if fp in _CAND_PLAN_CACHE:
         plan = _CAND_PLAN_CACHE.pop(fp)
         _CAND_PLAN_CACHE[fp] = plan  # LRU: refresh the insertion order
@@ -172,6 +178,10 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
     w, h = int(scene.camera.width), int(scene.camera.height)
     xs, ys, _ = _swizzled_grid(w, h, device=scene.device)
     xs_p, ys_p, _, _ = _pad_tiles(xs, ys)
+    extra = (-(xs_p.shape[0] // RAY_TILE)) % (int(align_tiles) * 8)
+    if extra:
+        xs_p = torch.cat([xs_p, xs_p.new_zeros(extra * RAY_TILE)])
+        ys_p = torch.cat([ys_p, ys_p.new_zeros(extra * RAY_TILE)])
     plan = build_camera_candidate_plan(scene.camera, xs_p, ys_p, scene.accel,
                                        RAY_TILE, chunk=chunk)
     while len(_CAND_PLAN_CACHE) >= _CAND_PLAN_CACHE_MAX:
@@ -197,7 +207,7 @@ def _tile_map(fn, args, num_rays: int, tile: int):
 
 def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
                        ray_tile: int = DEFAULT_RAY_TILE,
-                       sample_offset: int = 0) -> torch.Tensor:
+                       sample_offset: int = 0, trace=None) -> torch.Tensor:
     """Sum over ``spp`` samples of the per-sample radiance of the pixels
     ``xs``, ``ys`` through the staged integrator -> (N, 3).
 
@@ -207,7 +217,9 @@ def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
     offset per sample shared by every pixel (``query.cu:137-146``),
     indexed ``min(s + sample_offset, spp - 1)`` as the JAX package does;
     ``"center"``, the pixel center.  Any split of the pixels, and any
-    ``ray_tile``, gives the same sums."""
+    ``ray_tile``, gives the same sums.  ``trace(origins, dirs, seeds) ->
+    (N, 3)`` traces one sample's rays, by default ``trace_rays`` over
+    tiles of ``ray_tile`` rays (``parallel.sharded`` passes its own)."""
     cam = scene.camera
     num_rays = int(xs.shape[0])
     dev = xs.device
@@ -222,6 +234,10 @@ def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
         o, d, st = args
         return trace_rays(o, d, st, scene, shared_origin0=cam.is_pinhole)
 
+    if trace is None:
+        def trace(o, d, st):
+            return _tile_map(tile_fn, (o, d, st), num_rays, ray_tile)
+
     accum = torch.zeros(num_rays, 3, device=dev)
     for s in range(int(spp)):
         s_abs = s + int(sample_offset)
@@ -234,8 +250,7 @@ def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
         origins, dirs = cam.get_rays(xs.to(torch.float32) + jx,
                                      ys.to(torch.float32) + jy)
         seeds = rnglib.make_rng_seed(xs, ys, s_abs)
-        accum = accum + _tile_map(tile_fn, (origins, dirs, seeds), num_rays,
-                                  ray_tile)
+        accum = accum + trace(origins, dirs, seeds)
     return accum
 
 

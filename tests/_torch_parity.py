@@ -203,3 +203,35 @@ def list_occluded(rows, p, ld, dist, facing, det_eps, shadow_tmin,
     flags = torch.zeros(r, dtype=torch.bool)
     flags[listed] = blocked
     return flags, torch.tensor(tests)
+
+
+def poisoned_padding(scene, pad=3):
+    """``scene`` (the port's) with its block grid padded by
+    ``shard_scene_blocks`` with ``pad`` empty blocks (AABB +inf/-inf, as a
+    grid split over a model axis gets them) whose first 12 lanes hold a
+    box of triangles around the scene, ids 10**6 on: a ray whose slab
+    test let such a block through would hit the box (or, outside it,
+    could).  Used by ``test_torch_parallel.py`` and ``chip_smoke.py``."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.parallel.sharded import (
+        shard_scene_blocks)
+
+    grid = scene.accel
+    n0 = grid.num_blocks
+    padded = shard_scene_blocks(scene, n0 + pad)
+    g = padded.accel
+    lo = grid.aabb[:3].amin(dim=1) - 1.0
+    hi = grid.aabb[3:].amax(dim=1) + 1.0
+    c = [torch.where(torch.tensor([(k >> a) & 1 for a in range(3)],
+                                  device=lo.device) > 0, hi, lo)
+         for k in range(8)]
+    faces = [(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+             (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)]
+    g.tri[:, n0:, :12] = torch.stack(
+        [torch.cat([c[a], c[b] - c[a], c[e] - c[a]]) for a, b, e in faces],
+        dim=1)[:, None, :]
+    g.tri_index[n0:, :12] = (torch.arange(12, device=lo.device)
+                             + 10 ** 6).to(g.tri_index.dtype)
+    g.obj[n0:, :12] = 0
+    return padded

@@ -241,16 +241,20 @@ def test_trace_rays_matches_jax(name):
 
 
 def test_bounce_step_refuses_what_waits_for_later_slices(frog):
-    """Triangle sharding waits for the sharding slice; an oracle serves
-    differentiable scenes only; differentiable scenes trace (their
-    modes are held against JAX in ``test_torch_diff.py``)."""
+    """Triangle sharding builds a bounce step for forward and
+    differentiable scenes (it runs in ``test_torch_parallel.py``); an
+    oracle serves differentiable scenes only, and no triangle-sharded
+    one; differentiable scenes trace (their modes are held against JAX
+    in ``test_torch_diff.py``)."""
     _, ts = frog
     diff = dataclasses.replace(ts, differentiable=True)
+    group = object()  # a process group; building the step calls nothing
     for scene in (ts, diff):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            make_bounce_step(scene, model_axis="model")
+        assert callable(make_bounce_step(scene, model_axis=group))
     with pytest.raises(ValueError, match="oracle"):
         make_bounce_step(ts, oracle={})
+    with pytest.raises(ValueError, match="triangle-sharded"):
+        make_bounce_step(diff, model_axis=group, oracle={})
     rays = [_t(a) for a in _camera_rays(frog[0])]
     got = trace_rays(*rays, diff)
     want = trace_rays(*rays, ts)
@@ -364,7 +368,8 @@ def test_fused_scenes_still_take_the_fused_kernels(frog, spy, case):
 def test_differentiable_scenes_still_raise(frog, spy, recwarn):
     """Differentiable scenes no longer raise: they render on the staged
     path without a fallback warning (the fused kernels have no
-    gradient), and only triangle sharding still raises for them."""
+    gradient), and under triangle sharding in the detached mode (the
+    oracle serves no sharded grid)."""
     _, ts = frog
     diff = dataclasses.replace(ts, differentiable=True)
     img = tr.render_scene(diff)
@@ -373,8 +378,10 @@ def test_differentiable_scenes_still_raise(frog, spy, recwarn):
     assert not [w for w in recwarn if "fused kernels" in str(w.message)]
     assert torch.isfinite(img).all() and float(img.std()) > 0.02
     torch.testing.assert_close(frames[0], img, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        make_bounce_step(diff, model_axis="model")
+    from raytracinginonesemester_tpu_torch.ops.diff_oracle import (
+        oracle_eligible)
+
+    assert oracle_eligible(diff) and not oracle_eligible(diff, object())
 
 
 # --- on the card ------------------------------------------------------

@@ -151,8 +151,9 @@ def test_closest_walk_matches_the_plain_walk(rays, normals, shared,
                                              block_size, monkeypatch):
     """E's listed walk and its listed shadow walk give the plain
     version's t, u, v, ids, normals and both lights' visibility bit for
-    bit; parked rays miss, and without an empty block they and the rays
-    to the sky are never listed."""
+    bit; parked rays miss, and they and the rays to the sky are never
+    listed, also beside an empty block (block size 128), whose box the
+    slab test rejects."""
     scene = _scene("gpu", monkeypatch, block_size)
     empty = bool((scene.accel.aabb[0] > scene.accel.aabb[3]).any())
     assert empty == (block_size == 128)
@@ -175,7 +176,7 @@ def test_closest_walk_matches_the_plain_walk(rays, normals, shared,
     (n, listed), = seen
     hits = _fields(want)[4]
     assert 0 < int(hits.sum()) <= listed <= n
-    assert (listed == n) == empty  # the empty block lists every ray
+    assert listed < n  # parked rays are listed by no block, empty or not
     if rays == "bounce":
         assert torch.is_tensor(tmin) and not bool(hits[-N_PARKED:].any())
     if normals:
