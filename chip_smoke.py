@@ -122,7 +122,15 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    then each bit for bit against its plain version, timed as in phase
    11 (``mm22``'s bound at the card's bf16 tensor rate), and
    ``torch.matmul`` of ``mm22``'s stacked picks by qsel timed beside it
-   (the product alone);
+   (the product alone); ``mm22`` also at the edges of its copies of
+   ``MM_COPY`` visits and its staging ring of ``MM_SLOTS`` (0, 1,
+   ``MM_COPY`` - 1, ``MM_COPY``, ``MM_COPY`` + 1, 33, 257, ``MM_SLOTS`` -
+   1, ``MM_SLOTS``, ``MM_SLOTS`` + 1, 2 ``MM_SLOTS`` + 1) on the script's
+   win and on one whose visits wrap past lane 511 (and 48 rays, a
+   partial tile), ``dyn12`` and ``blk1`` at the edges of their period of
+   39 visits (0, 1, 38, 39, 40, 79, 4096), each bit for bit; and whether the built ``probes`` library's SASS for
+   ``mm22_kernel`` holds ``HGMMA`` (``wgmma``) and no ``HMMA``
+   (``mma.sync``), from ``cuobjdump -sass``;
 13. the LBVH and the treelet block layout at full width: ``build_lbvh``
    on the frog (19,968 triangles with its padding) and on the large frog
    (1,270,912), each timed on the card and checked (every triangle a
@@ -1767,6 +1775,57 @@ def probe_jobs(dev):
     return jobs, (win, qsel)
 
 
+def check_probe_edges(dev, errs):
+    """Phase 12: ``mm22`` at the edges of its copies and of its staging
+    ring, on the script's win and on one within 12 lanes of 511 (its
+    visits wrap), ``dyn12`` and ``blk1`` at the edges of their period,
+    each bit for bit against its plain version (after the probes' own
+    run: not counted)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.probes import dyn_reads as dr
+    from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+
+    win, _, qsel = ms.script_inputs(dev)
+    near = (500 + torch.arange(ms.RT, dtype=torch.int32, device=dev)
+            % 12).reshape(-1, 1)
+    c, k = ms.MM_SLOTS, ms.MM_COPY
+    for tag, w in (("script win", win), ("win near lane 511", near)):
+        for visits in (0, 1, k - 1, k, k + 1, 33, 257, c - 1, c, c + 1,
+                       2 * c + 1):
+            check_exact(errs, "mm22", f"{visits} visits, {tag}",
+                        ms.mm22(w, qsel, visits),
+                        ms.mm22_plain(w, qsel, visits))
+    check_exact(errs, "mm22", f"{c + 1} visits, 48 rays (a partial tile)",
+                ms.mm22(win[:48], qsel, c + 1),
+                ms.mm22_plain(win[:48], qsel, c + 1))
+    tab = dr.script_inputs(dev)
+    for visits in (0, 1, 38, 39, 40, 79, 4096):
+        check_exact(errs, "dyn12", f"{visits} visits", dr.dyn12(tab, visits),
+                    dr.dyn12_plain(tab, visits))
+        check_exact(errs, "blk1", f"{visits} visits", dr.blk1(tab, visits),
+                    dr.blk1_plain(tab, visits))
+
+
+def check_mm22_sass():
+    """Phase 12: the built ``probes`` library's SASS for ``mm22_kernel``
+    (``cuobjdump -sass``) must hold HGMMA (``wgmma``) and no HMMA
+    (``mma.sync``)."""
+    from raytracinginonesemester_tpu_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", _native.BUILD_LOG["probes"]["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    body = "".join(sec for sec in re.split(r"\n\s*Function : ", text)
+                   if sec.startswith("_Z11mm22_kernel"))
+    hgmma = len(re.findall(r"\bHGMMA\b", body))
+    hmma = len(re.findall(r"\bHMMA\b", body))
+    log(f"mm22_kernel SASS (cuobjdump -sass): {hgmma} HGMMA, {hmma} HMMA "
+        f"instructions: {'holds HGMMA and no HMMA' if hgmma and not hmma else 'FAILS'}")
+    if not body or not hgmma or hmma:
+        raise AssertionError("mm22_kernel's SASS must hold HGMMA and no HMMA")
+
+
 def run_probes(jobs):
     """Phase 12, the probes' own run: each job's kernel wrapper once, with
     the probes' launch counters set to 0 just before and read just after;
@@ -2605,6 +2664,9 @@ def main():
         b = _native.BUILD_LOG[name]
         log(f"build {name}.cu: {b['seconds']:.1f} s ({b['path']}); "
             f"ptxas: {ptxas_summary(b['ptxas'])}")
+        for ln in b["ptxas"].splitlines():
+            if "wgmma" in ln or "arning" in ln:
+                log(f"  ptxas: {ln.strip()}")
     log(f"build: {time.time() - t0:.1f} s for {len(_native.SOURCES)} sources")
 
     # --- 3. kernels vs plain versions at 128x64
@@ -2852,6 +2914,11 @@ def main():
     probe_records = time_kernels(smi, errs, p_jobs)
     probe_records["mm22"]["matmul_product_ms"] = time_mm22_matmul(
         p_win, p_qsel, smi)
+    log(f"mm22 {probe_records['mm22']['ms']:.3f} ms against torch.matmul of "
+        f"its product {probe_records['mm22']['matmul_product_ms']:.3f} ms "
+        f"in this call ({probe_records['mm22']['ms'] / probe_records['mm22']['matmul_product_ms']:.3f}x)")
+    check_probe_edges(dev, errs)
+    check_mm22_sass()
 
     # --- 13. the LBVH and the treelet block layout at full width
     tl = check_treelet(dev, smi, runs_frames, ms_binned, terminal)

@@ -34,27 +34,55 @@
 // TPU multiplies the (RT, B) one-hot pick, in bf16, by qsel (B, 128:
 // split3's hi, mid and lo parts of 22 attributes at columns 0, 32 and
 // 64) on the MXU with f32 accumulation, then adds (hi + mid) + lo per
-// attribute.  Here the product runs on the tensor cores with warp-level
-// mma.sync m16n8k16 (bf16 in, f32 accumulation), the pick built in
-// registers as the A fragment, qsel staged once per CTA in shared memory
-// in B-fragment order.  Only the 9 column tiles of 8 that the sums read
-// are multiplied (cols 0-23, 32-55, 64-87); the other 56 columns of qsel
-// are zero padding.  The product is exact: each output has one nonzero
-// term, a bf16 value times 1.  A CTA holds 16 rays; each of its 8 warps
-// computes one visit of a group of 8 and leaves the 22 rebuilt attributes
-// in shared memory, and 16 threads add them into the rays' sums in visit
-// order (double-buffered: one __syncthreads a group).  Bound: the
-// tensor-core product (1.4e11 FLOP of the read columns, 0.14 ms at 989
-// TFLOP/s) and the chain of 90,112 dependent adds a ray.
+// attribute.  The product is exact (each output has one nonzero term, a
+// bf16 value times 1), so any accumulation order gives the same bits;
+// only the 9 column tiles of 8 that the sums read are multiplied (cols
+// 0-23, 32-55, 64-87: N = 72), over every k-step of 16 of K = B.  What
+// bounds it: the product (1.55e11 FLOP at 72 columns, 0.16 ms at 989
+// TFLOP/s) and the chain of 90,112 dependent adds a ray (the sum's order
+// is fixed).  The chain cannot be split, so the two run apart and overlap
+// in one cooperative launch (every CTA resident): a visit's product,
+// spread over the card, leaves its 22 rebuilt attributes in a staging
+// ring of kMmSlots visits (23 MB at 512 rays: it stays in L2) that the
+// chain reads in order close behind, with flags in global memory between
+// them.  The chain's CTAs come first in the grid (blockIdx < chain_ctas):
+// one warp a group of 32 rays adds visit after visit, attribute after
+// attribute, from a ring of kMmRing shared-memory slots that a second
+// warp fills with cp.async.bulk copies of kMmRingVisits visits each (full
+// and empty mbarriers), each issued once its block's products are counted
+// in done[] (acquire); the filler publishes in landed[] the visits whose
+// staging has landed, so that the product may overwrite their slots.
+// The adding warp waits on nothing but its full barriers.  Every CTA has
+// an SM to itself (180 KB of shared memory for the chain's ring), so the
+// chain's adds share no SM with the product.  The product's CTAs (four
+// warpgroups each, on the other SMs) stage the packed 72 columns once
+// with cp.async.bulk; each warpgroup then takes
+// (64-ray tile, visit) items in turn, in visit order over the grid, and
+// runs wgmma.mma_async m64n72k16 with the pick as its register A fragment
+// (warp w holds rows 16w..16w+15 in mma.sync's m16k16 layout; the lane's
+// one-hot sits in one k-step, so a register is the thread's precomputed
+// value at that step and 0 at the others), every k-step issued, in commit
+// groups of kMmStageSteps with two register buffers.  The wrapper packs
+// qsel's 72 columns K-major in core matrices of 8 x 16 B without swizzle
+// (probes/mm_select.py pack_qsel), K padded with zero rows to kMmKBlock;
+// the descriptor's leading byte offset kMmLbo steps along K, its stride
+// byte offset kMmSbo along N, kMmStepBytes a k-step.  The epilogue stores
+// (hi + mid) + lo as [group][slot][attribute][32 rays], then the
+// warpgroup's release counts the item.
 //
 // P3 dyn_reads_kernel<BLOCK_MAJOR> replaces probe_dyn_reads.py:
 // dyn12_kernel (call :54, rows f * 39 + b, plane-major) and blk1_kernel
 // (call :56, rows b * 12 + f, block-major).  One thread per column adds
-// 12 rows a visit, b = k mod 39.  A CTA of 32 columns reads a 128-byte
-// slice of each of the 468 rows (60 KB, resident in L1 after the first
-// visits), so both layouts read the same lines and the order of the reads
-// is the only difference.  Bound: the chain of 49,152 dependent adds a
-// thread.
+// 12 rows a visit, b = k mod 39, in a chain that cannot be split, so the
+// grid stays a warp of 32 columns per CTA.  Bound: the chain of 49,152
+// dependent adds a thread.  The CTA's 468 x 32-column slab (59.9 KB) is
+// staged in shared memory once (cp.async, 4 bytes a column, zero-filled
+// past the last column); the visit loop is unrolled over one period of
+// L = 39 visits, so every row offset is a compile-time constant (no
+// k mod 39, no address arithmetic), with a tail for visits mod 39; the
+// reads run kDynAhead ahead of the adds in a register window that wraps
+// into the next period, so the dependent adds are all the loop waits on.
+// BLOCK_MAJOR changes only the constants.
 
 #include <cuda_runtime.h>
 
@@ -67,12 +95,36 @@ constexpr int kDynPlanes = 12;  // P3's rows a visit
 constexpr int kDynBlocks = 39;  // P3's blocks of 12 rows (L)
 constexpr int kColThreads = 32;
 
-constexpr int kMmWarps = 8;    // P2b: visits of a group, one a warp
-constexpr int kMmRays = 16;    // P2b: rays of a CTA (mma's M)
-constexpr int kMmTiles = 9;    // P2b: column tiles of 8 the sums read
-constexpr int kMmAttrs = 22;   // P2b: attributes (F)
-constexpr int kMmSlots = 24;   // P2b: 3 tiles of 8 columns a part
-constexpr int kMmStride = kMmSlots + 1;  // P2b: attribute buffer's row
+constexpr int kDynRows = kDynPlanes * kDynBlocks;  // P3's 468 rows
+constexpr int kDynAhead = 26;   // P3: reads in flight ahead of the adds
+
+constexpr int kMmAttrs = 22;       // P2b: attributes (F)
+constexpr int kMmCols = 72;        // P2b: read columns, 9 tiles of 8 (N)
+constexpr int kMmTileRays = 64;    // P2b: rays of a wgmma tile (M)
+constexpr int kMmGroupRays = 32;   // P2b: rays of a chain warp
+constexpr int kMmGroupFloats = kMmAttrs * kMmGroupRays;  // a visit's group
+constexpr int kMmStageSteps = 4;   // P2b: k-steps of a commit group
+constexpr int kMmKBlock = 128;     // P2b: K padded to a multiple of this
+constexpr int kMmStepBytes = 2304; // P2b: a k-step's 9 x 2 core matrices
+constexpr int kMmLbo = 128;        // P2b: bytes to the next core matrix in K
+constexpr int kMmSbo = 256;        // P2b: bytes to the next core matrix in N
+constexpr int kMmWarpgroups = 4;   // P2b: product warpgroups a CTA
+constexpr int kMmThreads = 128 * kMmWarpgroups;
+constexpr int kMmSlots = 512;      // P2b: visits the staging ring holds
+constexpr int kMmRing = 4;         // P2b: chain copies in flight
+constexpr int kMmRingVisits = 16;  // P2b: visits a chain copy (a block)
+constexpr int kMmPublish = 16;     // P2b: copies between landed[] updates
+constexpr int kMmRingBytes =
+    kMmRing * kMmRingVisits * kMmGroupFloats * (int)sizeof(float);
+
+static_assert(kMmStepBytes == (kMmCols / 8) * 2 * 128, "9 x 2 core matrices");
+static_assert(kMmKBlock == 2 * kMmStageSteps * 16, "two register buffers");
+static_assert(kMmSlots % kMmRingVisits == 0, "a copy never wraps the ring");
+// the chain publishes landed[] kMmPublish copies late and lands kMmRing
+// copies ahead of its adds: the ring must hold that and the product's
+// window of items in flight (a few copies) besides
+static_assert((kMmPublish + kMmRing + 8) * kMmRingVisits < kMmSlots,
+              "the staging ring is too small for the chain's lag");
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -88,26 +140,146 @@ __device__ __forceinline__ int floor_mod(int a, int n) {
   return r < 0 ? r + n : r;
 }
 
-// two bf16 one-hot entries (cols c, c + 1 of a pick row whose lane is p):
-// bf16 1.0 is 0x3f80, the lower half the first column
-__device__ __forceinline__ unsigned pick2(int p, int c) {
-  return (p == c ? 0x3f80u : 0u) | (p == c + 1 ? 0x3f800000u : 0u);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// first column of P2b's column tile j: hi 0, 8, 16; mid 32, 40, 48; lo 64..
-__device__ __forceinline__ int tile_col(int j) {
-  return (j / 3) * 32 + (j % 3) * 8;
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
-                                         unsigned a1, unsigned a2,
-                                         unsigned a3, unsigned b0,
-                                         unsigned b1) {
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` from the copies it completes
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// a wait that never ends traps (a launch error) instead of hanging the card
+__device__ __forceinline__ void give_up_after(long long& tries) {
+  if (++tries == (1ll << 24)) __trap();
+}
+
+// spins until the phase of parity `parity` completes
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  for (long long tries = 0; !done; give_up_after(tries)) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// global -> shared, `bytes` a multiple of 16, completion on `bar`
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the generic proxy's reads of shared memory before the async proxy's
+// next copy into it
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of x across a wgmma fence,
+// commit or wait
+__device__ __forceinline__ void pin(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+
+__device__ __forceinline__ void pin(unsigned& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// adds `v` at p after the stores that precede it (this thread's, and those
+// of the threads it synchronised with) are visible on the device
+__device__ __forceinline__ void red_release(int* p, int v) {
+  asm volatile("fence.acq_rel.gpu;\nred.relaxed.gpu.global.add.s32 [%0], %1;\n"
+               ::"l"(p), "r"(v) : "memory");
+}
+
+// global memory written through the generic proxy (other CTAs' stores,
+// acquired) before this thread's bulk copies read it
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory matrix descriptor: no swizzle, base offset 0
+__device__ __forceinline__ unsigned long long mm_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
+         ((unsigned long long)(kMmLbo >> 4) << 16) |
+         ((unsigned long long)(kMmSbo >> 4) << 32);
+}
+
+// d (+)= A (64 x 16 bf16, registers) x B (16 x 72 bf16, K-major in shared
+// memory at desc); d is overwritten when `accumulate` is 0
+__device__ __forceinline__ void wgmma_m64n72(float (&d)[36],
+                                             const unsigned (&a)[4],
+                                             unsigned long long desc,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+// cp.async of one float, zero-filled when `valid` is false
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
 }  // namespace
@@ -174,103 +346,260 @@ sel7_kernel(const int* __restrict__ win, const float* __restrict__ q,
   out[r] = acc;
 }
 
-__global__ void __launch_bounds__(kMmWarps * 32)
-mm22_kernel(const int* __restrict__ win,
-            const unsigned short* __restrict__ qsel, int lanes, int qcols,
-            int visits, float* __restrict__ out) {
-  extern __shared__ uint2 smem[];
-  const int ksteps = lanes / 16;
-  uint2* bfrag = smem;  // [ksteps][kMmTiles][32 lanes]
-  float* abuf = reinterpret_cast<float*>(bfrag + ksteps * kMmTiles * 32);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, qd = lane & 3;
-  // qsel in B-fragment order: lane (g, qd) of tile j at k-step s holds
-  // rows 16 s + 2 qd + {0, 1} and + {8, 9} of column tile_col(j) + g
-  for (int i = tid; i < ksteps * kMmTiles * 32; i += blockDim.x) {
-    const int ln = i & 31, j = (i >> 5) % kMmTiles, s = (i >> 5) / kMmTiles;
-    const unsigned short* col = qsel + tile_col(j) + (ln >> 2);
-    const int k0 = 16 * s + 2 * (ln & 3);
-    uint2 v;
-    v.x = col[(size_t)k0 * qcols] |
-          ((unsigned)col[(size_t)(k0 + 1) * qcols] << 16);
-    v.y = col[(size_t)(k0 + 8) * qcols] |
-          ((unsigned)col[(size_t)(k0 + 9) * qcols] << 16);
-    bfrag[i] = v;
-  }
-  const int ray0 = blockIdx.x * kMmRays;
-  const int w_lo = win[ray0 + g], w_hi = win[ray0 + g + 8];
-  float acc = 0.0f;  // threads 0-15: ray ray0 + tid
-  __syncthreads();
-  const int groups = (visits + kMmWarps - 1) / kMmWarps;
-  for (int c = 0; c < groups; ++c) {
-    float* ab = abuf + (c & 1) * kMmWarps * kMmRays * kMmStride;
-    const int k = c * kMmWarps + warp;
-    if (k < visits) {
-      const int p0 = floor_mod(w_lo + k, lanes);
-      const int p1 = floor_mod(w_hi + k, lanes);
-      float d[kMmTiles][4];
-#pragma unroll
-      for (int j = 0; j < kMmTiles; ++j)
-        d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
-      for (int s = 0; s < ksteps; ++s) {
-        const int col = 16 * s + 2 * qd;
-        const unsigned a0 = pick2(p0, col), a1 = pick2(p1, col);
-        const unsigned a2 = pick2(p0, col + 8), a3 = pick2(p1, col + 8);
-        const uint2* b = bfrag + s * kMmTiles * 32 + lane;
-#pragma unroll
-        for (int j = 0; j < kMmTiles; ++j) {
-          const uint2 bj = b[j * 32];
-          mma_bf16(d[j], a0, a1, a2, a3, bj.x, bj.y);
-        }
-      }
-      // slot f = 8 t + 2 qd + e: hi in tile t, mid in 3 + t, lo in 6 + t,
-      // all three in this thread (element e; rows g and g + 8); slots 22
-      // and 23 are stored and never added
-#pragma unroll
-      for (int t = 0; t < 3; ++t) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int f = 8 * t + 2 * qd + e;
-          ab[(warp * kMmRays + g) * kMmStride + f] =
-              (d[t][e] + d[3 + t][e]) + d[6 + t][e];
-          ab[(warp * kMmRays + g + 8) * kMmStride + f] =
-              (d[t][2 + e] + d[3 + t][2 + e]) + d[6 + t][2 + e];
-        }
-      }
-    }
-    __syncthreads();
-    if (tid < kMmRays) {  // a visit's loads issued before its adds
-      const int nw = min(kMmWarps, visits - c * kMmWarps);
-      for (int w = 0; w < nw; ++w) {
-        const float* row = ab + (w * kMmRays + tid) * kMmStride;
-        float a[kMmAttrs];
-#pragma unroll
-        for (int f = 0; f < kMmAttrs; ++f) a[f] = row[f];
-#pragma unroll
-        for (int f = 0; f < kMmAttrs; ++f) acc = acc + a[f];
-      }
+// P2b's chain, warp-specialised: warp 0 of CTA `grp` adds its 32 rays'
+// attributes of every visit onto each ray's sum in order, from a ring of
+// kMmRing shared-memory slots that warp 1 fills.  Copy i brings visits
+// 16i .. 16i + 15 (ring slot i mod kMmRing, staging slot 16i mod
+// kMmSlots) once their block is multiplied (done[i] counts its (tile,
+// visit) items; not waited for when `wait` is 0) and its slot is empty;
+// every kMmPublish copies the filler publishes in landed[grp] the visits
+// whose staging has landed (their staging slots may be overwritten).  The
+// adding warp only waits on the full barriers and arrives on the empty
+// ones.
+__device__ __forceinline__ void mm22_chain(
+    unsigned char* smem, int grp, int n_rays, int visits, int n_tiles,
+    bool wait, const float* stage, const int* done, int* landed,
+    float* __restrict__ out) {
+  constexpr int kCopy = kMmRingVisits * kMmGroupFloats;  // floats a copy
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* ring = reinterpret_cast<const float*>(smem);
+  const unsigned ring0 = smem_u32(smem), full0 = ring0 + kMmRingBytes;
+  const unsigned empty0 = full0 + 8 * kMmRing;
+  const int copies = (visits + kMmRingVisits - 1) / kMmRingVisits;
+  auto visits_of = [&](int i) {
+    return min(kMmRingVisits, visits - i * kMmRingVisits);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kMmRing; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 1);
     }
   }
-  if (tid < kMmRays) out[ray0 + tid] = acc;
+  asm volatile("bar.sync 1, 64;\n" ::: "memory");  // warps 0 and 1
+  if (warp == 1) {
+    if (lane != 0) return;
+    const float* src = stage + (size_t)grp * kMmSlots * kMmGroupFloats;
+    for (int i = 0; i < copies; ++i) {
+      const int slot = i % kMmRing;
+      if (i >= kMmRing) {
+        mbar_wait(empty0 + 8 * slot, (i / kMmRing - 1) & 1);
+        const int freed = i - kMmRing;  // copy consumed, its visits landed
+        if (freed % kMmPublish == kMmPublish - 1)
+          st_release(landed + grp, (freed + 1) * kMmRingVisits);
+      }
+      for (long long tries = 0;
+           wait && ld_acquire(done + i) < n_tiles * visits_of(i);
+           give_up_after(tries))
+        __nanosleep(64);
+      fence_async_global();
+      fence_async_shared();
+      const unsigned bytes = visits_of(i) * kMmGroupFloats * sizeof(float);
+      mbar_expect(full0 + 8 * slot, bytes);
+      bulk_load(ring0 + slot * kCopy * sizeof(float),
+                src + (size_t)(i * kMmRingVisits % kMmSlots) * kMmGroupFloats,
+                bytes, full0 + 8 * slot);
+    }
+    return;
+  }
+  const int r = grp * kMmGroupRays + lane;
+  float acc = 0.0f;
+  for (int i = 0; i < copies; ++i) {
+    const int slot = i % kMmRing;
+    mbar_wait(full0 + 8 * slot, (i / kMmRing) & 1);
+    const float* b = ring + slot * kCopy + lane;
+    if (visits_of(i) == kMmRingVisits) {
+#pragma unroll
+      for (int j = 0; j < kMmRingVisits * kMmAttrs; ++j)
+        acc = acc + b[j * kMmGroupRays];
+    } else {
+      for (int j = 0; j < visits_of(i) * kMmAttrs; ++j)
+        acc = acc + b[j * kMmGroupRays];
+    }
+    __syncwarp();  // every lane has read the slot
+    if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+  }
+  if (r < n_rays) out[r] = acc;
 }
+
+// P2b's product: the CTA stages the packed columns once, then each
+// warpgroup multiplies (64-ray tile, visit) items in turn, in visit order
+// over the grid, stores (hi + mid) + lo of each ray and attribute in ring
+// slot v mod kMmSlots (once the chain has landed that slot's last visit,
+// when `wait` is set) and counts the item in done[v / kMmRingVisits].
+__device__ __forceinline__ void mm22_product(
+    unsigned char* smem, int cta, int n_ctas, const int* __restrict__ win,
+    const unsigned short* __restrict__ qpack, int n_rays, int lanes,
+    int ksteps, int visits, bool wait, float* __restrict__ stage, int* done,
+    const int* landed) {
+  constexpr int kBlockBytes = kMmKBlock / 16 * kMmStepBytes;
+  const unsigned qbytes = ksteps * kMmStepBytes;
+  const unsigned b0 = smem_u32(smem), bar = b0 + qbytes;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_expect(bar, qbytes);
+    for (unsigned off = 0; off < qbytes; off += kBlockBytes)
+      bulk_load(b0 + off, reinterpret_cast<const unsigned char*>(qpack) + off,
+                kBlockBytes, bar);
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int n_tiles = (n_rays + kMmTileRays - 1) / kMmTileRays;
+  const int items = n_tiles * visits;
+  const unsigned long long desc0 = mm_desc(b0);
+  const size_t grp_stride = (size_t)kMmSlots * kMmGroupFloats;
+  float d[36];
+#pragma unroll
+  for (int i = 0; i < 36; ++i) d[i] = 0.0f;
+  unsigned a[2][kMmStageSteps][4];
+  int seen = 0;  // visits the chain of this warp's group has landed
+  for (int it = cta * kMmWarpgroups + wg; it < items;
+       it += n_ctas * kMmWarpgroups) {
+    const int tile = it % n_tiles, v = it / n_tiles;
+    const int r0 = tile * kMmTileRays + 16 * warp + g, r1 = r0 + 8;
+    const int p0 = r0 < n_rays ? floor_mod(win[r0] + v, lanes) : -1;
+    const int p1 = r1 < n_rays ? floor_mod(win[r1] + v, lanes) : -1;
+    // the pick's A fragment: a row's lane p sits at k-step p >> 4, column
+    // p & 15 of it (no k-step for p = -1); thread q holds columns 2q and
+    // 2q + 1 (register 0 row g, register 1 row g + 8) and 2q + 8, 2q + 9
+    // (registers 2 and 3), the first column in the lower half; bf16 1.0
+    // is 0x3f80
+    const int s0 = p0 >> 4, s1 = p1 >> 4;
+    const int c0 = (p0 & 15) >> 1, c1 = (p1 & 15) >> 1;
+    const unsigned one0 = (p0 & 1) ? 0x3f800000u : 0x3f80u;
+    const unsigned one1 = (p1 & 1) ? 0x3f800000u : 0x3f80u;
+    const unsigned v0 = c0 == q ? one0 : 0u, v2 = c0 == q + 4 ? one0 : 0u;
+    const unsigned v1 = c1 == q ? one1 : 0u, v3 = c1 == q + 4 ? one1 : 0u;
+#pragma unroll
+    for (int i = 0; i < 36; ++i) pin(d[i]);
+    for (int st = 0; st < ksteps; st += 2 * kMmStageSteps) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int sb = st + h * kMmStageSteps;
+        wg_wait<1>();  // the group that last read a[h] is done
+#pragma unroll
+        for (int j = 0; j < kMmStageSteps; ++j) {
+          a[h][j][0] = sb + j == s0 ? v0 : 0u;
+          a[h][j][1] = sb + j == s1 ? v1 : 0u;
+          a[h][j][2] = sb + j == s0 ? v2 : 0u;
+          a[h][j][3] = sb + j == s1 ? v3 : 0u;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pin(a[h][j][e]);
+        }
+        wg_fence();
+#pragma unroll
+        for (int j = 0; j < kMmStageSteps; ++j)
+          wgmma_m64n72(d, a[h][j],
+                       desc0 + (unsigned long long)((sb + j) *
+                                                    (kMmStepBytes >> 4)),
+                       sb + j > 0);
+        wg_commit();
+      }
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 36; ++i) pin(d[i]);
+    // the warp's 16 rows lie in one chain group; its slot must be free
+    const int row0 = tile * kMmTileRays + 16 * warp;
+    for (long long tries = 0; wait && row0 < n_rays && v - kMmSlots >= seen;
+         give_up_after(tries)) {
+      seen = ld_acquire(landed + row0 / kMmGroupRays);
+      if (v - kMmSlots >= seen) __nanosleep(256);
+    }
+    // d[4j + e] is (row g, column 8j + 2q + e), d[4j + 2 + e] row g + 8;
+    // tile j < 3 holds hi, 3 + j mid and 6 + j lo of attribute
+    // f = 8j + 2q + e (columns 22 and 23 of a part are padding)
+    float* dst = stage + (size_t)(v % kMmSlots) * kMmGroupFloats;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int f = 8 * j + 2 * q + e;
+        if (f >= kMmAttrs) continue;
+        if (r0 < n_rays)
+          dst[r0 / kMmGroupRays * grp_stride + f * kMmGroupRays +
+              r0 % kMmGroupRays] =
+              (d[4 * j + e] + d[4 * (3 + j) + e]) + d[4 * (6 + j) + e];
+        if (r1 < n_rays)
+          dst[r1 / kMmGroupRays * grp_stride + f * kMmGroupRays +
+              r1 % kMmGroupRays] =
+              (d[4 * j + 2 + e] + d[4 * (3 + j) + 2 + e]) +
+              d[4 * (6 + j) + 2 + e];
+      }
+    }
+    // the warpgroup's stores, then one release of the item
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (t == 0) red_release(done + v / kMmRingVisits, 1);
+  }
+}
+
+// P2b in one cooperative launch, every CTA resident: CTAs below
+// chain_ctas run the chain of their group of 32 rays, the others the
+// product.  parts: 1 the product alone, 2 the chain alone (neither waits
+// for the other; the staging then holds what it holds), 3 both.
+__global__ void __launch_bounds__(kMmThreads, 1)
+mm22_kernel(const int* __restrict__ win,
+            const unsigned short* __restrict__ qpack, int n_rays, int lanes,
+            int ksteps, int visits, int chain_ctas, int parts, float* stage,
+            int* done, int* landed, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n_tiles = (n_rays + kMmTileRays - 1) / kMmTileRays;
+  if ((int)blockIdx.x < chain_ctas) {
+    if (threadIdx.x < 64)
+      mm22_chain(smem, blockIdx.x, n_rays, visits, n_tiles, parts & 1, stage,
+                 done, landed, out);
+    return;
+  }
+  mm22_product(smem, blockIdx.x - chain_ctas, gridDim.x - chain_ctas, win,
+               qpack, n_rays, lanes, ksteps, visits, parts & 2, stage, done,
+               landed);
+}
+
+// the i-th read of a P3 period: visit b = i / 12, plane f = i mod 12
+template <bool BLOCK_MAJOR>
+__host__ __device__ constexpr int dyn_row(int i) {
+  return BLOCK_MAJOR ? i : (i % kDynPlanes) * kDynBlocks + i / kDynPlanes;
+}
+
+static_assert(kDynRows % kDynAhead == 0, "the window's slots repeat a period");
 
 template <bool BLOCK_MAJOR>
 __global__ void __launch_bounds__(kColThreads)
 dyn_reads_kernel(const float* __restrict__ q, int lanes, int visits,
                  float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= lanes) return;
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < visits; ++k) {
-    const int b = k % kDynBlocks;
+  extern __shared__ float slab[];  // [row][kColThreads columns]
+  const int lane = threadIdx.x, c = blockIdx.x * kColThreads + lane;
+  const bool valid = c < lanes;
+  const float* col = q + (valid ? c : 0);
+  for (int row = 0; row < kDynRows; ++row)
+    cp_async4(slab + row * kColThreads + lane, col + (size_t)row * lanes,
+              valid);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  // a thread reads back only what it copied: no barrier.  The reads are
+  // volatile: the slab does not change, and the compiler would otherwise
+  // hoist all 468 of them out of the period loop (into spilled registers)
+  const volatile float* s = slab + lane;
+  float x[kDynAhead];  // reads i .. i + kDynAhead - 1 of the period
 #pragma unroll
-    for (int f = 0; f < kDynPlanes; ++f) {
-      const int row = BLOCK_MAJOR ? b * kDynPlanes + f : f * kDynBlocks + b;
-      acc = acc + q[(size_t)row * lanes + c];
+  for (int i = 0; i < kDynAhead; ++i)
+    x[i] = s[dyn_row<BLOCK_MAJOR>(i) * kColThreads];
+  float acc = 0.0f;
+  const int periods = visits / kDynBlocks;
+  for (int p = 0; p < periods; ++p) {
+#pragma unroll
+    for (int i = 0; i < kDynRows; ++i) {
+      const float v = x[i % kDynAhead];
+      x[i % kDynAhead] =
+          s[dyn_row<BLOCK_MAJOR>((i + kDynAhead) % kDynRows) * kColThreads];
+      acc = acc + v;
     }
   }
-  out[c] = acc;
+  const int tail = (visits - periods * kDynBlocks) * kDynPlanes;
+#pragma unroll 4
+  for (int i = 0; i < tail; ++i)
+    acc = acc + s[dyn_row<BLOCK_MAJOR>(i) * kColThreads];
+  if (valid) out[c] = acc;
 }
 
 // ---- C interface (loaded with ctypes) ----
@@ -302,29 +631,72 @@ int rt_sel7(const int* win, const float* q, int n_rays, int lanes, int visits,
   return (int)cudaGetLastError();
 }
 
-int rt_mm22(const int* win, const unsigned short* qsel, int n_rays, int lanes,
-            int qcols, int visits, float* out, void* stream) {
+// P2b: one cooperative launch of ceil(n_rays / 32) chain CTAs and as many
+// product CTAs as stay resident beside them; parts: 1 the product alone,
+// 2 the chain alone, 3 both.  `stage` holds ceil(n_rays / 32) x kMmSlots
+// x 22 x 32 floats, `counters` (zeroed) ceil(visits / 8) + ceil(n_rays /
+// 32) ints; qpack holds ksteps k-steps of kMmStepBytes (ksteps a multiple
+// of kMmKBlock / 16).
+int rt_mm22(const int* win, const unsigned short* qpack, int n_rays, int lanes,
+            int ksteps, int visits, float* stage, int* counters, float* out,
+            int parts, void* stream) {
   if (n_rays == 0) return 0;
-  const size_t smem = (size_t)(lanes / 16) * kMmTiles * 32 * sizeof(uint2) +
-                      2 * kMmWarps * kMmRays * kMmStride * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      mm22_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the device's resident CTAs at this shared memory size, kept per
+  // (device, size) for the next call
+  static int cached_dev = -1, sms = 0, per_sm = 0;
+  static size_t cached_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const size_t qbytes = (size_t)ksteps * kMmStepBytes;
+  const size_t smem =
+      (qbytes > (size_t)kMmRingBytes ? qbytes : (size_t)kMmRingBytes) +
+      16 * kMmRing;
+  if (err == cudaSuccess && (dev != cached_dev || smem != cached_smem)) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          mm22_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mm22_kernel, kMmThreads, smem);
+    cached_dev = err == cudaSuccess ? dev : -1;
+    cached_smem = smem;
+  }
   if (err != cudaSuccess) return (int)err;
-  mm22_kernel<<<n_rays / kMmRays, kMmWarps * 32, smem, (cudaStream_t)stream>>>(
-      win, qsel, lanes, qcols, visits, out);
-  return (int)cudaGetLastError();
+  const int groups = (n_rays + kMmGroupRays - 1) / kMmGroupRays;
+  int chain_ctas = (parts & 2) ? groups : 0;
+  const int prod_ctas = (parts & 1) ? per_sm * sms - chain_ctas : 0;
+  if (prod_ctas < 0 || ((parts & 1) && prod_ctas == 0))
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  int* done = counters;
+  int* landed = counters + (visits + kMmRingVisits - 1) / kMmRingVisits;
+  void* args[] = {&win,   &qpack,      &n_rays, &lanes, &ksteps, &visits,
+                  &chain_ctas, &parts, &stage,  &done,  &landed, &out};
+  err = cudaLaunchCooperativeKernel((const void*)mm22_kernel,
+                                    dim3(chain_ctas + prod_ctas),
+                                    dim3(kMmThreads), args, smem,
+                                    (cudaStream_t)stream);
+  return (int)err;
 }
 
 int rt_dyn_reads(int block_major, const float* q, int lanes, int visits,
                  float* out, void* stream) {
   if (lanes == 0) return 0;
   const int grid = (lanes + kColThreads - 1) / kColThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (block_major)
-    dyn_reads_kernel<true><<<grid, kColThreads, 0, s>>>(q, lanes, visits, out);
-  else
-    dyn_reads_kernel<false><<<grid, kColThreads, 0, s>>>(q, lanes, visits,
-                                                        out);
+  const size_t smem = (size_t)kDynRows * kColThreads * sizeof(float);
+  void (*kern)(const float*, int, int, float*) =
+      block_major ? dyn_reads_kernel<true> : dyn_reads_kernel<false>;
+  static int set_on[2] = {-1, -1};  // the device each kernel's size is set on
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && set_on[block_major != 0] != dev) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    set_on[block_major != 0] = err == cudaSuccess ? dev : -1;
+  }
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kColThreads, smem, (cudaStream_t)stream>>>(q, lanes, visits,
+                                                          out);
   return (int)cudaGetLastError();
 }
 

@@ -165,7 +165,7 @@ def _declare(name: str, lib) -> None:
     else:
         lib.rt_toy_mask.argtypes = [i, vp, vp, i, i, i, i, vp, vp]
         lib.rt_sel7.argtypes = [vp, vp, i, i, i, vp, vp]
-        lib.rt_mm22.argtypes = [vp, vp, i, i, i, i, vp, vp]
+        lib.rt_mm22.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, i, vp]
         lib.rt_dyn_reads.argtypes = [i, vp, i, i, vp, vp]
         fns = (lib.rt_toy_mask, lib.rt_sel7, lib.rt_mm22, lib.rt_dyn_reads)
     for fn in fns:

@@ -11,9 +11,14 @@ its sum, visit after visit:
   is that term);
 - ``mm22(win, qsel)`` replaces ``mm_kernel`` (:88): the (RT, B) one-hot
   pick in bf16 times ``qsel`` (B, 128) bf16, accumulated in float32 (the
-  kernel runs the product on the tensor cores), then ``acc += (hi + mid)
-  + lo`` for each of the 22 attributes, whose three bf16 parts
-  (``split3``) ``make_qsel`` packs at columns 0, 32 and 64.
+  kernel runs the product on the tensor cores with ``wgmma``), then
+  ``acc += (hi + mid) + lo`` for each of the 22 attributes, whose three
+  bf16 parts (``split3``) ``make_qsel`` packs at columns 0, 32 and 64.
+  The wrapper packs the 72 columns the sums read for the kernel's
+  shared-memory descriptor (``pack_qsel``) and allocates its staging
+  ring and flags: in one launch the kernel multiplies the visits over
+  the card while a warp a group of 32 rays adds the staged attributes
+  in order close behind (``csrc/probes.cu``).
 
 Both return (1, RT) float32.  The plain versions gather the selected
 lanes (the product's one nonzero term) and add in the kernels' order.
@@ -21,17 +26,27 @@ lanes (the product's one nonzero term) and add in the kernels' order.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ._common import card, launch, timed
 
 __all__ = ["RT", "B", "F", "VISITS", "split3", "make_qsel", "sel7",
-           "sel7_plain", "mm22", "mm22_plain", "script_inputs", "main"]
+           "sel7_plain", "mm22", "mm22_plain", "pack_qsel", "script_inputs",
+           "main"]
 
 RT, B, F, VISITS = 512, 512, 22, 4096  # probe_mm_select.py:22
 SEL_ROWS = 7  # sel_kernel's reductions a visit
 PARTS = (0, 32, 64)  # qsel's columns of hi, mid and lo
+# mm22's kernel (csrc/probes.cu kMm*): the 9 column tiles of 8 the sums
+# read, hi 0-23, mid 32-55, lo 64-87 (N = 72); K padded to a multiple of
+# MM_KBLOCK; a staging ring of MM_SLOTS visits, [group of MM_GROUP rays]
+# [visit mod MM_SLOTS][attribute][ray of the group], that the chain reads
+# MM_COPY visits at a time
+MM_COLS = [(j // 3) * 32 + (j % 3) * 8 + i for j in range(9) for i in range(8)]
+MM_KBLOCK, MM_SLOTS, MM_COPY, MM_GROUP = 128, 512, 16, 32
 
 
 def split3(q: torch.Tensor):
@@ -153,6 +168,60 @@ def mm22_plain(win: torch.Tensor, qsel: torch.Tensor, visits: int = VISITS,
     return _ordered_sum(vals.reshape(-1, w.shape[1]))
 
 
+def _pack(t: torch.Tensor) -> torch.Tensor:
+    """(Kp, 72) -> flat, in ``pack_qsel``'s order: [k // 16][n // 8]
+    [k % 16 // 8][n % 8][k % 8]."""
+    t = t.reshape(t.shape[0] // 16, 2, 8, 9, 8).permute(0, 3, 1, 4, 2)
+    return t.contiguous().reshape(-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _pack_index(lanes: int, qcols: int, device: str) -> torch.Tensor:
+    """Where each packed element comes from in qsel (B, qcols) flattened;
+    B * qcols (one past the end: a zero) for the padding rows."""
+    kp = -(-lanes // MM_KBLOCK) * MM_KBLOCK
+    src = torch.full((kp, len(MM_COLS)), lanes * qcols, dtype=torch.int64)
+    src[:lanes] = (torch.arange(lanes)[:, None] * qcols
+                   + torch.tensor(MM_COLS)[None, :])
+    return _pack(src).to(device)
+
+
+def pack_qsel(qsel: torch.Tensor) -> torch.Tensor:
+    """qsel (B, >= 88) bf16 -> the kernel's B operand, flat bf16: the 72
+    read columns (``MM_COLS``) K-major in core matrices of 8 columns x 8
+    k (16 bytes a column), no swizzle, K padded with zero rows to a
+    multiple of ``MM_KBLOCK``.  Element (n, k) of k-step s = k // 16 sits
+    at byte s * 2304 + (k % 16 // 8) * 128 + (n // 8) * 256 + (n % 8) *
+    16 + (k % 8) * 2: the descriptor's leading byte offset (128) steps
+    along K, its stride byte offset (256) along N.  One gather."""
+    lanes, qcols = qsel.shape
+    flat = qsel.reshape(-1)
+    if lanes % MM_KBLOCK:
+        flat = torch.cat([flat, flat.new_zeros(1)])
+    return flat.index_select(0, _pack_index(lanes, qcols, str(qsel.device)))
+
+
+def _mm22_launch(win: torch.Tensor, qsel: torch.Tensor, visits: int,
+                 parts: int = 3) -> torch.Tensor:
+    """``rt_mm22`` on CUDA tensors -> out; ``parts`` 1 runs the product
+    alone, 2 the chain alone (on whatever the staging holds), 3 both."""
+    win = win.reshape(-1).contiguous()
+    qpack = pack_qsel(qsel)
+    groups = -(-win.shape[0] // MM_GROUP)
+    stage = torch.empty(groups * MM_SLOTS * F * MM_GROUP,
+                        dtype=torch.float32, device=qsel.device)
+    # the products counted a block of MM_COPY visits, then the visits
+    # each group's chain has landed
+    counters = torch.zeros(-(-visits // MM_COPY) + groups, dtype=torch.int32,
+                           device=qsel.device)
+    out = torch.empty(1, win.shape[0], dtype=torch.float32,
+                      device=qsel.device)
+    launch("mm22", "mm22", win, qpack, win.shape[0], qsel.shape[0],
+           qpack.numel() // (16 * len(MM_COLS)), visits, stage, counters, out,
+           parts)
+    return out
+
+
 def mm22(win: torch.Tensor, qsel: torch.Tensor, visits: int = VISITS
          ) -> torch.Tensor:
     """(1, RT) float32: each ray's sum over ``visits`` visits of (hi + mid)
@@ -162,11 +231,7 @@ def mm22(win: torch.Tensor, qsel: torch.Tensor, visits: int = VISITS
     _check_mm(win, qsel, visits)
     if win.device.type == "cpu":
         return mm22_plain(win, qsel, visits)
-    win, qsel = win.reshape(-1).contiguous(), qsel.contiguous()
-    out = torch.empty(1, win.shape[0], dtype=torch.float32,
-                      device=qsel.device)
-    launch("mm22", "mm22", win, qsel, win.shape[0], qsel.shape[0],
-           qsel.shape[1], visits, out)
+    out = _mm22_launch(win, qsel, visits)
     mm22.launches += 1
     return out
 

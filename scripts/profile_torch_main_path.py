@@ -8,8 +8,9 @@
     python scripts/profile_torch_main_path.py --streamed [--parent DIR]
     python scripts/profile_torch_main_path.py --render [--parent DIR]
     python scripts/profile_torch_main_path.py --staged [--parent DIR]
+    python scripts/profile_torch_main_path.py --probes [--parent DIR]
     python scripts/profile_torch_main_path.py --times [--streamed | --render
-        | --staged] [--root DIR]
+        | --staged | --probes] [--root DIR]
 
 Renders the frog scene (depth 8, diffuse) with
 ``render_scene_frames`` once to warm up, then once under
@@ -148,6 +149,29 @@ launch's CTAs' ``%globaltimer`` start and end; the variants of
 ``--parent DIR``, every row, and the frames of C's two scenes at a
 capacity of 8 tiles (``chip_smoke.py`` phases 5 and 7, which overflow
 into C), through ``DIR``'s tree in turns.
+``--probes`` profiles the TPU probes P2 and P3 (``probes/``) at their
+scripts' widths: ``mm22`` (P2b) through its wrapper, its product and its
+chain each alone (``rt_mm22``'s parts 1 and 2), the operand packing
+alone and ``torch.matmul`` of the stacked one-hot picks by qsel (the
+product alone, as one library call); ``dyn12`` and ``blk1`` (P3) and
+``sel7`` (P2a, unchanged, as a control) alone, and P3 at 0 visits (the
+slab's staging alone); each against its plain version bit for bit;
+medians of 5 CUDA-event timings of a call, 10 calls queued back to back
+(the host's enqueue hidden), the device time of each kernel
+(``torch.profiler``) and the host's enqueue time of a wrapper call.  It
+also measures the latency of a dependent FP32 add: a warp's chain of
+2^27 adds timed with ``clock64()`` and ``%globaltimer`` in a kernel
+built apart under ``build/walk_clocks/`` (cycles an add, and the SM
+clock as cycles over nanoseconds), ``nvidia-smi``'s ``clocks.sm`` read
+while it runs; from them each probe's chain floor (its fixed-order
+dependent adds a thread times that latency at that clock) beside its
+rate bound.  It writes the SASS of ``mm22_kernel`` and
+``dyn_reads_kernel<false>`` to ``chiprun_out/probes_sass.txt`` and
+times the designs of ``_MM_VARIANTS`` and ``_DYN_VARIANTS`` (text edits
+of ``csrc/probes.cu``, built apart) in turns with this tree's.  With
+``--parent DIR`` it times ``mm22``, ``dyn12``, ``blk1`` and ``sel7``
+through ``DIR``'s tree in turns (parent, this, this, parent; medians of
+5; outputs compared by digest).
 The full table is also written to ``chiprun_out/profile_main_path.txt``
 (``profile_grad.txt`` with ``--grad``, ``profile_large.txt`` with
 ``--large``).
@@ -177,16 +201,18 @@ def main():
     ap.add_argument("--streamed", action="store_true")
     ap.add_argument("--render", action="store_true")
     ap.add_argument("--staged", action="store_true")
+    ap.add_argument("--probes", action="store_true")
     ap.add_argument("--parent", default=None,
-                    help="with --kernels, --streamed, --render or "
-                         "--staged: a tree of the port (e.g. the parent "
+                    help="with --kernels, --streamed, --render, --staged "
+                         "or --probes: a tree of the port (e.g. the parent "
                          "commit unpacked with git archive) whose kernels A "
-                         "and F, G, I and H, D, or E and C are timed in "
-                         "turns with this tree's")
+                         "and F, G, I and H, D, E and C, or the probes are "
+                         "timed in turns with this tree's")
     ap.add_argument("--times", action="store_true",
                     help="print the --parent timings of A and F (with "
                          "--streamed: G, I and H; with --render: D; with "
-                         "--staged: E and C) as JSON")
+                         "--staged: E and C; with --probes: mm22, dyn12, "
+                         "blk1, sel7) as JSON")
     ap.add_argument("--root", default=None,
                     help="with --times: import the package from this tree")
     args = ap.parse_args()
@@ -197,8 +223,11 @@ def main():
         print(json.dumps(streamed_times() if args.streamed
                          else render_times() if args.render
                          else staged_times() if args.staged
+                         else probe_times() if args.probes
                          else kernel_times()))
         return None
+    if args.probes:
+        return profile_probes(args.parent)
     if args.staged:
         return profile_staged(args.parent)
     if args.render:
@@ -679,7 +708,8 @@ _A_HELPERS = (
     '  }\n}\n')
 def _build_apart(text, name, include, source="megakernel"):
     """Compile ``source``.cu text ``text`` into build/walk_clocks/ (never
-    used by the package) -> the loaded library, its C interface declared."""
+    used by the package) -> the loaded library, its C interface declared
+    as ``source``'s (none for ``source=None``)."""
     import ctypes
 
     from raytracinginonesemester_tpu_torch.ops import _native
@@ -697,7 +727,8 @@ def _build_apart(text, name, include, source="megakernel"):
 
     print(f"  {name} (built apart): {ptxas_summary(built.stderr)}")
     lib = ctypes.CDLL(lib_path)
-    _native._declare(source, lib)
+    if source is not None:
+        _native._declare(source, lib)
     return lib
 
 
@@ -883,17 +914,17 @@ def _group_edits(n):
              f'  take_groups(q, {n}, [&](int entry, bool active) {{\n')]
 
 
-def _variant_lib(edits, name):
-    """This tree's megakernel.cu with ``edits`` applied, built apart ->
+def _variant_lib(edits, name, source="megakernel"):
+    """This tree's ``source``.cu with ``edits`` applied, built apart ->
     its library (None when an edit does not find its text)."""
     csrc = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc")
-    with open(os.path.join(csrc, "megakernel.cu")) as f:
+    with open(os.path.join(csrc, f"{source}.cu")) as f:
         text = f.read()
     for old, new in edits:
         if text.count(old) != 1:
             return None
         text = text.replace(old, new)
-    return _build_apart(text, name, csrc)
+    return _build_apart(text, name, csrc, source)
 
 def _simt_shadow(rows, p, ld, dist, facing, det_eps, tmin, tmax):
     """The one-thread-per-ray shadow walk of ``megakernel._occluded_plain``
@@ -1142,16 +1173,16 @@ def _a_clocks(label, emit, clocks):
           f"{(c[27] - t0) / 1e3:.1f} us")
 
 
-def _turns(label, fn, parent, name="parent"):
+def _turns(label, fn, parent, name="parent", source="megakernel"):
     """``fn`` through the ``parent`` library (the parent tree's, or a
-    variant's) and through this tree's, in turns (parent, this, this,
-    parent), medians of 5 each; outputs compared."""
+    variant's, of ``source``.cu) and through this tree's, in turns
+    (parent, this, this, parent), medians of 5 each; outputs compared."""
     import torch
 
     from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
     def run(lib):
-        with _using(lib):
+        with _using(lib, source):
             out = fn()
             return out, cuda_time_ms(fn, warmup=1, iters=5)["median_ms"]
 
@@ -2968,6 +2999,354 @@ def profile_streamed(parent_dir=None):
     _tile_order_turns(bk, grid, cam, sh)
     if parent_dir is not None:
         _stream_turns(parent_dir)
+
+
+# ``--probes``: P2 and P3 at their scripts' widths, and the latency of a
+# dependent FP32 add (one warp, 64 adds a loop trip, -fmad=false as the
+# package builds).
+_LATENCY_SRC = r"""
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__global__ void add_chain(float x, int trips, float* out, long long* rec) {
+  float acc = out[threadIdx.x];
+  const unsigned long long g0 = gtime();
+  const long long c0 = clock64();
+  for (int i = 0; i < trips; ++i) {
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc = acc + x;
+  }
+  const long long c1 = clock64();
+  const unsigned long long g1 = gtime();
+  out[threadIdx.x] = acc;
+  if (threadIdx.x == 0) {
+    rec[0] = c1 - c0;
+    rec[1] = (long long)(g1 - g0);
+  }
+}
+
+extern "C" int rt_add_chain(float x, int trips, float* out, long long* rec,
+                            void* stream) {
+  add_chain<<<1, 32, 0, (cudaStream_t)stream>>>(x, trips, out, rec);
+  return (int)cudaGetLastError();
+}
+"""
+# dependent adds a thread on the scripts' inputs: sel7 7 a visit, mm22 22
+# (its (hi + mid) + lo lie off the chain), dyn12 and blk1 12
+_CHAIN_ADDS = {"sel7": 4096 * 7, "mm22": 4096 * 22, "dyn12": 4096 * 12,
+               "blk1": 4096 * 12}
+
+
+def _add_latency():
+    """-> (cycles a dependent FP32 add, SM GHz from clock64 over
+    %globaltimer, nvidia-smi's clocks.sm during the run)."""
+    import ctypes
+
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops.megakernel import _stream
+
+    lib = _build_apart(_LATENCY_SRC, "add_latency",
+                       os.path.join(REPO, "raytracinginonesemester_tpu_torch",
+                                    "csrc"), source=None)
+    lib.rt_add_chain.argtypes = [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+    out = torch.zeros(32, device="cuda")
+    rec = torch.zeros(2, dtype=torch.int64, device="cuda")
+    rows = []
+    for trips in (1 << 14, 1 << 21):
+        err = lib.rt_add_chain(1e-7, trips, out.data_ptr(), rec.data_ptr(),
+                               _stream())
+        if err:
+            raise SystemExit(f"add_chain failed to launch ({err})")
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+        torch.cuda.synchronize()
+        cycles, ns = rec.tolist()
+        rows.append((cycles / (64 * trips), cycles / ns, smi))
+        print(f"dependent FP32 add, a warp's chain of {64 * trips} adds: "
+              f"{cycles} cycles, {ns} ns: {cycles / (64 * trips):.4f} "
+              f"cycles an add, SM clock {cycles / ns:.4f} GHz (clock64 over "
+              f"%globaltimer); nvidia-smi clocks.sm during the run: {smi}")
+    return rows[-1]
+
+
+def _mm22_matmul(win, qsel):
+    """``torch.matmul`` of mm22's stacked one-hot picks (every visit's,
+    bf16) by qsel: the product alone, one library call."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+
+    lanes = qsel.shape[0]
+    w = ms._lanes(win, ms.VISITS, lanes).reshape(-1)
+    picks = torch.zeros(w.shape[0], lanes, dtype=torch.bfloat16,
+                        device=qsel.device)
+    picks[torch.arange(w.shape[0], device=w.device), w] = 1.0
+    return lambda: torch.matmul(picks, qsel)
+
+
+def _probe_calls():
+    """{name: (kernel call, plain call)} at the scripts' inputs."""
+    from raytracinginonesemester_tpu_torch.probes import dyn_reads as dr
+    from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+
+    win, q, qsel = ms.script_inputs()
+    tab = dr.script_inputs()
+    return {"mm22": (lambda: ms.mm22(win, qsel),
+                     lambda: ms.mm22_plain(win, qsel)),
+            "dyn12": (lambda: dr.dyn12(tab), lambda: dr.dyn12_plain(tab)),
+            "blk1": (lambda: dr.blk1(tab), lambda: dr.blk1_plain(tab)),
+            "sel7": (lambda: ms.sel7(win, q), lambda: ms.sel7_plain(win, q))}
+
+
+# variants of mm22's design, each built apart from this tree's probes.cu
+# and timed in turns with it: (edits, library name, what it changes)
+_MM_VARIANTS = [
+    ([("constexpr int kMmWarpgroups = 4;", "constexpr int kMmWarpgroups = 2;"),
+      ("__launch_bounds__(kMmThreads, 1)", "__launch_bounds__(kMmThreads, 2)"),
+      ("constexpr int kMmRing = 4;", "constexpr int kMmRing = 3;"),
+      ("constexpr int kMmRingVisits = 16;", "constexpr int kMmRingVisits = 8;")],
+     "probes_wg2_ring3x8", "2 product warpgroups a CTA, two CTAs an SM, "
+     "chain copies of 8 visits, 3 in the ring"),
+    ([("constexpr int kMmStageSteps = 4;", "constexpr int kMmStageSteps = 8;"),
+      ("constexpr int kMmKBlock = 128;", "constexpr int kMmKBlock = 256;")],
+     "probes_stage8", "commit groups of 8 k-steps"),
+]
+# variants of P3's design: (edits, library name, what it changes)
+_DYN_VARIANTS = [
+    ([("  const volatile float* s = slab + lane;",
+       "  const float* s = slab + lane;")],
+     "probes_dyn_hoisted", "plain shared reads (hoisted out of the loop)"),
+] + [([("constexpr int kDynAhead = 26;", f"constexpr int kDynAhead = {n};")],
+      f"probes_dyn_ahead{n}", f"reads {n} adds ahead") for n in (12, 39, 52)]
+
+
+def _dyn_variants():
+    """dyn12 and blk1 through each variant's library and this tree's, in
+    turns."""
+    from raytracinginonesemester_tpu_torch.probes import dyn_reads as dr
+
+    tab = dr.script_inputs()
+    for edits, name, what in _DYN_VARIANTS:
+        lib = _variant_lib(edits, name, "probes")
+        if lib is None:
+            print(f"  variant {what}: an edit found no text; skipped")
+            continue
+        _turns("dyn12", lambda: dr.dyn12(tab), lib, what, "probes")
+        _turns("blk1", lambda: dr.blk1(tab), lib, what, "probes")
+
+
+def _sass_dump(path, names):
+    """``cuobjdump -sass`` of the library at ``path``, the functions whose
+    mangled names start with one of ``names``, into chiprun_out/."""
+    import re
+
+    from raytracinginonesemester_tpu_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    keep = [sec for sec in re.split(r"\n\s*Function : ", text)
+            if sec.startswith(tuple(names))]
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    out = os.path.join(REPO, "chiprun_out", "probes_sass.txt")
+    with open(out, "w") as f:
+        f.write("\n\nFunction : ".join(keep))
+    print(f"  SASS of {names} ({sum(len(k) for k in keep)} bytes) -> {out}")
+
+
+def _queued_ms(fn, calls=10):
+    """ms a call of ``calls`` calls queued back to back between two CUDA
+    events (the host's enqueue hidden behind the card's work)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def _host_us(fn, calls=20):
+    """Host microseconds a call of ``fn`` takes to return (its enqueue; the
+    card is left to catch up after each call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / calls * 1e6
+
+
+def _mm22_variants(win, qsel):
+    """mm22, its product alone and its chain alone through each variant's
+    library and this tree's, in turns (10 calls queued back to back, so
+    that the host's enqueue hides behind the card's work; the whole
+    call's outputs compared)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+
+    v = ms.VISITS
+    calls = {"mm22": lambda: ms.mm22(win, qsel),
+             "mm22 product alone": lambda: ms._mm22_launch(win, qsel, v, 1),
+             "mm22 chain alone": lambda: ms._mm22_launch(win, qsel, v, 2)}
+    want = ms.mm22_plain(win, qsel)
+    for edits, name, what in _MM_VARIANTS:
+        lib = _variant_lib(edits, name, "probes")
+        if lib is None:
+            print(f"  variant {what}: an edit found no text; skipped")
+            continue
+        with _using(lib, "probes"):
+            same = torch.equal(calls["mm22"]().view(torch.int32),
+                               want.view(torch.int32))
+        for label, fn in calls.items():
+            ms_ = []
+            for which in (lib, None, None, lib):
+                with _using(which, "probes"):
+                    ms_.append(_queued_ms(fn))
+            print(f"  {label}, {what} vs this tree in turns (10 calls queued "
+                  f"back to back): {what} {ms_[0]:.4f}, this {ms_[1]:.4f}, "
+                  f"this {ms_[2]:.4f}, {what} {ms_[3]:.4f} ms a call"
+                  + (f"; the variant {'equals' if same else 'DIFFERS from'} "
+                     "the plain version" if label == "mm22" else ""))
+
+
+def probe_times():
+    """mm22, dyn12, blk1 and sel7 as the imported package computes them
+    -> {name: [median ms of 5, digest of the output]}."""
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    return {name: [cuda_time_ms(fn, warmup=1, iters=5)["median_ms"],
+                   _digest((fn(),))]
+            for name, (fn, _) in _probe_calls().items()}
+
+
+def _probe_turns(parent_dir):
+    """The probes as the tree at ``parent_dir`` computes them (a process
+    of its own) and as this one does, in turns: parent, this, this,
+    parent."""
+    import json
+
+    def parent():
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--times",
+             "--probes", "--root", os.path.abspath(parent_dir)],
+            capture_output=True, text=True, check=True).stdout
+        return json.loads(out.strip().splitlines()[-1])
+
+    runs = [parent(), probe_times(), probe_times(), parent()]
+    for key in runs[1]:
+        ms = [r[key][0] for r in runs]
+        same = len({r[key][1] for r in runs}) == 1
+        print(f"{key}, the tree at {parent_dir} vs this tree in turns "
+              f"(medians of 5): parent {ms[0]:.3f}, this {ms[1]:.3f}, this "
+              f"{ms[2]:.3f}, parent {ms[3]:.3f} ms; outputs "
+              f"{'equal' if same else 'DIFFER'}")
+
+
+def profile_probes(parent_dir=None):
+    """P2 and P3 at their scripts' widths (module docstring)."""
+    import torch
+
+    from chip_smoke import PEAK_BF16, PEAK_BYTES, PEAK_FLOPS
+    from raytracinginonesemester_tpu_torch.ops import _native
+    from raytracinginonesemester_tpu_torch.probes import dyn_reads as dr
+    from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"card: {_card()}; {sms} SMs")
+    _native.load("probes")
+    for ln in _native.BUILD_LOG["probes"]["ptxas"].splitlines():
+        if any(k in ln for k in ("mm22", "dyn_reads", "wgmma", "arning")):
+            print(f"  ptxas: {ln.strip()}")
+    lat, ghz, smi = _add_latency()
+    calls = _probe_calls()
+    times = {}
+    for name, (kern, plain) in calls.items():
+        same = torch.equal(kern().view(torch.int32),
+                           plain().view(torch.int32))
+        t = cuda_time_ms(kern, warmup=1, iters=5)
+        times[name] = t["median_ms"]
+        floor = _CHAIN_ADDS[name] * lat / ghz * 1e-6
+        print(f"{name}: {t['median_ms']:.4f} ms (median of 5; samples "
+              f"{[round(x, 4) for x in t['samples_ms']]}); "
+              f"{'equals' if same else 'DIFFERS from'} its plain version bit "
+              f"for bit; chain floor {floor:.4f} ms ({_CHAIN_ADDS[name]} "
+              f"dependent adds a thread x {lat:.4f} cycles at {ghz:.4f} GHz)")
+    win, _, qsel = ms.script_inputs()
+    v = ms.VISITS
+    parts = {"product alone": lambda: ms._mm22_launch(win, qsel, v, 1),
+             "chain alone": lambda: ms._mm22_launch(win, qsel, v, 2),
+             "operand packing alone": lambda: ms.pack_qsel(qsel),
+             "torch.matmul of the stacked picks (the product alone)":
+                 _mm22_matmul(win, qsel)}
+    for label, fn in parts.items():
+        t = cuda_time_ms(fn, warmup=1, iters=5)
+        print(f"  mm22 {label}: {t['median_ms']:.4f} ms (median of 5; "
+              f"samples {[round(x, 4) for x in t['samples_ms']]}); queued "
+              f"10 calls back to back {_queued_ms(fn):.4f} ms a call")
+    for name, (kern, _) in calls.items():
+        print(f"  {name} queued 10 calls back to back: "
+              f"{_queued_ms(kern):.4f} ms a call")
+        _launch_split(name, kern)
+    tab = dr.script_inputs()
+    for name in ("dyn12", "blk1"):
+        _launch_split(f"{name} at 0 visits (the slab's staging alone)",
+                      lambda n=name: getattr(dr, n)(tab, 0))
+    _launch_split("mm22 product alone", parts["product alone"])
+    _launch_split("mm22 chain alone", parts["chain alone"])
+    counters = torch.zeros(4096 // ms.MM_COPY + 16, dtype=torch.int32,
+                           device="cuda")
+    host = {"mm22 (the wrapper)": calls["mm22"][0],
+            "pack_qsel": lambda: ms.pack_qsel(qsel),
+            "torch.zeros of the counters": lambda: torch.zeros(
+                4096 // ms.MM_COPY + 16, dtype=torch.int32, device="cuda"),
+            "counters.zero_()": lambda: counters.zero_(),
+            "dyn12 (the wrapper)": calls["dyn12"][0]}
+    print("  host microseconds a call (the enqueue, 20 calls): " + "; ".join(
+        f"{k} {_host_us(fn):.1f}" for k, fn in host.items()))
+    rt, lanes = win.shape[0], qsel.shape[0]
+    for cols in (66, 72):
+        flops = 2 * v * rt * lanes * cols
+        print(f"  mm22 bf16 tensor operations at {cols} columns: {flops:.4e},"
+              f" {flops / PEAK_BF16 * 1e3:.4f} ms at the card's bf16 rate; "
+              f"the kernel's rate {flops / times['mm22'] * 1e-9:.1f} TFLOP/s")
+    for name in ("dyn12", "blk1"):
+        ops, nbytes = 4096 * 12 * 512, 4 * (468 * 512 + 512)
+        rate = max(ops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        print(f"  {name} rate bound {rate:.5f} ms; the kernel at "
+              f"{_CHAIN_ADDS[name] / (times[name] * 1e-3) / (ghz * 1e9):.4f}"
+              " adds a cycle, i.e. "
+              f"{(times[name] * 1e-3) * ghz * 1e9 / _CHAIN_ADDS[name]:.3f} "
+              "cycles a dependent add")
+    _sass_dump(_native.BUILD_LOG["probes"]["path"],
+               ("_Z11mm22_kernel", "_Z16dyn_reads_kernelILb0"))
+    _mm22_variants(win, qsel)
+    _dyn_variants()
+    if parent_dir is not None:
+        _probe_turns(parent_dir)
 
 
 class _patched:

@@ -23,7 +23,12 @@ reference shape the rules:
   ``jax.jit``), summed in the kernel's order.
 
 The CUDA kernels run only on a card (``cuda`` marker; ``chip_smoke.py``
-phase 12 at full width).
+phase 12 at full width).  Their schedules are emulated here with torch
+ops and held bit for bit against the plain versions: mm22's register A
+fragment of the one-hot pick, its packed shared-memory operand read back
+by the descriptor's address formula, its product and chain through the
+staging ring; P3's period-unrolled loop with its read-ahead window and tail.  The
+constants they use are read from ``csrc/probes.cu``.
 """
 
 import ast
@@ -224,6 +229,199 @@ def test_mm22_matches_the_script_formula(case):
     np.testing.assert_array_equal(got.numpy(), acc[None, :])
 
 
+# --- P2b's CUDA schedule, emulated ------------------------------------
+
+
+def _cu_const(name):
+    """``constexpr int <name> = N;`` of ``csrc/probes.cu``."""
+    path = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc",
+                        "probes.cu")
+    with open(path) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
+
+
+def test_mm22_constants_match_the_kernel():
+    assert _cu_const("kMmSlots") == ms.MM_SLOTS
+    assert _cu_const("kMmRingVisits") == ms.MM_COPY
+    assert _cu_const("kMmKBlock") == ms.MM_KBLOCK
+    assert _cu_const("kMmGroupRays") == ms.MM_GROUP
+    assert _cu_const("kMmCols") == len(ms.MM_COLS) == 72
+    assert _cu_const("kMmAttrs") == ms.F
+    assert _cu_const("kMmStepBytes") == 2304
+    assert _cu_const("kMmKBlock") == 2 * _cu_const("kMmStageSteps") * 16
+
+
+def _a_fragment(p0, p1, q, s):
+    """The kernel's four A registers at k-step ``s`` of a thread whose
+    rows' lanes are ``p0`` (row g) and ``p1`` (row g + 8), -1 for no ray,
+    and whose quad is ``q`` (``mm22_product``)."""
+    regs = []
+    for p, col8 in ((p0, 0), (p1, 0), (p0, 4), (p1, 4)):
+        one = 0x3F800000 if p & 1 else 0x3F80
+        regs.append(one if (p >> 4) == s and ((p & 15) >> 1) == q + col8
+                    else 0)
+    return regs
+
+
+def _picks_from_fragments(lanes_of_rows, s):
+    """The 64 x 16 bf16 bits of k-step ``s`` as the 128 threads' registers
+    lay them out: thread (warp w, lane g * 4 + q), register e, half h ->
+    row 16w + g + 8 (e & 1), column 2q + h + 8 (e >> 1); and how often
+    each (row, column) is written."""
+    bits = np.zeros((64, 16), np.int64)
+    seen = np.zeros((64, 16), np.int64)
+    for w in range(4):
+        for lane in range(32):
+            g, q = lane >> 2, lane & 3
+            r0 = 16 * w + g
+            regs = _a_fragment(lanes_of_rows[r0], lanes_of_rows[r0 + 8], q, s)
+            for e, reg in enumerate(regs):
+                for h in range(2):
+                    row, col = r0 + 8 * (e & 1), 2 * q + h + 8 * (e >> 1)
+                    bits[row, col] = (reg >> (16 * h)) & 0xFFFF
+                    seen[row, col] += 1
+    return bits, seen
+
+
+def _near_511_win():
+    return _near_511()[0]
+
+
+A_TILES = {"script tile 0": (lambda: ms.script_inputs("cpu")[0], 0),
+           "script tile 7": (lambda: ms.script_inputs("cpu")[0], 7),
+           "near 511": (_near_511_win, 3),
+           "partial tile": (lambda: ms.script_inputs("cpu")[0][:48], 0)}
+
+
+@pytest.mark.parametrize("visit", [0, 5, 300])
+@pytest.mark.parametrize("case", sorted(A_TILES))
+def test_mm22_a_fragment_rebuilds_the_pick(case, visit):
+    """Every k-step's register fragment of a 64-ray tile is that tile's
+    one-hot pick in bf16 (1.0 = 0x3f80), each (row, column) written once;
+    rows past the last ray pick nothing."""
+    make, tile = A_TILES[case]
+    win = make().reshape(-1).to(torch.int64)
+    lanes = ms.B
+    rows = torch.arange(64 * tile, 64 * tile + 64)
+    valid = rows < win.shape[0]
+    p = torch.where(valid, (win[rows.clamp(max=win.shape[0] - 1)] + visit)
+                    % lanes, torch.full_like(rows, -1)).tolist()
+    want = np.zeros((64, lanes), np.int64)
+    for r, lane in enumerate(p):
+        if lane >= 0:
+            want[r, lane] = 0x3F80
+    for s in range(lanes // 16):
+        bits, seen = _picks_from_fragments(p, s)
+        assert (seen == 1).all()
+        np.testing.assert_array_equal(bits, want[:, 16 * s:16 * s + 16])
+
+
+def _unpack(packed, lanes):
+    """The kernel's B operand read back as the tensor cores address it:
+    element (n, k) of k-step s at byte s * kMmStepBytes + (k // 8) *
+    kMmLbo + (n // 8) * kMmSbo + (n % 8) * 16 + (k % 8) * 2 (K-major,
+    no swizzle) -> (lanes, 72) int16 bits, and how often each packed
+    element is read."""
+    step, lbo, sbo = (_cu_const(n) for n in ("kMmStepBytes", "kMmLbo",
+                                             "kMmSbo"))
+    bits = packed.view(torch.int16).numpy()
+    ksteps = bits.shape[0] * 2 // step
+    n = np.arange(72)[None, :, None]
+    k = np.arange(16)[None, None, :]
+    s = np.arange(ksteps)[:, None, None]
+    byte = s * step + (k // 8) * lbo + (n // 8) * sbo + (n % 8) * 16 + \
+        (k % 8) * 2
+    got = bits[byte // 2]  # (ksteps, 72, 16)
+    reads = np.bincount((byte // 2).reshape(-1), minlength=bits.shape[0])
+    return got.transpose(0, 2, 1).reshape(ksteps * 16, 72), reads
+
+
+@pytest.mark.parametrize("lanes", [512, 48])
+def test_pack_qsel_unpacks_by_the_descriptor(lanes):
+    """``pack_qsel`` read back by the descriptor's address formula gives
+    qsel's 72 read columns bit for bit, then zero rows up to a multiple of
+    ``MM_KBLOCK``; every packed element is read once."""
+    rng = np.random.default_rng(lanes)
+    q = torch.from_numpy(rng.standard_normal((ms.F, lanes))
+                         .astype(np.float32))
+    qsel = ms.make_qsel(q)
+    got, reads = _unpack(ms.pack_qsel(qsel), lanes)
+    assert got.shape[0] % ms.MM_KBLOCK == 0 and (reads == 1).all()
+    want = qsel[:, ms.MM_COLS].view(torch.int16).numpy()
+    np.testing.assert_array_equal(got[:lanes], want)
+    assert not got[lanes:].any()
+    # the read columns hold hi, mid and lo of attribute f at f, 24 + f
+    # and 48 + f
+    cols = np.asarray(ms.MM_COLS)
+    np.testing.assert_array_equal(cols[:22], ms.PARTS[0] + np.arange(22))
+    np.testing.assert_array_equal(cols[24:46], ms.PARTS[1] + np.arange(22))
+    np.testing.assert_array_equal(cols[48:70], ms.PARTS[2] + np.arange(22))
+
+
+def _mm22_schedule(win, qsel, visits):
+    """``mm22_kernel``'s schedule in torch: the product of visit v, read
+    from the packed operand as the tensor cores address it, goes to ring
+    slot v mod ``MM_SLOTS`` ([group][slot][attribute][32 rays]) once the
+    chain has published that slot's previous visit as landed, running as
+    far ahead as the ring lets it; the chain's filler lands copy i of
+    ``MM_COPY`` visits once its products are made and copy i - kMmRing
+    has been added (publishing every kMmPublish freed copies), and the
+    adding warp adds them onto each ray's sum visit after visit,
+    attribute after attribute."""
+    w = win.reshape(-1).to(torch.int64)
+    rt, lanes = w.shape[0], qsel.shape[0]
+    groups = -(-rt // ms.MM_GROUP)
+    slots, copy = ms.MM_SLOTS, ms.MM_COPY
+    bits, _ = _unpack(ms.pack_qsel(qsel), lanes)
+    bcols = torch.from_numpy(bits[:lanes].copy()).view(torch.bfloat16) \
+        .to(torch.float32)  # (lanes, 72)
+    ring = torch.full((groups, slots, ms.F, ms.MM_GROUP), float("nan"))
+    acc = torch.zeros(groups * ms.MM_GROUP)
+    ring_copies, publish = _cu_const("kMmRing"), _cu_const("kMmPublish")
+    made = landed = 0
+    for i, lo in enumerate(range(0, visits, copy)):
+        hi = min(visits, lo + copy)
+        freed = i - ring_copies  # the filler waited for it to be added
+        if freed >= 0 and freed % publish == publish - 1:
+            landed = (freed + 1) * copy
+        while made < visits and made - slots < landed:  # its slot is free
+            pick = torch.zeros(rt, lanes)
+            pick[torch.arange(rt), (w + made) % lanes] = 1.0
+            d = pick @ bcols  # one nonzero term a sum: exact
+            attr = torch.full((groups * ms.MM_GROUP, ms.F), float("nan"))
+            attr[:rt] = (d[:, 0:22] + d[:, 24:46]) + d[:, 48:70]
+            ring[:, made % slots] = attr.reshape(
+                groups, ms.MM_GROUP, ms.F).transpose(1, 2)
+            made += 1
+        assert made >= hi
+        block = ring[:, lo % slots:lo % slots + hi - lo].clone()  # lands
+        for v in range(hi - lo):
+            for f in range(ms.F):
+                acc = acc + block[:, v, f, :].reshape(-1)
+    return acc[:rt][None, :]
+
+
+MM_VISITS = [0, 1, ms.MM_COPY - 1, ms.MM_COPY, ms.MM_COPY + 1, 33, 257,
+             ms.MM_SLOTS - 1, ms.MM_SLOTS, ms.MM_SLOTS + 1]
+
+
+@pytest.mark.parametrize("win", ["script", "wrap", "48 rays"])
+@pytest.mark.parametrize("visits", MM_VISITS)
+def test_mm22_ring_schedule_matches_plain(visits, win):
+    """The product running ahead through the staging ring and the chain
+    landing it a copy at a time equal ``mm22_plain`` bit for bit: across
+    the edges of a copy and of the ring, with and without visits that
+    wrap past lane 511 (the script's win, and all rays within 12 lanes of
+    511), and with a partial tile and group (48 rays)."""
+    w, _, qsel = _near_511() if win == "wrap" else ms.script_inputs("cpu")
+    if win == "48 rays":
+        w = w[:48]
+    got = _mm22_schedule(w, qsel, visits)
+    want = ms.mm22_plain(w, qsel, visits)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 # --- P3: probe_dyn_reads.py -------------------------------------------
 
 
@@ -238,6 +436,38 @@ def test_dyn_reads_match_jax(name):
         interpret=True)(jnp.asarray(q.numpy()))
     got = getattr(dr, name)(q)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _dyn_schedule(q, visits, block_major):
+    """``dyn_reads_kernel``'s loop in torch: whole periods of L visits,
+    read i of a period at row i (block-major) or (i mod 12) L + i // 12
+    (plane-major), each read issued ``kDynAhead`` adds ahead in a window
+    whose slot i mod ``kDynAhead`` wraps into the next period; then the
+    tail of visits mod L from the period's start."""
+    ahead, rows = _cu_const("kDynAhead"), dr.PLANES * dr.L
+    assert rows % ahead == 0 and _cu_const("kDynBlocks") == dr.L
+    row = [i if block_major else (i % dr.PLANES) * dr.L + i // dr.PLANES
+           for i in range(rows)]
+    x = [q[row[i]] for i in range(ahead)]
+    acc = torch.zeros(q.shape[1])
+    periods = visits // dr.L
+    for _ in range(periods):
+        for i in range(rows):
+            v = x[i % ahead]
+            x[i % ahead] = q[row[(i + ahead) % rows]]
+            acc = acc + v
+    for i in range((visits - periods * dr.L) * dr.PLANES):
+        acc = acc + q[row[i]]
+    return acc[None, :]
+
+
+@pytest.mark.parametrize("visits", [0, 1, 38, 39, 40, 79, 4096])
+@pytest.mark.parametrize("name", ["dyn12", "blk1"])
+def test_dyn_reads_period_schedule_matches_plain(name, visits):
+    q = dr.script_inputs("cpu")
+    got = _dyn_schedule(q, visits, name == "blk1")
+    want = getattr(dr, f"{name}_plain")(q, visits)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # --- the wrappers ------------------------------------------------------
@@ -321,3 +551,18 @@ def test_cuda_probes_match_plain_versions():
     torch.testing.assert_close(dr.blk1(q), dr.blk1_plain(q), rtol=0, atol=0)
     assert probes.launch_counts() == {"toy_mask": 6, "sel7": 1, "mm22": 1,
                                       "dyn12": 1, "blk1": 1}
+    # the chunk edges of mm22 and the period edges of P3
+    for inputs in (ms.script_inputs, lambda: _near_511_cuda()):
+        win, _, qsel = inputs()
+        for visits in MM_VISITS + [2 * ms.MM_SLOTS + 1]:
+            assert torch.equal(ms.mm22(win, qsel, visits),
+                               ms.mm22_plain(win, qsel, visits))
+        assert torch.equal(ms.mm22(win[:48], qsel, 513),
+                           ms.mm22_plain(win[:48], qsel, 513))
+    for visits in (0, 1, 38, 39, 40, 79):
+        assert torch.equal(dr.dyn12(q, visits), dr.dyn12_plain(q, visits))
+        assert torch.equal(dr.blk1(q, visits), dr.blk1_plain(q, visits))
+
+
+def _near_511_cuda():
+    return tuple(t.cuda() for t in _near_511())
