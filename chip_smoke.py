@@ -128,9 +128,19 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    1, ``MM_SLOTS``, ``MM_SLOTS`` + 1, 2 ``MM_SLOTS`` + 1) on the script's
    win and on one whose visits wrap past lane 511 (and 48 rays, a
    partial tile), ``dyn12`` and ``blk1`` at the edges of their period of
-   39 visits (0, 1, 38, 39, 40, 79, 4096), each bit for bit; and whether the built ``probes`` library's SASS for
-   ``mm22_kernel`` holds ``HGMMA`` (``wgmma``) and no ``HMMA``
-   (``mma.sync``), from ``cuobjdump -sass``;
+   39 visits (0, 1, 38, 39, 40, 79, 4096), ``sel7`` at the edges of its
+   stretch of 32 visits and of the lanes (0, 1, ray 0's first wrap, 31,
+   32, 33, B, B + 1, 4096) on 512 and 500 lanes and six wins (the
+   script's, near lane 511, negative, all equal, 32 lanes apart, within
+   24 visits of 2^31 - 1), and ``toy_mask`` in its three modes on seeded
+   sets of 1, 2, 3, 156 and 160 boxes at 100 rays a block (0, 1, 2, 3
+   and more boxes set in a block), each bit for bit; each probe's device
+   time (``torch.profiler``) beside the launch floor, an empty kernel on
+   the same grid through the same launch path (P1 and P2a); and whether
+   the built ``probes`` library's SASS for ``mm22_kernel`` holds
+   ``HGMMA`` (``wgmma``) and no ``HMMA`` (``mma.sync``), and whether
+   ``sel7_kernel``'s visit loops hold no integer division, from
+   ``cuobjdump -sass``;
 13. the LBVH and the treelet block layout at full width: ``build_lbvh``
    on the frog (19,968 triangles with its padding) and on the large frog
    (1,270,912), each timed on the card and checked (every triangle a
@@ -1779,12 +1789,18 @@ def check_probe_edges(dev, errs):
     """Phase 12: ``mm22`` at the edges of its copies and of its staging
     ring, on the script's win and on one within 12 lanes of 511 (its
     visits wrap), ``dyn12`` and ``blk1`` at the edges of their period,
-    each bit for bit against its plain version (after the probes' own
-    run: not counted)."""
+    ``sel7`` at the edges of its stretch and of the lanes on the wins of
+    ``mm_select.hazard_inputs`` at 512, 500, 999 and ``SEL_MAX_LANES``
+    lanes, ``toy_mask`` in its three modes on ``toy_mask.count_inputs``
+    (1, 2, 3, 156 and 160 boxes, 100 rays a block) and on the seeded
+    hazards' first 1 and 7 rays a block (fewer rays than a cluster has
+    CTAs), each bit for bit against its plain version (after the probes'
+    own run: not counted)."""
     import torch
 
     from raytracinginonesemester_tpu_torch.probes import dyn_reads as dr
     from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+    from raytracinginonesemester_tpu_torch.probes import toy_mask as tm
 
     win, _, qsel = ms.script_inputs(dev)
     near = (500 + torch.arange(ms.RT, dtype=torch.int32, device=dev)
@@ -1805,19 +1821,162 @@ def check_probe_edges(dev, errs):
                     dr.dyn12_plain(tab, visits))
         check_exact(errs, "blk1", f"{visits} visits", dr.blk1(tab, visits),
                     dr.blk1_plain(tab, visits))
+    # sel7 at the edges of a stretch and of the lanes (ray 0's first wrap)
+    for lanes in (ms.B, 500, 999, ms.SEL_MAX_LANES):
+        wins, q = ms.hazard_inputs(lanes, dev)
+        for tag, w in wins.items():
+            edge = lanes - int(w[0]) % lanes
+            for visits in (0, 1, edge, 31, 32, 33, lanes, lanes + 1,
+                           ms.VISITS):
+                check_exact(errs, "sel7", f"{visits} visits, {lanes} lanes, "
+                            f"win {tag}", ms.sel7(w, q, visits),
+                            ms.sel7_plain(w, q, visits))
+    # P1 on sets of 0, 1, 2, 3 and more set boxes, 100 rays a block
+    for n_boxes in (1, 2, 3, 156, tm.LP):
+        rays, aabb = tm.count_inputs(n_boxes, 100, 0, dev)
+        for mode in tm.MODES:
+            check_exact(errs, "toy_mask", f"{mode}, {n_boxes} boxes, (64, "
+                        "100) rays", tm.toy_mask(mode, rays, aabb),
+                        tm.toy_mask_plain(mode, rays, aabb))
+    # P1 with fewer rays a block than a cluster has CTAs
+    rays, aabb = tm.hazard_inputs(0, dev)
+    for rt in (1, 7):
+        narrow = rays[:, :rt].contiguous()
+        for mode in tm.MODES:
+            check_exact(errs, "toy_mask", f"{mode}, seeded hazards, (64, "
+                        f"{rt}) rays", tm.toy_mask(mode, narrow, aabb),
+                        tm.toy_mask_plain(mode, narrow, aabb))
+
+
+def device_times(fns, calls=5):
+    """{name: {kernel: ms a call}} for each call of ``fns`` ({name: fn}):
+    the device time of each CUDA kernel it launches, from one
+    ``torch.profiler`` session over ``calls`` calls of each after a warm
+    one.  Each call's group opens with a marker kernel (``spin_kernel`` of
+    ``torch.cuda._sleep``); on the one stream, the device's events in
+    device-time order split at the markers into the groups, in order.
+    (The profiler's host-side links were not reliable for kernels
+    launched through ctypes, and in one process it drops kernels after
+    some tens of sessions: one session for all.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            torch.cuda._sleep(1)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: e.time_range.start)
+    groups = []
+    for e in events:
+        if "spin_kernel" in e.name:
+            groups.append({})
+        elif groups:
+            key = e.name.split("(")[0]
+            groups[-1][key] = groups[-1].get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / calls / 1e3
+    if len(groups) != len(fns) or not all(groups):
+        names = sorted({e.name.split("(")[0] for e in events})[:12]
+        raise AssertionError(f"the profiler saw {len(groups)} markers for "
+                             f"{len(fns)} calls, or a call without kernels "
+                             f"(device events: {names})")
+    return dict(zip(fns, groups))
+
+
+def time_probe_devices(jobs, records, smi):
+    """Phase 12: each probe's device time a call (its kernels alone, no
+    host enqueue) beside the launch floor, an empty kernel launched
+    through the probes' launch path on the same grid (P1: 64 CTAs of 512
+    threads in clusters of 8; P2a: 16 CTAs of 32)."""
+    from raytracinginonesemester_tpu_torch.probes._common import launch_floor
+
+    floors = {"toy_mask": lambda: launch_floor(64, 512, 8),
+              "sel7": lambda: launch_floor(16, 32, 1)}
+    ms = {k: sum(rows.values()) for k, rows in device_times(
+        {**{key: job[2] for key, job in jobs.items()},
+         **{f"floor {k}": fn for k, fn in floors.items()}}).items()}
+    for key, job in jobs.items():
+        rec, floor = records[key], ms.get(f"floor {job[0]}")
+        rec["device_ms"] = ms[key]
+        if floor is not None:
+            rec["launch_floor_ms"] = floor
+        log(f"device time {key}: {ms[key]:.4f} ms a call (torch.profiler, "
+            f"5 calls)" + (f", launch floor on its grid {floor:.4f} ms "
+                           f"({ms[key] / floor:.2f}x)" if floor else "")
+            + f" on {smi}")
+
+
+def sass_of(prefix):
+    """The SASS of the built ``probes`` library's function whose mangled
+    name starts with ``prefix`` (``cuobjdump -sass``)."""
+    from raytracinginonesemester_tpu_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", _native.BUILD_LOG["probes"]["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    return "".join(sec for sec in re.split(r"\n\s*Function : ", text)
+                   if sec.startswith(prefix))
+
+
+# the integer division sequence nvcc emits for a runtime divisor (a
+# reciprocal in floating point, refined), or a call to its slow path
+DIVISION = ("MUFU.RCP", "I2F.U32.RP", "I2F.RP", "CALL")
+
+
+def sass_loops(body):
+    """Each loop of a function's SASS (a branch back to an address at or
+    before its own) -> [(first address, branch address, {opcode: count})],
+    innermost loops (holding no other) only."""
+    rows = [(int(a, 16), ins.strip()) for a, ins in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;/]*);", body)]
+    spans = []
+    for addr, ins in rows:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) <= addr:
+            spans.append((int(m.group(1), 16), addr))
+    loops = []
+    for lo, hi in spans:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
+            continue
+        ops = {}
+        for addr, ins in rows:
+            if lo <= addr <= hi:
+                op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+                ops[op] = ops.get(op, 0) + 1
+        loops.append((lo, hi, ops))
+    return loops
+
+
+def check_sel7_sass():
+    """Phase 12: ``sel7_kernel``'s visit loops (the innermost loops of its
+    SASS that add: the stretch, 7 x 32 adds, and the tail) must hold no
+    integer division sequence (``DIVISION``)."""
+    loops = [lp for lp in sass_loops(sass_of("_Z11sel7_kernel"))
+             if lp[2].get("FADD", 0) >= 7]
+    for lo, hi, ops in loops:
+        div = {k: v for k, v in ops.items() if k.startswith(DIVISION)}
+        log(f"sel7_kernel SASS loop {lo:#x}-{hi:#x}: {sum(ops.values())} "
+            f"instructions, {ops.get('FADD', 0)} FADD, {ops.get('LDS', 0)} "
+            f"LDS, division {div or 'none'}")
+    stretch = [lp for lp in loops if lp[2].get("FADD", 0) >= 7 * 32]
+    if not stretch or any(k.startswith(DIVISION) for lp in loops
+                          for k in lp[2]):
+        raise AssertionError("sel7_kernel's visit loops must exist and hold "
+                             "no integer division")
 
 
 def check_mm22_sass():
     """Phase 12: the built ``probes`` library's SASS for ``mm22_kernel``
     (``cuobjdump -sass``) must hold HGMMA (``wgmma``) and no HMMA
     (``mma.sync``)."""
-    from raytracinginonesemester_tpu_torch.ops import _native
-
-    tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", _native.BUILD_LOG["probes"]["path"]],
-                          capture_output=True, text=True, check=True).stdout
-    body = "".join(sec for sec in re.split(r"\n\s*Function : ", text)
-                   if sec.startswith("_Z11mm22_kernel"))
+    body = sass_of("_Z11mm22_kernel")
     hgmma = len(re.findall(r"\bHGMMA\b", body))
     hmma = len(re.findall(r"\bHMMA\b", body))
     log(f"mm22_kernel SASS (cuobjdump -sass): {hgmma} HGMMA, {hmma} HMMA "
@@ -2602,7 +2761,8 @@ def check_sharding(smi, scene, p5, p8, train):
 # diff variant); a third is bounce_step_kernel's rays a warp
 FLAG_LABELS = {"streamed_kernel": ("closest", "occluded"),
                "dyn_reads_kernel": ("plane-major", "block-major"),
-               "toy_mask_kernel": ("grid", "scalar", "both")}
+               "toy_mask_kernel": ("grid", "scalar", "both"),
+               "probe_floor_kernel": {1: "no cluster", 8: "clusters of 8"}}
 FLAG2_LABELS = {"streamed_kernel": ("plan (G, I)", "gated slabs (H)")}
 
 
@@ -2632,7 +2792,10 @@ def ptxas_summary(text):
             spill = f"spill st/ld {m.group(1)}/{m.group(2)} B"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name}: {m.group(1)} regs, {spill}")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name}: {m.group(1)} regs, {spill}"
+                       + (f", {smem.group(1)} B smem"
+                          if smem and smem.group(1) != "0" else ""))
             name = None
     return "; ".join(out)
 
@@ -2917,8 +3080,10 @@ def main():
     log(f"mm22 {probe_records['mm22']['ms']:.3f} ms against torch.matmul of "
         f"its product {probe_records['mm22']['matmul_product_ms']:.3f} ms "
         f"in this call ({probe_records['mm22']['ms'] / probe_records['mm22']['matmul_product_ms']:.3f}x)")
+    time_probe_devices(p_jobs, probe_records, smi)
     check_probe_edges(dev, errs)
     check_mm22_sass()
+    check_sel7_sass()
 
     # --- 13. the LBVH and the treelet block layout at full width
     tl = check_treelet(dev, smi, runs_frames, ms_binned, terminal)

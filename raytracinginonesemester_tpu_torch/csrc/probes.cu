@@ -8,28 +8,60 @@
 // -fmad=false and IEEE division, so the two agree bit for bit.
 //
 // P1 toy_mask_kernel<MODE> replaces scripts/probe_toy_mask.py:kernel
-// (pallas_call at :63).  One CTA of one thread per ray column for each
-// (8, RT) ray block (rows 0-2 origin, 3-5 direction, 6 distance).  `grid`:
-// each thread runs its ray's slab test against every box, and the CTA
-// reduces "any ray enters box l" with __syncthreads_or into a shared mask
-// (the TPU's (156, 1) VMEM scratch).  The slab's min and max propagate
-// NaN, as jnp.minimum/maximum do, so an axis with 0 * inf fails the box;
-// trace_common.cuh's slab opens such an axis and is not used here.
-// `scalar`/`both`: a loop over boxes that adds 1 to the block's output
-// while the box's mask is set and any output is below 3, the CTA-wide
-// "any" taken again on each trip (__syncthreads_or).  Every trip adds 1
-// to all of the block's output, so it stays uniform over the block and a
-// thread keeps its 8 rows in one register.  `grid` alone writes mask[0]
-// + dist to every row.  Bound: a few microseconds of launch; the slab
-// tests are 1.6e7 FP32 operations (0.24 us of the card).
+// (pallas_call at :63).  Each (8, RT) ray block (rows 0-2 origin, 3-5
+// direction, 6 distance) is one cluster of kRayRows CTAs of one thread
+// per ray column; CTA `rank` of the cluster tests the block's RT rays
+// against its chunk of ceil(L / 8) <= 20 boxes (staged in shared memory)
+// and writes row `rank` of the block's output.  The TPU's (156, 1) VMEM
+// mask is a bit a box: a thread keeps the boxes its ray enters in a word,
+// each warp merges its words with one __reduce_or_sync, and one shared
+// atomicOr a warp makes the CTA's chunk; each CTA then stores its chunk's
+// word into every CTA of the cluster (distributed shared memory), and one
+// cluster barrier later every CTA holds the block's mask: no CTA barrier
+// per box, as the first port had (__syncthreads_or for each of 156
+// boxes).  The slab's min and max propagate NaN, as jnp.minimum/maximum
+// do (PTX min.NaN and max.NaN), so an axis with 0 * inf fails the box
+// (trace_common.cuh's slab opens such an axis and is not used here).
+// `scalar`/`both` loop over boxes, adding 1 to the
+// block's output while the box's mask is set and any output is below 3;
+// every trip adds 1 to all of the block's output, so it stays uniform
+// and the loop ends with min(3, set boxes) (`scalar`: every box set,
+// min(3, L)), computed here in closed form from the mask's popcount:
+// the same bits (0 + 1 + 1 + 1 is exact).  `grid` alone writes mask[0]
+// + dist to every row.  Bound: the launch (probe_floor_kernel, the same
+// grid with nothing to do, measures it); the slab tests are 1.6e7 FP32
+// operations (0.24 us of the card).
 //
 // P2a sel7_kernel replaces probe_mm_select.py:sel_kernel (call :86).  For
-// visit k a ray's lane is w = (win + k) mod B, and the TPU sums 7 masked
-// lane reductions: each equals q[f, w] (one nonzero term).  One thread
-// per ray adds q[f, w] for f < 7, visit after visit, from the 7 rows
-// staged in shared memory.  Bound: the chain of 28,672 dependent adds a
-// thread (the sum's order is fixed), not the card's rates.
-//
+// visit k a ray's lane is w = (win + k) mod B, the sum wrapping in int32
+// as JAX's does, and the TPU sums 7 masked lane reductions: each equals
+// q[f, w] (one nonzero term).  One thread per ray adds q[f, w] for f < 7,
+// visit after visit, from 0.0.  Bound: the chain of 28,672 dependent adds
+// a thread (the sum's order is fixed), not the card's rates, so a CTA is
+// one warp and the design keeps everything else off the chain's way:
+// - the 7 rows are staged in shared memory (cp.async, every copy in
+//   flight at once) at a fixed row stride kSelStride, each followed by
+//   its first kSelStretch lanes again, so that kSelStretch visits from
+//   any lane w < B read w + u without a wrap: every offset in the
+//   unrolled stretch is a compile-time constant, and the lane moves on
+//   once a stretch by a compare and subtract (no % in the loop);
+// - the reads run kSelAhead adds ahead of the chain in a register window
+//   that wraps into the next stretch (plain reads: their addresses move
+//   every stretch, so ptxas has none to hoist out of the loop, as it did
+//   P3's; volatile ones were 3% slower on an H100);
+// - a warp's threads read one row at lanes w_t + u, so two rays whose
+//   lanes agree mod 32 but differ conflict on every read.  The CTAs sort
+//   the rays by that bank class (a counting sort, each CTA the same, win
+//   read kSelWinChunk rays at a time through shared memory: O(rays) a
+//   CTA; with the staging 8.8 us on an H100 at the script's 512 rays)
+//   and deal sorted position p to warp p mod warps, lane p / warps: with
+//   the script's win no warp holds more than 2 rays of a class (5 in
+//   index order), 14 shared wavefronts a visit against the chain's 28
+//   (the deal saves 0.047 ms of 0.13 on an H100);
+// - win + k passes 2^31 - 1 at most once: the walk runs up to that visit
+//   from floor_mod(win, B), then on from floor_mod(-2^31, B).
+// The out of ray r goes back to out[r].
+
 // P2b mm22_kernel replaces probe_mm_select.py:mm_kernel (call :88).  The
 // TPU multiplies the (RT, B) one-hot pick, in bf16, by qsel (B, 128:
 // split3's hi, mid and lo parts of 22 attributes at columns 0, 32 and
@@ -84,16 +116,33 @@
 // into the next period, so the dependent adds are all the loop waits on.
 // BLOCK_MAJOR changes only the constants.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRayRows = 8;     // rows of a P1 ray block
+constexpr int kRayRows = 8;     // rows of a P1 ray block, CTAs a cluster
 constexpr int kMaxBoxes = 160;  // P1's (160, 1) mask scratch
 constexpr int kSelRows = 7;     // P2a's masked reductions a visit
+constexpr int kSelStretch = 32; // P2a: visits unrolled with fixed offsets
+constexpr int kSelMaxLanes = 1024;
+constexpr int kSelStride = kSelMaxLanes + kSelStretch;  // a staged row
+constexpr int kSelAhead = 28;   // P2a: reads in flight ahead of the adds
+constexpr int kSelBanks = 32;   // P2a: bank classes the deal spreads
+constexpr int kSelWinChunk = 1024;  // P2a: rays of win staged at a time
 constexpr int kDynPlanes = 12;  // P3's rows a visit
 constexpr int kDynBlocks = 39;  // P3's blocks of 12 rows (L)
 constexpr int kColThreads = 32;
+
+static_assert((kMaxBoxes + kRayRows - 1) / kRayRows <= 32,
+              "a CTA's chunk of boxes fits a word");
+static_assert(kSelStretch == kColThreads, "a staging thread a lane past B");
+static_assert(kSelRows * kSelStretch % kSelAhead == 0,
+              "the window's slots repeat a stretch");
 
 constexpr int kDynRows = kDynPlanes * kDynBlocks;  // P3's 468 rows
 constexpr int kDynAhead = 26;   // P3: reads in flight ahead of the adds
@@ -126,18 +175,29 @@ static_assert(kMmSlots % kMmRingVisits == 0, "a copy never wraps the ring");
 static_assert((kMmPublish + kMmRing + 8) * kMmRingVisits < kMmSlots,
               "the staging ring is too small for the chain's lag");
 
+// min and max that give NaN when either side is NaN, as jnp.minimum and
+// jnp.maximum do: one instruction each (sm_80 and later)
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
-// (a + k) mod n with the sign of n, as jnp's % on int32
+// a mod n with the sign of n, as jnp's % on int32
 __device__ __forceinline__ int floor_mod(int a, int n) {
   const int r = a % n;
   return r < 0 ? r + n : r;
+}
+
+// a + b wrapping in int32, as JAX's int32 sum does
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -284,64 +344,206 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 
 }  // namespace
 
-// MODE: 0 grid, 1 scalar, 2 both
+// MODE: 0 grid, 1 scalar, 2 both.  A cluster of kRayRows CTAs a ray
+// block, CTA `rank` of it testing boxes [rank * chunk, + chunk) and
+// writing row `rank`.
 template <int MODE>
-__global__ void toy_mask_kernel(const float* __restrict__ rays,
-                                const float* __restrict__ aabb, int n_boxes,
-                                int aabb_cols, float* __restrict__ out) {
-  __shared__ float smask[kMaxBoxes];
+__global__ void __cluster_dims__(kRayRows, 1, 1)
+toy_mask_kernel(const float* __restrict__ rays,
+                const float* __restrict__ aabb, int n_boxes, int aabb_cols,
+                float* __restrict__ out) {
+  __shared__ unsigned words[kRayRows];  // the block's mask, a word a chunk
+  __shared__ unsigned mine;             // this CTA's chunk
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int rt = blockDim.x, j = threadIdx.x;
-  const float* blk = rays + (size_t)blockIdx.x * kRayRows * rt;
-  const float o[3] = {blk[j], blk[rt + j], blk[2 * rt + j]};
-  const float si[3] = {1.0f / blk[3 * rt + j], 1.0f / blk[4 * rt + j],
-                       1.0f / blk[5 * rt + j]};
-  const float dist = blk[6 * rt + j];
+  const size_t blk = (size_t)(blockIdx.x / kRayRows) * kRayRows * rt;
+  const float dist = rays[blk + 6 * rt + j];
+  float v = fminf(3.0f, (float)n_boxes);  // scalar: every box set
   if (MODE != 1) {
-    for (int l = 0; l < n_boxes; ++l) {
-      const float* box = aabb + (size_t)l * aabb_cols;
+    // arrive now, wait before the first store into another CTA: every CTA
+    // of the cluster has started by then
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    __shared__ float sbox[(kMaxBoxes + kRayRows - 1) / kRayRows][6];
+    const int chunk = (n_boxes + kRayRows - 1) / kRayRows;
+    const int l0 = rank * chunk, nl = max(0, min(n_boxes - l0, chunk));
+    for (int k = j; k < 6 * nl; k += rt)
+      sbox[k / 6][k % 6] = aabb[(size_t)(l0 + k / 6) * aabb_cols + k % 6];
+    if (j == 0) mine = 0u;
+    const float* b = rays + blk;
+    const float o[3] = {b[j], b[rt + j], b[2 * rt + j]};
+    const float si[3] = {1.0f / b[3 * rt + j], 1.0f / b[4 * rt + j],
+                         1.0f / b[5 * rt + j]};
+    __syncthreads();
+    unsigned bits = 0u;  // bit l: this thread's ray enters box l0 + l
+#pragma unroll 4
+    for (int l = 0; l < nl; ++l) {
       float t0 = 1e-4f, t1 = dist;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float lo = (box[a] - o[a]) * si[a];
-        const float hi = (box[a + 3] - o[a]) * si[a];
+        const float lo = (sbox[l][a] - o[a]) * si[a];
+        const float hi = (sbox[l][a + 3] - o[a]) * si[a];
         t0 = nan_max(t0, nan_min(lo, hi));
         t1 = nan_min(t1, nan_max(lo, hi));
       }
-      const int any = __syncthreads_or(t0 <= t1);
-      if (j == 0) smask[l] = any ? 1.0f : 0.0f;
+      bits |= (unsigned)(t0 <= t1) << l;
     }
-  } else {
-    for (int l = j; l < kMaxBoxes; l += rt) smask[l] = 1.0f;
-  }
-  __syncthreads();
-  float v = 0.0f;  // the block's output, the same in all 8 rows
-  if (MODE != 0) {
-    for (int k = 0; k < n_boxes && __syncthreads_or(v < 3.0f); ++k)
-      if (smask[k] > 0.0f) v = v + 1.0f;
-  } else {
-    v = smask[0] + dist;
-  }
-  float* ob = out + (size_t)blockIdx.x * kRayRows * rt;
+    // the warp's vote (a last warp of RT % 32 threads votes alone)
+    bits = __reduce_or_sync(__activemask(), bits);
+    if ((j & 31) == 0 && bits) atomicOr(&mine, bits);
+    __syncthreads();
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    // thread j stores into CTAs j, j + RT, ...: every CTA gets the word
+    // for any RT, fewer than kRayRows included
+    for (int c = j; c < kRayRows; c += rt)
+      *cluster.map_shared_rank(&words[rank], c) = mine;
+    cluster.sync();  // every CTA's words[] holds the whole mask
+    if (MODE == 2) {
+      int set = 0;
 #pragma unroll
-  for (int r = 0; r < kRayRows; ++r) ob[r * rt + j] = v;
+      for (int c = 0; c < kRayRows; ++c) set += __popc(words[c]);
+      v = (float)min(3, set);
+    } else {
+      v = ((words[0] & 1u) ? 1.0f : 0.0f) + dist;
+    }
+  }
+  out[blk + (size_t)rank * rt + j] = v;
+}
+
+// The launch floor of P1: the same grid (clusters of CLUSTER CTAs) with
+// nothing to do.
+template <int CLUSTER>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) probe_floor_kernel() {}
+
+// P2a's staging: row f of q at f * kSelStride, lanes x < B + kSelStretch
+// holding q[f, x mod B]; every copy in flight at once (cp.async), waited
+// for by the caller.  A CTA is kSelStretch threads: one lane past B each.
+__device__ __forceinline__ void sel7_stage(float* sq,
+                                           const float* __restrict__ q,
+                                           int lanes) {
+  const int t = threadIdx.x, past = t < lanes ? t : t % lanes;
+  for (int f = 0; f < kSelRows; ++f) {
+    for (int x = t; x < lanes; x += kSelStretch)
+      cp_async4(sq + f * kSelStride + x, q + f * lanes + x, true);
+    cp_async4(sq + f * kSelStride + lanes + t, q + f * lanes + past, true);
+  }
+}
+
+// a lane's bank class: floor_mod(w, lanes) mod 32, without a division
+// when lanes is a power of two
+__device__ __forceinline__ int bank_class(int w, int lanes) {
+  const int m = (lanes & (lanes - 1)) == 0 ? w & (lanes - 1)
+                                           : floor_mod(w, lanes);
+  return m & (kSelBanks - 1);
+}
+
+// win[base ..] into swin, up to kSelWinChunk rays (waits for every copy
+// this thread has in flight)
+__device__ __forceinline__ int sel7_win_chunk(int* swin,
+                                              const int* __restrict__ win,
+                                              int base, int n_rays) {
+  const int m = min(kSelWinChunk, n_rays - base);
+  for (int i = threadIdx.x; i < m; i += blockDim.x)
+    cp_async4(reinterpret_cast<float*>(swin + i),
+              reinterpret_cast<const float*>(win + base + i), true);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+  return m;
+}
+
+// P2a's walk: n visits from lane w (0 <= w < lanes) added onto acc, read
+// i = 7u + f of a stretch at s[w + f * kSelStride + u]; `step` is
+// kSelStretch mod lanes
+__device__ __forceinline__ float sel7_walk(const float* s, int w, int n,
+                                           int lanes, int step, float acc) {
+  constexpr int kReads = kSelRows * kSelStretch;
+  float x[kSelAhead];  // reads i .. i + kSelAhead - 1 of the stretch
+#pragma unroll
+  for (int i = 0; i < kSelAhead; ++i)
+    x[i] = s[w + (i % kSelRows) * kSelStride + i / kSelRows];
+  const int stretches = n / kSelStretch;
+  for (int t = 0; t < stretches; ++t) {
+    int wn = w + step;
+    if (wn >= lanes) wn -= lanes;
+#pragma unroll
+    for (int i = 0; i < kReads; ++i) {
+      const float v = x[i % kSelAhead];
+      const int j = (i + kSelAhead) % kReads;
+      x[i % kSelAhead] =
+          s[(i + kSelAhead < kReads ? w : wn) + (j % kSelRows) * kSelStride +
+            j / kSelRows];
+      acc = acc + v;
+    }
+    w = wn;
+  }
+  for (int u = 0; u < n - stretches * kSelStretch; ++u) {
+#pragma unroll
+    for (int f = 0; f < kSelRows; ++f) acc = acc + s[w + f * kSelStride + u];
+  }
+  return acc;
 }
 
 __global__ void __launch_bounds__(kColThreads)
 sel7_kernel(const int* __restrict__ win, const float* __restrict__ q,
             int n_rays, int lanes, int visits, float* __restrict__ out) {
-  extern __shared__ float sq[];  // q's first 7 rows
-  for (int i = threadIdx.x; i < kSelRows * lanes; i += blockDim.x)
-    sq[i] = q[i];
-  __syncthreads();
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  const int w0 = win[r];
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < visits; ++k) {
-    const int w = floor_mod(w0 + k, lanes);
+  __shared__ float sq[kSelRows * kSelStride];
+  __shared__ int swin[kSelWinChunk];  // a chunk of win
+  __shared__ int next[kSelBanks];     // the counting sort's cursor a class
+  __shared__ int mine[kColThreads];   // the rays dealt to this warp
+  const int lane = threadIdx.x, warps = gridDim.x;
+  sel7_stage(sq, q, lanes);
+  // the deal: class c = floor_mod(win, lanes) mod 32; ray i's sorted
+  // position is the rays of lower classes, then of its class before it
+  const unsigned lt = (1u << lane) - 1u;
+  next[lane] = 0;
+  for (int base = 0; base < n_rays; base += kSelWinChunk) {
+    const int m = sel7_win_chunk(swin, win, base, n_rays);
+    for (int i = lane; i < m; i += 32)
+      atomicAdd(&next[bank_class(swin[i], lanes)], 1);
+    __syncwarp();
+  }
+  const int count = next[lane];  // the rays of class `lane`
+  int start = count;  // an exclusive scan over the 32 classes
 #pragma unroll
-    for (int f = 0; f < kSelRows; ++f) acc = acc + sq[f * lanes + w];
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(~0u, start, d);
+    if (lane >= d) start += y;
+  }
+  next[lane] = start - count;
+  __syncwarp();
+  for (int base = 0; base < n_rays; base += kSelWinChunk) {
+    // one chunk: still in swin
+    const int m = n_rays <= kSelWinChunk
+                      ? n_rays
+                      : sel7_win_chunk(swin, win, base, n_rays);
+    for (int c0 = 0; c0 < m; c0 += 32) {
+      const int i = c0 + lane;
+      const int c = i < m ? bank_class(swin[i], lanes) : kSelBanks;
+      const unsigned peers = __match_any_sync(~0u, c);
+      const int pos = c < kSelBanks ? next[c] + __popc(peers & lt) : 0;
+      __syncwarp();
+      if (c < kSelBanks) {
+        if ((peers & lt) == 0u) next[c] += __popc(peers);
+        if (pos % warps == (int)blockIdx.x) mine[pos / warps] = base + i;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  if (lane * warps + (int)blockIdx.x >= n_rays) return;
+  const int r = mine[lane];
+  const int wv = win[r];
+  // visits before win + k passes 2^31 - 1 (all of them for win <= 0)
+  const long long room = wv > 0 ? (1ll << 31) - wv : (long long)visits;
+  const int n1 = (int)(room < visits ? room : visits);
+  const int step = kSelStretch % lanes, w1 = floor_mod(INT_MIN, lanes);
+  float acc = 0.0f;
+  int w = floor_mod(wv, lanes), n = n1;
+#pragma unroll 1
+  for (int seg = 0; seg < 2; ++seg) {
+    acc = sel7_walk(sq, w, n, lanes, step, acc);
+    w = w1;
+    n = visits - n1;
   }
   out[r] = acc;
 }
@@ -458,8 +660,10 @@ __device__ __forceinline__ void mm22_product(
        it += n_ctas * kMmWarpgroups) {
     const int tile = it % n_tiles, v = it / n_tiles;
     const int r0 = tile * kMmTileRays + 16 * warp + g, r1 = r0 + 8;
-    const int p0 = r0 < n_rays ? floor_mod(win[r0] + v, lanes) : -1;
-    const int p1 = r1 < n_rays ? floor_mod(win[r1] + v, lanes) : -1;
+    const int p0 =
+        r0 < n_rays ? floor_mod(wrap_add(win[r0], v), lanes) : -1;
+    const int p1 =
+        r1 < n_rays ? floor_mod(wrap_add(win[r1], v), lanes) : -1;
     // the pick's A fragment: a row's lane p sits at k-step p >> 4, column
     // p & 15 of it (no k-step for p = -1); thread q holds columns 2q and
     // 2q + 1 (register 0 row g, register 1 row g + 8) and 2q + 8, 2q + 9
@@ -610,24 +814,36 @@ int rt_toy_mask(int mode, const float* rays, const float* aabb, int n_blocks,
                 int rt, int n_boxes, int aabb_cols, float* out, void* stream) {
   if (n_blocks == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const int ctas = n_blocks * kRayRows;
   if (mode == 0)
-    toy_mask_kernel<0><<<n_blocks, rt, 0, s>>>(rays, aabb, n_boxes,
-                                               aabb_cols, out);
+    toy_mask_kernel<0><<<ctas, rt, 0, s>>>(rays, aabb, n_boxes, aabb_cols,
+                                           out);
   else if (mode == 1)
-    toy_mask_kernel<1><<<n_blocks, rt, 0, s>>>(rays, aabb, n_boxes,
-                                               aabb_cols, out);
+    toy_mask_kernel<1><<<ctas, rt, 0, s>>>(rays, aabb, n_boxes, aabb_cols,
+                                           out);
   else
-    toy_mask_kernel<2><<<n_blocks, rt, 0, s>>>(rays, aabb, n_boxes,
-                                               aabb_cols, out);
+    toy_mask_kernel<2><<<ctas, rt, 0, s>>>(rays, aabb, n_boxes, aabb_cols,
+                                           out);
+  return (int)cudaGetLastError();
+}
+
+// an empty launch of `ctas` CTAs of `threads`, in clusters of 1 or
+// kRayRows (P1's grid): the floor under a probe's device time
+int rt_probe_floor(int ctas, int threads, int cluster, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cluster == kRayRows)
+    probe_floor_kernel<kRayRows><<<ctas, threads, 0, s>>>();
+  else
+    probe_floor_kernel<1><<<ctas, threads, 0, s>>>();
   return (int)cudaGetLastError();
 }
 
 int rt_sel7(const int* win, const float* q, int n_rays, int lanes, int visits,
             float* out, void* stream) {
   if (n_rays == 0) return 0;
-  sel7_kernel<<<(n_rays + kColThreads - 1) / kColThreads, kColThreads,
-                kSelRows * lanes * sizeof(float), (cudaStream_t)stream>>>(
-      win, q, n_rays, lanes, visits, out);
+  // every array is static (33,920 B of shared memory at any lanes)
+  sel7_kernel<<<(n_rays + kColThreads - 1) / kColThreads, kColThreads, 0,
+                (cudaStream_t)stream>>>(win, q, n_rays, lanes, visits, out);
   return (int)cudaGetLastError();
 }
 

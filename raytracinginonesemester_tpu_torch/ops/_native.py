@@ -164,10 +164,12 @@ def _declare(name: str, lib) -> None:
         fns = (lib.rt_segment_accum,)
     else:
         lib.rt_toy_mask.argtypes = [i, vp, vp, i, i, i, i, vp, vp]
+        lib.rt_probe_floor.argtypes = [i, i, i, vp]
         lib.rt_sel7.argtypes = [vp, vp, i, i, i, vp, vp]
         lib.rt_mm22.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, i, vp]
         lib.rt_dyn_reads.argtypes = [i, vp, i, i, vp, vp]
-        fns = (lib.rt_toy_mask, lib.rt_sel7, lib.rt_mm22, lib.rt_dyn_reads)
+        fns = (lib.rt_toy_mask, lib.rt_probe_floor, lib.rt_sel7, lib.rt_mm22,
+               lib.rt_dyn_reads)
     for fn in fns:
         fn.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]

@@ -10,7 +10,7 @@ import torch
 
 from ..ops.megakernel import _ptr, _raise_on, _stream
 
-__all__ = ["launch", "card", "timed"]
+__all__ = ["launch", "launch_floor", "card", "timed"]
 
 
 def launch(c_name: str, label: str, *args) -> None:
@@ -21,6 +21,16 @@ def launch(c_name: str, label: str, *args) -> None:
     lib = load("probes")
     conv = [_ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
     _raise_on(lib, getattr(lib, f"rt_{c_name}")(*conv, _stream()), label)
+
+
+def launch_floor(ctas: int, threads: int, cluster: int = 1) -> None:
+    """An empty kernel of ``ctas`` CTAs of ``threads`` threads in clusters
+    of ``cluster`` (1, or 8 as ``toy_mask``'s grid), launched through
+    ``launch``: the floor under a probe's device time and enqueue.  On
+    the card only (no launch counter: it replaces no TPU kernel)."""
+    if cluster not in (1, 8) or ctas % cluster:
+        raise ValueError(f"{ctas} CTAs in clusters of {cluster}")
+    launch("probe_floor", "probe_floor", ctas, threads, cluster)
 
 
 def card() -> str:

@@ -3,12 +3,19 @@ on the card.
 
 On each of ``visits`` visits, ray r (of RT) selects lane w = (win[r] + k)
 mod B of a table whose rows are attributes, and adds what it selected to
-its sum, visit after visit:
+its sum, visit after visit.  As in the script, win + k is an int32 sum
+that wraps past 2^31 - 1 and the mod takes the sign of B (``jnp``'s
+``%``); for a B that divides 2^32 the wrap changes no lane.
 
 - ``sel7(win, q)`` replaces ``sel_kernel`` (``pallas_call`` at
   ``probe_mm_select.py:86``): 7 masked lane reductions of q (22, B) a
   visit, ``acc += q[f, w]`` for f < 7 (a reduction with one nonzero term
-  is that term);
+  is that term).  The kernel stages the 7 rows, each followed by its
+  first ``SEL_STRETCH`` lanes again, at a row stride of ``SEL_MAX_LANES``
+  + ``SEL_STRETCH`` floats, walks ``SEL_STRETCH`` visits at a time with
+  its reads ``SEL_AHEAD`` adds ahead, and deals the rays to warps sorted
+  by their lane's bank (mod ``SEL_BANKS``) so that a warp's reads rarely
+  share a bank (``csrc/probes.cu``);
 - ``mm22(win, qsel)`` replaces ``mm_kernel`` (:88): the (RT, B) one-hot
   pick in bf16 times ``qsel`` (B, 128) bf16, accumulated in float32 (the
   kernel runs the product on the tensor cores with ``wgmma``), then
@@ -35,10 +42,13 @@ from ._common import card, launch, timed
 
 __all__ = ["RT", "B", "F", "VISITS", "split3", "make_qsel", "sel7",
            "sel7_plain", "mm22", "mm22_plain", "pack_qsel", "script_inputs",
-           "main"]
+           "hazard_inputs", "main"]
 
 RT, B, F, VISITS = 512, 512, 22, 4096  # probe_mm_select.py:22
 SEL_ROWS = 7  # sel_kernel's reductions a visit
+# sel7's kernel (csrc/probes.cu kSel*): visits a stretch, the most lanes,
+# reads ahead of the adds, bank classes
+SEL_STRETCH, SEL_MAX_LANES, SEL_AHEAD, SEL_BANKS = 32, 1024, 28, 32
 PARTS = (0, 32, 64)  # qsel's columns of hi, mid and lo
 # mm22's kernel (csrc/probes.cu kMm*): the 9 column tiles of 8 the sums
 # read, hi 0-23, mid 32-55, lo 64-87 (N = 72); K padded to a multiple of
@@ -71,9 +81,11 @@ def make_qsel(q: torch.Tensor) -> torch.Tensor:
 
 
 def _lanes(win: torch.Tensor, visits: int, lanes: int) -> torch.Tensor:
-    """(visits, RT) int64: the lane each ray selects on each visit."""
+    """(visits, RT) int64: the lane each ray selects on each visit,
+    (win + k) mod lanes with the sum wrapping in int32 as the script's."""
     k = torch.arange(visits, device=win.device)
-    return (win.reshape(-1).to(torch.int64)[None, :] + k[:, None]) % lanes
+    s = win.reshape(-1).to(torch.int64)[None, :] + k[:, None]
+    return ((s + 2 ** 31) % 2 ** 32 - 2 ** 31) % lanes
 
 
 def _ordered_sum(seq: torch.Tensor) -> torch.Tensor:
@@ -96,9 +108,9 @@ def _check_win(win: torch.Tensor) -> None:
 def _check_sel(win, q, visits):
     _check_win(win)
     if q.dtype != torch.float32 or q.ndim != 2 or q.shape[0] < SEL_ROWS \
-            or not 0 < q.shape[1] <= 1024:
-        raise ValueError(f"q must be (>= 7, B <= 1024) float32, got "
-                         f"{tuple(q.shape)} {q.dtype}")
+            or not 0 < q.shape[1] <= SEL_MAX_LANES:
+        raise ValueError(f"q must be (>= 7, B <= {SEL_MAX_LANES}) float32, "
+                         f"got {tuple(q.shape)} {q.dtype}")
     if q.device != win.device or visits < 0:
         raise ValueError(f"q on {q.device}, win on {win.device}, "
                          f"visits={visits}")
@@ -248,6 +260,30 @@ def script_inputs(device="cuda"):
     win = torch.from_numpy(rng.integers(0, B, RT).astype(np.int32))
     q, win = q.to(device), win.reshape(RT, 1).to(device)
     return win, q, make_qsel(q)
+
+
+def hazard_inputs(lanes: int = B, device="cuda"):
+    """(wins, q): q (22, ``lanes``) float32 (the script's at B lanes, else
+    ``default_rng(lanes)``'s) and {name: (RT,) int32 win} on the walks'
+    hazards: the script's; within 12 lanes of 511 (visits wrap past lane
+    511); negative, down to -2^31; all equal; 32 lanes apart (every ray
+    in one bank class); and within 24 visits of 2^31 - 1, one at 2^31 - 1
+    itself (win + k wraps to -2^31 in int32; for B lanes the lane goes on
+    as without the wrap, for a ``lanes`` that does not divide 2^32 it
+    jumps)."""
+    win, q, _ = script_inputs(device)
+    if lanes != B:
+        rng = np.random.default_rng(lanes)
+        q = torch.from_numpy(rng.standard_normal((F, lanes))
+                             .astype(np.float32)).to(device)
+    i = torch.arange(RT, dtype=torch.int32, device=device)
+    neg = np.random.default_rng(1).integers(-2 ** 31, 0, RT).astype(np.int32)
+    neg[0] = -2 ** 31
+    wins = {"script": win.reshape(-1), "near 511": 500 + i % 12,
+            "negative": torch.from_numpy(neg).to(device),
+            "all equal": torch.full_like(i, 7), "32 apart": 32 * i + 5,
+            "int32 edge": 2 ** 31 - 1 - i % 24}
+    return wins, q
 
 
 def main() -> None:

@@ -15,12 +15,16 @@ row 7 unused.  ``aabb`` (L, >= 6) float32: box min in columns 0-2, max in
   add 1 to the block's output where mask[k] is set;
 - ``both``: the ``grid`` mask, then the ``scalar`` loop.
 
-The CUDA kernel evaluates the loop's "any output below 3" on every trip,
-as the TPU does.  (Pallas's interpret mode reads the loop condition's ref
-at its value on entry, so there ``scalar`` gives L and ``both`` the count
-of set boxes; the kernel's own function is ``min(3, that)``.)  The
-script's ``grid`` store of a (1, RT) row into the (8, RT) block does not
-trace; its meaning, the row broadcast over the 8 rows, is computed here.
+Each trip of the loop adds 1 to all of the block's output, so the loop
+ends with ``min(3, set boxes)``: the plain version runs the loop, trip by
+trip, and the CUDA kernel computes that closed form from the mask's
+popcount, a cluster of 8 CTAs a block, each testing a chunk of the boxes
+and writing one row (``csrc/probes.cu``).  (Pallas's interpret mode
+reads the loop condition's ref at its value on entry, so there
+``scalar`` gives L and ``both`` the count of set boxes; the kernel's own
+function is ``min(3, that)``.)  The script's ``grid`` store of a (1, RT)
+row into the (8, RT) block does not trace; its meaning, the row
+broadcast over the 8 rows, is computed here.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ import torch
 
 from ._common import card, launch
 
-__all__ = ["L", "RT", "LP", "MODES", "box_mask", "toy_mask", "toy_mask_plain",
-           "script_inputs", "hazard_inputs", "main"]
+__all__ = ["L", "RT", "LP", "MODES", "slab_hits", "box_mask", "toy_mask",
+           "toy_mask_plain", "script_inputs", "hazard_inputs", "count_inputs",
+           "main"]
 
 L, RT = 156, 512  # boxes, rays of a block (probe_toy_mask.py:19)
 LP = 160  # the mask scratch's rows: at most LP boxes
@@ -55,8 +60,8 @@ def _check(mode: str, rays: torch.Tensor, aabb: torch.Tensor) -> None:
         raise ValueError(f"rays on {rays.device}, aabb on {aabb.device}")
 
 
-def box_mask(rays: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
-    """(n, L) bool: does any ray of block i enter box l in its window
+def slab_hits(rays: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """(n, L, RT) bool: does ray j of block i enter box l in its window
     [1e-4, dist] (the ``grid`` slab test; min and max propagate NaN, so a
     NaN on any axis fails the box)."""
     nb, rt, n_boxes = rays.shape[0] // ROWS, rays.shape[1], aabb.shape[0]
@@ -71,7 +76,12 @@ def box_mask(rays: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
         hi = (aabb[:, a + 3][None, :, None] - oa) * sa
         t0 = torch.maximum(t0, torch.minimum(lo, hi))
         t1 = torch.minimum(t1, torch.maximum(lo, hi))
-    return (t0 <= t1).any(dim=2)
+    return t0 <= t1
+
+
+def box_mask(rays: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """(n, L) bool: does any ray of block i enter box l (``slab_hits``)."""
+    return slab_hits(rays, aabb).any(dim=2)
 
 
 def toy_mask_plain(mode: str, rays: torch.Tensor, aabb: torch.Tensor,
@@ -172,6 +182,49 @@ def hazard_inputs(seed: int = 0, device="cuda"):
         b, a, j = blocks[i] + 3, axes[i], lanes[i]
         aabb[box, a + 3 * int(rng.integers(2))] = rays[b, a, j]
     return (torch.from_numpy(rays.reshape(nb * ROWS, RT)).to(device),
+            torch.from_numpy(aabb).to(device))
+
+
+def count_inputs(n_boxes: int, rt: int = 100, seed: int = 0,
+                 device="cuda"):
+    """Seeded (64, rt >= 22) rays and (n_boxes, 8) boxes whose 8 blocks set
+    0, 1, 2, 3, 4, 7, 20 and rt - 2 boxes (at most ``n_boxes``): disjoint boxes
+    of side 1, 3 apart along x; a block's chosen rays (at random columns)
+    cross the centres of distinct boxes nearly along z (direction x and y
+    within 0.05, some of them +0 or -0), its other rays start left of
+    every box.  Block 3's boxes include box 0, so ``grid``'s mask[0] is
+    set there.  Two of a block's other rays meet a box's hazards and
+    enter nothing: a NaN distance, and an origin on a box's face with a
+    zero direction on that axis (0 * inf = NaN)."""
+    rng = np.random.default_rng(seed)
+    nb = 8
+    cx = 3.0 * np.arange(n_boxes)
+    aabb = np.zeros((n_boxes, 8), np.float32)
+    aabb[:, 0], aabb[:, 3] = cx - 0.5, cx + 0.5
+    aabb[:, 1:3], aabb[:, 4:6] = -0.5, 0.5
+    rays = np.zeros((nb, ROWS, rt), np.float32)
+    for blk, want in enumerate((0, 1, 2, 3, 4, 7, 20, rt - 2)):
+        count = min(want, n_boxes)
+        boxes = rng.permutation(n_boxes)[:count]
+        if blk == 3 and count:
+            boxes[boxes == 0] = boxes[0]
+            boxes[0] = 0
+        cols = rng.permutation(rt)
+        o = np.stack([rng.uniform(-12, -10, rt), rng.uniform(-0.2, 0.2, rt),
+                      np.full(rt, -5.0)])
+        d = np.stack([rng.uniform(-0.05, 0.05, rt),
+                      rng.uniform(-0.05, 0.05, rt), np.ones(rt)])
+        zero = rng.random((2, rt)) < 0.3
+        d[:2][zero] = np.where(rng.random(int(zero.sum())) < 0.5, 0.0, -0.0)
+        dist = np.full(rt, 10.0)
+        o[0, cols[:count]] = cx[boxes] + rng.uniform(-0.2, 0.2, count)
+        nan_ray, face_ray = cols[count], cols[count + 1]
+        o[0, nan_ray] = cx[rng.integers(n_boxes)]
+        dist[nan_ray] = np.nan
+        o[0, face_ray] = aabb[rng.integers(n_boxes), 0]
+        d[0, face_ray] = 0.0
+        rays[blk, 0:3], rays[blk, 3:6], rays[blk, 6] = o, d, dist
+    return (torch.from_numpy(rays.reshape(nb * ROWS, rt)).to(device),
             torch.from_numpy(aabb).to(device))
 
 

@@ -149,29 +149,35 @@ launch's CTAs' ``%globaltimer`` start and end; the variants of
 ``--parent DIR``, every row, and the frames of C's two scenes at a
 capacity of 8 tiles (``chip_smoke.py`` phases 5 and 7, which overflow
 into C), through ``DIR``'s tree in turns.
-``--probes`` profiles the TPU probes P2 and P3 (``probes/``) at their
-scripts' widths: ``mm22`` (P2b) through its wrapper, its product and its
-chain each alone (``rt_mm22``'s parts 1 and 2), the operand packing
-alone and ``torch.matmul`` of the stacked one-hot picks by qsel (the
-product alone, as one library call); ``dyn12`` and ``blk1`` (P3) and
-``sel7`` (P2a, unchanged, as a control) alone, and P3 at 0 visits (the
-slab's staging alone); each against its plain version bit for bit;
-medians of 5 CUDA-event timings of a call, 10 calls queued back to back
-(the host's enqueue hidden), the device time of each kernel
-(``torch.profiler``) and the host's enqueue time of a wrapper call.  It
-also measures the latency of a dependent FP32 add: a warp's chain of
-2^27 adds timed with ``clock64()`` and ``%globaltimer`` in a kernel
-built apart under ``build/walk_clocks/`` (cycles an add, and the SM
-clock as cycles over nanoseconds), ``nvidia-smi``'s ``clocks.sm`` read
-while it runs; from them each probe's chain floor (its fixed-order
-dependent adds a thread times that latency at that clock) beside its
-rate bound.  It writes the SASS of ``mm22_kernel`` and
-``dyn_reads_kernel<false>`` to ``chiprun_out/probes_sass.txt`` and
-times the designs of ``_MM_VARIANTS`` and ``_DYN_VARIANTS`` (text edits
-of ``csrc/probes.cu``, built apart) in turns with this tree's.  With
-``--parent DIR`` it times ``mm22``, ``dyn12``, ``blk1`` and ``sel7``
-through ``DIR``'s tree in turns (parent, this, this, parent; medians of
-5; outputs compared by digest).
+``--probes`` profiles the TPU probes P1-P3 (``probes/``) at their
+scripts' widths: ``toy_mask`` (P1) in its three modes on the script's
+inputs and on the seeded hazards, ``sel7`` (P2a), ``mm22`` (P2b)
+through its wrapper, its product and its chain each alone (``rt_mm22``'s
+parts 1 and 2), the operand packing alone and ``torch.matmul`` of the
+stacked one-hot picks by qsel (the product alone, as one library call);
+``dyn12`` and ``blk1`` (P3), and P3 at 0 visits (the slab's staging
+alone); each against its plain version bit for bit; medians of 5
+CUDA-event timings of a call, 10 calls queued back to back (the host's
+enqueue hidden), the device time of a call (``torch.profiler``) and the
+host's enqueue time of a wrapper call; and the launch floor: an empty
+kernel launched through the probes' launch path on P1's grid (64 CTAs of
+512 threads in clusters of 8) and on P2a's (16 CTAs of 32), its device
+time and enqueue.  It also measures the latency of a dependent FP32 add:
+a warp's chain of 2^27 adds timed with ``clock64()`` and
+``%globaltimer`` in a kernel built apart under ``build/walk_clocks/``
+(cycles an add, and the SM clock as cycles over nanoseconds),
+``nvidia-smi``'s ``clocks.sm`` read while it runs; from them each
+probe's chain floor (its fixed-order dependent adds a thread times that
+latency at that clock) beside its rate bound.  It writes the SASS of
+``mm22_kernel``, ``dyn_reads_kernel<false>``, ``sel7_kernel`` and
+``toy_mask_kernel`` to ``chiprun_out/probes_sass.txt``, prints
+``sel7_kernel``'s innermost loops (instructions, adds, shared reads, any
+integer division), and times the designs of ``_MM_VARIANTS`` and
+``_DYN_VARIANTS`` (text edits of
+``csrc/probes.cu``, built apart) in turns with this tree's.  With
+``--parent DIR`` it times every probe through ``DIR``'s tree in turns
+(parent, this, this, parent; medians of 5 CUDA-event timings of a call,
+the device time and the host's enqueue; outputs compared by digest).
 The full table is also written to ``chiprun_out/profile_main_path.txt``
 (``profile_grad.txt`` with ``--grad``, ``profile_large.txt`` with
 ``--large``).
@@ -211,12 +217,14 @@ def main():
     ap.add_argument("--times", action="store_true",
                     help="print the --parent timings of A and F (with "
                          "--streamed: G, I and H; with --render: D; with "
-                         "--staged: E and C; with --probes: mm22, dyn12, "
-                         "blk1, sel7) as JSON")
+                         "--staged: E and C; with --probes: every probe) "
+                         "as JSON")
     ap.add_argument("--root", default=None,
                     help="with --times: import the package from this tree")
     args = ap.parse_args()
     if args.times:
+        import chip_smoke  # noqa: F401  this tree's, before --root shadows it
+
         if args.root:
             sys.path.insert(0, os.path.abspath(args.root))
         import json
@@ -3094,13 +3102,22 @@ def _mm22_matmul(win, qsel):
 
 
 def _probe_calls():
-    """{name: (kernel call, plain call)} at the scripts' inputs."""
+    """{name: (kernel call, plain call)} at the scripts' inputs (P1 also
+    on its seeded hazards)."""
     from raytracinginonesemester_tpu_torch.probes import dyn_reads as dr
     from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+    from raytracinginonesemester_tpu_torch.probes import toy_mask as tm
 
     win, q, qsel = ms.script_inputs()
     tab = dr.script_inputs()
-    return {"mm22": (lambda: ms.mm22(win, qsel),
+    p1 = {}
+    for tag, (rays, aabb) in (("", tm.script_inputs()),
+                              (" hazards", tm.hazard_inputs(0))):
+        for mode in tm.MODES:
+            p1[f"toy_mask {mode}{tag}"] = (
+                lambda m=mode, r=rays, a=aabb: tm.toy_mask(m, r, a),
+                lambda m=mode, r=rays, a=aabb: tm.toy_mask_plain(m, r, a))
+    return {**p1, "mm22": (lambda: ms.mm22(win, qsel),
                      lambda: ms.mm22_plain(win, qsel)),
             "dyn12": (lambda: dr.dyn12(tab), lambda: dr.dyn12_plain(tab)),
             "blk1": (lambda: dr.blk1(tab), lambda: dr.blk1_plain(tab)),
@@ -3180,6 +3197,36 @@ def _queued_ms(fn, calls=10):
     return start.elapsed_time(stop) / calls
 
 
+def _graph_ms(fn, calls=20):
+    """ms a call of ``calls`` calls of ``fn`` captured in one CUDA graph
+    and replayed (no host enqueue between the kernels: about the device
+    time and the gaps between launches), median of 5 replays."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError:  # a launch the capture refuses
+        torch.cuda.synchronize()
+        return float("nan")
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    return sorted(times)[2]
+
+
 def _host_us(fn, calls=20):
     """Host microseconds a call of ``fn`` takes to return (its enqueue; the
     card is left to catch up after each call)."""
@@ -3231,46 +3278,56 @@ def _mm22_variants(win, qsel):
 
 
 def probe_times():
-    """mm22, dyn12, blk1 and sel7 as the imported package computes them
-    -> {name: [median ms of 5, digest of the output]}."""
+    """Every probe as the imported package computes it -> {name: [median
+    ms of 5 CUDA-event timings of a call, digest of the output, device ms
+    a call, host us a call's enqueue]}."""
     from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
+    from chip_smoke import device_times
+
+    calls = {name: fn for name, (fn, _) in _probe_calls().items()}
+    dev = device_times(calls)
     return {name: [cuda_time_ms(fn, warmup=1, iters=5)["median_ms"],
-                   _digest((fn(),))]
-            for name, (fn, _) in _probe_calls().items()}
+                   _digest((fn(),)), sum(dev[name].values()), _host_us(fn)]
+            for name, fn in calls.items()}
 
 
 def _probe_turns(parent_dir):
-    """The probes as the tree at ``parent_dir`` computes them (a process
-    of its own) and as this one does, in turns: parent, this, this,
-    parent."""
+    """The probes as the tree at ``parent_dir`` computes them and as this
+    one does, each run a process of its own (a first profiler session),
+    in turns: parent, this, this, parent."""
     import json
 
-    def parent():
+    def run(root):
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--times",
-             "--probes", "--root", os.path.abspath(parent_dir)],
+             "--probes", "--root", os.path.abspath(root)],
             capture_output=True, text=True, check=True).stdout
         return json.loads(out.strip().splitlines()[-1])
 
-    runs = [parent(), probe_times(), probe_times(), parent()]
+    runs = [run(parent_dir), run(REPO), run(REPO), run(parent_dir)]
     for key in runs[1]:
-        ms = [r[key][0] for r in runs]
+        ms, dev, host = ([r[key][i] for r in runs] for i in (0, 2, 3))
         same = len({r[key][1] for r in runs}) == 1
         print(f"{key}, the tree at {parent_dir} vs this tree in turns "
-              f"(medians of 5): parent {ms[0]:.3f}, this {ms[1]:.3f}, this "
-              f"{ms[2]:.3f}, parent {ms[3]:.3f} ms; outputs "
+              f"(parent, this, this, parent): a call (median of 5) "
+              f"{', '.join(f'{x:.4f}' for x in ms)} ms; device "
+              f"{', '.join(f'{x:.4f}' for x in dev)} ms; enqueue "
+              f"{', '.join(f'{x:.1f}' for x in host)} us; outputs "
               f"{'equal' if same else 'DIFFER'}")
 
 
 def profile_probes(parent_dir=None):
-    """P2 and P3 at their scripts' widths (module docstring)."""
+    """P1-P3 at their scripts' widths (module docstring)."""
     import torch
 
-    from chip_smoke import PEAK_BF16, PEAK_BYTES, PEAK_FLOPS
+    from chip_smoke import (PEAK_BF16, PEAK_BYTES, PEAK_FLOPS, device_times,
+                            ptxas_summary, sass_loops)
     from raytracinginonesemester_tpu_torch.ops import _native
     from raytracinginonesemester_tpu_torch.probes import dyn_reads as dr
     from raytracinginonesemester_tpu_torch.probes import mm_select as ms
+    from raytracinginonesemester_tpu_torch.probes import toy_mask as tm
+    from raytracinginonesemester_tpu_torch.probes._common import launch_floor
     from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
     if not torch.cuda.is_available():
@@ -3278,24 +3335,39 @@ def profile_probes(parent_dir=None):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"card: {_card()}; {sms} SMs")
     _native.load("probes")
-    for ln in _native.BUILD_LOG["probes"]["ptxas"].splitlines():
-        if any(k in ln for k in ("mm22", "dyn_reads", "wgmma", "arning")):
-            print(f"  ptxas: {ln.strip()}")
+    print(f"  ptxas: {ptxas_summary(_native.BUILD_LOG['probes']['ptxas'])}")
     lat, ghz, smi = _add_latency()
     calls = _probe_calls()
     times = {}
     for name, (kern, plain) in calls.items():
         same = torch.equal(kern().view(torch.int32),
                            plain().view(torch.int32))
+        if name.startswith("toy_mask"):  # NaN distances: NaN on both sides
+            got, want = kern(), plain()
+            same = bool(((got == want) | (got.isnan() & want.isnan())).all())
         t = cuda_time_ms(kern, warmup=1, iters=5)
         times[name] = t["median_ms"]
-        floor = _CHAIN_ADDS[name] * lat / ghz * 1e-6
+        chain = ""
+        if name in _CHAIN_ADDS:
+            chain = (f"; chain floor "
+                     f"{_CHAIN_ADDS[name] * lat / ghz * 1e-6:.4f} ms "
+                     f"({_CHAIN_ADDS[name]} dependent adds a thread x "
+                     f"{lat:.4f} cycles at {ghz:.4f} GHz)")
         print(f"{name}: {t['median_ms']:.4f} ms (median of 5; samples "
               f"{[round(x, 4) for x in t['samples_ms']]}); "
               f"{'equals' if same else 'DIFFERS from'} its plain version bit "
-              f"for bit; chain floor {floor:.4f} ms ({_CHAIN_ADDS[name]} "
-              f"dependent adds a thread x {lat:.4f} cycles at {ghz:.4f} GHz)")
-    win, _, qsel = ms.script_inputs()
+              f"for bit{chain}")
+    floors = {"P1's grid (64 CTAs of 512 threads, clusters of 8)":
+              lambda: launch_floor(64, 512, 8),
+              "P2a's grid (16 CTAs of 32 threads)":
+              lambda: launch_floor(16, 32, 1)}
+    for label, fn in floors.items():
+        print(f"  launch floor, an empty kernel on {label} through the "
+              f"probes' launch path: queued 10 back to back "
+              f"{_queued_ms(fn):.4f} ms a call, a CUDA graph of 20 calls "
+              f"{_graph_ms(fn):.4f} ms a call, enqueue {_host_us(fn):.1f} "
+              "us")
+    win, q, qsel = ms.script_inputs()
     v = ms.VISITS
     parts = {"product alone": lambda: ms._mm22_launch(win, qsel, v, 1),
              "chain alone": lambda: ms._mm22_launch(win, qsel, v, 2),
@@ -3308,23 +3380,56 @@ def profile_probes(parent_dir=None):
               f"samples {[round(x, 4) for x in t['samples_ms']]}); queued "
               f"10 calls back to back {_queued_ms(fn):.4f} ms a call")
     for name, (kern, _) in calls.items():
-        print(f"  {name} queued 10 calls back to back: "
-              f"{_queued_ms(kern):.4f} ms a call")
-        _launch_split(name, kern)
+        print(f"  {name}: queued 10 calls back to back "
+              f"{_queued_ms(kern):.4f} ms a call; a CUDA graph of 20 calls "
+              f"{_graph_ms(kern):.4f} ms a call; enqueue "
+              f"{_host_us(kern):.1f} us a call")
     tab = dr.script_inputs()
-    for name in ("dyn12", "blk1"):
-        _launch_split(f"{name} at 0 visits (the slab's staging alone)",
-                      lambda n=name: getattr(dr, n)(tab, 0))
-    _launch_split("mm22 product alone", parts["product alone"])
-    _launch_split("mm22 chain alone", parts["chain alone"])
+    dev = device_times({
+        **{name: kern for name, (kern, _) in calls.items()},
+        **{f"launch floor on {label}": fn for label, fn in floors.items()},
+        "dyn12 at 0 visits (the slab's staging alone)": lambda: dr.dyn12(
+            tab, 0),
+        "blk1 at 0 visits (the slab's staging alone)": lambda: dr.blk1(tab, 0),
+        "sel7 at 0 visits (staging and deal alone)": lambda: ms.sel7(win, q,
+                                                                     0),
+        "mm22 product alone": parts["product alone"],
+        "mm22 chain alone": parts["chain alone"],
+        **{f"toy_mask both, {n} boxes ({-(-n // 8)} a CTA), (64, 512) rays":
+           (lambda r=r, a=a: tm.toy_mask("both", r, a))
+           for n, (r, a) in ((n, tm.count_inputs(n, 512)) for n in (8, 160))}})
+    for name, rows in dev.items():
+        print(f"  {name}, device time a call (torch.profiler, 5 calls, one "
+              f"session): {sum(rows.values()):.4f} ms; by kernel: "
+              + "; ".join(f"{k} {t:.4f}" for k, t in
+                          sorted(rows.items(), key=lambda r: -r[1])[:4]))
+    # P2's question, the same work: device ms an attribute over the same
+    # RT x visits picks, and the CTAs that do it (one an SM)
+    per = {"sel7 (by index)": ("sel7", ms.SEL_ROWS, -(-win.shape[0] // 32)),
+           "mm22 (the one-hot product and its sums)": ("mm22", ms.F, sms),
+           "mm22 product alone": ("mm22 product alone", ms.F, sms)}
+    print("  P2, device ms an attribute of the same picks (this call): "
+          + "; ".join(f"{k} {sum(dev[d].values()) / n:.5f} ("
+                      f"{sum(dev[d].values()):.4f} / {n} attributes, "
+                      f"{ctas} CTAs)" for k, (d, n, ctas) in per.items()))
     counters = torch.zeros(4096 // ms.MM_COPY + 16, dtype=torch.int32,
                            device="cuda")
-    host = {"mm22 (the wrapper)": calls["mm22"][0],
-            "pack_qsel": lambda: ms.pack_qsel(qsel),
+    rays, aabb = tm.script_inputs()
+    host = {"pack_qsel": lambda: ms.pack_qsel(qsel),
             "torch.zeros of the counters": lambda: torch.zeros(
                 4096 // ms.MM_COPY + 16, dtype=torch.int32, device="cuda"),
             "counters.zero_()": lambda: counters.zero_(),
-            "dyn12 (the wrapper)": calls["dyn12"][0]}
+            "torch.empty_like of P1's output": lambda: torch.empty_like(rays),
+            "toy_mask's checks": lambda: tm._check("both", rays, aabb)}
+    floor_fn = _native.load("probes").rt_probe_floor
+    stream = torch.cuda.current_stream().cuda_stream
+    host.update({
+        "rt_probe_floor through ctypes alone (P2a's grid)":
+            lambda: floor_fn(16, 32, 1, stream),
+        "torch.cuda.current_stream()":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "_native.load and the C function's lookup":
+            lambda: _native.load("probes").rt_probe_floor})
     print("  host microseconds a call (the enqueue, 20 calls): " + "; ".join(
         f"{k} {_host_us(fn):.1f}" for k, fn in host.items()))
     rt, lanes = win.shape[0], qsel.shape[0]
@@ -3333,16 +3438,31 @@ def profile_probes(parent_dir=None):
         print(f"  mm22 bf16 tensor operations at {cols} columns: {flops:.4e},"
               f" {flops / PEAK_BF16 * 1e3:.4f} ms at the card's bf16 rate; "
               f"the kernel's rate {flops / times['mm22'] * 1e-9:.1f} TFLOP/s")
-    for name in ("dyn12", "blk1"):
-        ops, nbytes = 4096 * 12 * 512, 4 * (468 * 512 + 512)
+    for name in ("dyn12", "blk1", "sel7"):
+        ops = _CHAIN_ADDS[name] * 512
+        nbytes = (4 * (468 * 512 + 512) if name != "sel7"
+                  else 4 * (2 * 512 + 7 * 512))
         rate = max(ops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        print(f"  {name} rate bound {rate:.5f} ms; the kernel at "
-              f"{_CHAIN_ADDS[name] / (times[name] * 1e-3) / (ghz * 1e9):.4f}"
-              " adds a cycle, i.e. "
-              f"{(times[name] * 1e-3) * ghz * 1e9 / _CHAIN_ADDS[name]:.3f} "
-              "cycles a dependent add")
-    _sass_dump(_native.BUILD_LOG["probes"]["path"],
-               ("_Z11mm22_kernel", "_Z16dyn_reads_kernelILb0"))
+        walk = sum(dev[name].values())
+        if name == "sel7":  # less its staging and deal
+            walk -= sum(dev["sel7 at 0 visits (staging and deal alone)"]
+                        .values())
+        print(f"  {name} rate bound {rate:.5f} ms; on the device "
+              f"{sum(dev[name].values()):.4f} ms, "
+              f"{walk * 1e-3 * ghz * 1e9 / _CHAIN_ADDS[name]:.3f} cycles a "
+              "dependent add" + (" (its walk, less its staging and deal)"
+                                 if name == "sel7" else ""))
+    path = _native.BUILD_LOG["probes"]["path"]
+    _sass_dump(path, ("_Z11mm22_kernel", "_Z16dyn_reads_kernelILb0",
+                      "_Z11sel7_kernel", "_Z15toy_mask_kernel"))
+    from chip_smoke import DIVISION, sass_of
+
+    for lo, hi, ops in sass_loops(sass_of("_Z11sel7_kernel")):
+        div = {k: n for k, n in ops.items() if k.startswith(DIVISION)}
+        print(f"  sel7_kernel SASS, innermost loop {lo:#x}-{hi:#x}: "
+              f"{sum(ops.values())} instructions, {ops.get('FADD', 0)} FADD, "
+              f"{ops.get('LDS', 0)} LDS, division {div or 'none'}; "
+              f"{ {k: n for k, n in sorted(ops.items()) if n >= 4} }")
     _mm22_variants(win, qsel)
     _dyn_variants()
     if parent_dir is not None:

@@ -27,7 +27,11 @@ phase 12 at full width).  Their schedules are emulated here with torch
 ops and held bit for bit against the plain versions: mm22's register A
 fragment of the one-hot pick, its packed shared-memory operand read back
 by the descriptor's address formula, its product and chain through the
-staging ring; P3's period-unrolled loop with its read-ahead window and tail.  The
+staging ring; P3's period-unrolled loop with its read-ahead window and tail;
+sel7's deal of the rays to warps by bank class, its staged rows with
+their repeated lanes and its stretches of visits with their read-ahead
+window, wrap and int32 split; and P1's clusters, a CTA a chunk of boxes
+and warp votes merged into words, with the loop in closed form.  The
 constants they use are read from ``csrc/probes.cu``.
 """
 
@@ -87,6 +91,7 @@ def _load(script, names, visits=None):
 def _p1_jax(mode, rays, aabb):
     """The script's ``run`` in interpret mode: 8 programs of (8, 512)."""
     ns = _load("probe_toy_mask.py", {"kernel"})
+    ns["L"], ns["RT"] = aabb.shape[0], rays.shape[1]
     rt, lp = ns["RT"], ns["LP"]
     call = pl.pallas_call(
         partial(ns["kernel"], mode),
@@ -156,6 +161,84 @@ def test_toy_mask_grid_matches_numpy(inputs):
         assert {0.0, 1.0} <= set(np.round(first, 3).tolist())
 
 
+def _narrow(rt, device="cpu"):
+    """The seeded hazards' first ``rt`` rays of each block (fewer rays than
+    a cluster has CTAs for ``rt`` < 8; blocks 1 and 2 keep the rays aimed
+    at their nearest boxes)."""
+    rays, aabb = tm.hazard_inputs(0, device)
+    return rays[:, :rt].contiguous(), aabb
+
+
+def _toy_mask_cluster(mode, rays, aabb):
+    """``toy_mask_kernel``'s schedule: a cluster of 8 CTAs a block, CTA r
+    testing boxes [r c, r c + c) (c = ceil(L / 8)) into a word a ray
+    (bit l - r c), each warp's words ORed (a last warp of RT mod 32 rays
+    alone), the warps' ORed into the CTA's word; thread j of CTA r stores
+    that word into CTAs j, j + RT, ... (so every CTA gets it at any RT,
+    below 8 too); every CTA then holds the block's 8 words and writes its
+    row: ``both`` min(3, popcount), ``scalar`` min(3, L), ``grid`` (word 0
+    bit 0) + dist."""
+    nb, rt, n_boxes = rays.shape[0] // 8, rays.shape[1], aabb.shape[0]
+    hits = tm.slab_hits(rays, aabb).numpy()  # (nb, L, rt)
+    chunk = -(-n_boxes // 8)
+    assert chunk <= 32
+    out = np.empty((nb, 8, rt), np.float32)
+    dist = rays.numpy().reshape(nb, 8, rt)[:, 6]
+    for b in range(nb):
+        got = [[None] * 8 for _ in range(8)]  # got[c][r]: CTA c's words[r]
+        for r in range(8):
+            l0, l1 = r * chunk, min(n_boxes, r * chunk + chunk)
+            ray_words = np.zeros(rt, np.uint64)
+            for l in range(l0, l1):
+                ray_words |= hits[b, l].astype(np.uint64) << np.uint64(l - l0)
+            word = 0
+            for w0 in range(0, rt, 32):  # a warp's vote, then the CTA's OR
+                word |= int(np.bitwise_or.reduce(ray_words[w0:w0 + 32]))
+            for j in range(min(rt, 8)):  # the cluster exchange
+                for c in range(j, 8, rt):
+                    got[c][r] = word
+        for r in range(8):
+            words = got[r]
+            assert None not in words
+            if mode == "scalar":
+                out[b, r] = np.float32(min(3, n_boxes))
+            elif mode == "both":
+                out[b, r] = np.float32(min(3, sum(bin(w).count("1")
+                                                  for w in words)))
+            else:
+                out[b, r] = np.float32(words[0] & 1) + dist[b]
+    return out.reshape(nb * 8, rt)
+
+
+P1_SETS = {**P1_INPUTS, **{f"L={n} RT=100": (lambda n=n: tm.count_inputs(
+    n, 100, 0, "cpu")) for n in (1, 2, 3, 156, 160)},
+    **{f"hazards RT={rt}": (lambda rt=rt: _narrow(rt)) for rt in (1, 7)}}
+
+
+@pytest.mark.parametrize("mode", tm.MODES)
+@pytest.mark.parametrize("inputs", sorted(P1_SETS))
+def test_toy_mask_closed_form_matches_loop(inputs, mode):
+    """The kernel's clusters, warp votes and closed form give the plain
+    version's loop bit for bit (NaN where a distance is NaN, in
+    ``grid``); ``scalar`` and ``both`` also against the script's kernel
+    in interpret mode (L and RT set to the inputs'), whose loop reads
+    its condition at entry (``min(3, ·)`` of its output), and the new
+    sets cover 0, 1, 2, 3 and more set boxes in a block."""
+    rays, aabb = P1_SETS[inputs]()
+    want = tm.toy_mask_plain(mode, rays, aabb).numpy()
+    got = _toy_mask_cluster(mode, rays, aabb)
+    np.testing.assert_array_equal(got, want)
+    if mode != "grid":
+        jax_out = _p1_jax(mode, rays, aabb)
+        np.testing.assert_array_equal(got, np.minimum(np.float32(3),
+                                                      jax_out))
+    if inputs.startswith("L="):
+        counts = tm.box_mask(rays, aabb).sum(dim=1).tolist()
+        n_boxes = aabb.shape[0]
+        assert counts == [min(c, n_boxes) for c in (0, 1, 2, 3, 4, 7, 20,
+                                                    98)]
+
+
 # --- P2: probe_mm_select.py -------------------------------------------
 
 
@@ -167,9 +250,17 @@ def _near_511():
     return win, q, qsel
 
 
+def _int32_edge():
+    """500 lanes and a win whose rays reach 2^31 - 1 within 24 visits:
+    the lane jumps where win + k wraps to -2^31."""
+    wins, q = ms.hazard_inputs(500, "cpu")
+    return wins["int32 edge"].reshape(-1, 1), q, None
+
+
 P2_CASES = {"16": (16, lambda: ms.script_inputs("cpu")),
             "33": (33, lambda: ms.script_inputs("cpu")),
-            "16-wrap": (16, _near_511)}
+            "16-wrap": (16, _near_511),
+            "33-int32-500": (33, _int32_edge)}
 
 
 @pytest.mark.parametrize("case", sorted(P2_CASES))
@@ -177,12 +268,142 @@ def test_sel7_matches_jax(case):
     visits, inputs = P2_CASES[case]
     win, q, _ = inputs()
     ns = _load("probe_mm_select.py", {"_pick", "sel_kernel"}, visits)
+    ns["B"] = q.shape[1]
     want = pl.pallas_call(
         ns["sel_kernel"], out_shape=jax.ShapeDtypeStruct((1, ms.RT),
                                                          jnp.float32),
         interpret=True)(jnp.asarray(win.numpy()), jnp.asarray(q.numpy()))
     got = ms.sel7(win, q, visits)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# --- P2a's CUDA schedule, emulated -----------------------------------
+
+
+def test_sel7_constants_match_the_kernel():
+    assert _cu_const("kSelRows") == ms.SEL_ROWS
+    assert _cu_const("kSelStretch") == ms.SEL_STRETCH
+    assert _cu_const("kSelMaxLanes") == ms.SEL_MAX_LANES
+    assert _cu_const("kSelAhead") == ms.SEL_AHEAD
+    assert _cu_const("kSelBanks") == ms.SEL_BANKS == 32
+    assert ms.SEL_ROWS * ms.SEL_STRETCH % ms.SEL_AHEAD == 0
+
+
+def _sel7_deal(win, lanes):
+    """``sel7_kernel``'s deal -> (warps, 32) ray of each thread, -1 for
+    none: a ray's class is floor_mod(win, lanes) mod 32; a histogram and
+    its exclusive scan give each class its first sorted position, and a
+    chunk of 32 rays at a time, a ray takes its class's next position plus
+    the lanes of its class before it (``__match_any_sync``); sorted
+    position p goes to warp p mod warps, lane p // warps."""
+    w = win.reshape(-1).numpy().astype(np.int64)
+    n, warps = w.shape[0], -(-w.shape[0] // 32)
+    cls = (w % lanes) & (ms.SEL_BANKS - 1)
+    count = np.bincount(cls, minlength=ms.SEL_BANKS)
+    nxt = np.cumsum(count) - count
+    deal = np.full((warps, 32), -1)
+    for base in range(0, n, 32):
+        chunk = cls[base:base + 32]
+        pos = [nxt[c] + int((chunk[:lane] == c).sum())
+               for lane, c in enumerate(chunk)]
+        for c in set(chunk.tolist()):
+            nxt[c] += int((chunk == c).sum())
+        for lane, p in enumerate(pos):
+            assert deal[p % warps, p // warps] == -1
+            deal[p % warps, p // warps] = base + lane
+    assert sorted(deal[deal >= 0].tolist()) == list(range(n))
+    return deal
+
+
+def _sel7_walk(sq, w, n, lanes, acc):
+    """``sel7_walk`` for each thread (``w``, ``n``, ``acc`` arrays): whole
+    stretches of ``SEL_STRETCH`` visits, read i = 7 u + f of a stretch at
+    w + f * stride + u, each issued ``SEL_AHEAD`` adds ahead in a window
+    whose slot i mod ``SEL_AHEAD`` wraps into the next stretch (read at
+    the next stretch's lane, w + stretch mod lanes less lanes once it
+    passes); then the tail of n mod ``SEL_STRETCH`` visits from w.  A
+    thread whose stretches are done idles (its count is its own)."""
+    rows, stretch, ahead = ms.SEL_ROWS, ms.SEL_STRETCH, ms.SEL_AHEAD
+    stride = ms.SEL_MAX_LANES + stretch
+    reads = rows * stretch
+    off = [(i % rows) * stride + i // rows for i in range(reads)]
+    step = stretch % lanes
+    x = [sq[w + off[i]] for i in range(ahead)]
+    stretches = n // stretch
+    for t in range(int(stretches.max(initial=0))):
+        act = t < stretches
+        wn = w + step
+        wn = np.where(wn >= lanes, wn - lanes, wn)
+        for i in range(reads):
+            v = x[i % ahead]
+            base = w if i + ahead < reads else wn
+            x[i % ahead] = np.where(act, sq[base + off[(i + ahead) % reads]],
+                                    x[i % ahead])
+            acc = np.where(act, acc + v, acc)
+        w = np.where(act, wn, w)
+    tail = n - stretches * stretch
+    for u in range(int(tail.max(initial=0))):
+        for f in range(rows):
+            acc = np.where(u < tail, acc + sq[w + f * stride + u], acc)
+    return acc
+
+
+def _sel7_schedule(win, q, visits):
+    """``sel7_kernel`` in numpy: the 7 rows staged at a stride of
+    ``SEL_MAX_LANES + SEL_STRETCH`` floats with lanes past B holding lane
+    x mod B (the rest NaN: a read there would show), the rays dealt, and
+    each thread's walk in two segments: the visits before win + k passes
+    2^31 - 1 from floor_mod(win, B), the rest from floor_mod(-2^31, B);
+    out written at each thread's ray."""
+    lanes, stretch = q.shape[1], ms.SEL_STRETCH
+    stride = ms.SEL_MAX_LANES + stretch
+    sq = np.full(ms.SEL_ROWS * stride, np.nan, np.float32)
+    x = np.arange(lanes + stretch)
+    for f in range(ms.SEL_ROWS):
+        sq[f * stride + x] = q[f].numpy()[np.where(x < lanes, x, x % lanes)]
+    deal = _sel7_deal(win, lanes)
+    ray = deal[deal >= 0]
+    wv = win.reshape(-1).numpy().astype(np.int64)[ray]
+    n1 = np.minimum(np.where(wv > 0, 2 ** 31 - wv, visits), visits)
+    acc = np.zeros(ray.shape[0], np.float32)
+    acc = _sel7_walk(sq, wv % lanes, n1, lanes, acc)
+    acc = _sel7_walk(sq, np.full_like(wv, -2 ** 31 % lanes), visits - n1,
+                     lanes, acc)
+    out = np.empty(wv.shape[0], np.float32)
+    out[ray] = acc
+    return torch.from_numpy(out)[None, :]
+
+
+SEL_WINS = sorted(ms.hazard_inputs(ms.B, "cpu")[0])
+SEL_VISITS = [0, 1, "edge", 31, 32, 33, "lanes", "lanes+1", 4096]
+
+
+@pytest.mark.parametrize("visits", SEL_VISITS)
+@pytest.mark.parametrize("lanes", [512, 500, ms.SEL_MAX_LANES])
+@pytest.mark.parametrize("win", SEL_WINS)
+def test_sel7_schedule_matches_plain(win, lanes, visits):
+    """The kernel's deal, staging, stretches with their read-ahead window
+    and the int32 split give ``sel7_plain`` bit for bit: visit counts on
+    the edges of a stretch and of the lanes (``edge``: ray 0's first wrap,
+    lanes - floor_mod(win[0], lanes)), lanes 512, 500 and the most the
+    staging holds (its rows' last lanes on the stride), and wins near
+    lane 511, negative, all equal, 32 lanes apart (every ray in one bank
+    class) and within 24 visits of 2^31 - 1.  With the script's win the
+    deal leaves at most 2 rays of a bank class in a warp (5 in index
+    order)."""
+    wins, q = ms.hazard_inputs(lanes, "cpu")
+    w = wins[win]
+    v = {"edge": lanes - int(w[0]) % lanes, "lanes": lanes,
+         "lanes+1": lanes + 1}.get(visits, visits)
+    got = _sel7_schedule(w, q, v)
+    want = ms.sel7_plain(w, q, v)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if win == "script" and lanes == 512:
+        cls = (w.numpy().astype(np.int64) % lanes) & 31
+        deal = _sel7_deal(w, lanes)
+        assert max(np.bincount(cls[d[d >= 0]]).max() for d in deal) == 2
+        assert max(np.bincount(cls[32 * g:32 * g + 32]).max()
+                   for g in range(16)) == 5
 
 
 def test_split3_and_qsel_match_the_script():
@@ -562,6 +783,30 @@ def test_cuda_probes_match_plain_versions():
     for visits in (0, 1, 38, 39, 40, 79):
         assert torch.equal(dr.dyn12(q, visits), dr.dyn12_plain(q, visits))
         assert torch.equal(dr.blk1(q, visits), dr.blk1_plain(q, visits))
+    # sel7 at the edges of its stretch and of the lanes, on every hazard win
+    for lanes in (ms.B, 500, 999, ms.SEL_MAX_LANES):
+        wins, q = ms.hazard_inputs(lanes)
+        for w in wins.values():
+            for visits in (0, 1, lanes - int(w[0]) % lanes, 31, 32, 33,
+                           lanes, lanes + 1, ms.VISITS):
+                assert torch.equal(ms.sel7(w, q, visits),
+                                   ms.sel7_plain(w, q, visits))
+    # P1 on sets of 0, 1, 2, 3 and more set boxes, 100 rays a block
+    for n_boxes in (1, 2, 3, 156, tm.LP):
+        rays, aabb = tm.count_inputs(n_boxes, 100, 0)
+        for mode in tm.MODES:
+            torch.testing.assert_close(
+                tm.toy_mask(mode, rays, aabb),
+                tm.toy_mask_plain(mode, rays, aabb), rtol=0, atol=0,
+                equal_nan=True)
+    # P1 with fewer rays a block than a cluster has CTAs
+    for rt in (1, 7):
+        rays, aabb = _narrow(rt, "cuda")
+        for mode in tm.MODES:
+            torch.testing.assert_close(
+                tm.toy_mask(mode, rays, aabb),
+                tm.toy_mask_plain(mode, rays, aabb), rtol=0, atol=0,
+                equal_nan=True)
 
 
 def _near_511_cuda():
