@@ -14,7 +14,7 @@ through their plain PyTorch versions on the CPU.
 - ``render`` — whole-image renders, progressive rendering, the CLI
 - ``diff``   — differentiable rendering, inverse optimisation, the soft
   renderer and checkpoints
-- ``utils``  — metrics logging, timing and profiling
+- ``utils``  — metrics logging, device timing and the host spans
 - ``viz``    — AABB wireframe export, stage preview, BVH viewer
 """
 

@@ -20,6 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.timing import span
+
 __all__ = [
     "to_u32",
     "to_i32",
@@ -125,7 +127,9 @@ def random_unit_vector(state, max_rounds: int = 64):
         vec = torch.where(take[..., None], cand, vec)
         state = torch.where(accepted, state, s3)
         accepted = accepted | ok
-        if bool(accepted.all()):
+        with span("rt.sync.unit_vector"):
+            done = bool(accepted.all())
+        if done:
             break
     return state, vec
 
@@ -151,7 +155,9 @@ def random_in_unit_disk(state, max_rounds: int = 64):
         vec = torch.where(take[..., None], torch.stack([x, y], dim=-1), vec)
         state = torch.where(accepted, state, s2)
         accepted = accepted | ok
-        if bool(accepted.all()):
+        with span("rt.sync.unit_disk"):
+            done = bool(accepted.all())
+        if done:
             break
     return state, vec
 

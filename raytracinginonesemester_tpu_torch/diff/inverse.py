@@ -32,6 +32,7 @@ import torch
 
 from ..render.renderer import render_scene
 from ..scene.build import Scene
+from ..utils.timing import span
 
 __all__ = [
     "apply_params",
@@ -90,41 +91,42 @@ def apply_params(scene: Scene, params: Mapping[str, torch.Tensor]) -> Scene:
     from the detached vertices (it only picks the winners; the gradients
     flow through the integrator's recompute).  ``camera_center`` moves
     ``pixel00_loc`` with it, so the viewing directions do not change."""
-    mat_updates, light_updates, scene_updates = {}, {}, {}
-    for k, v in params.items():
-        if k.startswith("light_"):
-            light_updates[k[len("light_"):]] = v
-        elif k == "vertices":
-            if scene.accel is not None and not scene.differentiable:
-                raise ValueError(
-                    "vertex parameters need accel='none' (or a scene built "
-                    "with differentiable=True, which rebuilds the grid): "
-                    "acceleration structures bake triangle copies at build "
-                    "time")
-            scene_updates["geometry"] = dataclasses.replace(scene.geometry,
-                                                            vertices=v)
-            if scene.accel is not None:
-                from ..ops.accel import build_block_grid
+    with span("rt.dispatch.apply_params"):
+        mat_updates, light_updates, scene_updates = {}, {}, {}
+        for k, v in params.items():
+            if k.startswith("light_"):
+                light_updates[k[len("light_"):]] = v
+            elif k == "vertices":
+                if scene.accel is not None and not scene.differentiable:
+                    raise ValueError(
+                        "vertex parameters need accel='none' (or a scene "
+                        "built with differentiable=True, which rebuilds the "
+                        "grid): acceleration structures bake triangle copies "
+                        "at build time")
+                scene_updates["geometry"] = dataclasses.replace(
+                    scene.geometry, vertices=v)
+                if scene.accel is not None:
+                    from ..ops.accel import build_block_grid
 
-                with torch.no_grad():
-                    scene_updates["accel"] = build_block_grid(
-                        v.detach(), scene.geometry.num_triangles,
-                        block_size=scene.accel.block_size,
-                        normals=scene.geometry.normals,
-                        obj_ids=scene.geometry.obj_id)
-        elif k == "camera_center":
-            delta = v - scene.camera.center
-            scene_updates["camera"] = dataclasses.replace(
-                scene.camera, center=v,
-                pixel00_loc=scene.camera.pixel00_loc + delta)
-        else:
-            mat_updates[k] = v
-    materials = (dataclasses.replace(scene.materials, **mat_updates)
-                 if mat_updates else scene.materials)
-    lights = (dataclasses.replace(scene.lights, **light_updates)
-              if light_updates else scene.lights)
-    return dataclasses.replace(scene, materials=materials, lights=lights,
-                               **scene_updates)
+                    with torch.no_grad():
+                        scene_updates["accel"] = build_block_grid(
+                            v.detach(), scene.geometry.num_triangles,
+                            block_size=scene.accel.block_size,
+                            normals=scene.geometry.normals,
+                            obj_ids=scene.geometry.obj_id)
+            elif k == "camera_center":
+                delta = v - scene.camera.center
+                scene_updates["camera"] = dataclasses.replace(
+                    scene.camera, center=v,
+                    pixel00_loc=scene.camera.pixel00_loc + delta)
+            else:
+                mat_updates[k] = v
+        materials = (dataclasses.replace(scene.materials, **mat_updates)
+                     if mat_updates else scene.materials)
+        lights = (dataclasses.replace(scene.lights, **light_updates)
+                  if light_updates else scene.lights)
+        return dataclasses.replace(scene, materials=materials, lights=lights,
+                                   **scene_updates)
 
 
 def render_loss(params: Mapping[str, torch.Tensor], scene: Scene,
@@ -180,12 +182,16 @@ def make_train_step(optimizer: torch.optim.Optimizer,
     (a 0-d tensor, detached) is the one before the update."""
 
     def step(params, scene, target):
-        optimizer.zero_grad(set_to_none=True)
-        loss = render_loss(params, scene, target, jitter_mode=jitter_mode,
-                           spp_override=spp_override, ray_tile=ray_tile)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with span("rt.dispatch.step"):
+            optimizer.zero_grad(set_to_none=True)
+            loss = render_loss(params, scene, target,
+                               jitter_mode=jitter_mode,
+                               spp_override=spp_override, ray_tile=ray_tile)
+            with span("rt.glue.backward"):
+                loss.backward()
+            with span("rt.glue.adam"):
+                optimizer.step()
+            return loss.detach()
 
     return step
 

@@ -51,6 +51,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.timing import span
 from .accel import (SUPER, BlockGrid, interval_slab, ray_hulls,
                     tile_visit_plan_fast)
 from .intersect import F32_MAX, HitData
@@ -251,13 +252,15 @@ def block_closest(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
         walks = torch.empty(r, dtype=torch.int32, device=dev)
         shadows = torch.empty(max(r * n_shadow, 1), dtype=torch.int32,
                               device=dev)
-        err = lib.rt_closest(ctypes.byref(args), _ptr(o), _ptr(d), _ptr(tm), r,
-                             int(with_normal), _ptr(lights), n_shadow,
-                             _ptr(t), _ptr(u), _ptr(v), _ptr(idx),
-                             _ptr(normal), _ptr(vis), _ptr(counts),
-                             _ptr(walks), _ptr(shadows), _stream())
-        _raise_on(lib, err, "closest")
-        block_closest.launches += 1
+        with span("rt.launch.closest"):
+            err = lib.rt_closest(ctypes.byref(args), _ptr(o), _ptr(d),
+                                 _ptr(tm), r, int(with_normal), _ptr(lights),
+                                 n_shadow, _ptr(t), _ptr(u), _ptr(v),
+                                 _ptr(idx), _ptr(normal), _ptr(vis),
+                                 _ptr(counts), _ptr(walks), _ptr(shadows),
+                                 _stream())
+            _raise_on(lib, err, "closest")
+            block_closest.launches += 1
     hits = HitData(t=t, u=u, v=v, tri_idx=idx, hit=idx >= 0)
     if n_shadow:
         return hits, normal, vis
@@ -286,12 +289,13 @@ def block_occluded(origins, dirs, grid: BlockGrid, tmin=1e-4, tmax=F32_MAX,
         # scratch: the list of rays to walk and its two counters
         counts = torch.empty(2, dtype=torch.int32, device=dev)
         walks = torch.empty(r, dtype=torch.int32, device=dev)
-        err = lib.rt_occluded(ctypes.byref(args), _ptr(o), _ptr(d),
-                              _ptr(_per_ray(tmin, r, dev)),
-                              _ptr(_per_ray(tmax, r, dev)), r, _ptr(blocked),
-                              _ptr(counts), _ptr(walks), _stream())
-        _raise_on(lib, err, "occluded")
-        block_occluded.launches += 1
+        tm, tx = _per_ray(tmin, r, dev), _per_ray(tmax, r, dev)
+        with span("rt.launch.occluded"):
+            err = lib.rt_occluded(ctypes.byref(args), _ptr(o), _ptr(d),
+                                  _ptr(tm), _ptr(tx), r, _ptr(blocked),
+                                  _ptr(counts), _ptr(walks), _stream())
+            _raise_on(lib, err, "occluded")
+            block_occluded.launches += 1
     return blocked
 
 
@@ -738,9 +742,11 @@ def block_closest_streamed(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
         t = origins.new_empty(0)
         i = torch.empty(0, dtype=torch.int32, device=origins.device)
         return HitData(t=t, u=t, v=t, tri_idx=i, hit=i >= 0)
-    t, u, v, idx = _streamed_launch(origins, dirs, grid, tmin, F32_MAX,
-                                    det_eps, False)()
-    block_closest_streamed.launches += 1
+    launch = _streamed_launch(origins, dirs, grid, tmin, F32_MAX, det_eps,
+                              False)
+    with span("rt.launch.closest_streamed"):
+        t, u, v, idx = launch()
+        block_closest_streamed.launches += 1
     return HitData(t=t[:r], u=u[:r], v=v[:r], tri_idx=idx[:r],
                    hit=idx[:r] >= 0)
 
@@ -758,9 +764,10 @@ def block_occluded_streamed(origins, dirs, grid: BlockGrid, tmin=1e-4,
     r = int(origins.shape[0])
     if not r:
         return torch.empty(0, dtype=torch.bool, device=origins.device)
-    blocked = _streamed_launch(origins, dirs, grid, tmin, tmax, det_eps,
-                               True)()
-    block_occluded_streamed.launches += 1
+    launch = _streamed_launch(origins, dirs, grid, tmin, tmax, det_eps, True)
+    with span("rt.launch.occluded_streamed"):
+        blocked = launch()
+        block_occluded_streamed.launches += 1
     return blocked[:r]
 
 
@@ -829,10 +836,11 @@ def block_closest_blockmajor(origins, dirs, grid: BlockGrid, tmin=1e-4, *,
         t = origins.new_empty(0)
         i = torch.empty(0, dtype=torch.int32, device=origins.device)
         return HitData(t=t, u=t, v=t, tri_idx=i, hit=i >= 0)
-    t, u, v, idx = _blockmajor_launch(origins, dirs, grid, tmin, F32_MAX,
-                                      det_eps, False, chunk_tiles,
-                                      slab_blocks)()
-    block_closest_blockmajor.launches += 1
+    launch = _blockmajor_launch(origins, dirs, grid, tmin, F32_MAX, det_eps,
+                                False, chunk_tiles, slab_blocks)
+    with span("rt.launch.closest_blockmajor"):
+        t, u, v, idx = launch()
+        block_closest_blockmajor.launches += 1
     return HitData(t=t[:r], u=u[:r], v=v[:r], tri_idx=idx[:r],
                    hit=idx[:r] >= 0)
 
@@ -852,9 +860,11 @@ def block_occluded_blockmajor(origins, dirs, grid: BlockGrid, tmin=1e-4,
     r = int(origins.shape[0])
     if not r:
         return torch.empty(0, dtype=torch.bool, device=origins.device)
-    blocked = _blockmajor_launch(origins, dirs, grid, tmin, tmax, det_eps,
-                                 True, chunk_tiles, slab_blocks)()
-    block_occluded_blockmajor.launches += 1
+    launch = _blockmajor_launch(origins, dirs, grid, tmin, tmax, det_eps,
+                                True, chunk_tiles, slab_blocks)
+    with span("rt.launch.occluded_blockmajor"):
+        blocked = launch()
+        block_occluded_blockmajor.launches += 1
     return blocked[:r]
 
 

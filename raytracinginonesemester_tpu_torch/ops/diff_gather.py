@@ -34,6 +34,8 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.timing import span
+
 __all__ = ["CHUNK", "MAX_FEATURES", "gather_rows", "gather_int_rows",
            "segment_accum_rows", "segment_accum_rows_plain", "segment_plan",
            "segment_accum_planned",
@@ -162,15 +164,16 @@ def segment_accum_planned(ct: torch.Tensor, plan, rows: int) -> torch.Tensor:
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
 
-    err = lib.rt_segment_accum(
-        ptr(ct), ptr(perm), ptr(bounds), ptr(cstart), rows, f, max_chunks,
-        ptr(partial), ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err:
-        msg = lib.rt_error_string(err).decode()
-        raise RuntimeError(f"segment_accum kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
-    segment_accum_rows.launches += 1
+    with span("rt.launch.segment_accum"):
+        err = lib.rt_segment_accum(
+            ptr(ct), ptr(perm), ptr(bounds), ptr(cstart), rows, f,
+            max_chunks, ptr(partial), ptr(out),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            msg = lib.rt_error_string(err).decode()
+            raise RuntimeError(f"segment_accum kernel launch failed: CUDA "
+                               f"error {err} ({msg})")
+        segment_accum_rows.launches += 1
     return out
 
 

@@ -52,6 +52,7 @@ import torch
 
 from ..core import rng as rnglib
 from ..core.vecmath import reflect, unit
+from ..utils.timing import span
 from .block_kernels import (block_closest, block_closest_blockmajor,
                             block_closest_streamed, block_occluded,
                             block_occluded_blockmajor,
@@ -307,6 +308,10 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
         return hits, (tri, tn), vis, dec
 
     def bounce(carry, first=False, k=0):
+        with span("rt.glue.depth"):
+            return bounce_body(carry, first, k)
+
+    def bounce_body(carry, first, k):
         o, d, throughput, radiance, state, alive = carry
         r = o.shape[0]
         # park dead rays where every slab test misses
@@ -382,7 +387,8 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
             # sampling), as in the JAX package
             n_det = n_unit.detach()
             hemi = n_det.clone()
-            sel = take_diffuse.nonzero().squeeze(1)
+            with span("rt.sync.diffuse_select"):
+                sel = take_diffuse.nonzero().squeeze(1)
             if sel.numel():
                 s_h, h_sel = rnglib.random_on_hemisphere(n_det[sel],
                                                          state[sel])
@@ -430,7 +436,8 @@ def any_alive(alive, group=None) -> bool:
     flag = alive.any().to(torch.int32).reshape(1)
     if group is not None:
         flag = all_reduce(flag, group, torch.distributed.ReduceOp.MAX)
-    return bool(flag)
+    with span("rt.sync.integrator_alive"):
+        return bool(flag)
 
 
 def trace_rays(origins, dirs, rng_state, scene, model_axis=None,
@@ -457,10 +464,11 @@ def trace_rays(origins, dirs, rng_state, scene, model_axis=None,
         from .diff_oracle import fused_bounce_oracle, oracle_eligible
 
         if oracle_eligible(scene, model_axis):
-            oracle = fused_bounce_oracle(
-                origins, dirs, rng_state, scene, max_depth, det_eps=1e-8,
-                tmin=1e-4, shadow_eps=RT_EPS_GPU, shadow_tmin=1e-4,
-                cand_plan=_diff_cand(scene, int(origins.shape[0])))
+            with span("rt.glue.oracle"):
+                oracle = fused_bounce_oracle(
+                    origins, dirs, rng_state, scene, max_depth, det_eps=1e-8,
+                    tmin=1e-4, shadow_eps=RT_EPS_GPU, shadow_tmin=1e-4,
+                    cand_plan=_diff_cand(scene, int(origins.shape[0])))
     bounce = make_bounce_step(scene, model_axis, oracle)
     r = origins.shape[0]
     dev = origins.device

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core import rng as rnglib
+from ..utils.timing import span
 from .accel import BlockGrid, super_aabbs
 from .binned import CAND_ROWS, plan_matches_camera
 
@@ -1047,13 +1048,14 @@ def emit_tiles(scene, xs, ys, sample_offset=0, *, det_eps: float = 1e-8,
     flags = torch.empty(np_rays * rounds, dtype=torch.uint8, device=dev)
     hits = torch.empty(5 * np_rays, dtype=torch.float32, device=dev)
     args = _scene_args(rows, sh, cand_plan)
-    err = lib.rt_emit(ctypes.byref(args), _ptr(xs), _ptr(ys), _ptr(hw),
-                      np_rays, RAY_TILE, int(sample_offset),
-                      int(jitter == "center"), _ptr(st), _ptr(rng),
-                      _ptr(counts), _ptr(walks), _ptr(flags), _ptr(hits),
-                      rounds, _stream())
-    _raise_on(lib, err, "emit")
-    emit_tiles.launches += 1
+    with span("rt.launch.emit"):
+        err = lib.rt_emit(ctypes.byref(args), _ptr(xs), _ptr(ys), _ptr(hw),
+                          np_rays, RAY_TILE, int(sample_offset),
+                          int(jitter == "center"), _ptr(st), _ptr(rng),
+                          _ptr(counts), _ptr(walks), _ptr(flags), _ptr(hits),
+                          rounds, _stream())
+        _raise_on(lib, err, "emit")
+        emit_tiles.launches += 1
     return st, rng
 
 
@@ -1111,11 +1113,13 @@ def bounce_step_tiles(scene, state, rng_state, *, det_eps: float = 1e-8,
     diff = (torch.empty(nt * 8, rt, dtype=torch.float32, device=state.device)
             if diff_out else None)
     args = _scene_args(rows, sh, cand_plan)
-    err = lib.rt_bounce_step(ctypes.byref(args), _ptr(state), _ptr(rng_state),
-                             nt * rt, rt, _ptr(st_out), _ptr(rng_out),
-                             _ptr(diff) if diff_out else None, _stream())
-    _raise_on(lib, err, "bounce_step")
-    bounce_step_tiles.launches += 1
+    with span("rt.launch.bounce_step"):
+        err = lib.rt_bounce_step(ctypes.byref(args), _ptr(state),
+                                 _ptr(rng_state), nt * rt, rt, _ptr(st_out),
+                                 _ptr(rng_out),
+                                 _ptr(diff) if diff_out else None, _stream())
+        _raise_on(lib, err, "bounce_step")
+        bounce_step_tiles.launches += 1
     if diff_out:
         bounce_step_tiles.diff_launches += 1
         bounce_step_tiles.binned_launches += int(cand_plan is not None)
@@ -1148,11 +1152,12 @@ def resume_tiles(scene, state, rng_state, *, det_eps: float = 1e-8,
     outs = [torch.empty(nt, rt, dtype=torch.float32, device=state.device)
             for _ in range(3)]
     args = _scene_args(rows, sh)
-    err = lib.rt_resume(ctypes.byref(args), _ptr(state), _ptr(rng_state),
-                        nt * rt, rt, int(scene.max_bounces), *map(_ptr, outs),
-                        _stream())
-    _raise_on(lib, err, "resume")
-    resume_tiles.launches += 1
+    with span("rt.launch.resume"):
+        err = lib.rt_resume(ctypes.byref(args), _ptr(state), _ptr(rng_state),
+                            nt * rt, rt, int(scene.max_bounces),
+                            *map(_ptr, outs), _stream())
+        _raise_on(lib, err, "resume")
+        resume_tiles.launches += 1
     return tuple(outs)
 
 
@@ -1192,13 +1197,14 @@ def render_tiles(scene, xs, ys, spp: int, sample_offset=0, *,
         outs = [torch.empty(nt, RAY_TILE, dtype=torch.float32,
                             device=xs.device) for _ in range(3)]
         args = _scene_args(rows, sh, cand_plan)
-        err = lib.rt_render(ctypes.byref(args), _ptr(xs), _ptr(ys), _ptr(hw),
-                            np_rays, RAY_TILE, int(spp), int(sample_offset),
-                            int(jitter == "center"), int(terminal),
-                            int(scene.max_bounces), *map(_ptr, outs),
-                            _stream())
-        _raise_on(lib, err, "render")
-        render_tiles.launches += 1
+        with span("rt.launch.render"):
+            err = lib.rt_render(ctypes.byref(args), _ptr(xs), _ptr(ys),
+                                _ptr(hw), np_rays, RAY_TILE, int(spp),
+                                int(sample_offset), int(jitter == "center"),
+                                int(terminal), int(scene.max_bounces),
+                                *map(_ptr, outs), _stream())
+            _raise_on(lib, err, "render")
+            render_tiles.launches += 1
     return torch.stack([a.reshape(np_rays)[:n] for a in outs], dim=1)
 
 

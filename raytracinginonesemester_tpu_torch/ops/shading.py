@@ -17,6 +17,7 @@ import torch
 from ..core import rng as rnglib
 from ..core.vecmath import unit
 from ..scene.material import Lights, MaterialTable
+from ..utils.timing import span
 from .brdf import evaluate_brdf
 
 __all__ = ["RT_EPS_CPUONLY", "RT_EPS_GPU", "sky_gradient", "shade_hw1",
@@ -103,7 +104,8 @@ def shade_direct(origins, dirs, p, n, mat: MaterialTable, lights: Lights,
     n_unit = unit(n)
     lo = mat.albedo * 0.05 + mat.emission  # ambient + emission (shader.h:82-87)
     max_s = 1 if gpu else max(lights.shadow_samples)
-    radii = lights.radius.tolist()
+    with span("rt.sync.light_radii"):
+        radii = lights.radius.tolist()
     for li in range(lights.num_lights):
         lpos = lights.position[li]
         to_l = lpos - p

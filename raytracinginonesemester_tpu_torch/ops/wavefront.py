@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import timing
 from .lbvh import _bit_expand
 from .megakernel import (
     _ST_ALIVE_ROW,
@@ -73,26 +74,31 @@ def sort_bounce_state(state, rng_state, pix, lo, span):
     nt = state.shape[0] // _ST_ROWS
     rt = state.shape[1]
     nr = nt * rt
-    planes = state.reshape(nt, _ST_ROWS, rt)[:, :_ST_LIVE_ROWS].permute(
-        1, 0, 2).reshape(_ST_LIVE_ROWS, nr)
-    rng_flat = rng_state.reshape(nt, 8, rt)[:, 0].reshape(nr)
-    key = _sort_key(planes[0:3], planes[3:6], planes[_ST_ALIVE_ROW] > 0.0,
-                    lo, span)
-    perm = torch.sort(key).indices
-    planes = planes[:, perm]
-    st = torch.zeros(nt, _ST_ROWS, rt, dtype=state.dtype, device=state.device)
-    st[:, :_ST_LIVE_ROWS] = planes.reshape(_ST_LIVE_ROWS, nt, rt).permute(1, 0, 2)
-    rng = torch.zeros(nt, 8, rt, dtype=rng_state.dtype, device=state.device)
-    rng[:, 0] = rng_flat[perm].reshape(nt, rt)
-    return (st.reshape(nt * _ST_ROWS, rt), rng.reshape(nt * 8, rt),
-            pix[perm])
+    with timing.span("rt.glue.compact"):
+        planes = state.reshape(nt, _ST_ROWS, rt)[:, :_ST_LIVE_ROWS].permute(
+            1, 0, 2).reshape(_ST_LIVE_ROWS, nr)
+        rng_flat = rng_state.reshape(nt, 8, rt)[:, 0].reshape(nr)
+        key = _sort_key(planes[0:3], planes[3:6],
+                        planes[_ST_ALIVE_ROW] > 0.0, lo, span)
+        perm = torch.sort(key).indices
+        planes = planes[:, perm]
+        st = torch.zeros(nt, _ST_ROWS, rt, dtype=state.dtype,
+                         device=state.device)
+        st[:, :_ST_LIVE_ROWS] = planes.reshape(_ST_LIVE_ROWS, nt,
+                                               rt).permute(1, 0, 2)
+        rng = torch.zeros(nt, 8, rt, dtype=rng_state.dtype,
+                          device=state.device)
+        rng[:, 0] = rng_flat[perm].reshape(nt, rt)
+        return (st.reshape(nt * _ST_ROWS, rt), rng.reshape(nt * 8, rt),
+                pix[perm])
 
 
 def _any_alive(st, tiles=None) -> bool:
     stv = st.reshape(-1, _ST_ROWS, st.shape[1])
     if tiles is not None:
         stv = stv[tiles]
-    return bool((stv[:, _ST_ALIVE_ROW] > 0.0).any())
+    with timing.span("rt.sync.wavefront_alive"):
+        return bool((stv[:, _ST_ALIVE_ROW] > 0.0).any())
 
 
 def _staged_ladder(scene, h_st, h_rng, h_pix, cap, lo, span, mb, kw):
@@ -112,16 +118,18 @@ def _staged_ladder(scene, h_st, h_rng, h_pix, cap, lo, span, mb, kw):
         return st, pix
 
     cap2 = max(8, cap // 8)
-    if mb <= 2 or cap2 >= cap:
-        return while_bounces(h_st, h_rng, h_pix, 1)
-    if _any_alive(h_st):
-        h_st, h_rng, h_pix = one_bounce(h_st, h_rng, h_pix)
-    if _any_alive(h_st, slice(cap2, None)):
-        return while_bounces(h_st, h_rng, h_pix, 2)
-    p_st, p_pix = while_bounces(h_st[:cap2 * _ST_ROWS], h_rng[:cap2 * 8],
-                                h_pix[:cap2 * RAY_TILE], 2)
-    return (torch.cat([p_st, h_st[cap2 * _ST_ROWS:]]),
-            torch.cat([p_pix, h_pix[cap2 * RAY_TILE:]]))
+    with timing.span("rt.glue.ladder"):
+        if mb <= 2 or cap2 >= cap:
+            return while_bounces(h_st, h_rng, h_pix, 1)
+        if _any_alive(h_st):
+            h_st, h_rng, h_pix = one_bounce(h_st, h_rng, h_pix)
+        if _any_alive(h_st, slice(cap2, None)):
+            return while_bounces(h_st, h_rng, h_pix, 2)
+        p_st, p_pix = while_bounces(h_st[:cap2 * _ST_ROWS],
+                                    h_rng[:cap2 * 8],
+                                    h_pix[:cap2 * RAY_TILE], 2)
+        return (torch.cat([p_st, h_st[cap2 * _ST_ROWS:]]),
+                torch.cat([p_pix, h_pix[cap2 * RAY_TILE:]]))
 
 
 def _unsort_radiance(pix, r, g, b):
@@ -157,28 +165,32 @@ def _render_group(scene, xs_p, ys_p, plan, lo, span, cap, group, s0,
 
     idxs, st_gs, rng_gs, pix_gs, frames = [], [], [], [], []
     for j in range(group):
-        st, rng = emit_tiles(scene, xs_p, ys_p, s0 + j, jitter=jitter,
-                             plan=plan, cand_plan=cand_plan, **kw)
-        stv = st.reshape(nt, _ST_ROWS, RAY_TILE)
-        alive_t = (stv[:, _ST_ALIVE_ROW] > 0.0).any(dim=1)
-        key_t = torch.where(alive_t, iota_t, iota_t + nt)
-        idx = torch.sort(torch.argsort(key_t)[:cap]).values
-        st_g = stv[idx]
-        base = [stv[:, row].reshape(np_rays) for row in (9, 10, 11)]
-        if int(alive_t.sum()) > cap:
-            # capacity overflow: finish this sample at full width and
-            # park its subset (final radiance, dead) for phase B
-            base = list(_resume_all(scene, st, rng, pix, lo, span, kw))
-            st_g = st_g.clone()
-            for row, fr in zip((9, 10, 11), base):
-                st_g[:, row] = fr.reshape(nt, RAY_TILE)[idx]
-            st_g[:, _ST_ALIVE_ROW] = 0.0
-        idxs.append(idx)
-        st_gs.append(st_g.reshape(cap * _ST_ROWS, RAY_TILE))
-        rng_gs.append(rng.reshape(nt, 8, RAY_TILE)[idx].reshape(cap * 8, RAY_TILE))
-        pix_gs.append((idx[:, None] * RAY_TILE + lane[None, :]).reshape(-1)
-                      + j * np_rays)
-        frames.append(base)
+        with timing.span("rt.glue.emit"):
+            st, rng = emit_tiles(scene, xs_p, ys_p, s0 + j, jitter=jitter,
+                                 plan=plan, cand_plan=cand_plan, **kw)
+            stv = st.reshape(nt, _ST_ROWS, RAY_TILE)
+            alive_t = (stv[:, _ST_ALIVE_ROW] > 0.0).any(dim=1)
+            key_t = torch.where(alive_t, iota_t, iota_t + nt)
+            idx = torch.sort(torch.argsort(key_t)[:cap]).values
+            st_g = stv[idx]
+            base = [stv[:, row].reshape(np_rays) for row in (9, 10, 11)]
+            with timing.span("rt.sync.overflow"):
+                overflow = int(alive_t.sum()) > cap
+            if overflow:
+                # capacity overflow: finish this sample at full width and
+                # park its subset (final radiance, dead) for phase B
+                base = list(_resume_all(scene, st, rng, pix, lo, span, kw))
+                st_g = st_g.clone()
+                for row, fr in zip((9, 10, 11), base):
+                    st_g[:, row] = fr.reshape(nt, RAY_TILE)[idx]
+                st_g[:, _ST_ALIVE_ROW] = 0.0
+            idxs.append(idx)
+            st_gs.append(st_g.reshape(cap * _ST_ROWS, RAY_TILE))
+            rng_gs.append(rng.reshape(nt, 8, RAY_TILE)[idx].reshape(
+                cap * 8, RAY_TILE))
+            pix_gs.append((idx[:, None] * RAY_TILE
+                           + lane[None, :]).reshape(-1) + j * np_rays)
+            frames.append(base)
 
     cap_g = cap * group
     h_st, h_rng, h_pix = sort_bounce_state(
@@ -186,20 +198,22 @@ def _render_group(scene, xs_p, ys_p, plan, lo, span, cap, group, s0,
     h_st, h_pix = _staged_ladder(scene, h_st, h_rng, h_pix, cap_g, lo, span,
                                  mb, kw)
     fv = h_st.reshape(cap_g, _ST_ROWS, RAY_TILE)
-    subs = _unsort_radiance(h_pix, fv[:, 9], fv[:, 10], fv[:, 11])
-    # sample j's keys are exactly the cap*RAY_TILE keys in
-    # [j*np_rays, (j+1)*np_rays), so after the unsort they are rows
-    # [j*cap*RAY_TILE, (j+1)*cap*RAY_TILE), in gathered-tile order
-    out = []
-    for c in range(3):
-        chans = []
-        for j in range(group):
-            frame = frames[j][c].reshape(nt, RAY_TILE).clone()
-            frame[idxs[j]] = subs[c][j * cap * RAY_TILE:(j + 1) * cap * RAY_TILE
-                                     ].reshape(cap, RAY_TILE)
-            chans.append(frame.reshape(np_rays))
-        out.append(torch.stack(chans))
-    return tuple(out)
+    with timing.span("rt.glue.unsort"):
+        subs = _unsort_radiance(h_pix, fv[:, 9], fv[:, 10], fv[:, 11])
+        # sample j's keys are exactly the cap*RAY_TILE keys in
+        # [j*np_rays, (j+1)*np_rays), so after the unsort they are rows
+        # [j*cap*RAY_TILE, (j+1)*cap*RAY_TILE), in gathered-tile order
+        out = []
+        for c in range(3):
+            chans = []
+            for j in range(group):
+                frame = frames[j][c].reshape(nt, RAY_TILE).clone()
+                frame[idxs[j]] = subs[c][j * cap * RAY_TILE:
+                                         (j + 1) * cap * RAY_TILE
+                                         ].reshape(cap, RAY_TILE)
+                chans.append(frame.reshape(np_rays))
+            out.append(torch.stack(chans))
+        return tuple(out)
 
 
 def _setup(scene, xs, ys, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
@@ -207,16 +221,19 @@ def _setup(scene, xs, ys, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
     """Padded stream, Morton bounds, the camera plan (unless binned) and
     the kernels' shared keyword arguments of one render call."""
     grid = scene.accel
-    xs_p, ys_p, n, np_rays = _pad_tiles(xs, ys)
-    lo = [grid.aabb[c].amin() for c in range(3)]
-    span = [torch.clamp(grid.aabb[3 + c].amax() - lo[c], min=1e-20)
-            for c in range(3)]
-    plan = (None if cand_plan is not None
-            else camera_tile_plan(scene.camera, xs_p, ys_p, grid, RAY_TILE))
-    kw = dict(det_eps=det_eps, tmin=tmin, shadow_eps=shadow_eps,
-              shadow_tmin=shadow_tmin, dialect=dialect,
-              shadow_samples=shadow_samples, rows=_scene_rows(scene, grid))
-    return xs_p, ys_p, n, np_rays, lo, span, plan, kw
+    with timing.span("rt.glue.setup"):
+        xs_p, ys_p, n, np_rays = _pad_tiles(xs, ys)
+        lo = [grid.aabb[c].amin() for c in range(3)]
+        span = [torch.clamp(grid.aabb[3 + c].amax() - lo[c], min=1e-20)
+                for c in range(3)]
+        plan = (None if cand_plan is not None
+                else camera_tile_plan(scene.camera, xs_p, ys_p, grid,
+                                      RAY_TILE))
+        kw = dict(det_eps=det_eps, tmin=tmin, shadow_eps=shadow_eps,
+                  shadow_tmin=shadow_tmin, dialect=dialect,
+                  shadow_samples=shadow_samples,
+                  rows=_scene_rows(scene, grid))
+        return xs_p, ys_p, n, np_rays, lo, span, plan, kw
 
 
 def _clip(dialect):

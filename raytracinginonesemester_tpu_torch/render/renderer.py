@@ -27,6 +27,7 @@ import torch
 from ..core import rng as rnglib
 from ..ops.megakernel import megakernel_ineligible_reason, megakernel_kwargs
 from ..scene.build import Scene
+from ..utils.timing import span
 
 __all__ = ["render_scene", "render_scene_frames", "render_hw1",
            "resolve_wavefront",
@@ -47,15 +48,16 @@ def _swizzled_grid(width: int, height: int, tile: int = 16, device="cpu"):
     pixel order gives the same image."""
     wp = -(-width // tile) * tile
     hp = -(-height // tile) * tile
-    ys, xs = np.mgrid[0:hp, 0:wp]
 
     def swz(a):
         return (a.reshape(hp // tile, tile, wp // tile, tile)
                 .transpose(0, 2, 1, 3).ravel())
 
-    return (torch.as_tensor(swz(xs).astype(np.int32), device=device),
-            torch.as_tensor(swz(ys).astype(np.int32), device=device),
-            (hp, wp))
+    with span("rt.dispatch.grid"):
+        ys, xs = np.mgrid[0:hp, 0:wp]
+        return (torch.as_tensor(swz(xs).astype(np.int32), device=device),
+                torch.as_tensor(swz(ys).astype(np.int32), device=device),
+                (hp, wp))
 
 
 def _unswizzle(accum: torch.Tensor, width: int, height: int, hp: int, wp: int,
@@ -63,10 +65,11 @@ def _unswizzle(accum: torch.Tensor, width: int, height: int, hp: int, wp: int,
     """(..., hp*wp, C) tile-major -> (..., height, width, C) scanline."""
     lead = accum.shape[:-2]
     c = accum.shape[-1]
-    img = (accum.reshape(*lead, hp // tile, wp // tile, tile, tile, c)
-           .transpose(-4, -3)
-           .reshape(*lead, hp, wp, c))
-    return img[..., :height, :width, :]
+    with span("rt.dispatch.unswizzle"):
+        img = (accum.reshape(*lead, hp // tile, wp // tile, tile, tile, c)
+               .transpose(-4, -3)
+               .reshape(*lead, hp, wp, c))
+        return img[..., :height, :width, :]
 
 
 def resolve_jitter_mode(scene: Scene, jitter_mode: str, spp: int) -> str:
@@ -262,31 +265,33 @@ def _frame_accum(scene: Scene, xs, ys, spp: int, sample_offset: int,
     bouncing scenes when it is taken, else the monolithic render kernel;
     for any other scene the staged integrator."""
     jm = resolve_jitter_mode(scene, jitter_mode, spp)
-    if not _fused(scene, jm):
-        return accumulate_samples(scene, xs, ys, spp, jm, ray_tile,
-                                  sample_offset)
-    kw = _kernel_kwargs(scene, jm)
-    if _bouncing(scene) and wavefront:
-        from ..ops.wavefront import render_tiles_wavefront
+    with span("rt.glue.frame"):
+        if not _fused(scene, jm):
+            return accumulate_samples(scene, xs, ys, spp, jm, ray_tile,
+                                      sample_offset)
+        kw = _kernel_kwargs(scene, jm)
+        if _bouncing(scene) and wavefront:
+            from ..ops.wavefront import render_tiles_wavefront
 
-        return render_tiles_wavefront(scene, xs, ys, spp, sample_offset,
-                                      capacity_tiles=cap,
-                                      cand_plan=cand_plan, **kw)
-    from ..ops.megakernel import render_tiles
+            return render_tiles_wavefront(scene, xs, ys, spp, sample_offset,
+                                          capacity_tiles=cap,
+                                          cand_plan=cand_plan, **kw)
+        from ..ops.megakernel import render_tiles
 
-    return render_tiles(scene, xs, ys, spp, sample_offset,
-                        cand_plan=cand_plan, **kw)
+        return render_tiles(scene, xs, ys, spp, sample_offset,
+                            cand_plan=cand_plan, **kw)
 
 
 def _dispatch(scene, jitter_mode, spp, cand_plan, capacity_tiles):
-    if capacity_tiles is not None:
-        wavefront, cap = True, int(capacity_tiles)
-    else:
-        wavefront, cap = resolve_wavefront(scene, jitter_mode, spp)
-    if cand_plan is None:
-        cand_plan = resolve_candidate_plan(scene, jitter_mode, spp)
-    _warn_if_fallback(scene, jitter_mode, spp)
-    return wavefront, cap, cand_plan
+    with span("rt.dispatch.resolve"):
+        if capacity_tiles is not None:
+            wavefront, cap = True, int(capacity_tiles)
+        else:
+            wavefront, cap = resolve_wavefront(scene, jitter_mode, spp)
+        if cand_plan is None:
+            cand_plan = resolve_candidate_plan(scene, jitter_mode, spp)
+        _warn_if_fallback(scene, jitter_mode, spp)
+        return wavefront, cap, cand_plan
 
 
 def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
@@ -301,24 +306,26 @@ def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
     (the same images as single-frame renders).  ``capacity_tiles``
     forces the wavefront at that capacity where the fused kernels take
     the scene; ``ray_tile`` as in ``accumulate_samples``."""
-    wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, 1, cand_plan,
-                                          capacity_tiles)
-    w, h = scene.camera.width, scene.camera.height
-    xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
-    jm = resolve_jitter_mode(scene, jitter_mode, 1)
-    if (_fused(scene, jm) and _bouncing(scene) and wavefront
-            and cap is not None):
-        from ..ops.wavefront import render_tiles_wavefront_frames
+    with span("rt.dispatch.frames"):
+        wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, 1,
+                                              cand_plan, capacity_tiles)
+        w, h = scene.camera.width, scene.camera.height
+        xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
+        jm = resolve_jitter_mode(scene, jitter_mode, 1)
+        if (_fused(scene, jm) and _bouncing(scene) and wavefront
+                and cap is not None):
+            from ..ops.wavefront import render_tiles_wavefront_frames
 
-        accum = render_tiles_wavefront_frames(
-            scene, xs, ys, frames, sample_offset, capacity_tiles=cap,
-            cand_plan=cand_plan, **_kernel_kwargs(scene, jm))
-    else:
-        accum = torch.stack([
-            _frame_accum(scene, xs, ys, 1, int(sample_offset) + f,
-                         jitter_mode, wavefront, cap, cand_plan, ray_tile)
-            for f in range(int(frames))])
-    return _unswizzle(accum, w, h, hp, wp)
+            accum = render_tiles_wavefront_frames(
+                scene, xs, ys, frames, sample_offset, capacity_tiles=cap,
+                cand_plan=cand_plan, **_kernel_kwargs(scene, jm))
+        else:
+            accum = torch.stack([
+                _frame_accum(scene, xs, ys, 1, int(sample_offset) + f,
+                             jitter_mode, wavefront, cap, cand_plan,
+                             ray_tile)
+                for f in range(int(frames))])
+        return _unswizzle(accum, w, h, hp, wp)
 
 
 def render_scene(scene: Scene, jitter_mode: str = "auto",
@@ -333,14 +340,15 @@ def render_scene(scene: Scene, jitter_mode: str = "auto",
     (the oracle-parity mode), "center" or "auto" (gpu or spp > 1:
     "wang", else "center"); ``ray_tile`` as in ``accumulate_samples``."""
     spp = spp_override if spp_override is not None else scene.spp
-    wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, spp, cand_plan,
-                                          capacity_tiles)
-    w, h = scene.camera.width, scene.camera.height
-    xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
-    accum = _frame_accum(scene, xs, ys, spp, sample_offset, jitter_mode,
-                         wavefront, cap, cand_plan, ray_tile)
-    img = _unswizzle(accum, w, h, hp, wp)
-    return img / float(spp) if normalize else img
+    with span("rt.dispatch.scene"):
+        wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, spp,
+                                              cand_plan, capacity_tiles)
+        w, h = scene.camera.width, scene.camera.height
+        xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
+        accum = _frame_accum(scene, xs, ys, spp, sample_offset, jitter_mode,
+                             wavefront, cap, cand_plan, ray_tile)
+        img = _unswizzle(accum, w, h, hp, wp)
+        return img / float(spp) if normalize else img
 
 
 

@@ -1,27 +1,30 @@
-"""Timing, throughput metrics and profiling.
+"""Device timing and the program's spans.
 
-Port of ``raytracinginonesemester_tpu.utils.timing``: the reference's
-measurement discipline (``std::chrono`` spans around renders with a
-device sync, ``main.cu:281-293, 361-378``; warm-up passes,
-``warmup.h:10-90``; rays/s).  Device times come from CUDA events
-(``cuda_time_ms``), which need a card; ``Timer`` and ``measure`` are host
-clocks that synchronize the card where the JAX package fetches a
-scalar, so on CPU tensors they time the host's work.  ``profile_trace``
-records a ``torch.profiler`` trace.
+Port of ``raytracinginonesemester_tpu.utils.timing``'s device timing:
+``sync`` waits for the card (``cudaDeviceSynchronize``, ``main.cu:290``)
+and ``cuda_time_ms`` times a call with CUDA events, which need a card.
+
+``span(name)`` marks a region of the port's host code as a
+``torch.profiler`` user annotation, on the profiler's clock beside the
+device's kernels and copies.  Names are ``rt.<layer>.<what>``, the layer
+one of ``dispatch`` (the top-level calls' Python: the resolve, the pixel
+grid, the training step), ``glue`` (the torch operations between kernels),
+``sync`` (a host read of device data, one span a read) and ``launch``
+(a kernel wrapper's card path, one span a launch that its module's
+``launch_counts`` counts).  A span records only while a profiler session
+records, an operator's own or a benchmark's; otherwise ``span`` returns
+one shared no-op context at the cost of one flag read.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import sys
 import time
 from typing import Callable
 
 import torch
 
-__all__ = ["sync", "Timer", "measure", "profile_trace", "rays_per_second",
-           "cuda_time_ms"]
+__all__ = ["sync", "cuda_time_ms", "span"]
 
 
 def _tensors(tree):
@@ -47,74 +50,6 @@ def sync(tree=None) -> None:
         torch.cuda.synchronize(dev)
 
 
-class Timer:
-    """Wall-clock span that waits for ``result``'s device on exit.
-
-    >>> with Timer("render") as t:
-    ...     t.result = render_scene(scene)
-    >>> t.seconds
-    """
-
-    def __init__(self, name: str = "", echo: bool = False):
-        self.name = name
-        self.echo = echo
-        self.result = None
-        self.seconds = 0.0
-
-    def __enter__(self):
-        self.t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        if self.result is not None:
-            sync(self.result)
-        self.seconds = time.time() - self.t0
-        if self.echo:
-            print(f"{self.name}: {self.seconds * 1e3:.2f} ms", file=sys.stderr)
-        return False
-
-
-def measure(fn: Callable, *args, warmup: int = 1, iters: int = 5) -> dict:
-    """Warm-up, then ``iters`` host-clock timings of ``fn(*args)``, each
-    ending when its result's device is done (``warmup.h``,
-    ``main.cu:361-367``) -> seconds: median, min, max."""
-    for _ in range(warmup):
-        sync(fn(*args))
-    times = []
-    for _ in range(iters):
-        t0 = time.time()
-        sync(fn(*args))
-        times.append(time.time() - t0)
-    times.sort()
-    return {"median_s": times[len(times) // 2], "min_s": times[0],
-            "max_s": times[-1], "iters": iters}
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str = "torch_trace"):
-    """Record a ``torch.profiler`` trace of the block (CPU, and the card
-    when there is one) into ``log_dir/trace.json`` (Chrome trace
-    format); yields the profiler."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def rays_per_second(width: int, height: int, spp: int, seconds: float,
-                    waves: int = 1) -> dict:
-    """Derived throughput: camera rays and the traced-ray estimate."""
-    camera_rays = width * height * spp
-    return {
-        "camera_rays_per_s": camera_rays / seconds,
-        "traced_rays_per_s_est": camera_rays * waves / seconds,
-        "frame_ms": seconds * 1e3,
-    }
-
-
 def cuda_time_ms(fn: Callable, *args, warmup: int = 1, iters: int = 3) -> dict:
     """Per-call device time of ``fn(*args)`` in ms from CUDA events, each
     call timed alone after ``warmup`` calls; returns the median, min,
@@ -137,3 +72,16 @@ def cuda_time_ms(fn: Callable, *args, warmup: int = 1, iters: int = 3) -> dict:
     ordered = sorted(times)
     return {"median_ms": ordered[len(ordered) // 2], "min_ms": ordered[0],
             "max_ms": ordered[-1], "samples_ms": times}
+
+
+# the no-op context of every span while no profiler records
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """Context of the span ``name`` (``rt.<layer>.<what>``, module
+    docstring): a ``record_function`` annotation while a
+    ``torch.profiler`` session records, else the shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -205,26 +205,6 @@ def test_metrics_logger_and_progress_bar(tmp_path, capsys):
     assert "50%" in s and s.count("=") == 5
 
 
-def test_timer_measure_and_profile(tmp_path):
-    from raytracinginonesemester_tpu_torch.utils.timing import (
-        Timer, measure, profile_trace, rays_per_second)
-
-    with Timer("t") as t:
-        t.result = torch.ones(64, 64) * 2.0
-    assert t.seconds >= 0.0
-    stats = measure(lambda x: (x * 2).sum(), torch.ones(128), warmup=1,
-                    iters=3)
-    assert stats["iters"] == 3
-    assert stats["min_s"] <= stats["median_s"] <= stats["max_s"]
-    m = rays_per_second(1920, 1080, 2, 0.5, waves=4)
-    assert m["camera_rays_per_s"] == pytest.approx(1920 * 1080 * 2 / 0.5)
-    assert m["traced_rays_per_s_est"] == pytest.approx(
-        1920 * 1080 * 2 * 4 / 0.5)
-    with profile_trace(str(tmp_path / "trace")):
-        torch.ones(32, 32).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
-
-
 def test_inverse_render_example(tmp_path, monkeypatch):
     """``examples/inverse_render_torch.py`` on the CPU at 24x16: it
     writes its PNGs into the working directory, and a second run with
