@@ -21,7 +21,6 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..core import rng as rnglib
@@ -44,19 +43,20 @@ DEFAULT_RAY_TILE = 0
 
 def _swizzled_grid(width: int, height: int, tile: int = 16, device="cpu"):
     """Pixel indices in tile-major (16x16) order over a tile-padded frame
-    -> (xs, ys, (hp, wp)).  Seeds derive from absolute (x, y), so any
-    pixel order gives the same image."""
+    -> (xs, ys, (hp, wp)), int32 and contiguous on ``device``.  Seeds
+    derive from absolute (x, y), so any pixel order gives the same image.
+    Built on ``device`` from two ``arange``s broadcast over the
+    (tile row, tile column, row, column) layout: no pixel data crosses
+    from the host."""
     wp = -(-width // tile) * tile
     hp = -(-height // tile) * tile
-
-    def swz(a):
-        return (a.reshape(hp // tile, tile, wp // tile, tile)
-                .transpose(0, 2, 1, 3).ravel())
+    shape = (hp // tile, wp // tile, tile, tile)
 
     with span("rt.dispatch.grid"):
-        ys, xs = np.mgrid[0:hp, 0:wp]
-        return (torch.as_tensor(swz(xs).astype(np.int32), device=device),
-                torch.as_tensor(swz(ys).astype(np.int32), device=device),
+        xs = torch.arange(wp, dtype=torch.int32, device=device)
+        ys = torch.arange(hp, dtype=torch.int32, device=device)
+        return (xs.view(1, wp // tile, 1, tile).expand(shape).reshape(-1),
+                ys.view(hp // tile, 1, tile, 1).expand(shape).reshape(-1),
                 (hp, wp))
 
 
