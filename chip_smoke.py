@@ -37,8 +37,9 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    ``gpu_cornell`` with ``jitter_mode="reference_cpu"`` at their JSON
    sizes against the C++ oracle's ``tests/goldens/gpu_*.png``
    (``assert_images_close``'s rule), and ``cpuonly_point.json`` with 17
-   shadow samples (F 17 times per light and bounce) within one step of
-   its PNG;
+   shadow samples (F 17 times per light and bounce; the staged integrator
+   called directly, since the fused kernels take more than 16 samples)
+   within one step of its PNG;
 5. the main path: frog 1920x1080, depth 8, diffuse bounces,
    ``render_scene_frames`` with 16 frames at the calibrated capacity,
    with the binned camera plan (its build time and size logged) and
@@ -59,7 +60,10 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    ``jitter_mode="reference_cpu"`` (E every depth; F never, the gpu
    dialect fuses its shadows into E), and ``cpuonly_mirror.json`` at
    1920x1080 with its light at radius 0.15, 32 shadow samples and
-   diffuse bounces (E and F);
+   diffuse bounces with ``reference_cpu`` jitter (E, and F once a disk
+   sample; A-D must not launch); then that soft scene at ``auto``
+   jitter, 16 frames a call, on the fused kernels (A and B must launch,
+   E and F must not);
 9. the differentiable training path, ``bench.py --grad``'s workload:
    ``gpu_spheres.json`` at 960x540 with its camera, spp 1, 2 bounces,
    ``center`` jitter, a block grid with ``differentiable=True``, albedo,
@@ -98,7 +102,9 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    timed, with the least time the card could take (bound); E and F on
    the inputs of their first launches in single-frame renders of phase
    8's scenes, A's shadow walk apart (F on the facing shadow rays of the
-   headline's binned emit, as its plain version walks them), J on those
+   headline's binned emit, as its plain version walks them), A, B and C
+   on phase 8's 32-sample soft scene (A's binned emit, then B and C on
+   its state sorted as the wavefront sorts it), J on those
    of phase 9 (also its glue, the sort that plans
    the runs and chunks, and its kernels on that plan, each timed alone),
    G, I and H on phase 10's camera
@@ -627,6 +633,38 @@ def check_small(dev, errs):
                     for c in f.render_plain(True, spp, 1)])
 
 
+def soft_jobs(soft):
+    """Phase 11's jobs of the 32-sample soft scene at full width, on
+    the inputs its fused route gives them: A on the binned depth-0 plan,
+    then B and C on A's state sorted as the wavefront sorts it, each
+    against its plain version (time_kernels' key: job)."""
+    f = Frame(soft, jitter="center")
+    st, rng = f.emit(True)
+    st_s, rng_s, _ = f.sorted_state(st, rng)
+    del st, rng
+
+    def states(e, n, w, a, b):
+        check_state(e, n, w, *a, *b)
+
+    where = "32 disk samples a hit, depth 8, diffuse"
+    return {
+        "cpuonly soft emit binned": (
+            "emit", f"{f.nt} tiles x 512, {where}", lambda: f.emit(True),
+            lambda x=None: f.emit_plain(True, stats=x), states,
+            f.np_rays * (8 + 96) + f.scene_bytes(True)),
+        "cpuonly soft bounce_step": (
+            "bounce_step", f"{f.nt} sorted tiles x 512, {where}",
+            lambda: f.bounce(st_s, rng_s),
+            lambda x=None: f.bounce_plain(st_s, rng_s, x), states,
+            f.np_rays * 192 + f.scene_bytes(False)),
+        "cpuonly soft resume": (
+            "resume", f"{f.nt} sorted tiles x 512, depths 1..7, {where}",
+            lambda: f.resume(st_s, rng_s),
+            lambda x=None: f.resume_plain(st_s, rng_s, x), check_sums,
+            f.np_rays * (96 + 12) + f.scene_bytes(False)),
+    }
+
+
 def emit_shadow_rays(frame, binned):
     """The facing shadow rays of ``frame``'s depth-0 pass, as its plain
     version walks them: [(origins, directions, tmin, tmax)] a light (and
@@ -978,9 +1016,10 @@ def check_staged_goldens(dev, goldens):
         if not ok:
             raise AssertionError(f"staged {name} disagrees with the C++ oracle")
     scene = cpuonly_scene("cpuonly_point", dev, radius=0.0, shadow_samples=17)
-    img, _ = counted("golden cpuonly_point.png, 17 shadow samples (staged)",
-                     lambda: render_scene(scene), ["closest", "occluded"],
-                     never=FUSED)
+    img, _ = counted("golden cpuonly_point.png, 17 shadow samples (staged "
+                     "integrator, called directly)",
+                     lambda: staged_frame(scene, "center"),
+                     ["closest", "occluded"], never=FUSED)
     ours = quantize(img.cpu().numpy(), "cpuonly").astype(int)
     gold = read_png(os.path.join(goldens, "cpuonly_point.png")).astype(int)
     diff = abs(ours - gold)
@@ -990,6 +1029,17 @@ def check_staged_goldens(dev, goldens):
     if ours.shape != gold.shape or diff.max() > 1:
         raise AssertionError("staged cpuonly_point disagrees with the C++ "
                              "oracle")
+
+
+def staged_frame(scene, jitter):
+    """One frame of ``scene`` through the staged integrator (E and F),
+    called directly: the route of the scenes the fused kernels refuse."""
+    from raytracinginonesemester_tpu_torch.render import renderer
+
+    w, h = scene.camera.width, scene.camera.height
+    xs, ys, (hp, wp) = renderer._swizzled_grid(w, h, device=scene.device)
+    acc = renderer.accumulate_samples(scene, xs, ys, 1, jitter)
+    return renderer._unswizzle(acc, w, h, hp, wp)
 
 
 def timed_frames(label, scene, frames, smi, need, iters=3, jitter="auto",
@@ -2924,9 +2974,13 @@ def main():
     soft = cpuonly_scene("cpuonly_mirror", dev, W, H, radius=0.15,
                          shadow_samples=32, diffuse_bounce=True)
     ms_soft, _, soft_counts = timed_frames(
-        "cpuonly_mirror 1080p, area light r=0.15 x32, diffuse (staged "
-        "integrator)", soft, STAGED_FRAMES, smi, ["closest", "occluded"],
-        iters=1, never=FUSED)
+        "cpuonly_mirror 1080p, area light r=0.15 x32, diffuse, reference_cpu "
+        "(staged integrator, F a disk sample)", soft, STAGED_FRAMES, smi,
+        ["closest", "occluded"], iters=1, jitter="reference_cpu", never=FUSED)
+    ms_soft_fused, _, soft_fused_counts = timed_frames(
+        "cpuonly_mirror 1080p, area light r=0.15 x32, diffuse (fused kernels)",
+        soft, FRAMES, smi, ["emit", "bounce_step"],
+        never=["closest", "occluded"])
 
     # --- 9. the differentiable training path (bench.py --grad)
     check_diff_small(dev, errs)
@@ -2953,7 +3007,7 @@ def main():
     e_calls = record_calls(integrator, ["block_closest"], lambda: render_scene(
         scene, "reference_cpu"))["block_closest"]
     soft_calls = record_calls(integrator, ["block_closest", "block_occluded"],
-                              lambda: render_scene(soft))
+                              lambda: render_scene(soft, "reference_cpu"))
     _sync()
 
     def e_job(call, shape):
@@ -3066,6 +3120,7 @@ def main():
             check_hits, so.shape[0] * (24 + 4 + 1) + 4 * (
                 scene.accel.tri.numel() + scene.accel.tri_index.numel()
                 + scene.accel.aabb.numel())),
+        **soft_jobs(soft),
         **diff_jobs(train),
         **large["jobs"],
     }
@@ -3098,6 +3153,7 @@ def main():
     # which run's launches each record reports: (run, counts, counter)
     tc = train["counts"]
     training = f"training call, grad-bench config ({GRAD_STEPS} steps)"
+    soft_fused = "cpuonly_mirror 1080p, area light r=0.15 x32, diffuse"
     runs = {"emit binned": ("main path, binned", main_counts, "emit"),
             "emit flat": ("main path, RT_BINNED=0", flat_counts, "emit"),
             "bounce_step": ("main path, binned", main_counts, "bounce_step"),
@@ -3118,14 +3174,21 @@ def main():
                                "resume"),
             "cpuonly render binned": ("cpuonly_mirror 1080p, RT_WAVEFRONT=0",
                                       cpu_d_counts, "render"),
+            "cpuonly soft emit binned": (soft_fused, soft_fused_counts,
+                                         "emit"),
+            "cpuonly soft bounce_step": (soft_fused, soft_fused_counts,
+                                         "bounce_step"),
+            "cpuonly soft resume": (soft_fused + ", which did not overflow",
+                                    soft_fused_counts, "resume"),
             "closest": ("frog 1080p reference_cpu (staged)", ref_counts,
                         "closest"),
             "closest bounce": ("frog 1080p reference_cpu (staged)",
                                ref_counts, "closest"),
-            "cpuonly closest": ("cpuonly_mirror 1080p area light x32 "
-                                "(staged)", soft_counts, "closest"),
-            "occluded": ("cpuonly_mirror 1080p area light x32 (staged)",
-                         soft_counts, "occluded"),
+            "cpuonly closest": ("cpuonly_mirror 1080p area light x32, "
+                                "reference_cpu (staged)", soft_counts,
+                                "closest"),
+            "occluded": ("cpuonly_mirror 1080p area light x32, "
+                         "reference_cpu (staged)", soft_counts, "occluded"),
             "bounce_step diff binned": (training, tc, "bounce_step[binned]"),
             "bounce_step diff": (training, {"flat": tc["bounce_step[diff]"]
                                             - tc["bounce_step[binned]"]},
@@ -3163,7 +3226,8 @@ def main():
         rec.update(variant=key, launches=counts[counter],
                    launches_in=label, max_abs_err=errs[rec["name"]])
     main_keys = ("emit binned", "bounce_step", "resume", "render V2 binned",
-                 "closest", "occluded", "segment_accum",
+                 "cpuonly soft emit binned", "cpuonly soft bounce_step",
+                 "cpuonly soft resume", "closest", "occluded", "segment_accum",
                  "large closest_streamed", "large occluded_streamed",
                  "large closest_blockmajor", "large occluded_blockmajor",
                  "toy_mask both", "sel7", "mm22", "dyn12", "blk1")
@@ -3174,7 +3238,8 @@ def main():
         f"{ms_over:.3f}, cpuonly_mirror {ms_cpu_over:.3f}; staged "
         f"integrator: frog "
         f"reference_cpu {ms_ref:.3f}, cpuonly_mirror area light x32 "
-        f"{ms_soft:.3f}; training, grad-bench config {train['ms_step']:.3f} "
+        f"reference_cpu {ms_soft:.3f} (fused, auto jitter: "
+        f"{ms_soft_fused:.3f}); training, grad-bench config {train['ms_step']:.3f} "
         f"ms/step; large frog (1,270,912 triangles) G/I "
         f"{large['ms_gi']:.3f}, H {large['ms_h']:.3f}, A/B off the dispatch "
         f"{large['ms_ab']:.3f}; large scene host seconds "

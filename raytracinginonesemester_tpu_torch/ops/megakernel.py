@@ -57,7 +57,7 @@ __all__ = ["RAY_TILE", "SceneRows", "megakernel_ineligible_reason",
            "resume_tiles", "render_tiles", "emit_tiles_plain",
            "bounce_step_tiles_plain", "resume_tiles_plain",
            "render_tiles_plain", "launch_counts", "variant_launch_counts",
-           "reset_launch_counts", "DIFF_ROWS"]
+           "reset_launch_counts", "shadow_walk_counts", "DIFF_ROWS"]
 
 RAY_TILE = 512
 _ST_ROWS = 16  # rows: bo xyz, bd xyz, tp rgb, rd rgb, alive, pad x3
@@ -74,8 +74,6 @@ _INV_2PI = 0.15915494309
 # (JAX ``ops/intersect.py:31``) and CPUOnly's RT_EPS (``ops/shading.py:31``)
 FLT_EPSILON = 1.1920929e-7
 RT_EPS_CPUONLY = 1e-4
-# the soft-shadow loop bound of the kernels (per area light)
-MAX_SHADOW_SAMPLES = 16
 # rays per dense (rays, candidates) Moller-Trumbore chunk of the plain
 # versions: bounds each temporary at 4M elements
 _PLAIN_PAIRS = 1 << 22
@@ -92,10 +90,29 @@ def megakernel_kwargs(scene, jitter_mode: str) -> dict:
                 shadow_tmin=RT_EPS_CPUONLY)
 
 
+def _shadow_rounds(n_lights: int, shadow_samples: int, cpuonly: bool) -> int:
+    """The shadow walks a ray may make in kernel A: one a light, or,
+    cpuonly, one a disk sample of each light."""
+    return int(n_lights) * (int(shadow_samples) if cpuonly else 1)
+
+
+def _shadow_entries(scene) -> int:
+    """Entries of kernel A's shadow list for one frame of ``scene``: its
+    pixel stream padded to 16x16 tiles and whole 8-tile groups, times
+    the walks a ray may make."""
+    cam = scene.camera
+    pixels = (-(-cam.width // 16) * 16) * (-(-cam.height // 16) * 16)
+    group = 8 * RAY_TILE
+    return -(-pixels // group) * group * _shadow_rounds(
+        scene.lights.num_lights, max(scene.lights.shadow_samples),
+        scene.dialect == "cpuonly")
+
+
 def megakernel_ineligible_reason(scene, jitter_mode: str):
     """Why the fused kernels do not take a scene (None = they do), in
-    the JAX package's words; the renderer then takes the staged
-    integrator and warns once with this reason."""
+    the JAX package's words, but for its soft-shadow sample bound, which
+    the port replaces by kernel A's int32 shadow list; the renderer then
+    takes the staged integrator and warns once with this reason."""
     from .block_kernels import fits_vmem
 
     if scene.accel is None:
@@ -113,10 +130,13 @@ def megakernel_ineligible_reason(scene, jitter_mode: str):
         if jitter_mode not in ("wang", "center"):
             return (f"cpuonly dialect with jitter_mode={jitter_mode!r} "
                     "(needs 'wang'/'center')")
-        ss = max(scene.lights.shadow_samples)
-        if ss > MAX_SHADOW_SAMPLES:
-            return (f"shadow_samples={ss} > {MAX_SHADOW_SAMPLES} "
-                    "(static soft-shadow unroll bound)")
+        # the kernels loop over the disk samples at run time: the JAX
+        # package's bound of 16 (a static unroll in Pallas) is not kept;
+        # what binds is kernel A's shadow list, indexed in int32
+        entries = _shadow_entries(scene)
+        if entries > _INT_MAX:
+            return (f"{entries} shadow-list entries (rays x lights x "
+                    "shadow_samples) exceed kernel A's int32 index")
         return None
     return f"unknown dialect {scene.dialect!r}"
 
@@ -136,10 +156,9 @@ class _Shade:
     def __post_init__(self):
         if self.dialect not in ("gpu", "cpuonly"):
             raise NotImplementedError(f"unknown dialect {self.dialect!r}")
-        if not 1 <= int(self.shadow_samples) <= MAX_SHADOW_SAMPLES:
-            raise NotImplementedError(
-                f"shadow_samples={self.shadow_samples} outside "
-                f"1..{MAX_SHADOW_SAMPLES} (static soft-shadow unroll bound)")
+        if int(self.shadow_samples) < 1:
+            raise ValueError(f"shadow_samples={self.shadow_samples}: the "
+                             "visibility is a mean over at least one walk")
 
     @property
     def cpuonly(self) -> bool:
@@ -487,25 +506,39 @@ def _shading_normal(rows: SceneRows, d, best: _Best, cpuonly: bool):
     return snx * fsign, sny * fsign, snz * fsign
 
 
+def _facing_slabs(rows: SceneRows, p, inv, tmin, dist, facing):
+    """(R, L) bool: each block's slab test on [tmin, dist] (its window
+    does not change during a walk), for the facing rays, False for the
+    others."""
+    fi = facing.nonzero().squeeze(1)
+    slabs = torch.zeros(facing.shape[0], rows.num_blocks, dtype=torch.bool,
+                        device=dist.device)
+    slabs[fi] = _slab(rows.aabb.T[:, None, :],
+                      tuple(c[fi, None] for c in p),
+                      tuple(c[fi, None] for c in inv), tmin[fi, None],
+                      dist[fi, None])
+    return slabs
+
+
 def _occluded_plain(rows: SceneRows, p, ld, dist, facing, det_eps,
-                    shadow_tmin, tmax=None):
+                    shadow_tmin, tmax=None, listed=None):
     """Any hit toward each light for ``facing`` rays: blocks are culled
     by a slab test on [shadow_tmin, dist] and triangles tested on
     [shadow_tmin, tmax] (``tmax`` defaults to ``dist``; ``shadow_tmin``
     a float or a per-ray tensor); a ray leaves the walk at its first
     hit.  -> (blocked, pairs): ``pairs`` counts the tests the kernels
     make, which stop at that hit (the dense test here runs the whole
-    block)."""
+    block).  ``listed``: a list that receives the count of the facing
+    rays some block's slab test passes, the walks kernel A lists."""
     tmax = dist if tmax is None else tmax
     inv = tuple(1.0 / c for c in ld)
     blocked = torch.zeros_like(facing)
     pairs = torch.zeros((), dtype=torch.int64, device=dist.device)
     tmin_t = (shadow_tmin if torch.is_tensor(shadow_tmin)
               else torch.full_like(dist, shadow_tmin))
-    # every block's slab test at once: its window does not change
-    slabs = _slab(rows.aabb.T[:, None, :], tuple(c[:, None] for c in p),
-                  tuple(c[:, None] for c in inv), tmin_t[:, None],
-                  dist[:, None])  # (R, L)
+    slabs = _facing_slabs(rows, p, inv, tmin_t, dist, facing)
+    if listed is not None:
+        listed.append(slabs.any(dim=1).sum())
     for b in range(rows.num_blocks):
         cand = facing & ~blocked
         if not bool(cand.any()):
@@ -541,18 +574,21 @@ def _hemisphere_plain(state, n):
 
 
 def _visibility_plain(rows, sh: _Shade, li, radius, p, to, ld, dist,
-                      facing, hit, rng):
+                      facing, hit, rng, listed=None):
     """Light ``li``'s visibility for every ray -> (vis, rng, pairs).
 
     gpu: one hard-shadow walk.  cpuonly (``ShadowVisibility``,
     ``CPUOnly/raytracer.h:121-168``): ``shadow_samples`` walks toward
     disk samples of an area light, one toward a point light's center;
-    the disk draws advance the rng of hit rays only."""
+    the disk draws advance the rng of hit rays only.  ``listed``: as in
+    ``_occluded_plain``, a count a walk (passed on only when given, so
+    that a stand-in walk without the parameter still fits)."""
     pairs = []
+    kw = {} if listed is None else {"listed": listed}
 
     def walk(sd, d_s, tmax):
         blocked, n = _occluded_plain(rows, p, sd, d_s, facing, sh.det_eps,
-                                     sh.shadow_tmin, tmax)
+                                     sh.shadow_tmin, tmax, **kw)
         pairs.append(n)
         return blocked
 
@@ -598,15 +634,16 @@ def _visibility_plain(rows, sh: _Shade, li, radius, p, to, ld, dist,
 
 
 def _bounce_plain(rows: SceneRows, st: dict, sh: _Shade, cand_plan=None,
-                  capture=None):
+                  capture=None, listed=None):
     """One closest hit + shade + RR step (the loop body of
     ``TraceRayIterative``, ``query.h:165-216``, or of CPUOnly's
     ``TraceRay``) on the flat per-ray state ``st``, updated in place.
     Dead rays pass through unchanged.  ``cand_plan``: walk the binned
     candidates (depth 0, rays in tile order) instead of the blocks.
     ``capture``: a dict that receives the oracle rows of the gpu dialect
-    (``DIFF_ROWS``), dead rays at their defaults.  Returns the
-    ray-triangle pairs the kernels test for this step (a 0-d tensor)."""
+    (``DIFF_ROWS``), dead rays at their defaults; ``listed`` as in
+    ``_visibility_plain``.  Returns the ray-triangle pairs the kernels
+    test for this step (a 0-d tensor)."""
     alive = st["alive"] > 0.0
     dev = alive.device
     big = torch.tensor(1e30, device=dev)
@@ -655,7 +692,7 @@ def _bounce_plain(rows: SceneRows, st: dict, sh: _Shade, cand_plan=None,
         facing = hit & (ndotl > 0.0) & (ndotv > 0.0)
         vis, rng_s, n = _visibility_plain(
             rows, sh, li, radius, (px, py, pz), (tox, toy, toz),
-            (ldx, ldy, ldz), dist, facing, hit & alive, rng_s)
+            (ldx, ldy, ldz), dist, facing, hit & alive, rng_s, listed)
         pairs = pairs + n
         vis_bits = vis_bits | torch.where(vis > 0.0, 1 << li, 0)
         hx, hy, hz = ldx + vx, ldy + vy, ldz + vz
@@ -822,13 +859,18 @@ def emit_tiles_plain(rows: SceneRows, xs_p, ys_p, has_work, sample_offset,
     """Plain version of the emit kernel on a padded pixel stream;
     ``has_work`` (nt,) bool (``_has_work``).  ``stats``: optional dict
     whose ``"pairs"`` entry grows by the ray-triangle pairs the kernel
-    tests on these inputs (as for every plain version below)."""
+    tests on these inputs (as for every plain version below), and, here,
+    whose ``"walks"`` entry grows by the shadow walks the kernel lists
+    (its ``counts[0]``)."""
     sh = _plain_shade(diffuse_bounce, det_eps, tmin, shadow_eps,
                       shadow_tmin, dialect, shadow_samples, jitter)
     np_rays = int(xs_p.shape[0])
     nt = np_rays // RAY_TILE
     st = _primary_state(rows, xs_p, ys_p, sample_offset, jitter, has_work)
-    _tally(stats, _bounce_plain(rows, st, sh, cand_plan))
+    listed = None if stats is None else []
+    _tally(stats, _bounce_plain(rows, st, sh, cand_plan, listed=listed))
+    if stats is not None:
+        stats["walks"] = stats.get("walks", 0) + int(sum(listed))
     # tiles no ray of which can hit anything: dead state with a unit
     # direction (a zero one poisons later 1/d) and the miss radiance
     work = has_work.repeat_interleave(RAY_TILE)
@@ -1027,10 +1069,14 @@ def emit_tiles(scene, xs, ys, sample_offset=0, *, det_eps: float = 1e-8,
         _check_cand_plan(cand_plan, scene.camera, nt)
     has_work = _has_work(scene, xs, ys, sh, plan, cand_plan)
     if _device_kind(xs) == "cpu":
-        return emit_tiles_plain(
+        stats = {}
+        out = emit_tiles_plain(
             rows, xs, ys, has_work, int(sample_offset), sh.diffuse_bounce,
             det_eps, tmin, shadow_eps, shadow_tmin, dialect=dialect,
-            jitter=jitter, shadow_samples=shadow_samples, cand_plan=cand_plan)
+            jitter=jitter, shadow_samples=shadow_samples, cand_plan=cand_plan,
+            stats=stats)
+        _walk_tally(xs.device).total += stats["walks"]
+        return out
     from ._native import load
 
     lib = load()
@@ -1040,10 +1086,14 @@ def emit_tiles(scene, xs, ys, sample_offset=0, *, det_eps: float = 1e-8,
     rng = torch.empty(nt * 8, RAY_TILE, dtype=torch.int32, device=dev)
     # scratch of the kernel's three launches: the shadow list (a ray's
     # walks: one a light, or, cpuonly, up to one a disk sample), its
-    # flags, and each ray's closest hit
-    rounds = int(rows.lights.shape[0]) * (sh.shadow_samples if sh.cpuonly
-                                          else 1)
-    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    # flags, and each ray's closest hit; the list's counts stay in the
+    # walk tally
+    rounds = _shadow_rounds(rows.lights.shape[0], sh.shadow_samples,
+                            sh.cpuonly)
+    if np_rays * rounds > _INT_MAX:
+        raise ValueError(f"{np_rays} rays x {rounds} walks exceed kernel "
+                         "A's int32 shadow-list index")
+    counts = _walk_tally(dev).next_counts()
     walks = torch.empty(np_rays * rounds, dtype=torch.int32, device=dev)
     flags = torch.empty(np_rays * rounds, dtype=torch.uint8, device=dev)
     hits = torch.empty(5 * np_rays, dtype=torch.float32, device=dev)
@@ -1217,10 +1267,12 @@ _VARIANTS = {"bounce_step[diff]": "diff_launches",
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counters and the shadow-walk tally."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
     for attr in _VARIANTS.values():
         setattr(bounce_step_tiles, attr, 0)
+    _WALK_TALLIES.clear()
 
 
 def launch_counts() -> dict:
@@ -1233,6 +1285,47 @@ def variant_launch_counts() -> dict:
     (each also counted under "bounce_step")."""
     return {name: getattr(bounce_step_tiles, attr)
             for name, attr in _VARIANTS.items()}
+
+
+# Kernel A's listed shadow walks (the walks whose segment passes some
+# block's slab test: its counts[0]; the plain version counts the same
+# walks), kept on the walks' device.  Each emit launch writes its counts
+# into the next pair of a device buffer, which folds into a device total
+# when full, so no count crosses to the host until it is asked for.
+_WALK_SLOTS = 1024
+_WALK_TALLIES: dict = {}
+
+
+class _WalkTally:
+    def __init__(self, device):
+        self.slots = torch.zeros(_WALK_SLOTS, 2, dtype=torch.int32,
+                                 device=device)
+        self.total = torch.zeros((), dtype=torch.int64, device=device)
+        self.used = 0
+
+    def next_counts(self) -> torch.Tensor:
+        """The (2,) int32 counts of the next emit launch."""
+        if self.used == _WALK_SLOTS:
+            self.total += self.slots[:, 0].sum()
+            self.used = 0
+        self.used += 1
+        return self.slots[self.used - 1]
+
+    def read(self) -> int:
+        return int(self.total + self.slots[:self.used, 0].sum())
+
+
+def _walk_tally(device) -> _WalkTally:
+    key = torch.device(device)
+    if key not in _WALK_TALLIES:
+        _WALK_TALLIES[key] = _WalkTally(key)
+    return _WALK_TALLIES[key]
+
+
+def shadow_walk_counts() -> dict:
+    """Kernel A's listed shadow walks since the last reset, by device:
+    one read from each device, made here and nowhere else."""
+    return {str(dev): tally.read() for dev, tally in _WALK_TALLIES.items()}
 
 
 reset_launch_counts()

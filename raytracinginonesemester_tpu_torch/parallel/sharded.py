@@ -34,7 +34,7 @@ import torch.distributed as dist
 
 from ..ops import comm
 from ..render.renderer import (DEFAULT_RAY_TILE, _frame_accum, _fused,
-                               _swizzled_grid, _tile_map, _unswizzle,
+                               _route, _swizzled_grid, _tile_map, _unswizzle,
                                accumulate_samples, resolve_candidate_plan,
                                resolve_jitter_mode, resolve_wavefront)
 from ..scene.build import Scene
@@ -208,7 +208,8 @@ def _render_sharded_fast(scene: Scene, mesh: Mesh, spp: int, wavefront: bool,
         return a.reshape(groups, n_data, q)[:, d].reshape(-1)
 
     accum = _frame_accum(scene, mine(xs), mine(ys), spp, sample_offset,
-                         jitter_mode, wavefront, capacity, cand_plan)
+                         jitter_mode, _route(scene, jitter_mode, wavefront),
+                         capacity, cand_plan)
     accum = comm.gather_rows(accum, mesh.group("data")).reshape(
         n_data, groups, q, 3).transpose(0, 1).reshape(-1, 3)[:n_swz]
     return _unswizzle(accum, w, h, hp, wp) / float(spp)

@@ -29,7 +29,7 @@ from ..scene.build import Scene
 from ..utils.timing import span
 
 __all__ = ["render_scene", "render_scene_frames", "render_hw1",
-           "resolve_wavefront",
+           "resolve_wavefront", "route_counts", "reset_route_counts",
            "resolve_candidate_plan", "resolve_jitter_mode",
            "accumulate_samples", "DEFAULT_RAY_TILE", "frog_scene", "entry"]
 
@@ -80,26 +80,46 @@ def resolve_jitter_mode(scene: Scene, jitter_mode: str, spp: int) -> str:
 
 def _fused(scene: Scene, jitter_mode: str) -> bool:
     """Whether the fused kernels (A-D) take the scene, as the JAX
-    package decides (``megakernel_eligible``)."""
+    package decides (``megakernel_eligible``), but for the soft-shadow
+    sample bound, which the port does not keep."""
     return megakernel_ineligible_reason(scene, jitter_mode) is None
-
-
-def _warn_if_fallback(scene: Scene, jitter_mode: str, spp: int) -> None:
-    """One warning per reason when a scene falls off the fused kernels
-    onto the staged integrator, as the JAX package warns; none for a
-    differentiable scene, which has no faster option."""
-    from ..utils.logging import warn_once
-
-    reason = megakernel_ineligible_reason(
-        scene, resolve_jitter_mode(scene, jitter_mode, spp))
-    if reason is not None and not reason.startswith("differentiable"):
-        warn_once(f"mk-fallback:{reason}",
-                  f"scene falls off the fused kernels ({reason}); rendering "
-                  "via the staged integrator")
 
 
 def _bouncing(scene: Scene) -> bool:
     return bool(scene.diffuse_bounce) or not scene.terminal_only
+
+
+# calls of render_scene and render_scene_frames by route since the last
+# reset: "wavefront" (the staged wavefront, kernels A and B, C on
+# overflow), "render" (the monolithic kernel D) or "staged: <reason>"
+# (the staged integrator, with the fused kernels' reason for refusing)
+_ROUTES: dict = {}
+
+
+def route_counts() -> dict:
+    """Render calls by route since the last reset (``_ROUTES``)."""
+    return dict(_ROUTES)
+
+
+def reset_route_counts() -> None:
+    _ROUTES.clear()
+
+
+def _route(scene: Scene, jitter_mode: str, wavefront: bool) -> str:
+    """The route of a render call for ``scene`` at the resolved
+    ``jitter_mode``, which ``_frame_accum`` then takes; one warning per
+    reason when it is the staged integrator, as the JAX package warns,
+    none for a differentiable scene, which has no faster option."""
+    reason = megakernel_ineligible_reason(scene, jitter_mode)
+    if reason is None:
+        return "wavefront" if _bouncing(scene) and wavefront else "render"
+    if not reason.startswith("differentiable"):
+        from ..utils.logging import warn_once
+
+        warn_once(f"mk-fallback:{reason}",
+                  f"scene falls off the fused kernels ({reason}); rendering "
+                  "via the staged integrator")
+    return f"staged: {reason}"
 
 
 def _kernel_kwargs(scene: Scene, jitter_mode: str) -> dict:
@@ -258,19 +278,18 @@ def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
 
 
 def _frame_accum(scene: Scene, xs, ys, spp: int, sample_offset: int,
-                 jitter_mode: str, wavefront: bool, cap, cand_plan,
+                 jitter_mode: str, route: str, cap, cand_plan,
                  ray_tile: int = DEFAULT_RAY_TILE):
     """Per-ray radiance SUM over ``spp`` samples, (N, 3) in swizzled
-    order: for a scene the fused kernels take, the staged wavefront for
-    bouncing scenes when it is taken, else the monolithic render kernel;
-    for any other scene the staged integrator."""
+    order, on ``route`` (``_route``): the staged wavefront, the
+    monolithic render kernel or the staged integrator."""
     jm = resolve_jitter_mode(scene, jitter_mode, spp)
     with span("rt.glue.frame"):
-        if not _fused(scene, jm):
+        if route.startswith("staged"):
             return accumulate_samples(scene, xs, ys, spp, jm, ray_tile,
                                       sample_offset)
         kw = _kernel_kwargs(scene, jm)
-        if _bouncing(scene) and wavefront:
+        if route == "wavefront":
             from ..ops.wavefront import render_tiles_wavefront
 
             return render_tiles_wavefront(scene, xs, ys, spp, sample_offset,
@@ -283,6 +302,8 @@ def _frame_accum(scene: Scene, xs, ys, spp: int, sample_offset: int,
 
 
 def _dispatch(scene, jitter_mode, spp, cand_plan, capacity_tiles):
+    """(route, cap, cand_plan) of one render call; the call is counted
+    under its route."""
     with span("rt.dispatch.resolve"):
         if capacity_tiles is not None:
             wavefront, cap = True, int(capacity_tiles)
@@ -290,8 +311,10 @@ def _dispatch(scene, jitter_mode, spp, cand_plan, capacity_tiles):
             wavefront, cap = resolve_wavefront(scene, jitter_mode, spp)
         if cand_plan is None:
             cand_plan = resolve_candidate_plan(scene, jitter_mode, spp)
-        _warn_if_fallback(scene, jitter_mode, spp)
-        return wavefront, cap, cand_plan
+        route = _route(scene, resolve_jitter_mode(scene, jitter_mode, spp),
+                       wavefront)
+        _ROUTES[route] = _ROUTES.get(route, 0) + 1
+        return route, cap, cand_plan
 
 
 def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
@@ -307,23 +330,21 @@ def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
     forces the wavefront at that capacity where the fused kernels take
     the scene; ``ray_tile`` as in ``accumulate_samples``."""
     with span("rt.dispatch.frames"):
-        wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, 1,
-                                              cand_plan, capacity_tiles)
+        route, cap, cand_plan = _dispatch(scene, jitter_mode, 1, cand_plan,
+                                          capacity_tiles)
         w, h = scene.camera.width, scene.camera.height
         xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
-        jm = resolve_jitter_mode(scene, jitter_mode, 1)
-        if (_fused(scene, jm) and _bouncing(scene) and wavefront
-                and cap is not None):
+        if route == "wavefront" and cap is not None:
             from ..ops.wavefront import render_tiles_wavefront_frames
 
+            jm = resolve_jitter_mode(scene, jitter_mode, 1)
             accum = render_tiles_wavefront_frames(
                 scene, xs, ys, frames, sample_offset, capacity_tiles=cap,
                 cand_plan=cand_plan, **_kernel_kwargs(scene, jm))
         else:
             accum = torch.stack([
                 _frame_accum(scene, xs, ys, 1, int(sample_offset) + f,
-                             jitter_mode, wavefront, cap, cand_plan,
-                             ray_tile)
+                             jitter_mode, route, cap, cand_plan, ray_tile)
                 for f in range(int(frames))])
         return _unswizzle(accum, w, h, hp, wp)
 
@@ -341,12 +362,12 @@ def render_scene(scene: Scene, jitter_mode: str = "auto",
     "wang", else "center"); ``ray_tile`` as in ``accumulate_samples``."""
     spp = spp_override if spp_override is not None else scene.spp
     with span("rt.dispatch.scene"):
-        wavefront, cap, cand_plan = _dispatch(scene, jitter_mode, spp,
-                                              cand_plan, capacity_tiles)
+        route, cap, cand_plan = _dispatch(scene, jitter_mode, spp,
+                                          cand_plan, capacity_tiles)
         w, h = scene.camera.width, scene.camera.height
         xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
         accum = _frame_accum(scene, xs, ys, spp, sample_offset, jitter_mode,
-                             wavefront, cap, cand_plan, ray_tile)
+                             route, cap, cand_plan, ray_tile)
         img = _unswizzle(accum, w, h, hp, wp)
         return img / float(spp) if normalize else img
 

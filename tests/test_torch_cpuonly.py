@@ -141,17 +141,23 @@ def test_render_tiles_matches_jax(case):
 
 
 def test_ineligible_cpuonly_scenes_raise(case, monkeypatch):
-    """The cpuonly scenes the fused kernels refuse (more than 16 shadow
-    samples, ``reference_cpu`` jitter; the JAX package's reasons) no
-    longer raise: they take the staged integrator, whose renders
-    ``test_torch_integrator.py`` holds against the JAX package."""
+    """The cpuonly scenes the fused kernels refuse (``reference_cpu``
+    jitter, the JAX package's reason) no longer raise: they take the
+    staged integrator, whose renders ``test_torch_integrator.py`` holds
+    against the JAX package.  More than 16 shadow samples, which the JAX
+    package refuses too (its static unroll bound), take the port's fused
+    kernels, whose sample loop is a run-time loop (ROADMAP §3; held
+    against the staged integrator in ``test_torch_soft_mirror.py``)."""
     from raytracinginonesemester_tpu_torch.render import renderer
 
-    ts = case["ts"]
+    ts, js = case["ts"], case["js"]
     many = dataclasses.replace(ts, lights=dataclasses.replace(
         ts.lights, shadow_samples=(17,)))
-    assert "shadow_samples=17 > 16" in tmk.megakernel_ineligible_reason(
-        many, case["jitter"])
+    j_many = dataclasses.replace(js, lights=dataclasses.replace(
+        js.lights, shadow_samples=(17,)))
+    assert "shadow_samples=17 > 16" in jmk.megakernel_ineligible_reason(
+        j_many, case["jitter"])
+    assert tmk.megakernel_ineligible_reason(many, case["jitter"]) is None
     assert "jitter_mode='reference_cpu'" in tmk.megakernel_ineligible_reason(
         ts, "reference_cpu")
     staged = []
@@ -161,10 +167,12 @@ def test_ineligible_cpuonly_scenes_raise(case, monkeypatch):
         return torch.zeros(xs.shape[0], 3)
 
     monkeypatch.setattr(renderer, "accumulate_samples", accumulate)
-    render_scene(many)
+    monkeypatch.setattr(renderer, "resolve_wavefront",
+                        lambda *a, **k: (False, None))
+    one = dataclasses.replace(many, max_bounces=1)
+    render_scene(one)
     render_scene(ts, jitter_mode="reference_cpu")
-    assert staged == [renderer.resolve_jitter_mode(many, "auto", many.spp),
-                      "reference_cpu"]
+    assert staged == ["reference_cpu"]
 
 
 @pytest.mark.parametrize("name", ["cpuonly_point", "cpuonly_mirror"])

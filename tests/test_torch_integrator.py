@@ -347,7 +347,9 @@ def test_fused_refusals_render_on_the_staged_path(frog, spy, case):
     elif case == "cpuonly_reference_cpu":
         ts = _small_cpuonly()
     elif case == "cpuonly_17":
-        ts, jitter = _small_cpuonly(radius=0.15, shadow_samples=17), "auto"
+        # a 17-sample area light: the fused kernels take it at "auto"
+        # (ROADMAP §3), so the oracle's jitter keeps it on E and F
+        ts = _small_cpuonly(radius=0.15, shadow_samples=17)
     elif case == "no_accel":
         # brute force over every triangle: the small scene keeps it quick
         ts, jitter = dataclasses.replace(_small_cpuonly(), accel=None), "auto"

@@ -164,7 +164,10 @@ def test_package_imports_without_jax():
 def test_unsupported_scenes_raise():
     """The scenes the fused kernels refuse, for the JAX package's reasons
     (differentiable scenes among them), take the staged integrator
-    without calibrating a wavefront, and render; none raises now."""
+    without calibrating a wavefront, and render; none raises now.  A
+    cpuonly light of more than 16 shadow samples, which the JAX package
+    refuses (its static unroll bound), is taken by the port's fused
+    kernels (ROADMAP §3)."""
     import dataclasses
 
     from raytracinginonesemester_tpu_torch.ops.megakernel import (
@@ -181,12 +184,20 @@ def test_unsupported_scenes_raise():
     grid_less = dataclasses.replace(ts, accel=None)
     diff = dataclasses.replace(ts, differentiable=True)
     for scene, jitter, why in ((cpu, "reference_cpu", "jitter"),
-                               (many, "center", "shadow_samples=17"),
                                (ts, "center", "jitter"),
                                (grid_less, "wang", "accel"),
                                (diff, "wang", "differentiable")):
         assert why in reason(scene, jitter)
         assert resolve_wavefront(scene, jitter, 1) == (False, None)
+    from raytracinginonesemester_tpu.ops.megakernel import (
+        megakernel_ineligible_reason as j_reason)
+    from raytracinginonesemester_tpu.scene.build import load_scene as j_load
+
+    j_cpu = j_load(os.path.join(REPO, "tests/assets/scenes/cpuonly_point.json"))
+    j_many = dataclasses.replace(j_cpu, lights=dataclasses.replace(
+        j_cpu.lights, shadow_samples=(17,)))
+    assert "shadow_samples=17 > 16" in j_reason(j_many, "center")
+    assert reason(many, "center") is None
     img = render_scene(ts, jitter_mode="center")
     assert torch.isfinite(img).all() and float(img.std()) > 0.0
     assert reason(diff, "wang") == "differentiable scene (staged integrator only)"
