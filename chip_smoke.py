@@ -637,9 +637,19 @@ def soft_jobs(soft):
     """Phase 11's jobs of the 32-sample soft scene at full width, on
     the inputs its fused route gives them: A on the binned depth-0 plan,
     then B and C on A's state sorted as the wavefront sorts it, each
-    against its plain version (time_kernels' key: job)."""
+    against its plain version (time_kernels' key: job).  A's soft groups:
+    the groups and walks its tallies count in one emit, and the share of
+    the groups' sample slots that walk."""
+    from raytracinginonesemester_tpu_torch.ops import megakernel as mk
+
     f = Frame(soft, jitter="center")
-    st, rng = f.emit(True)
+    (st, rng), _ = launches(lambda: f.emit(True))
+    (walks,), (groups,) = (mk.shadow_walk_counts().values(),
+                           mk.shadow_group_counts().values())
+    samples = f.pkw["shadow_samples"]
+    log(f"soft emit at {f.nt} tiles x 512: {groups} groups of {samples} "
+        f"disk samples list {walks} walks, {walks / (groups * samples):.5f}"
+        " of the groups' sample slots")
     st_s, rng_s, _ = f.sorted_state(st, rng)
     del st, rng
 

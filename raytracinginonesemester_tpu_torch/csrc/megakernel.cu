@@ -36,9 +36,11 @@
 //   stages anything; the binned walk reads the tile's chunks from shared
 //   memory, double-buffered with cp.async, split over four threads a ray,
 //   closest_binned_cta; the flat walk is closest_coop, 8 rays a warp),
-//   keeps them and lists the shadow rays that pass a slab test; emit_walk_kernel, a grid that fills the card, walks the
-//   list kListRays rays a warp (occluded_coop); emit_finish_kernel shades
-//   with the flags.
+//   keeps them and lists the shadow rays that pass a slab test (cpuonly,
+//   an area light's disk samples as one group); emit_walk_kernel, a grid
+//   that fills the card, walks the groups a warp each, lanes over a
+//   block's triangles (walk_groups), then the list kListRays rays a warp
+//   (occluded_coop); emit_finish_kernel shades with the flags.
 // - bounce_step (B): the flat closest hit and the shadow rays are
 //   warp-cooperative, 8 rays to a warp (closest_coop, occluded_coop); its
 //   binned oracle depth 0 keeps a lane's own binned walk, 32 rays a warp.
@@ -93,6 +95,11 @@ constexpr int kRaysPerWarp = 8;
 // 2, 4 and 8 within the noise of each other, 16 slower), fewer when the
 // list is short (take_groups)
 constexpr int kListRays = 4;
+// triangles a lane of a group walk (walk_groups) makes and tests between
+// the warp's votes, kGroupVote * 32 of a block (measured on the CPUOnly
+// mirror at 1080p with 32 disk samples: 1, 2 and 4 walk in 17.8, 15.2
+// and 14.8 ms)
+constexpr int kGroupVote = 4;
 // rays a warp of resume_kernel owns (measured on the frog's overflow
 // state: 4 rays a warp 31% faster than 8; on cpuonly_mirror's 2% slower)
 constexpr int kResumeRays = 4;
@@ -639,6 +646,207 @@ __device__ void walk_list(const SceneArgs& s, const Shared& sh,
   });
 }
 
+// ---- kernel A's soft groups: a hit's disk samples walked together ----
+//
+// Measured (the CPUOnly mirror at 1080p, an area light of 32 disk
+// samples, H100): listed one entry a sample, A's list walk took two
+// thirds of a frame, 35.9 ms an emit; walked as groups, 14.8.
+// A hit's samples start from one point and aim at one small disk, so
+// they pass nearly the same blocks, yet each sample's walk made the hit
+// again (its 32 disk draws to keep one), loaded and shuffled the same
+// triangles, and recomputed Moller-Trumbore's terms that depend on the
+// point alone.  So a cpuonly light with a radius and more than one
+// sample lists one entry, a group, for a (ray, light) some of whose
+// samples' slab tests pass: its first sample's place, gid * rounds +
+// round, the other samples' flags after it.  A warp takes a group, makes
+// its hit and draws its samples once, a sample a lane (32 at a time),
+// and walks the union of the blocks its samples' slab tests pass, in
+// ascending order; a sample enters a block only where its own slab test
+// passes.  In a block the lanes go over the triangles: lane l makes
+// slots l, l + 32, ... (kGroupVote of them) from the point once and
+// tests each against every sample still in the block, and after each
+// vote the blocked samples leave the walk.  A sample's flag comes out
+// as its own walk's: blocked when a triangle of a block its slab test
+// passes holds a hit on its segment.
+
+// The groups of emit's launches: counts[2] (counts[0] of the Shadows
+// this returns) the groups listed, [3] the groups taken, [4] the sample
+// walks they list (a sample whose segment passes some block's slab
+// test); the group list lies after the n_rays * n_lights single entries.
+__device__ __forceinline__ Shadows group_list(const SceneArgs& s,
+                                              const Shadows& q) {
+  return Shadows{q.counts + 2, q.list + (size_t)q.n_rays * s.n_lights,
+                 q.flags, q.hits, q.rounds, q.n_rays};
+}
+
+// Append the groups of the CTA's threads that `want` to the group list
+// and add their `walks` to its walk count (every thread of the CTA calls
+// it): one atomicAdd reserves their places, one counts their walks.
+__device__ void group_append(const Shadows& g, bool want, int entry,
+                             int walks) {
+  __shared__ int l_count[kThreads / 32], l_walks[kThreads / 32];
+  __shared__ int l_base;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const unsigned ball = __ballot_sync(kFull, want);
+  const int warp_walks = __reduce_add_sync(kFull, walks);
+  if (lane == 0) {
+    l_count[w] = __popc(ball);
+    l_walks[w] = warp_walks;
+  }
+  __syncthreads();
+  int off = 0, total = 0, walked = 0;
+#pragma unroll
+  for (int k = 0; k < kThreads / 32; ++k) {
+    const int n = l_count[k];
+    off += k < w ? n : 0;
+    total += n;
+    walked += l_walks[k];
+  }
+  if (threadIdx.x == 0) {
+    l_base = total ? atomicAdd(&g.counts[0], total) : 0;
+    if (walked) atomicAdd(&g.counts[2], walked);
+  }
+  __syncthreads();
+  if (want) g.list[l_base + off + __popc(ball & ((1u << lane) - 1u))] = entry;
+}
+
+// Moller-Trumbore (mt) split at the terms that depend on the origin and
+// the triangle alone (tvec = o - v0, qvec = tvec x e1, e2 . qvec), made
+// once for every direction tested from o: mt's operations in mt's
+// order, so mt's bits.
+struct TriFrom {
+  float e1[3], e2[3], tv[3], qv[3], tq;
+};
+
+__device__ __forceinline__ void tri_from(const float* T, size_t stride,
+                                         const float* o, TriFrom& f) {
+  const float v0x = T[0], v0y = T[stride], v0z = T[2 * stride];
+  const float e1x = T[3 * stride], e1y = T[4 * stride], e1z = T[5 * stride];
+  f.e1[0] = e1x;
+  f.e1[1] = e1y;
+  f.e1[2] = e1z;
+  f.e2[0] = T[6 * stride];
+  f.e2[1] = T[7 * stride];
+  f.e2[2] = T[8 * stride];
+  const float tvx = o[0] - v0x;
+  const float tvy = o[1] - v0y;
+  const float tvz = o[2] - v0z;
+  f.tv[0] = tvx;
+  f.tv[1] = tvy;
+  f.tv[2] = tvz;
+  f.qv[0] = tvy * e1z - tvz * e1y;
+  f.qv[1] = tvz * e1x - tvx * e1z;
+  f.qv[2] = tvx * e1y - tvy * e1x;
+  f.tq = f.e2[0] * f.qv[0] + f.e2[1] * f.qv[1] + f.e2[2] * f.qv[2];
+}
+
+// mt's test of direction d against a triangle made by tri_from: a hit on
+// [tmin, tmax].  mt's callers take t < kF32Max as a hit: tmax below
+// kF32Max (group_tmax) makes the last test that one too.
+__device__ __forceinline__ bool mt_from(const TriFrom& f, const float* d,
+                                        float det_eps, float tmin,
+                                        float tmax) {
+  const float dx = d[0], dy = d[1], dz = d[2];
+  const float pvx = dy * f.e2[2] - dz * f.e2[1];
+  const float pvy = dz * f.e2[0] - dx * f.e2[2];
+  const float pvz = dx * f.e2[1] - dy * f.e2[0];
+  const float det = f.e1[0] * pvx + f.e1[1] * pvy + f.e1[2] * pvz;
+  const float inv_det = 1.0f / (fabsf(det) < det_eps ? 1.0f : det);
+  const float u = (f.tv[0] * pvx + f.tv[1] * pvy + f.tv[2] * pvz) * inv_det;
+  const float v = (dx * f.qv[0] + dy * f.qv[1] + dz * f.qv[2]) * inv_det;
+  const float t = f.tq * inv_det;
+  return fabsf(det) >= det_eps && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+         u + v <= 1.0f && t >= tmin && t <= tmax;
+}
+
+// A sample's tmax for mt_from: t <= group_tmax(tmax) is t <= tmax and
+// t < kF32Max (NaN kept).
+__device__ __forceinline__ float group_tmax(float tmax) {
+  return tmax >= kF32Max ? nextafterf(kF32Max, 0.0f) : tmax;
+}
+
+// The samples of `enter` (a bit a sample lane; each sample's direction
+// and tmax in smp) that a triangle of block b blocks, on every lane:
+// lane l makes slots l, l + 32, ... from p, kGroupVote of them between
+// votes, and tests each against every sample still in the block.
+__device__ unsigned block_any_group(const SceneArgs& s, int b, const float* p,
+                                    const float4* smp, unsigned enter) {
+  const int lane = threadIdx.x & 31;
+  const size_t plane = (size_t)s.num_blocks * s.block_size;
+  const int base = b * s.block_size;
+  unsigned blocked = 0;
+  for (int j0 = 0; j0 < s.block_size && enter; j0 += 32 * kGroupVote) {
+    TriFrom f[kGroupVote];
+    bool live[kGroupVote];
+#pragma unroll
+    for (int q = 0; q < kGroupVote; ++q) {
+      const int j = j0 + 32 * q + lane;
+      const int jj = j < s.block_size ? j : s.block_size - 1;
+      live[q] = j < s.block_size && s.ids[base + jj] >= 0;
+      tri_from(s.tri + base + jj, plane, p, f[q]);
+    }
+    unsigned hit = 0;
+    for (unsigned m = enter; m; m &= m - 1) {
+      const int k = __ffs(m) - 1;
+      const float4 sd = smp[k];
+      const float d[3] = {sd.x, sd.y, sd.z};
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < kGroupVote; ++q)
+        any |= live[q] & mt_from(f[q], d, s.det_eps, s.shadow_tmin, sd.w);
+      if (any) hit |= 1u << k;
+    }
+    hit = __reduce_or_sync(kFull, hit);
+    blocked |= hit;
+    enter &= ~hit;
+  }
+  return blocked;
+}
+
+// The group walk of emit's list: each warp takes a group (one atomicAdd
+// a group) until the list is done; `sample_of(entry, k, row)` fills, on
+// every lane, the row (p, ld, tmin, dist, tmax) of the group's sample k
+// (k < 0: none) as the sample's own walk would have it, and each blocked
+// sample's flag is set.
+template <class SampleOf>
+__device__ void walk_groups(const SceneArgs& s, const Shared& sh,
+                            const Shadows& g, SampleOf sample_of) {
+  __shared__ float4 samples[kThreads / 32][32];
+  const int lane = threadIdx.x & 31;
+  float4* smp = samples[threadIdx.x >> 5];
+  const int total = g.counts[0];
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(&g.counts[1], 1);
+    i = __shfl_sync(kFull, i, 0);
+    if (i >= total) return;
+    const int entry = g.list[i];
+    for (int k0 = 0; k0 < s.shadow_samples; k0 += 32) {
+      const bool mine = k0 + lane < s.shadow_samples;
+      float row[9];
+      sample_of(entry, mine ? k0 + lane : -1, row);
+      float p[3];  // the hit's point, the same for every sample
+#pragma unroll
+      for (int c = 0; c < 3; ++c) p[c] = __shfl_sync(kFull, row[c], 0);
+      const float inv[3] = {1.0f / row[3], 1.0f / row[4], 1.0f / row[5]};
+      __syncwarp();  // the last pass's samples are read
+      smp[lane] = make_float4(row[3], row[4], row[5], group_tmax(row[8]));
+      __syncwarp();
+      unsigned live = __ballot_sync(kFull, mine), blocked = 0;
+      for (int b = 0; b < s.num_blocks && live; ++b) {
+        const unsigned enter = __ballot_sync(
+            kFull, ((live >> lane) & 1u) &&
+                       slab(sh.aabb + 6 * b, p, inv, row[6], row[7]));
+        if (!enter) continue;
+        const unsigned hit = block_any_group(s, b, p, smp, enter);
+        blocked |= hit;
+        live &= ~hit;
+      }
+      if ((blocked >> lane) & 1u) g.flags[entry + k0 + lane] = 1;
+    }
+  }
+}
+
 // random_on_hemisphere (query.h:51-71): scalar rejection, <= 64 rounds.
 __device__ void hemisphere(uint32_t* rng, const float* n, float* h) {
   uint32_t st = *rng;
@@ -770,10 +978,46 @@ __device__ float soft_walk(const SceneArgs& s, const Shared& sh,
              : 1.0f;
 }
 
+// kList of an area light's samples as a group (walk_groups): every thread
+// of the CTA calls it.  The samples are drawn and their segments made as
+// soft_visibility and soft_walk make them, each sample's flag is
+// cleared, and the owner of a facing ray lists one entry, its first
+// sample's, when some sample's slab test passes some block; those
+// samples are the group's listed walks.  tb: the disk basis t, then b.
+// (Measured: the slab tests split over the ray's kEmitSplit threads made
+// the launch no faster.)
+__device__ void list_group(const SceneArgs& s, const Shared& sh,
+                           const float* L, const float* p, const float* tb,
+                           bool facing, bool hit, uint32_t* rng,
+                           ShadowCtx* c) {
+  const float radius = L[6];
+  const int first = c->gid * c->q.rounds + c->round;
+  int walks = 0;
+  for (int k = 0; k < s.shadow_samples; ++k) {
+    float dxs = 0.0f, dys = 0.0f;
+    if (hit) disk_sample(rng, &dxs, &dys);
+    const float stx = (L[0] + (tb[0] * dxs + tb[3] * dys) * radius) - p[0];
+    const float sty = (L[1] + (tb[1] * dxs + tb[4] * dys) * radius) - p[1];
+    const float stz = (L[2] + (tb[2] * dxs + tb[5] * dys) * radius) - p[2];
+    const float d_s =
+        sqrtf(fmaxf(stx * stx + sty * sty + stz * stz, 1e-24f));
+    const float inv_s = 1.0f / d_s;
+    const float inv[3] = {1.0f / (stx * inv_s), 1.0f / (sty * inv_s),
+                          1.0f / (stz * inv_s)};
+    if (c->owner && facing &&
+        next_block(s, sh, p, inv, s.shadow_tmin, d_s, 0) < s.num_blocks)
+      ++walks;
+    if (c->owner) c->q.flags[first + k] = 0;
+  }
+  c->round += s.shadow_samples;
+  group_append(group_list(s, c->q), walks > 0, first, walks);
+}
+
 // ShadowVisibility (CPUOnly/raytracer.h:121-168): shadow_samples walks
 // toward disk samples of an area light (the draws advance the ray's rng),
 // one toward a point light's center.  Every lane or thread calls it, the
-// draws advancing the rng of those that hit.
+// draws advancing the rng of those that hit.  kList lists more than one
+// sample of an area light as a group (list_group).
 template <Walk W>
 __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
                                  const float* L, const float* p,
@@ -798,6 +1042,13 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
   const float bx = wy * tz - wz * ty;
   const float by = wz * tx - wx * tz;
   const float bz = wx * ty - wy * tx;
+  if constexpr (W == kList) {
+    if (s.shadow_samples > 1) {
+      const float tb[6] = {tx, ty, tz, bx, by, bz};
+      list_group(s, sh, L, p, tb, facing, hit, rng, c);
+      return 0.0f;  // kList reads no visibility
+    }
+  }
   float unocc = 0.0f;
   for (int k = 0; k < s.shadow_samples; ++k) {
     float dxs = 0.0f, dys = 0.0f;
@@ -1099,12 +1350,24 @@ emit_kernel(SceneArgs s, const int* xs, const int* ys, const int* has_work,
 
 // emit's second launch: a grid that fills the card walks the shadow list.
 // A listed walk's ray is made again from the ray's pixel and kept hit
-// (bounce<.., kCapture>, which stops after the lights).
+// (bounce<.., kCapture>, which stops after the lights).  cpuonly, the
+// groups first (walk_groups), each lane making the group's ray again to
+// keep its own sample's.
 template <bool CPU>
 __global__ void __launch_bounds__(kThreads)
 emit_walk_kernel(SceneArgs s, const int* xs, const int* ys,
                  int sample_offset, int center, Shadows q) {
   const Shared sh = stage_shared(s);
+  if constexpr (CPU)
+    walk_groups(s, sh, group_list(s, q), [&](int entry, int k, float* row) {
+      const int gid = entry / q.rounds;
+      Ray r;
+      primary(s.cam, xs[gid], ys[gid], (uint32_t)sample_offset, center != 0,
+              r);
+      ShadowCtx c{q, gid, 0, k < 0 ? -1 : entry % q.rounds + k, {}};
+      bounce<CPU, false, kCapture>(s, sh, s.cam, r, -1, nullptr, true, &c);
+      for (int j = 0; j < 9; ++j) row[j] = c.ray[j];
+    });
   walk_list(s, sh, q, [&](int entry, float* row) {
     const int gid = entry / q.rounds;
     Ray r;
@@ -1568,8 +1831,11 @@ int coop_blocks_for(int n_rays, int rays) {
 
 extern "C" {
 
-// Scratch of emit's three launches, from the caller: counts (2,), list
-// (n_rays * rounds,), flags (n_rays * rounds,), hits (5 * n_rays,);
+// Scratch of emit's three launches, from the caller: counts (5,): the
+// single entries listed and their groups taken, then the soft groups
+// listed, taken and their sample walks (group_list); list (n_rays *
+// n_lights,), twice that cpuonly with more than one shadow sample (the
+// group list after it); flags (n_rays * rounds,), hits (5 * n_rays,);
 // rounds: the walks a ray may make (the lights, or, cpuonly, their disk
 // samples).
 int rt_emit(const SceneArgs* s, const int* xs, const int* ys,
@@ -1591,7 +1857,7 @@ int rt_emit(const SceneArgs* s, const int* xs, const int* ys,
   if (!e) e = prepare(walk_k, *s, smem_rows);
   if (!e) e = prepare(finish_k, *s, smem_rows);
   if (!e) e = fill_blocks(walk_k, smem_rows, &walk_blocks);
-  if (!e) e = (int)cudaMemsetAsync(counts, 0, 2 * sizeof(int), st);
+  if (!e) e = (int)cudaMemsetAsync(counts, 0, 5 * sizeof(int), st);
   if (e) return e;
   hit_k<<<blocks_for(n_rays * kEmitSplit), kThreads, smem, st>>>(
       *s, xs, ys, has_work, n_rays, rt, sample_offset, center, st_out,

@@ -57,7 +57,8 @@ __all__ = ["RAY_TILE", "SceneRows", "megakernel_ineligible_reason",
            "resume_tiles", "render_tiles", "emit_tiles_plain",
            "bounce_step_tiles_plain", "resume_tiles_plain",
            "render_tiles_plain", "launch_counts", "variant_launch_counts",
-           "reset_launch_counts", "shadow_walk_counts", "DIFF_ROWS"]
+           "reset_launch_counts", "shadow_walk_counts",
+           "shadow_group_counts", "DIFF_ROWS"]
 
 RAY_TILE = 512
 _ST_ROWS = 16  # rows: bo xyz, bd xyz, tp rgb, rd rgb, alive, pad x3
@@ -528,8 +529,9 @@ def _occluded_plain(rows: SceneRows, p, ld, dist, facing, det_eps,
     a float or a per-ray tensor); a ray leaves the walk at its first
     hit.  -> (blocked, pairs): ``pairs`` counts the tests the kernels
     make, which stop at that hit (the dense test here runs the whole
-    block).  ``listed``: a list that receives the count of the facing
-    rays some block's slab test passes, the walks kernel A lists."""
+    block).  ``listed``: a list that receives the (R,) mask of the
+    facing rays some block's slab test passes, the walks kernel A
+    lists."""
     tmax = dist if tmax is None else tmax
     inv = tuple(1.0 / c for c in ld)
     blocked = torch.zeros_like(facing)
@@ -538,7 +540,7 @@ def _occluded_plain(rows: SceneRows, p, ld, dist, facing, det_eps,
               else torch.full_like(dist, shadow_tmin))
     slabs = _facing_slabs(rows, p, inv, tmin_t, dist, facing)
     if listed is not None:
-        listed.append(slabs.any(dim=1).sum())
+        listed.append(slabs.any(dim=1))
     for b in range(rows.num_blocks):
         cand = facing & ~blocked
         if not bool(cand.any()):
@@ -573,6 +575,52 @@ def _hemisphere_plain(state, n):
     return state, (hx * fs, hy * fs, hz * fs)
 
 
+class _Listed:
+    """Kernel A's shadow list as the plain version counts it: ``walks``,
+    the walks whose segment passes some block's slab test (the kernel's
+    single entries and its groups' sample walks), and ``groups``, the
+    (ray, area light) pairs of more than one disk sample with such a
+    walk, each one entry of the kernel's group list."""
+
+    def __init__(self):
+        self.walks = 0
+        self.groups = 0
+
+    def add(self, masks, group: bool) -> None:
+        """One light's walks, ``masks`` a (R,) bool mask a walk
+        (``_occluded_plain``); ``group``: the kernel lists them as one
+        group a ray."""
+        self.walks += sum(int(m.sum()) for m in masks)
+        if group and masks:
+            self.groups += int(torch.stack(masks).any(dim=0).sum())
+
+
+def _soft_walks_plain(rows, sh: _Shade, p, rays, facing, listed=None):
+    """The walks toward an area light's disk samples from ``p``, ``rays``
+    each sample's (direction, d_s, tmax) in draw order -> (blocked a
+    sample, pairs).  Each sample walks alone here; kernel A walks more
+    than one sample of a ray together, as one group (``walk_groups``),
+    with the same flags.  ``listed``: as in ``_occluded_plain``, a mask a
+    sample."""
+    kw = {} if listed is None else {"listed": listed}
+    out, pairs = [], 0
+    for sd, d_s, tmax in rays:
+        blocked, n = _occluded_plain(rows, p, sd, d_s, facing, sh.det_eps,
+                                     sh.shadow_tmin, tmax, **kw)
+        out.append(blocked)
+        pairs = pairs + n
+    return out, pairs
+
+
+def _segment(st, shadow_eps):
+    """A cpuonly shadow segment toward ``st`` (not normalised): its unit
+    direction, length d_s and the tests' tmax, d_s - shadow_eps."""
+    d_s = torch.sqrt(torch.clamp(st[0] * st[0] + st[1] * st[1]
+                                 + st[2] * st[2], min=1e-24))
+    inv_s = 1.0 / d_s
+    return tuple(c * inv_s for c in st), d_s, d_s - shadow_eps
+
+
 def _visibility_plain(rows, sh: _Shade, li, radius, p, to, ld, dist,
                       facing, hit, rng, listed=None):
     """Light ``li``'s visibility for every ray -> (vis, rng, pairs).
@@ -580,11 +628,13 @@ def _visibility_plain(rows, sh: _Shade, li, radius, p, to, ld, dist,
     gpu: one hard-shadow walk.  cpuonly (``ShadowVisibility``,
     ``CPUOnly/raytracer.h:121-168``): ``shadow_samples`` walks toward
     disk samples of an area light, one toward a point light's center;
-    the disk draws advance the rng of hit rays only.  ``listed``: as in
-    ``_occluded_plain``, a count a walk (passed on only when given, so
-    that a stand-in walk without the parameter still fits)."""
+    the disk draws advance the rng of hit rays only.  ``listed``: a
+    ``_Listed`` that counts the walks kernel A lists (passed on only
+    when given, so that a stand-in walk without the parameter still
+    fits)."""
     pairs = []
-    kw = {} if listed is None else {"listed": listed}
+    masks = None if listed is None else []
+    kw = {} if masks is None else {"listed": masks}
 
     def walk(sd, d_s, tmax):
         blocked, n = _occluded_plain(rows, p, sd, d_s, facing, sh.det_eps,
@@ -592,19 +642,19 @@ def _visibility_plain(rows, sh: _Shade, li, radius, p, to, ld, dist,
         pairs.append(n)
         return blocked
 
-    if not sh.cpuonly:
-        vis = torch.where(facing & ~walk(ld, dist, None), 1.0, 0.0)
+    def done(vis, group=False):
+        if listed is not None:
+            listed.add(masks, group)
         return vis, rng, sum(pairs)
 
+    if not sh.cpuonly:
+        return done(torch.where(facing & ~walk(ld, dist, None), 1.0, 0.0))
+
     def toward(st):
-        d_s = torch.sqrt(torch.clamp(st[0] * st[0] + st[1] * st[1]
-                                     + st[2] * st[2], min=1e-24))
-        inv_s = 1.0 / d_s
-        blocked = walk(tuple(c * inv_s for c in st), d_s, d_s - sh.shadow_eps)
-        return torch.where(blocked, 0.0, 1.0)
+        return torch.where(walk(*_segment(st, sh.shadow_eps)), 0.0, 1.0)
 
     if radius <= 0.0:
-        return toward(to) / 1.0, rng, sum(pairs)
+        return done(toward(to) / 1.0)
     # disk basis around w = (p - light) / |p - light| (raytracer.h:88-93)
     wx, wy, wz = -ld[0], -ld[1], -ld[2]
     use_y = wx.abs() > 0.9
@@ -620,7 +670,7 @@ def _visibility_plain(rows, sh: _Shade, li, radius, p, to, ld, dist,
     bz = wx * ty - wy * tx
     lpos = rows.lights[li, 0:3]
     sel = hit.nonzero().squeeze(1)
-    unocc = torch.zeros_like(dist)
+    rays = []  # the samples drawn in order, then walked
     for _ in range(sh.shadow_samples):
         s_d, disk = rnglib.random_in_unit_disk(rng[sel])
         rng = rng.index_put((sel,), s_d)
@@ -629,8 +679,15 @@ def _visibility_plain(rows, sh: _Shade, li, radius, p, to, ld, dist,
         spos = [lpos[0] + (tx * dxs + bx * dys) * radius,
                 lpos[1] + (ty * dxs + by * dys) * radius,
                 lpos[2] + (tz * dxs + bz * dys) * radius]
-        unocc = unocc + toward([spos[k] - p[k] for k in range(3)])
-    return unocc / float(sh.shadow_samples), rng, sum(pairs)
+        rays.append(_segment([spos[k] - p[k] for k in range(3)],
+                             sh.shadow_eps))
+    blocked, n = _soft_walks_plain(rows, sh, p, rays, facing, **kw)
+    pairs.append(n)
+    unocc = torch.zeros_like(dist)
+    for b in blocked:
+        unocc = unocc + torch.where(b, 0.0, 1.0)
+    return done(unocc / float(sh.shadow_samples),
+                group=sh.shadow_samples > 1)
 
 
 def _bounce_plain(rows: SceneRows, st: dict, sh: _Shade, cand_plan=None,
@@ -861,16 +918,17 @@ def emit_tiles_plain(rows: SceneRows, xs_p, ys_p, has_work, sample_offset,
     whose ``"pairs"`` entry grows by the ray-triangle pairs the kernel
     tests on these inputs (as for every plain version below), and, here,
     whose ``"walks"`` entry grows by the shadow walks the kernel lists
-    (its ``counts[0]``)."""
+    and ``"groups"`` by the groups it lists (``_Listed``)."""
     sh = _plain_shade(diffuse_bounce, det_eps, tmin, shadow_eps,
                       shadow_tmin, dialect, shadow_samples, jitter)
     np_rays = int(xs_p.shape[0])
     nt = np_rays // RAY_TILE
     st = _primary_state(rows, xs_p, ys_p, sample_offset, jitter, has_work)
-    listed = None if stats is None else []
+    listed = None if stats is None else _Listed()
     _tally(stats, _bounce_plain(rows, st, sh, cand_plan, listed=listed))
     if stats is not None:
-        stats["walks"] = stats.get("walks", 0) + int(sum(listed))
+        stats["walks"] = stats.get("walks", 0) + listed.walks
+        stats["groups"] = stats.get("groups", 0) + listed.groups
     # tiles no ray of which can hit anything: dead state with a unit
     # direction (a zero one poisons later 1/d) and the miss radiance
     work = has_work.repeat_interleave(RAY_TILE)
@@ -1075,7 +1133,7 @@ def emit_tiles(scene, xs, ys, sample_offset=0, *, det_eps: float = 1e-8,
             det_eps, tmin, shadow_eps, shadow_tmin, dialect=dialect,
             jitter=jitter, shadow_samples=shadow_samples, cand_plan=cand_plan,
             stats=stats)
-        _walk_tally(xs.device).total += stats["walks"]
+        _walk_tally(xs.device).add(stats["walks"], stats["groups"])
         return out
     from ._native import load
 
@@ -1084,17 +1142,21 @@ def emit_tiles(scene, xs, ys, sample_offset=0, *, det_eps: float = 1e-8,
     hw = has_work.to(torch.int32).contiguous()
     st = torch.empty(nt * _ST_ROWS, RAY_TILE, dtype=torch.float32, device=dev)
     rng = torch.empty(nt * 8, RAY_TILE, dtype=torch.int32, device=dev)
-    # scratch of the kernel's three launches: the shadow list (a ray's
-    # walks: one a light, or, cpuonly, up to one a disk sample), its
-    # flags, and each ray's closest hit; the list's counts stay in the
-    # walk tally
-    rounds = _shadow_rounds(rows.lights.shape[0], sh.shadow_samples,
-                            sh.cpuonly)
+    # scratch of the kernel's three launches: the shadow list (an entry a
+    # ray and light: a walk, or, cpuonly with more than one disk sample,
+    # an area light's samples as one group, listed after the walks), a
+    # flag a walk (one a light, or, cpuonly, up to one a disk sample),
+    # and each ray's closest hit; the list's counts stay in the walk
+    # tally
+    n_lights = rows.lights.shape[0]
+    rounds = _shadow_rounds(n_lights, sh.shadow_samples, sh.cpuonly)
     if np_rays * rounds > _INT_MAX:
         raise ValueError(f"{np_rays} rays x {rounds} walks exceed kernel "
                          "A's int32 shadow-list index")
+    lists = 2 if sh.cpuonly and sh.shadow_samples > 1 else 1
     counts = _walk_tally(dev).next_counts()
-    walks = torch.empty(np_rays * rounds, dtype=torch.int32, device=dev)
+    walks = torch.empty(np_rays * n_lights * lists, dtype=torch.int32,
+                        device=dev)
     flags = torch.empty(np_rays * rounds, dtype=torch.uint8, device=dev)
     hits = torch.empty(5 * np_rays, dtype=torch.float32, device=dev)
     args = _scene_args(rows, sh, cand_plan)
@@ -1288,31 +1350,48 @@ def variant_launch_counts() -> dict:
 
 
 # Kernel A's listed shadow walks (the walks whose segment passes some
-# block's slab test: its counts[0]; the plain version counts the same
-# walks), kept on the walks' device.  Each emit launch writes its counts
-# into the next pair of a device buffer, which folds into a device total
-# when full, so no count crosses to the host until it is asked for.
+# block's slab test: its single entries and its groups' sample walks)
+# and its groups (the cpuonly (ray, area light) pairs of more than one
+# disk sample with such a walk; the plain version counts the same), kept
+# on the walks' device.  Each emit launch writes its counts (rt_emit's
+# five) into the next row of a device buffer, which folds into a device
+# total when full, so no count crosses to the host until it is asked for.
 _WALK_SLOTS = 1024
+_EMIT_COUNTS = 5
 _WALK_TALLIES: dict = {}
 
 
 class _WalkTally:
     def __init__(self, device):
-        self.slots = torch.zeros(_WALK_SLOTS, 2, dtype=torch.int32,
+        self.slots = torch.zeros(_WALK_SLOTS, _EMIT_COUNTS, dtype=torch.int32,
                                  device=device)
-        self.total = torch.zeros((), dtype=torch.int64, device=device)
+        self.total = torch.zeros(2, dtype=torch.int64, device=device)
         self.used = 0
 
+    @staticmethod
+    def _fold(slots) -> torch.Tensor:
+        """(walks, groups) of some launches' counts: the single entries
+        and the groups' walks, the groups."""
+        c = slots.sum(dim=0, dtype=torch.int64)
+        return torch.stack((c[0] + c[4], c[2]))
+
     def next_counts(self) -> torch.Tensor:
-        """The (2,) int32 counts of the next emit launch."""
+        """The (5,) int32 counts of the next emit launch."""
         if self.used == _WALK_SLOTS:
-            self.total += self.slots[:, 0].sum()
+            self.total += self._fold(self.slots)
             self.used = 0
         self.used += 1
         return self.slots[self.used - 1]
 
-    def read(self) -> int:
-        return int(self.total + self.slots[:self.used, 0].sum())
+    def add(self, walks: int, groups: int) -> None:
+        """A plain emit's counts."""
+        self.total += torch.tensor([walks, groups], device=self.total.device)
+
+    def read(self) -> tuple:
+        """(walks, groups): one copy to the host."""
+        walks, groups = (self.total + self._fold(self.slots[:self.used])
+                         ).tolist()
+        return walks, groups
 
 
 def _walk_tally(device) -> _WalkTally:
@@ -1325,7 +1404,16 @@ def _walk_tally(device) -> _WalkTally:
 def shadow_walk_counts() -> dict:
     """Kernel A's listed shadow walks since the last reset, by device:
     one read from each device, made here and nowhere else."""
-    return {str(dev): tally.read() for dev, tally in _WALK_TALLIES.items()}
+    return {str(dev): tally.read()[0] for dev, tally in _WALK_TALLIES.items()}
+
+
+def shadow_group_counts() -> dict:
+    """Kernel A's listed soft groups (the cpuonly disk samples of a ray
+    and area light, walked together) since the last reset, by device:
+    one read from each device, made here and nowhere else.  Where every
+    listed walk is a group's, the walks over the groups times
+    ``shadow_samples`` is the share of a group's samples that walk."""
+    return {str(dev): tally.read()[1] for dev, tally in _WALK_TALLIES.items()}
 
 
 reset_launch_counts()

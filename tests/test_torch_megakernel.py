@@ -14,6 +14,8 @@ throughput (albedo * 2 N.L) carries into the tp rows (measured max
 their rows stay within the 1e-5 bound.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -530,6 +532,204 @@ def test_emit_walks_match_the_plain_walk(block_size, chunk, dialect,
         assert torch.equal(g, w)
     assert len(shadows) == samples * rows.lights.shape[0]
     assert all(f > 0 for f, _ in shadows) and sum(b for _, b in shadows) > 0
+
+
+# --- kernel A's soft groups, emulated on the CPU --------------------
+
+
+def _group_vote():
+    """``kGroupVote`` of ``csrc/megakernel.cu``: the triangles a lane of
+    a group walk tests between the warp's votes."""
+    import re
+
+    from _torch_parity import REPO
+
+    path = os.path.join(REPO, "raytracinginonesemester_tpu_torch", "csrc",
+                        "megakernel.cu")
+    with open(path) as f:
+        text = f.read()
+    return int(re.search(r"constexpr int kGroupVote = (\d+);", text)
+               .group(1))
+
+
+def _mt_from(p, d, tri, det_eps, tmin, tmax):
+    """``tri_from`` and ``mt_from``, emulated: Moller-Trumbore's origin
+    terms (tvec, qvec, e2 . qvec) of (G,) points against (B,) triangles
+    made once, then each of the (G, S) directions tested against them on
+    [tmin, tmax] -> (G, S, B) hits."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
+    tvx = p[0][:, None] - v0x
+    tvy = p[1][:, None] - v0y
+    tvz = p[2][:, None] - v0z
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    tq = e2x * qvx + e2y * qvy + e2z * qvz
+    tvx, tvy, tvz, qvx, qvy, qvz, tq = (x[:, None, :] for x in (
+        tvx, tvy, tvz, qvx, qvy, qvz, tq))
+    dx, dy, dz = (d[..., c, None] for c in range(3))
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv_det = 1.0 / torch.where(det.abs() < det_eps, 1.0, det)
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = tq * inv_det
+    return ((det.abs() >= det_eps) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+            & (u + v <= 1.0) & (t >= tmin) & (t <= tmax[..., None]))
+
+
+def _group_walk(rows, sh, p, rays, facing, listed=None, seen=None):
+    """``list_group`` and ``walk_groups`` of ``csrc/megakernel.cu``,
+    emulated with the signature of ``megakernel._soft_walks_plain`` ->
+    (blocked a sample, tests made).
+
+    The listing: each sample's slab tests on [shadow_tmin, d_s] against
+    every block, for the facing rays; a ray some of whose samples pass is
+    one group, those samples its walks (``listed`` receives a mask a
+    sample).  The walk: a group's samples 32 at a time (a sample a
+    lane), drawn once in draw order (``rays``); the union of the blocks
+    their slab tests pass in ascending order, a sample entering a block
+    where its own test passes and it is not blocked yet; in a block the
+    triangles' origin terms made once and tested against every entering
+    sample (``_mt_from``; a tmax of F32_MAX and above tests below it,
+    ``group_tmax``), kGroupVote * 32 triangles between votes, a sample
+    blocked at a vote leaving the walk.  ``seen`` receives the groups,
+    walks, blocked samples and passes of each call."""
+    n_s, n_b, bs = len(rays), rows.num_blocks, rows.block_size
+    vote = 32 * _group_vote()
+    tmin = torch.full_like(rays[0][1], sh.shadow_tmin)
+    slabs = torch.stack([
+        tmk._slab(rows.aabb.T[:, None, :], tuple(c[:, None] for c in p),
+                  tuple((1.0 / c)[:, None] for c in sd), tmin[:, None],
+                  d_s[:, None]) & facing[:, None]
+        for sd, d_s, _ in rays], dim=1)  # (R, S, L)
+    walks = slabs.any(dim=2)
+    if listed is not None:
+        listed.extend(walks.unbind(1))
+    g = walks.any(dim=1).nonzero().squeeze(1)
+    pg = tuple(c[g] for c in p)
+    d = torch.stack([torch.stack(sd, dim=1) for sd, _, _ in rays], 1)[g]
+    tmax = torch.stack([tm for _, _, tm in rays], dim=1)[g]
+    below = torch.nextafter(torch.tensor(tmk.F32_MAX), torch.tensor(0.0))
+    tmax = torch.where(tmax >= tmk.F32_MAX, below, tmax)
+    blocked = torch.zeros(walks.shape, dtype=torch.bool)
+    tests, passes = 0, 0
+    for k0 in range(0, n_s, 32):  # a sample a lane
+        passes += 1
+        ks = slice(k0, min(k0 + 32, n_s))
+        live = torch.ones(g.numel(), ks.stop - k0, dtype=torch.bool)
+        for b in range(n_b):
+            enter = live & slabs[g, ks, b]
+            sub = enter.any(dim=1).nonzero().squeeze(1)
+            if sub.numel() == 0:
+                continue
+            hit = _mt_from(tuple(c[sub] for c in pg), d[sub, ks],
+                           tuple(rows.tri[k, b] for k in range(9)),
+                           sh.det_eps, sh.shadow_tmin, tmax[sub, ks])
+            # the split changes no bit: mt's hits, pair for pair
+            t, _, _ = tmk._mt(tuple(c[sub, None, None] for c in pg),
+                              tuple(d[sub, ks, c, None] for c in range(3)),
+                              tuple(rows.tri[k, b] for k in range(9)),
+                              sh.det_eps, sh.shadow_tmin,
+                              tmax[sub, ks, None])
+            assert torch.equal(hit, t < tmk.F32_MAX)
+            hit = hit & (rows.ids[b] >= 0)
+            into = enter[sub]
+            for j0 in range(0, bs, vote):  # the votes
+                tests += int(into.sum()) * min(vote, bs - j0)
+                into = into & ~hit[:, :, j0:j0 + vote].any(dim=2)
+            live[sub] = live[sub] & ~(enter[sub] & ~into)
+        blocked[g, ks] = ~live & walks[g, ks]
+    if seen is not None:
+        seen.append(dict(groups=g.numel(), walks=int(walks.sum()),
+                         blocked=int(blocked.sum()), passes=passes))
+    return list(blocked.unbind(1)), torch.tensor(tests)
+
+
+@pytest.mark.parametrize("samples,point,block_size", [
+    (17, False, 512), (32, False, 128), (40, False, 512), (32, True, 512)])
+def test_emit_groups_match_the_plain_walk(samples, point, block_size,
+                                          monkeypatch):
+    """Kernel A's soft groups (an area light's disk samples of a hit
+    listed as one entry and walked together, lanes over the triangles)
+    give every state and rng row of the plain version's walks, one sample
+    at a time, bit for bit, and list the same walks and groups
+    (``stats``): two-frog 48x24 through a 135 mm lens, cpuonly, its two
+    lights of radius 0.15 with 17, 32 or 40 disk samples (40: each group
+    walks in two passes of 32), or an area light and a point light
+    together, whose walks are listed one at a time and walked as
+    ``list_occluded`` walks them."""
+    import dataclasses
+
+    from raytracinginonesemester_tpu_torch.scene.build import build_scene
+    from raytracinginonesemester_tpu_torch.scene.config import (
+        SceneConfig, SceneNodeConfig)
+    from raytracinginonesemester_tpu_torch.scene.transform import Transform
+
+    from _torch_parity import list_occluded, two_frog_config
+
+    monkeypatch.setenv("RT_BLOCK_SIZE", str(block_size))
+    cfg = dataclasses.replace(
+        two_frog_config(SceneConfig, SceneNodeConfig, Transform, width=48,
+                        height=24, dialect="cpuonly"), focal_length_mm=135.0)
+    radii = (0.15, 0.0 if point else 0.15)
+    cfg = dataclasses.replace(cfg, lights=[
+        {**l, "radius": r, "shadow_samples": samples}
+        for l, r in zip(cfg.lights, radii)])
+    ts = build_scene(cfg, device="cpu")
+    rows = tmk._scene_rows(ts, ts.accel)
+    assert rows.block_size == block_size
+    xs, ys, _ = t_grid(48, 24)
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    pkw = {k: v for k, v in tmk.megakernel_kwargs(ts, "wang").items()
+           if k != "jitter"}
+    assert pkw["shadow_samples"] == samples
+    sh = tmk._Shade(ts.diffuse_bounce, dialect="cpuonly",
+                    shadow_samples=samples)
+    work = tmk._has_work(ts, xs_p, ys_p, sh, None, None)
+
+    def emit(stats):
+        return tmk.emit_tiles_plain(rows, xs_p, ys_p, work, 0,
+                                    ts.diffuse_bounce, stats=stats, **pkw)
+
+    want_stats = {}
+    want = emit(want_stats)
+    seen, singles = [], []
+    real_occ = tmk._occluded_plain
+
+    def groups(rows_, sh_, p, rays, facing, listed=None):
+        got = _group_walk(rows_, sh_, p, rays, facing, listed, seen)
+        for a, (sd, d_s, tmax) in zip(got[0], rays):  # a sample alone
+            assert torch.equal(a, real_occ(rows_, p, sd, d_s, facing,
+                                           sh_.det_eps, sh_.shadow_tmin,
+                                           tmax)[0])
+        return got
+
+    def single(*a, **k):
+        got = list_occluded(*a, **{x: y for x, y in k.items()
+                                   if x != "listed"})
+        assert torch.equal(got[0], real_occ(*a, **k)[0])  # lists it
+        singles.append(int(got[0].sum()))
+        return got
+
+    monkeypatch.setattr(tmk, "_soft_walks_plain", groups)
+    monkeypatch.setattr(tmk, "_occluded_plain", single)
+    got_stats = {}
+    got = emit(got_stats)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert [got_stats[k] for k in ("walks", "groups")] == [
+        want_stats[k] for k in ("walks", "groups")]
+    assert len(seen) == len(radii) - point and len(singles) == point
+    assert sum(x["groups"] for x in seen) == want_stats["groups"] > 0
+    assert sum(x["walks"] for x in seen) <= want_stats["walks"]
+    assert sum(x["blocked"] for x in seen) > 0
+    assert all(x["passes"] == -(-samples // 32) for x in seen)
+    # a group is at most its samples' walks, and lists at least one
+    assert (want_stats["groups"] <= sum(x["walks"] for x in seen)
+            <= samples * want_stats["groups"])
 
 
 # --- on the card: each CUDA kernel against its plain version ---------

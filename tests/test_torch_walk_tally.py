@@ -2,12 +2,14 @@
 and the cpuonly kernels at 32 disk samples, with no JAX: this file runs
 on the card with ``--noconftest``.
 
-On the CPU: the tally's device buffer keeps its sum across folds.  On the
-card: A, B, C and D of the cpuonly dialect with a 32-sample area light
-(radius 0.15, diffuse, depth 8; the fused route of scenes of more than 16
-samples) equal their plain versions exactly; the tally reads twice the
-plain count after two emits; and neither the tally nor the route counter
-adds a copy to the host to a render call."""
+On the CPU: the tally's device buffer keeps its sums across folds.  On
+the card: A, B, C and D of the cpuonly dialect with a 32-sample area
+light (radius 0.15, diffuse, depth 8; the fused route of scenes of more
+than 16 samples) equal their plain versions exactly; the walk and group
+tallies read twice the plain counts after two emits; and neither the
+tally nor the route counter adds a copy to the host to a render call.
+On both: the headline frog lists the walks it listed before the soft
+groups, and no group."""
 
 import dataclasses
 import os
@@ -27,16 +29,19 @@ OFFSET = 912_345
 
 
 def test_the_walk_tally_folds_its_slots():
-    """Each emit writes its counts into the next pair of the tally's
-    buffer, which folds into the total when full: the sum is kept across
-    folds (a CPU buffer stands in for the card's)."""
+    """Each emit writes its five counts into the next row of the tally's
+    buffer, which folds into the total when full: the sums of the walks
+    (single entries and the groups' sample walks) and of the groups are
+    kept across folds (a CPU buffer stands in for the card's)."""
     tally = tmk._WalkTally("cpu")
-    written = 0
+    walks = groups = 0
     for k in range(2 * tmk._WALK_SLOTS + 5):
         counts = tally.next_counts()
-        counts.copy_(torch.tensor([k, 7], dtype=torch.int32))
-        written += k
-    assert tally.read() == written
+        counts.copy_(torch.tensor([k, 7, k % 3, 9, 2 * k],
+                                  dtype=torch.int32))
+        walks += 3 * k
+        groups += k % 3
+    assert tally.read() == (walks, groups)
 
 
 def _soft_mirror(device):
@@ -99,6 +104,131 @@ def test_cuda_soft_kernels_match_plain_and_tally_on_the_card():
     torch.testing.assert_close(
         d_k, torch.stack([c.reshape(-1)[:n] for c in d_p], dim=1),
         rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_the_group_tally_reads_the_plain_groups_without_a_copy():
+    """Kernel A's soft groups (a ray and area light some of whose 32
+    disk samples' segments pass a block's slab test: one entry, walked
+    together) are counted on the card: after two emits the group tally
+    reads twice the plain count, with no copy to the host in the
+    profiler's session, and a group lists from 1 to 32 of the walks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    from torch.profiler import ProfilerActivity, profile
+
+    ts = _soft_mirror("cuda")
+    kw = tmk.megakernel_kwargs(ts, "center")
+    plain_kw = {k: v for k, v in kw.items()
+                if k not in ("jitter", "dialect")}
+    rows = tmk._scene_rows(ts, ts.accel)
+    xs, ys, _ = tr._swizzled_grid(W, H, device="cuda")
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    work = torch.ones(xs_p.numel() // tmk.RAY_TILE, dtype=torch.bool,
+                      device="cuda")
+    stats = {}
+    tmk.emit_tiles_plain(rows, xs_p, ys_p, work, OFFSET, ts.diffuse_bounce,
+                         dialect="cpuonly", jitter="center", stats=stats,
+                         **plain_kw)
+    tmk.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            tmk.emit_tiles(ts, xs_p, ys_p, OFFSET, rows=rows, **kw)
+        torch.cuda.synchronize()
+    copies = [e for e in prof.events() if "Memcpy DtoH" in e.name]
+    assert not copies, [e.name for e in copies]
+    assert tmk.shadow_group_counts() == {"cuda:0": 2 * stats["groups"]}
+    assert 0 < stats["groups"] <= stats["walks"] <= 32 * stats["groups"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples,point", [(64, False), (32, True)])
+def test_cuda_groups_of_two_lights_match_plain(samples, point):
+    """Kernel A with two lights: two area lights of 64 disk samples (a
+    group walks in two passes of 32, the second light's group after the
+    first's draws), or an area light of 32 and a point light (a group
+    and a single walk in one emit): state and rng equal the plain
+    version's exactly, and the tallies its walks and groups.  (At 40
+    samples 12 radiance values of 131,072 part from the plain version's
+    by an ulp, with or without the groups: PERF.md §7 K2.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    from raytracinginonesemester_tpu_torch.scene.config import (
+        SceneConfig, SceneNodeConfig)
+    from raytracinginonesemester_tpu_torch.scene.transform import Transform
+
+    from _torch_parity import two_frog_config
+
+    cfg = dataclasses.replace(
+        two_frog_config(SceneConfig, SceneNodeConfig, Transform, width=W,
+                        height=H, dialect="cpuonly"), focal_length_mm=135.0)
+    radii = (0.15, 0.0 if point else 0.15)
+    cfg = dataclasses.replace(cfg, lights=[
+        {**l, "radius": r, "shadow_samples": samples}
+        for l, r in zip(cfg.lights, radii)])
+    ts = build_scene(cfg, device="cuda")
+    kw = tmk.megakernel_kwargs(ts, "wang")
+    plain_kw = {k: v for k, v in kw.items()
+                if k not in ("jitter", "dialect")}
+    rows = tmk._scene_rows(ts, ts.accel)
+    xs, ys, _ = tr._swizzled_grid(W, H, device="cuda")
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    work = torch.ones(xs_p.numel() // tmk.RAY_TILE, dtype=torch.bool,
+                      device="cuda")
+    stats = {}
+    pst, prng = tmk.emit_tiles_plain(rows, xs_p, ys_p, work, OFFSET,
+                                     ts.diffuse_bounce, dialect="cpuonly",
+                                     jitter="wang", stats=stats, **plain_kw)
+    tmk.reset_launch_counts()
+    st, rng = tmk.emit_tiles(ts, xs_p, ys_p, OFFSET, rows=rows, **kw)
+    for a, b in ((st, pst), (rng, prng)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert tmk.shadow_walk_counts() == {"cuda:0": stats["walks"]}
+    assert tmk.shadow_group_counts() == {"cuda:0": stats["groups"]}
+    assert 0 < stats["groups"] < stats["walks"]
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_the_headline_frog_lists_its_walks_and_no_group(device):
+    """The headline frog (gpu dialect, one point light): kernel A lists
+    one walk a facing ray whose segment passes a block's slab test, as
+    before the soft groups, and counts no group.  The walks are counted
+    here apart from the tally, from the shadow walks the plain version
+    makes."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    ts = tr.frog_scene(64, 32, device=device)
+    rows = tmk._scene_rows(ts, ts.accel)
+    xs, ys, _ = tr._swizzled_grid(64, 32, device=device)
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    work = torch.ones(xs_p.numel() // tmk.RAY_TILE, dtype=torch.bool,
+                      device=device)
+    listed, real = [], tmk._occluded_plain
+
+    def walk(rows_, p, ld, dist, facing, det_eps, tmin, tmax=None, **k):
+        inv = tuple(1.0 / c for c in ld)
+        slabs = tmk._slab(rows_.aabb.T[:, None, :],
+                          tuple(c[:, None] for c in p),
+                          tuple(c[:, None] for c in inv),
+                          torch.full_like(dist, tmin)[:, None],
+                          dist[:, None])
+        listed.append(int((slabs.any(dim=1) & facing).sum()))
+        return real(rows_, p, ld, dist, facing, det_eps, tmin, tmax, **k)
+
+    tmk._occluded_plain = walk
+    try:
+        tmk.emit_tiles_plain(rows, xs_p, ys_p, work, OFFSET,
+                             ts.diffuse_bounce)
+    finally:
+        tmk._occluded_plain = real
+    tmk.reset_launch_counts()
+    tmk.emit_tiles(ts, xs_p, ys_p, OFFSET, rows=rows)
+    key = str(torch.device(device)) + (":0" if device == "cuda" else "")
+    assert len(listed) == 1 and listed[0] > 0
+    assert tmk.shadow_walk_counts() == {key: listed[0]}
+    assert tmk.shadow_group_counts() == {key: 0}
+    tmk.reset_launch_counts()
 
 
 @pytest.mark.cuda
