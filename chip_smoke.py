@@ -27,7 +27,7 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    emit) and B (bounce_step) must give the unpadded grid's results on
    those ray sets: no kernel enters a padding block;
 4. reference images: the two-frog 128x64 render on the staged wavefront
-   and with ``RT_WAVEFRONT=0`` (kernel D) against the JAX package's
+   and through kernel D off the dispatch against the JAX package's
    ``tests/goldens/torch_two_frog_128x64.npy``, the terminal two-frog
    render (D) against ``torch_two_frog_terminal_128x64.npy`` (both made
    by ``scripts/make_torch_golden.py``), and ``cpuonly_point.json`` and
@@ -43,16 +43,18 @@ Phases, each printed on its own line; any failure raises (exit != 0):
 5. the main path: frog 1920x1080, depth 8, diffuse bounces,
    ``render_scene_frames`` with 16 frames at the calibrated capacity,
    with the binned camera plan (its build time and size logged) and
-   then with ``RT_BINNED=0``; frames compared.  Counted and timed apart
+   then off the dispatch with the flat depth-0 walk (the wavefront
+   called with ``cand_plan=None``); frames compared.  Counted and timed apart
    (ms/frame, median of 3): one frame at a capacity of 8 tiles, which
    overflows into the resume kernel, ``images_close`` to frame 0 of the
    calibrated binned run (its max abs difference logged);
 6. kernel D at full width: frog 1080p terminal (diffuse off, depth 4),
-   16 frames, and the headline with ``RT_WAVEFRONT=0``, one 16-frame
+   16 frames, and the headline through D off the dispatch
+   (``megakernel.render_tiles`` on the pixel stream), one 16-frame
    call;
 7. the cpuonly dialect at full width: ``cpuonly_mirror.json`` at
-   1920x1080 through whatever the dispatch picks, then with
-   ``RT_WAVEFRONT=0`` (kernel D), and one frame at a capacity of 8
+   1920x1080 through whatever the dispatch picks, then through kernel
+   D off the dispatch, and one frame at a capacity of 8
    tiles (resume), timed and compared with frame 0 of the first run as
    phase 5's is;
 8. the staged integrator at full width, 4 frames per call through
@@ -188,7 +190,7 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    the dp4 fast path on the headline frog (``sample_offset`` 0-3, equal
    to phase 5's frames bit for bit, A and B on every rank, E and F on
    none; ms/frame median of 3), the dp2 x tp2 staged frog
-   (``reference_cpu``; compacted, ``RT_WAVEFRONT=0`` and compacted at
+   (``reference_cpu``; compacted, plain (not compacted) and compacted at
    capacity 8, the overflow branch: each within 2e-5 of tp1, the
    capacity-8 run equal to the compacted one, E and F on every rank,
    A-D on none), and the dp4 training step on phase 9's workload (B's
@@ -964,32 +966,35 @@ def check_goldens(dev):
         render_scene, render_scene_frames)
 
     goldens = os.path.join(REPO, "tests", "goldens")
-    # (file, diffuse, RT_WAVEFRONT, capacity, kernels that must run): the
-    # staged wavefront at the golden's own capacity of 8 tiles, then D
-    cases = [("torch_two_frog_128x64.npy", True, "auto", 8,
+    def forced(cap):
+        def frames(scene, n, jitter, offset):
+            return render_scene_frames(scene, n, jitter, offset,
+                                       capacity_tiles=cap)
+        return frames
+
+    # (file, diffuse, route, renderer, kernels that must run): the staged
+    # wavefront at the golden's own capacity of 8 tiles, then D
+    cases = [("torch_two_frog_128x64.npy", True, "cap=8", forced(8),
               ["emit", "bounce_step"]),
-             ("torch_two_frog_128x64.npy", True, "0", None, ["render"]),
-             ("torch_two_frog_terminal_128x64.npy", False, "auto", None,
-              ["render"])]
-    for name, diffuse, wf, cap, need in cases:
+             ("torch_two_frog_128x64.npy", True, "kernel D", kernel_d_frames,
+              ["render"]),
+             ("torch_two_frog_terminal_128x64.npy", False, "dispatch",
+              forced(None), ["render"])]
+    for name, diffuse, route, frames_fn, need in cases:
         ref = np.load(os.path.join(goldens, name))
-        os.environ["RT_WAVEFRONT"] = wf
         scene = two_frog(128, 64, 512, dev, diffuse=diffuse)
-        img, _ = counted(f"golden {name} RT_WAVEFRONT={wf} cap={cap}",
-                         lambda: render_scene_frames(scene, ref.shape[0],
-                                                     "wang", 0,
-                                                     capacity_tiles=cap),
+        img, _ = counted(f"golden {name} {route}",
+                         lambda: frames_fn(scene, ref.shape[0], "wang", 0),
                          need)
         img = img.cpu().numpy()
         for f in range(ref.shape[0]):
             ok, bad, mean = images_close(quantize(img[f], "gpu"),
                                          quantize(ref[f], "gpu"))
-            log(f"golden {name} RT_WAVEFRONT={wf} frame {f}: bad_frac "
+            log(f"golden {name} {route} frame {f}: bad_frac "
                 f"{bad:.5f} mean {mean:.4f} max_abs "
                 f"{np.abs(img[f] - ref[f]).max():.3e}")
             if not ok:
                 raise AssertionError(f"card render disagrees with {name}")
-    os.environ.pop("RT_WAVEFRONT")
     for name in ("cpuonly_point", "cpuonly_mirror"):
         scene = cpuonly_scene(name, dev)
         img, _ = counted(f"golden {name}.png", lambda: render_scene(scene),
@@ -1049,25 +1054,64 @@ def staged_frame(scene, jitter):
     w, h = scene.camera.width, scene.camera.height
     xs, ys, (hp, wp) = renderer._swizzled_grid(w, h, device=scene.device)
     acc = renderer.accumulate_samples(scene, xs, ys, 1, jitter)
-    return renderer._unswizzle(acc, w, h, hp, wp)
+    return renderer.unswizzle(acc, w, h, hp, wp)
+
+
+def _off_dispatch(scene, frames, jitter, offset, kernel):
+    """``frames`` spp-1 frames of ``scene`` through ``kernel`` on the
+    renderer's pixel stream, off the dispatch (whose route for a
+    bouncing scene is the staged wavefront): "render", kernel D with the
+    binned plan; "flat", the staged wavefront at the dispatch's capacity
+    with the flat depth-0 walk (``cand_plan=None``)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops.megakernel import render_tiles
+    from raytracinginonesemester_tpu_torch.ops.wavefront import (
+        render_tiles_wavefront_frames)
+    from raytracinginonesemester_tpu_torch.render import renderer
+
+    w, h = scene.camera.width, scene.camera.height
+    stream = renderer.pixel_stream(w, h, scene.device)
+    route = renderer.resolve_route(scene, stream, jitter, 1)
+    xs, ys, _, (hp, wp) = stream
+    if kernel == "flat":
+        acc = render_tiles_wavefront_frames(
+            scene, xs, ys, frames, offset, capacity_tiles=route.capacity,
+            **route.kwargs)
+    else:
+        acc = torch.stack([render_tiles(scene, xs, ys, 1, offset + f,
+                                        cand_plan=route.cand_plan,
+                                        **route.kwargs)
+                           for f in range(frames)])
+    return renderer.unswizzle(acc, w, h, hp, wp)
+
+
+def kernel_d_frames(scene, frames, jitter="auto", offset=0):
+    return _off_dispatch(scene, frames, jitter, offset, "render")
+
+
+def flat_frames(scene, frames, jitter="auto", offset=0):
+    return _off_dispatch(scene, frames, jitter, offset, "flat")
 
 
 def timed_frames(label, scene, frames, smi, need, iters=3, jitter="auto",
-                 never=()):
-    """Warm-up call, then ``iters`` timed calls counted as one run."""
+                 never=(), render=None):
+    """Warm-up call, then ``iters`` timed calls counted as one run;
+    ``render`` (default ``render_scene_frames``) makes the frames."""
     import torch
 
     from raytracinginonesemester_tpu_torch.render.renderer import (
         render_scene_frames)
     from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
-    render_scene_frames(scene, frames, jitter, 0)
+    render = render or render_scene_frames
+    render(scene, frames, jitter, 0)
     torch.cuda.synchronize()
 
     def run():
-        t = cuda_time_ms(lambda: render_scene_frames(scene, frames, jitter, 0),
+        t = cuda_time_ms(lambda: render(scene, frames, jitter, 0),
                          warmup=0, iters=iters)
-        return t, render_scene_frames(scene, frames, jitter, 0)
+        return t, render(scene, frames, jitter, 0)
 
     (t, img), counts = counted(f"{label} ({iters + 1} calls of {frames} "
                                "frames)", run, need, never)
@@ -1682,14 +1726,13 @@ def check_large(dev, smi):
         raise AssertionError("the H frame differs from the G/I frame")
 
     # off the dispatch, for comparison: the same frame through A and B
-    kw = tr._kernel_kwargs(scene, "wang")
-    cap = auto_capacity_tiles(scene, **kw) or nt
-    xs_s, ys_s, (hp, wp) = tr._swizzled_grid(W, H, device=dev)
+    xs_s, ys_s, _, (hp, wp) = tr.pixel_stream(W, H, dev)
+    cap = auto_capacity_tiles(scene, xs_s, ys_s) or nt
 
     def ab():
         acc = render_tiles_wavefront_frames(scene, xs_s, ys_s, 1, 0,
-                                            capacity_tiles=cap, **kw)
-        return tr._unswizzle(acc, W, H, hp, wp)
+                                            capacity_tiles=cap)
+        return tr.unswizzle(acc, W, H, hp, wp)
 
     img_ab = ab()
     t_ab, ab_counts = counted(
@@ -2627,12 +2670,9 @@ def sharding_runs(tmp):
                                     model_axis="model")
 
     runs = {}
-    for key, env, kw in (("compacted", None, {}), ("plain", "0", {}),
-                         ("cap8", None, dict(compacted=True, capacity=8))):
-        if env is not None:
-            os.environ["RT_WAVEFRONT"] = env
+    for key, kw in (("compacted", {}), ("plain", dict(compacted=False)),
+                    ("cap8", dict(compacted=True, capacity=8))):
         (img, ms), counts = launches(lambda: _timed(lambda: tp(**kw)))
-        os.environ.pop("RT_WAVEFRONT", None)
         runs[key] = dict(img=img.cpu(), ms=ms, counts=counts)
     rec["tp"] = {k: dict(ms=v["ms"], counts=v["counts"],
                          tp1_diff=float((v["img"] - ref["tp1"]).abs().max()),
@@ -2924,17 +2964,16 @@ def main():
     log(f"capacity calibration: {time.time() - t0:.2f} s, cap={cap} tiles")
     ms_binned, frames_b, main_counts = timed_frames(
         "main path, binned", scene, FRAMES, smi, ["emit", "bounce_step"])
-    os.environ["RT_BINNED"] = "0"
     ms_flat, frames_f, flat_counts = timed_frames(
-        "main path, RT_BINNED=0", scene, FRAMES, smi, ["emit", "bounce_step"])
-    os.environ.pop("RT_BINNED")
+        "main path, flat depth 0", scene, FRAMES, smi, ["emit", "bounce_step"],
+        render=flat_frames)
     diff = (frames_b - frames_f).abs()
     n_diff = int((diff.amax(dim=-1) > 0).sum())
-    log(f"binned vs RT_BINNED=0: {ms_binned:.3f} vs {ms_flat:.3f} ms/frame; "
+    log(f"binned vs flat depth 0: {ms_binned:.3f} vs {ms_flat:.3f} ms/frame; "
         f"frames max abs diff {float(diff.max()):.3e}, differing pixels "
         f"{n_diff} of {FRAMES * W * H}")
     if n_diff:
-        raise AssertionError("binned frames differ from the RT_BINNED=0 "
+        raise AssertionError("binned frames differ from the flat depth-0 "
                              "frames (the plans must give the same images)")
     ref = frames_b[0].clone()
     runs_frames = frames_b.cpu()  # phase 13 holds the treelet frames to it
@@ -2951,10 +2990,9 @@ def main():
         raise AssertionError("the terminal frog must take kernel D")
     ms_term, _, term_counts = timed_frames(
         "frog terminal depth 4 (kernel D)", terminal, FRAMES, smi, ["render"])
-    os.environ["RT_WAVEFRONT"] = "0"
-    ms_d, _, d_counts = timed_frames("main path, RT_WAVEFRONT=0 (kernel D)",
-                                     scene, FRAMES, smi, ["render"], iters=1)
-    os.environ.pop("RT_WAVEFRONT")
+    ms_d, _, d_counts = timed_frames("main path, kernel D off the dispatch",
+                                     scene, FRAMES, smi, ["render"], iters=1,
+                                     render=kernel_d_frames)
 
     # --- 7. cpuonly at full width
     cpu_scene = cpuonly_scene("cpuonly_mirror", dev, W, H)
@@ -2965,11 +3003,9 @@ def main():
         smi, ["emit"] if wf else ["render"])
     ref = cpu_frames[0].clone()
     del cpu_frames
-    os.environ["RT_WAVEFRONT"] = "0"
     ms_cpu_d, _, cpu_d_counts = timed_frames(
-        "cpuonly_mirror 1080p, RT_WAVEFRONT=0 (kernel D)", cpu_scene, FRAMES,
-        smi, ["render"], iters=1)
-    os.environ.pop("RT_WAVEFRONT")
+        "cpuonly_mirror 1080p, kernel D off the dispatch", cpu_scene, FRAMES,
+        smi, ["render"], iters=1, render=kernel_d_frames)
     ms_cpu_over, cpu_over_counts = timed_overflow(
         "cpuonly_mirror 1080p overflow render", cpu_scene, smi, "auto", ref)
     del ref
@@ -3165,13 +3201,13 @@ def main():
     training = f"training call, grad-bench config ({GRAD_STEPS} steps)"
     soft_fused = "cpuonly_mirror 1080p, area light r=0.15 x32, diffuse"
     runs = {"emit binned": ("main path, binned", main_counts, "emit"),
-            "emit flat": ("main path, RT_BINNED=0", flat_counts, "emit"),
+            "emit flat": ("main path, flat depth 0", flat_counts, "emit"),
             "bounce_step": ("main path, binned", main_counts, "bounce_step"),
             "emit binned shadow walk": ("not on a path: A's shadow walk "
                                         "timed apart", {"none": 0}, "none"),
             "resume": ("overflow render at cap=8 (4 calls of 1 frame)",
                        over_counts, "resume"),
-            "render V2 binned": ("main path, RT_WAVEFRONT=0", d_counts,
+            "render V2 binned": ("main path, kernel D", d_counts,
                                  "render"),
             "render terminal binned": ("frog terminal depth 4", term_counts,
                                        "render"),
@@ -3182,7 +3218,7 @@ def main():
             "cpuonly resume": ("cpuonly_mirror 1080p overflow render at "
                                "cap=8 (4 calls of 1 frame)", cpu_over_counts,
                                "resume"),
-            "cpuonly render binned": ("cpuonly_mirror 1080p, RT_WAVEFRONT=0",
+            "cpuonly render binned": ("cpuonly_mirror 1080p, kernel D",
                                       cpu_d_counts, "render"),
             "cpuonly soft emit binned": (soft_fused, soft_fused_counts,
                                          "emit"),
@@ -3242,9 +3278,9 @@ def main():
                  "large closest_blockmajor", "large occluded_blockmajor",
                  "toy_mask both", "sel7", "mm22", "dyn12", "blk1")
     log(f"ms/frame on {smi}: main path binned {ms_binned:.3f}, "
-        f"RT_BINNED=0 {ms_flat:.3f}, RT_WAVEFRONT=0 {ms_d:.3f}, terminal "
+        f"flat depth 0 {ms_flat:.3f}, kernel D {ms_d:.3f}, terminal "
         f"{ms_term:.3f}, cpuonly_mirror {ms_cpu:.3f}, cpuonly_mirror "
-        f"RT_WAVEFRONT=0 {ms_cpu_d:.3f}; overflow at cap=8: frog "
+        f"kernel D {ms_cpu_d:.3f}; overflow at cap=8: frog "
         f"{ms_over:.3f}, cpuonly_mirror {ms_cpu_over:.3f}; staged "
         f"integrator: frog "
         f"reference_cpu {ms_ref:.3f}, cpuonly_mirror area light x32 "

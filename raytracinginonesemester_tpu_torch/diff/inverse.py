@@ -30,7 +30,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..render.renderer import render_scene
+from ..ops.binned import CHUNK
+from ..render.renderer import pixel_stream, render_scene
 from ..scene.build import Scene
 from ..utils.timing import span
 
@@ -143,7 +144,7 @@ def render_loss(params: Mapping[str, torch.Tensor], scene: Scene,
 
 
 def camera_candidate_context(scene: Scene, slack: float = 0.05,
-                             chunk: int = 256):
+                             chunk: int = CHUNK):
     """Binned depth-0 context for training loops on a differentiable scene
     with a block grid: builds the binned camera plan
     (``ops.binned.build_camera_candidate_plan``) of this scene's camera and
@@ -157,18 +158,15 @@ def camera_candidate_context(scene: Scene, slack: float = 0.05,
     grid on every trace; only the set is frozen."""
     from ..ops.binned import build_camera_candidate_plan
     from ..ops.integrator import diff_candidate_plan
-    from ..ops.megakernel import RAY_TILE, _pad_tiles
-    from ..render.renderer import _swizzled_grid
+    from ..ops.megakernel import RAY_TILE
 
     if scene.accel is None:
         raise ValueError("the binned context needs a block grid")
-    xs, ys, _ = _swizzled_grid(int(scene.camera.width),
-                               int(scene.camera.height), device=scene.device)
-    xs_p, ys_p, _, _ = _pad_tiles(xs, ys)
+    xs, ys, _, _ = pixel_stream(int(scene.camera.width),
+                                int(scene.camera.height), scene.device)
     with torch.no_grad():
-        plan = build_camera_candidate_plan(scene.camera, xs_p, ys_p,
-                                           scene.accel, RAY_TILE,
-                                           chunk=chunk, slack=slack)
+        plan = build_camera_candidate_plan(scene.camera, xs, ys, scene.accel,
+                                           RAY_TILE, chunk=chunk, slack=slack)
     return diff_candidate_plan(plan)
 
 

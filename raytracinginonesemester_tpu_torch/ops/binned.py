@@ -39,6 +39,8 @@ __all__ = ["CAND_ROWS", "CandidatePlan", "build_camera_candidate_plan",
            "plan_fingerprint", "plan_matches_camera"]
 
 CAND_ROWS = 16
+# candidate lanes a chunk of the renderer's plans
+CHUNK = 256
 _ID_ROW, _HOME_ROW, _SLOT_ROW = 9, 10, 11
 # tiles per slab-test batch of the build: bounds each (tiles, T)
 # temporary at a few million elements
@@ -156,7 +158,7 @@ def _stream_rows(slots, flat_tri, ids_flat, qs):
 
 
 def build_camera_candidate_plan(camera, xs_p, ys_p, grid, ray_tile: int,
-                                nq: int = 1, chunk: int = 256,
+                                nq: int = 1, chunk: int = CHUNK,
                                 slack: float = 0.0) -> CandidatePlan:
     """Build the binned camera plan on the grid's device.
 

@@ -55,8 +55,8 @@ from ..utils.timing import span
 from .accel import (SUPER, BlockGrid, interval_slab, ray_hulls,
                     tile_visit_plan_fast)
 from .intersect import F32_MAX, HitData
-from .megakernel import (RAY_TILE, SceneRows, _Best, _Shade, _chunks,
-                         _closest_plain, _mt, _occluded_plain, _ptr,
+from .megakernel import (GROUP_TILES, RAY_TILE, SceneRows, _Best, _Shade,
+                         _chunks, _closest_plain, _mt, _occluded_plain, _ptr,
                          _raise_on, _scene_args, _shading_normal, _slab,
                          _stream, _tally)
 
@@ -334,7 +334,7 @@ def _prep_rays(origins, dirs, tmin, tmax):
     dev = origins.device
     rays = torch.cat([origins, dirs, _per_ray(tmin, r, dev)[:, None],
                       _per_ray(tmax, r, dev)[:, None]], dim=1)
-    return _pad_rays(rays, 8 * RAY_TILE)
+    return _pad_rays(rays, GROUP_TILES * RAY_TILE)
 
 
 def _block_rows(grid: BlockGrid, blocks: int):

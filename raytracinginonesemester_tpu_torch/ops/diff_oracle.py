@@ -21,7 +21,8 @@ import torch
 
 from ..core import rng as rnglib
 from .block_kernels import fits_vmem
-from .megakernel import _ST_ROWS, RAY_TILE, _scene_rows, bounce_step_tiles
+from .megakernel import (_ST_ROWS, RAY_TILE, _scene_rows, bounce_step_tiles,
+                         padded_rays)
 
 __all__ = ["MAX_ORACLE_LIGHTS", "fused_bounce_oracle", "oracle_eligible",
            "pack_rays"]
@@ -52,7 +53,7 @@ def pack_rays(origins, dirs, seeds):
     (``diff_oracle.py:83-111`` of the JAX package)."""
     dev = origins.device
     r = int(origins.shape[0])
-    rp = r + (-r) % (8 * RAY_TILE)
+    rp = padded_rays(r)
     nt = rp // RAY_TILE
 
     def stream(x, fill):

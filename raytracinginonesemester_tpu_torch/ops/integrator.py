@@ -68,12 +68,8 @@ __all__ = ["any_alive", "diff_candidate_plan", "make_bounce_step",
            "merge_hits_over_axis", "select_hits", "trace_rays"]
 
 # Fused detached oracle for differentiable scenes: "0" keeps kernels E and
-# F.  Read once at import, as the JAX package does, like the two below.
+# F.  Read once at import, as the JAX package does, like the one below.
 _DIFF_ORACLE = os.environ.get("RT_DIFF_ORACLE", "1") == "1"
-# A scene over the plane budget: "0" takes kernels E and F instead of the
-# streamed G and I (the JAX package's launch-per-chunk E/F relaunches
-# compute the same function; the card runs it in one launch).
-_STREAM_ENV = os.environ.get("RT_STREAM", "1") == "1"
 # "1": kernel H (block-major sweep) instead of G and I for such a scene.
 _STREAM_BLOCKMAJOR = os.environ.get("RT_STREAM_BLOCKMAJOR", "0") == "1"
 # the JAX unroll gate: the oracle serves scenes of at most this many
@@ -114,12 +110,12 @@ def _diff_cand(scene, num_rays: int):
     """The active context's plan, with its stream refreshed against the
     scene's grid, if it was built for this ray stream and camera."""
     from .binned import plan_matches_camera, refresh_stream
-    from .megakernel import RAY_TILE
+    from .megakernel import RAY_TILE, padded_rays
 
     ctx = _DIFF_CAND[-1]
     if ctx is None:
         return None
-    nt = -(-num_rays // (8 * RAY_TILE)) * 8
+    nt = padded_rays(num_rays) // RAY_TILE
     if (int(ctx.plan.meta.shape[0]) != nt
             or not plan_matches_camera(ctx.plan, scene.camera)):
         return None
@@ -202,8 +198,8 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
     the shading normal and the point lights' shadow visibility) and
     cpuonly shadow rays kernel F; a grid over the plane budget
     (``block_kernels.num_chunks_for`` > 1) runs the streamed kernels G and
-    I (H with ``RT_STREAM_BLOCKMAJOR=1``; E with normals and F with
-    ``RT_STREAM=0``) and the hit frame's gathers, in both dialects;
+    I (H with ``RT_STREAM_BLOCKMAJOR=1``) and the hit frame's gathers, in
+    both dialects;
     without a grid, the brute-force scans of ``ops.intersect``.  ``first``
     marks the pinhole camera pass, whose rays share one origin.
     ``oracle``: the per-depth rows of
@@ -226,14 +222,12 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
         # over the plane budget, the streamed kernels (the JAX package's
         # rule, integrator.py:182-194 there)
         grid_chunks = num_chunks_for(scene.accel)
-        streamed = grid_chunks > 1 and _STREAM_ENV
+        streamed = grid_chunks > 1
         # the streamed kernels return no normal, and the detached mode
         # recomputes the hit frame differentiably: then E returns neither
-        # the normal nor the fused shadows; shadows fuse only under the
-        # budget (RT_STREAM=0 over it: E with normals, then F)
+        # the normal nor the fused shadows
         fused = gpu and not differentiable and not streamed
-        lights = (scene.lights.position
-                  if fused and grid_chunks == 1 and model_axis is None
+        lights = (scene.lights.position if fused and model_axis is None
                   else None)
 
         def closest_fn(o, d, shared=False):

@@ -51,8 +51,8 @@ from ..utils.timing import span
 from .accel import BlockGrid, super_aabbs
 from .binned import CAND_ROWS, plan_matches_camera
 
-__all__ = ["RAY_TILE", "SceneRows", "megakernel_ineligible_reason",
-           "megakernel_kwargs",
+__all__ = ["RAY_TILE", "GROUP_TILES", "padded_rays", "SceneRows",
+           "megakernel_ineligible_reason", "megakernel_kwargs",
            "camera_tile_plan", "emit_tiles", "bounce_step_tiles",
            "resume_tiles", "render_tiles", "emit_tiles_plain",
            "bounce_step_tiles_plain", "resume_tiles_plain",
@@ -61,6 +61,7 @@ __all__ = ["RAY_TILE", "SceneRows", "megakernel_ineligible_reason",
            "shadow_group_counts", "DIFF_ROWS"]
 
 RAY_TILE = 512
+GROUP_TILES = 8  # tiles a group: every stream is whole groups
 _ST_ROWS = 16  # rows: bo xyz, bd xyz, tp rgb, rd rgb, alive, pad x3
 _ST_LIVE_ROWS = 13
 _ST_ALIVE_ROW = 12
@@ -97,14 +98,22 @@ def _shadow_rounds(n_lights: int, shadow_samples: int, cpuonly: bool) -> int:
     return int(n_lights) * (int(shadow_samples) if cpuonly else 1)
 
 
+def padded_rays(num_rays: int, ranks: int = 1) -> int:
+    """Rays of a stream of ``num_rays`` padded to whole groups of
+    ``GROUP_TILES`` tiles of ``RAY_TILE`` rays for each of ``ranks`` data
+    ranks: the kernels take whole groups, as the JAX package's do, and a
+    sharded stream is dealt to the ranks a group at a time."""
+    group = GROUP_TILES * RAY_TILE * int(ranks)
+    return -(-int(num_rays) // group) * group
+
+
 def _shadow_entries(scene) -> int:
     """Entries of kernel A's shadow list for one frame of ``scene``: its
-    pixel stream padded to 16x16 tiles and whole 8-tile groups, times
-    the walks a ray may make."""
+    pixel stream (16x16 tiles, ``padded_rays``) times the walks a ray may
+    make."""
     cam = scene.camera
     pixels = (-(-cam.width // 16) * 16) * (-(-cam.height // 16) * 16)
-    group = 8 * RAY_TILE
-    return -(-pixels // group) * group * _shadow_rounds(
+    return padded_rays(pixels) * _shadow_rounds(
         scene.lights.num_lights, max(scene.lights.shadow_samples),
         scene.dialect == "cpuonly")
 
@@ -229,10 +238,11 @@ def _scene_rows(scene, grid: BlockGrid) -> SceneRows:
 
 
 def _pad_tiles(xs: torch.Tensor, ys: torch.Tensor):
-    """Pad the swizzled pixel stream to whole 8-tile groups, as the JAX
-    package does, so both packages see the same tile count."""
+    """Pad a pixel stream to whole groups (``padded_rays``), as the JAX
+    package does, so both packages see the same tile count: the
+    wrappers' guard for direct callers, a no-op on ``pixel_stream``'s."""
     n = int(xs.shape[0])
-    pad = (-n) % (8 * RAY_TILE)
+    pad = padded_rays(n) - n
     if pad:
         xs = torch.cat([xs, xs.new_zeros(pad)])
         ys = torch.cat([ys, ys.new_zeros(pad)])

@@ -23,10 +23,6 @@ small device-to-host copy each.
 
 from __future__ import annotations
 
-import hashlib
-import json
-import os
-import tempfile
 from typing import Optional
 
 import torch
@@ -47,9 +43,12 @@ from .megakernel import (
 )
 
 __all__ = ["render_tiles_wavefront", "render_tiles_wavefront_frames",
-           "sort_bounce_state", "auto_capacity_tiles"]
+           "sort_bounce_state", "auto_capacity_tiles", "rank_capacity",
+           "SAMPLE_GROUP"]
 
 _I32_MAX = 2 ** 31 - 1
+# samples a merged bounce ladder of ``render_tiles_wavefront``
+SAMPLE_GROUP = 8
 
 
 def _sort_key(bo, bd, alive, lo, span):
@@ -244,6 +243,26 @@ def _clip(dialect):
     return lambda c: torch.clamp(c, 0.0, 1.0)
 
 
+def _render_samples(scene, xs, ys, count: int, sample_offset: int,
+                    group: int, capacity_tiles: int, cand_plan, det_eps,
+                    tmin, shadow_eps, shadow_tmin, dialect, jitter,
+                    shadow_samples):
+    """Samples ``sample_offset`` .. ``sample_offset + count - 1`` of the
+    stream, ``group`` at a time through ``_render_group`` at a capacity of
+    ``min(capacity_tiles, tiles)``: yields each group's (r, g, b), each
+    (samples, N), clipped per sample in the gpu dialect."""
+    xs_p, ys_p, n, np_rays, lo, span, plan, kw = _setup(
+        scene, xs, ys, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
+        shadow_samples, cand_plan)
+    cap = min(int(capacity_tiles), np_rays // RAY_TILE)
+    clip = _clip(dialect)
+    for g0 in range(0, int(count), group):
+        r3 = _render_group(scene, xs_p, ys_p, plan, lo, span, cap,
+                           min(group, int(count) - g0),
+                           int(sample_offset) + g0, jitter, kw, cand_plan)
+        yield [clip(c[:, :n]) for c in r3]
+
+
 def render_tiles_wavefront_frames(scene, xs, ys, frames: int,
                                   sample_offset: int = 0, *, spp: int = 1,
                                   det_eps: float = 1e-8, tmin: float = 1e-4,
@@ -251,26 +270,19 @@ def render_tiles_wavefront_frames(scene, xs, ys, frames: int,
                                   shadow_tmin: float = 1e-4,
                                   dialect: str = "gpu", jitter: str = "wang",
                                   shadow_samples: int = 1,
-                                  capacity_tiles: Optional[int] = None,
-                                  cand_plan=None):
+                                  capacity_tiles: int, cand_plan=None):
     """``frames`` spp-1 frames with one merged bounce phase -> (frames,
     N, 3) per-frame radiance, clipped per sample in the gpu dialect;
-    frame f renders sample ``sample_offset + f``.  Requires a calibrated
-    ``capacity_tiles`` (``auto_capacity_tiles``); ``cand_plan``: the
+    frame f renders sample ``sample_offset + f``.  ``capacity_tiles``:
+    the alive-tile capacity (``auto_capacity_tiles``); ``cand_plan``: the
     binned plan of this stream, threaded to every emit."""
     if spp != 1:
         raise NotImplementedError("batched frames are spp-1 per frame")
-    if capacity_tiles is None:
-        raise ValueError("render_tiles_wavefront_frames requires a "
-                         "calibrated capacity_tiles")
-    xs_p, ys_p, n, np_rays, lo, span, plan, kw = _setup(
-        scene, xs, ys, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
-        shadow_samples, cand_plan)
-    cap = min(int(capacity_tiles), np_rays // RAY_TILE)
-    r3 = _render_group(scene, xs_p, ys_p, plan, lo, span, cap, int(frames),
-                       int(sample_offset), jitter, kw, cand_plan)
-    clip = _clip(dialect)
-    return torch.stack([clip(c[:, :n]) for c in r3], dim=2)
+    (r3,) = _render_samples(scene, xs, ys, frames, sample_offset, int(frames),
+                            capacity_tiles, cand_plan, det_eps, tmin,
+                            shadow_eps, shadow_tmin, dialect, jitter,
+                            shadow_samples)
+    return torch.stack(r3, dim=2)
 
 
 def render_tiles_wavefront(scene, xs, ys, spp: int, sample_offset: int = 0,
@@ -278,102 +290,54 @@ def render_tiles_wavefront(scene, xs, ys, spp: int, sample_offset: int = 0,
                            shadow_eps: float = 1e-3,
                            shadow_tmin: float = 1e-4, dialect: str = "gpu",
                            jitter: str = "wang", shadow_samples: int = 1,
-                           capacity_tiles: Optional[int] = None,
-                           sample_group: Optional[int] = None,
-                           cand_plan=None):
+                           capacity_tiles: int, cand_plan=None):
     """Wavefront render of one frame -> (N, 3) radiance SUM over ``spp``
     samples, the same sums as ``megakernel.render_tiles`` for scenes
-    that bounce.
-
-    ``capacity_tiles`` (below the tile count, depth > 1) stages the
-    bounces on the gathered alive tiles, ``sample_group`` samples
-    (``RT_SAMPLE_GROUP``, default 8, cut to a divisor of ``spp``) per
-    merged ladder; otherwise each sample sorts every tile and finishes
-    in one ``resume_tiles``.  Samples accumulate in order, clipped per
-    sample in the gpu dialect."""
-    if sample_group is None:
-        sample_group = int(os.environ.get("RT_SAMPLE_GROUP", "8"))
-    xs_p, ys_p, n, np_rays, lo, span, plan, kw = _setup(
-        scene, xs, ys, det_eps, tmin, shadow_eps, shadow_tmin, dialect,
-        shadow_samples, cand_plan)
-    nt = np_rays // RAY_TILE
-    off = int(sample_offset)
-    staged = (capacity_tiles is not None and capacity_tiles < nt
-              and int(scene.max_bounces) > 1)
-    clip = _clip(dialect)
-    acc = [torch.zeros(np_rays, device=xs_p.device) for _ in range(3)]
-    if not staged:
-        pix = torch.arange(np_rays, dtype=torch.int64, device=xs_p.device)
-        for s in range(int(spp)):
-            st, rng = emit_tiles(scene, xs_p, ys_p, off + s, jitter=jitter,
-                                 plan=plan, cand_plan=cand_plan, **kw)
-            r3 = _resume_all(scene, st, rng, pix, lo, span, kw)
-            acc = [a + clip(c) for a, c in zip(acc, r3)]
-    else:
-        group = max(1, min(int(sample_group), int(spp)))
-        while spp % group:
-            group -= 1
-        for g0 in range(0, int(spp), group):
-            r3 = _render_group(scene, xs_p, ys_p, plan, lo, span,
-                               int(capacity_tiles), group, off + g0, jitter,
-                               kw, cand_plan)
-            for j in range(group):
-                acc = [a + clip(c[j]) for a, c in zip(acc, r3)]
-    return torch.stack([a[:n] for a in acc], dim=1)
+    that bounce: ``SAMPLE_GROUP`` samples a merged bounce ladder on the
+    gathered alive tiles (at most ``capacity_tiles``; at the tile count
+    every tile), accumulated in sample order, clipped per sample in the
+    gpu dialect."""
+    acc = [torch.zeros(int(xs.shape[0]), device=xs.device) for _ in range(3)]
+    for r3 in _render_samples(scene, xs, ys, spp, sample_offset, SAMPLE_GROUP,
+                              capacity_tiles, cand_plan, det_eps, tmin,
+                              shadow_eps, shadow_tmin, dialect, jitter,
+                              shadow_samples):
+        for j in range(r3[0].shape[0]):
+            acc = [a + c[j] for a, c in zip(acc, r3)]
+    return torch.stack(acc, dim=1)
 
 
-def _emit_alive_tiles(scene, xs_p, ys_p, **kw) -> int:
-    st, _ = emit_tiles(scene, xs_p, ys_p, 0, **kw)
-    stv = st.reshape(-1, _ST_ROWS, RAY_TILE)
-    return int((stv[:, _ST_ALIVE_ROW] > 0.0).any(dim=1).sum())
+def _round_up_pow2(tiles: int) -> int:
+    """The least power of two >= max(tiles, 8)."""
+    cap = 8
+    while cap < tiles:
+        cap *= 2
+    return cap
 
 
-# in-process capacity per static scene key, in front of the disk cache: a
-# render then skips the fingerprint's device->host copy and the file read
+def rank_capacity(capacity: int, ranks: int) -> int:
+    """A data rank's capacity when a stream is dealt over ``ranks`` ranks
+    (``parallel.sharded``): the full frame's calibrated ``capacity``
+    divided over them, rounded up to a power of two >= 8 (alive tiles
+    spread about evenly over the dealt groups; a rank that overflows
+    takes the overflow path)."""
+    return _round_up_pow2(-(-int(capacity) // int(ranks)))
+
+
+# capacity per static scene key: one calibration emit a process
 _CAP_CACHE: dict = {}
 
 
-def _cache_dir() -> str:
-    # the port's own directory: a JAX calibration must not feed the port
-    return os.environ.get("RT_TORCH_CAP_CACHE", os.path.join(
-        tempfile.gettempdir(), "rt_capacity_cache_torch"))
-
-
-def _disk_cache_load(key: str):
-    try:
-        with open(os.path.join(_cache_dir(), f"{key}.json")) as f:
-            return json.load(f)
-    except (OSError, ValueError):
-        return ()
-
-
-def _disk_cache_store(key: str, value) -> None:
-    try:
-        os.makedirs(_cache_dir(), exist_ok=True)
-        path = os.path.join(_cache_dir(), f"{key}.json")
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "w") as f:
-            json.dump(value, f)
-        os.replace(tmp, path)
-    except OSError:
-        pass  # the cache only saves a calibration emit
-
-
-def _scene_fingerprint(scene, key) -> str:
-    h = hashlib.sha1(repr(key).encode())
-    h.update(scene.accel.aabb.detach().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def auto_capacity_tiles(scene, margin: float = 1.2, **kw) -> Optional[int]:
-    """Calibrate the staged scheduler's alive-wavefront capacity.
+def auto_capacity_tiles(scene, xs, ys, margin: float = 1.2,
+                        **kw) -> Optional[int]:
+    """Calibrate the staged scheduler's alive-wavefront capacity on the
+    frame's pixel stream ``xs``, ``ys`` (``render.renderer.pixel_stream``).
 
     One emit counts the tiles holding depth-0 survivors; the capacity is
     that count with ``margin`` headroom, rounded up to a power of two.
     Returns None when staging cannot help (the alive wavefront is about
     the whole frame, or the scene never bounces).  Cached in memory per
-    static key and on disk per scene fingerprint; a wrong capacity only
-    costs the overflow branch."""
+    static key; a wrong capacity only costs the overflow branch."""
     if scene.accel is None or int(scene.max_bounces) <= 1:
         return None
     key = (int(scene.camera.width), int(scene.camera.height),
@@ -381,22 +345,11 @@ def auto_capacity_tiles(scene, margin: float = 1.2, **kw) -> Optional[int]:
            int(scene.spp), scene.dialect, str(scene.device.type))
     if key in _CAP_CACHE:
         return _CAP_CACHE[key]
-    fp = _scene_fingerprint(scene, key)
-    cached = _disk_cache_load(fp)
-    if cached != ():
-        _CAP_CACHE[key] = cached
-        return cached
-    from ..render.renderer import _swizzled_grid
-
-    xs, ys, _ = _swizzled_grid(int(scene.camera.width),
-                               int(scene.camera.height), device=scene.device)
     xs_p, ys_p, _, np_rays = _pad_tiles(xs, ys)
-    nt = np_rays // RAY_TILE
-    tiles = int(_emit_alive_tiles(scene, xs_p, ys_p, **kw) * margin)
-    cap = 8
-    while cap < tiles:
-        cap *= 2
-    result = None if cap * 2 >= nt else cap
+    st, _ = emit_tiles(scene, xs_p, ys_p, 0, **kw)
+    stv = st.reshape(-1, _ST_ROWS, RAY_TILE)
+    alive = int((stv[:, _ST_ALIVE_ROW] > 0.0).any(dim=1).sum())
+    cap = _round_up_pow2(int(alive * margin))
+    result = None if cap * 2 >= np_rays // RAY_TILE else cap
     _CAP_CACHE[key] = result
-    _disk_cache_store(fp, result)
     return result

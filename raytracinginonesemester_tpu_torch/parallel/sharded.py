@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import os
 from typing import Optional
 
 import numpy as np
@@ -33,10 +32,10 @@ import torch
 import torch.distributed as dist
 
 from ..ops import comm
-from ..render.renderer import (DEFAULT_RAY_TILE, _frame_accum, _fused,
-                               _route, _swizzled_grid, _tile_map, _unswizzle,
-                               accumulate_samples, resolve_candidate_plan,
-                               resolve_jitter_mode, resolve_wavefront)
+from ..ops.megakernel import GROUP_TILES, RAY_TILE
+from ..render.renderer import (DEFAULT_RAY_TILE, Route, accumulate_samples,
+                               pixel_stream, render_stream, resolve_jitter_mode,
+                               resolve_route, unswizzle)
 from ..scene.build import Scene
 
 __all__ = ["Mesh", "make_mesh", "make_train_step_sharded",
@@ -151,68 +150,36 @@ def _pad_to(xs, ys, quantum: int):
     return xs, ys
 
 
-def _shard_capacity(scene: Scene, jitter_mode: str, spp: int, mesh: Mesh):
-    """(wavefront, per-shard capacity) of the fast path: ``resolve_wavefront``
-    on data rank 0 alone (one calibration, one cache write), broadcast;
-    a calibrated full-frame capacity is divided over the data ranks and
-    rounded up to a power of two >= 8 (alive tiles spread about evenly
-    over the interleaved shards; a shard that overflows takes the
-    overflow path)."""
-    group = mesh.group("data")
-    wf, cap = False, None
-    if mesh.index("data") == 0:
-        wf, cap = resolve_wavefront(scene, jitter_mode, spp)
-    pair = torch.tensor([int(wf), -1 if cap is None else int(cap)],
-                        dtype=torch.int64, device=scene.device)
-    wf, cap = (int(v) for v in comm.broadcast(pair, group).tolist())
-    if cap < 0:
-        return bool(wf), None
-    if os.environ.get("RT_WAVEFRONT_CAP", "auto") == "auto":
-        per = -(-cap // mesh.size("data"))
-        cap = 8
-        while cap < per:
-            cap *= 2
-    return bool(wf), cap
-
-
-def _render_sharded_fast(scene: Scene, mesh: Mesh, spp: int, wavefront: bool,
-                         jitter_mode: str, capacity: Optional[int],
-                         sample_offset: int = 0, cand_plan=None):
-    """The fused kernels on each data rank's share of the swizzled tile
-    stream, then gathered.  The stream is padded to whole groups of 8
-    tiles a rank, and the groups are dealt round-robin (group g to rank
+def _render_sharded_fast(scene: Scene, mesh: Mesh, stream, route: Route,
+                         spp: int, sample_offset: int = 0):
+    """The fused kernels on each data rank's share of the tile stream
+    (``pixel_stream`` over the data ranks), then gathered.  The stream's
+    groups of ``GROUP_TILES`` tiles are dealt round-robin (group g to rank
     g mod S): an object in the middle of the frame then lights up about
     the mean share of every rank's tiles, as the capacity divided over
     the ranks assumes (contiguous bands of the frame gave the middle
     ranks more alive tiles than their capacity on the headline frog).
-    ``cand_plan``: the binned plan of the padded global stream
-    (``resolve_candidate_plan(align_tiles=n_data)``): each rank takes its
-    groups' meta rows and the shared chunk stream."""
-    from ..ops.megakernel import RAY_TILE
-
-    w, h = scene.camera.width, scene.camera.height
-    xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
-    n_swz = int(xs.shape[0])
+    Each rank takes its groups' meta rows of the route's binned plan and
+    the shared chunk stream."""
+    xs, ys, _, (hp, wp) = stream
     n_data, d = mesh.size("data"), mesh.index("data")
-    q = 8 * RAY_TILE
-    xs, ys = _pad_to(xs, ys, n_data * q)
+    q = GROUP_TILES * RAY_TILE
     groups = int(xs.shape[0]) // (n_data * q)
-    if cand_plan is not None:
-        if int(cand_plan.meta.shape[0]) != groups * n_data * 8:
-            raise ValueError("the sharded candidate plan must be built with "
-                             "align_tiles=n_data")
-        cand_plan = dataclasses.replace(cand_plan, meta=cand_plan.meta.reshape(
-            groups, n_data, 8, -1)[:, d].reshape(groups * 8, -1).contiguous())
+    plan = route.cand_plan
+    if plan is not None:
+        plan = dataclasses.replace(plan, meta=plan.meta.reshape(
+            groups, n_data, GROUP_TILES, -1)[:, d].reshape(
+                groups * GROUP_TILES, -1).contiguous())
 
     def mine(a):
         return a.reshape(groups, n_data, q)[:, d].reshape(-1)
 
-    accum = _frame_accum(scene, mine(xs), mine(ys), spp, sample_offset,
-                         jitter_mode, _route(scene, jitter_mode, wavefront),
-                         capacity, cand_plan)
+    accum = render_stream(scene, dataclasses.replace(route, cand_plan=plan),
+                          mine(xs), mine(ys), spp, sample_offset)
     accum = comm.gather_rows(accum, mesh.group("data")).reshape(
-        n_data, groups, q, 3).transpose(0, 1).reshape(-1, 3)[:n_swz]
-    return _unswizzle(accum, w, h, hp, wp) / float(spp)
+        n_data, groups, q, 3).transpose(0, 1).reshape(-1, 3)
+    w, h = scene.camera.width, scene.camera.height
+    return unswizzle(accum, w, h, hp, wp) / float(spp)
 
 
 def _render_sharded_staged(scene: Scene, mesh: Mesh, jitter_mode: str,
@@ -243,18 +210,17 @@ def _render_sharded_staged(scene: Scene, mesh: Mesh, jitter_mode: str,
     group_d = mesh.group("data")
     shared = scene.camera.is_pinhole
 
-    if compacted:
-        def trace(o, dirs, seeds):
+    def trace(o, dirs, seeds):
+        if compacted:
             return trace_rays_compacted(o, dirs, seeds, scene, group_m,
                                         group_d, capacity)
-    else:
-        def trace(o, dirs, seeds):
-            return _tile_map(lambda a: trace_rays(
-                *a, scene, group_m, shared_origin0=shared), (o, dirs, seeds),
-                n_l, ray_tile)
+        return trace_rays(o, dirs, seeds, scene, group_m,
+                          shared_origin0=shared)
 
-    accum = accumulate_samples(scene, xs, ys, spp, jitter_mode, ray_tile,
-                               sample_offset, trace=trace)
+    # the compacted scheduler takes a sample's rays in one batch
+    accum = accumulate_samples(scene, xs, ys, spp, jitter_mode,
+                               0 if compacted else ray_tile, sample_offset,
+                               trace=trace)
     accum = comm.gather_rows(accum, group_d)[:num_rays]
     return (accum / float(spp)).reshape(h, w, 3)
 
@@ -268,26 +234,26 @@ def render_scene_sharded(scene: Scene, mesh: Mesh, jitter_mode: str = "auto",
     block grid over ``model_axis``) -> the whole (H, W, 3) linear image
     on every rank, differentiable for a differentiable scene.
 
-    Without a model axis of more than one rank, a scene the fused kernels
-    take renders on them exactly as ``render_scene`` would (staged
+    Without a model axis of more than one rank, the route is
+    ``render_scene``'s (``resolve_route`` over the mesh), and a scene the
+    fused kernels take renders on them as ``render_scene`` would (staged
     wavefront or kernel D, the binned plan); the capacity is calibrated
     on data rank 0 and divided over the data ranks.  Any other scene
     takes the staged integrator; with a model axis of more than one rank,
     a block grid and more than one bounce, through the compacted
-    scheduler when ``RT_WAVEFRONT`` is "1" or "auto" (the default).
-    ``sample_offset`` as in ``render_scene``."""
+    scheduler.  ``sample_offset`` as in ``render_scene``."""
     spp = spp_override if spp_override is not None else scene.spp
     jm = resolve_jitter_mode(scene, jitter_mode, spp)
     tp = model_axis is not None and mesh.size(model_axis) > 1
-    if not tp and _fused(scene, jm):
-        wavefront, cap = _shard_capacity(scene, jm, spp, mesh)
-        cand_plan = resolve_candidate_plan(scene, jm, spp,
-                                           align_tiles=mesh.size("data"))
-        return _render_sharded_fast(scene, mesh, spp, wavefront, jm, cap,
-                                    sample_offset, cand_plan)
-    compacted = (os.environ.get("RT_WAVEFRONT", "auto") in ("1", "auto")
-                 and scene.accel is not None and int(scene.max_bounces) > 1
-                 and tp)
+    if not tp:
+        stream = pixel_stream(scene.camera.width, scene.camera.height,
+                              scene.device, mesh.size("data"))
+        route = resolve_route(scene, stream, jm, spp, mesh=mesh)
+        if not route.staged:
+            return _render_sharded_fast(scene, mesh, stream, route, spp,
+                                        sample_offset)
+    compacted = (tp and scene.accel is not None
+                 and int(scene.max_bounces) > 1)
     return _render_sharded_staged(scene, mesh, jm, ray_tile, spp, model_axis,
                                   compacted, sample_offset)
 

@@ -1,15 +1,15 @@
 """Top-level render drivers.
 
 PyTorch port of ``raytracinginonesemester_tpu.render.renderer``'s
-dispatch: the swizzled 16x16 pixel-tile stream, the wavefront and
-capacity resolve, the binned camera plan with its bounded cache, and
-``render_scene`` / ``render_scene_frames``.  As in the JAX package,
-scenes the fused kernels take render on the staged wavefront
-(``ops.wavefront``) or the monolithic render kernel
-(``ops.megakernel.render_tiles``); every other scene renders through the
-staged integrator (``accumulate_samples`` -> ``ops.integrator.trace_rays``:
-kernels E and F, or G and I for a scene over the plane budget), with a
-one-time warning that names the reason.
+dispatch, and the one place in the port where a render call's route is
+decided (``resolve_route``) and its pixel stream built
+(``pixel_stream``).  Scenes the fused kernels take render on the staged
+wavefront (``ops.wavefront``) or the monolithic render kernel
+(``ops.megakernel.render_tiles``), both with the binned camera plan;
+every other scene renders through the staged integrator
+(``accumulate_samples`` -> ``ops.integrator.trace_rays``: kernels E and
+F, or G and I for a scene over the plane budget), with a one-time
+warning that names the reason.
 Differentiable scenes render there too, without a warning (the fused
 kernels have no gradient): through kernel B's oracle rows and kernel J
 in the backward pass (``ops.integrator``).  ``render_hw1`` is the HW1
@@ -18,20 +18,25 @@ brute-force pipeline, in plain PyTorch on the triangles' device.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core import rng as rnglib
-from ..ops.megakernel import megakernel_ineligible_reason, megakernel_kwargs
+from ..ops.megakernel import (
+    megakernel_ineligible_reason, megakernel_kwargs, padded_rays)
 from ..scene.build import Scene
 from ..utils.timing import span
 
-__all__ = ["render_scene", "render_scene_frames", "render_hw1",
-           "resolve_wavefront", "route_counts", "reset_route_counts",
-           "resolve_candidate_plan", "resolve_jitter_mode",
-           "accumulate_samples", "DEFAULT_RAY_TILE", "frog_scene", "entry"]
+__all__ = ["render_scene", "render_scene_frames", "render_hw1", "Route",
+           "resolve_route", "resolve_wavefront", "route_counts",
+           "reset_route_counts", "resolve_candidate_plan",
+           "resolve_jitter_mode", "pixel_stream", "unswizzle",
+           "render_stream", "accumulate_samples", "DEFAULT_RAY_TILE",
+           "frog_scene", "entry"]
 
 # rays per ``trace_rays`` call of the staged integrator; <= 0 is one
 # batch of the whole frame.  Images do not depend on it (per-ray math,
@@ -51,22 +56,40 @@ def _swizzled_grid(width: int, height: int, tile: int = 16, device="cpu"):
     wp = -(-width // tile) * tile
     hp = -(-height // tile) * tile
     shape = (hp // tile, wp // tile, tile, tile)
+    xs = torch.arange(wp, dtype=torch.int32, device=device)
+    ys = torch.arange(hp, dtype=torch.int32, device=device)
+    return (xs.view(1, wp // tile, 1, tile).expand(shape).reshape(-1),
+            ys.view(hp // tile, 1, tile, 1).expand(shape).reshape(-1),
+            (hp, wp))
 
+
+def pixel_stream(width: int, height: int, device="cpu", ranks: int = 1):
+    """The pixel stream of a frame -> (xs, ys, n, (hp, wp)): the 16x16
+    tile-major pixels of the tile-padded (hp, wp) frame, ``n = hp * wp``
+    of them, then padding rays at pixel (0, 0) up to whole 8-tile groups
+    of ``RAY_TILE`` rays for each of ``ranks`` data ranks
+    (``megakernel.padded_rays``), which ``parallel.sharded`` deals out in
+    groups.  The fused kernels take the whole stream; the staged
+    integrator traces its first ``n`` rays; ``unswizzle`` is the
+    inverse."""
     with span("rt.dispatch.grid"):
-        xs = torch.arange(wp, dtype=torch.int32, device=device)
-        ys = torch.arange(hp, dtype=torch.int32, device=device)
-        return (xs.view(1, wp // tile, 1, tile).expand(shape).reshape(-1),
-                ys.view(hp // tile, 1, tile, 1).expand(shape).reshape(-1),
-                (hp, wp))
+        xs, ys, (hp, wp) = _swizzled_grid(width, height, device=device)
+        n = hp * wp
+        pad = padded_rays(n, ranks) - n
+        if pad:
+            xs, ys = F.pad(xs, (0, pad)), F.pad(ys, (0, pad))
+        return xs, ys, n, (hp, wp)
 
 
-def _unswizzle(accum: torch.Tensor, width: int, height: int, hp: int, wp: int,
-               tile: int = 16) -> torch.Tensor:
-    """(..., hp*wp, C) tile-major -> (..., height, width, C) scanline."""
+def unswizzle(accum: torch.Tensor, width: int, height: int, hp: int, wp: int,
+              tile: int = 16) -> torch.Tensor:
+    """(..., >= hp*wp, C) in stream order -> (..., height, width, C)
+    scanline; rows past the frame's ``hp * wp`` (padding) are dropped."""
     lead = accum.shape[:-2]
     c = accum.shape[-1]
     with span("rt.dispatch.unswizzle"):
-        img = (accum.reshape(*lead, hp // tile, wp // tile, tile, tile, c)
+        img = (accum[..., :hp * wp, :]
+               .reshape(*lead, hp // tile, wp // tile, tile, tile, c)
                .transpose(-4, -3)
                .reshape(*lead, hp, wp, c))
         return img[..., :height, :width, :]
@@ -78,21 +101,17 @@ def resolve_jitter_mode(scene: Scene, jitter_mode: str, spp: int) -> str:
     return "wang" if (scene.dialect == "gpu" or spp > 1) else "center"
 
 
-def _fused(scene: Scene, jitter_mode: str) -> bool:
-    """Whether the fused kernels (A-D) take the scene, as the JAX
-    package decides (``megakernel_eligible``), but for the soft-shadow
-    sample bound, which the port does not keep."""
-    return megakernel_ineligible_reason(scene, jitter_mode) is None
-
-
 def _bouncing(scene: Scene) -> bool:
     return bool(scene.diffuse_bounce) or not scene.terminal_only
 
 
-# calls of render_scene and render_scene_frames by route since the last
-# reset: "wavefront" (the staged wavefront, kernels A and B, C on
-# overflow), "render" (the monolithic kernel D) or "staged: <reason>"
-# (the staged integrator, with the fused kernels' reason for refusing)
+def _kernel_kwargs(scene: Scene, jitter_mode: str) -> dict:
+    kw = megakernel_kwargs(scene, jitter_mode)
+    kw.setdefault("jitter", jitter_mode)
+    return kw
+
+
+# calls of resolve_route by route since the last reset (``Route.name``)
 _ROUTES: dict = {}
 
 
@@ -105,59 +124,47 @@ def reset_route_counts() -> None:
     _ROUTES.clear()
 
 
-def _route(scene: Scene, jitter_mode: str, wavefront: bool) -> str:
-    """The route of a render call for ``scene`` at the resolved
-    ``jitter_mode``, which ``_frame_accum`` then takes; one warning per
-    reason when it is the staged integrator, as the JAX package warns,
-    none for a differentiable scene, which has no faster option."""
-    reason = megakernel_ineligible_reason(scene, jitter_mode)
-    if reason is None:
-        return "wavefront" if _bouncing(scene) and wavefront else "render"
-    if not reason.startswith("differentiable"):
-        from ..utils.logging import warn_once
+def _calibrate(scene: Scene, jm: str, stream, mesh=None) -> Optional[int]:
+    """The staged wavefront's capacity for a scene the fused kernels
+    take, None where staging cannot help (the scene never bounces, or its
+    alive wavefront is about the whole frame): ``auto_capacity_tiles`` on
+    the frame's stream.  Under ``mesh`` data rank 0 alone calibrates, the
+    result is broadcast, and each rank takes ``rank_capacity`` of it."""
+    if not _bouncing(scene):
+        return None
+    from ..ops.wavefront import auto_capacity_tiles, rank_capacity
 
-        warn_once(f"mk-fallback:{reason}",
-                  f"scene falls off the fused kernels ({reason}); rendering "
-                  "via the staged integrator")
-    return f"staged: {reason}"
+    xs, ys, n, _ = stream
+    m = padded_rays(n)  # the frame's own groups, whatever the ranks
 
+    def calibrated():
+        return auto_capacity_tiles(scene, xs[:m], ys[:m],
+                                   **_kernel_kwargs(scene, jm))
 
-def _kernel_kwargs(scene: Scene, jitter_mode: str) -> dict:
-    kw = megakernel_kwargs(scene, jitter_mode)
-    kw.setdefault("jitter", jitter_mode)
-    return kw
+    if mesh is None:
+        return calibrated()
+    from ..ops import comm
+
+    cap = calibrated() if mesh.index("data") == 0 else None
+    cap = int(comm.broadcast(torch.tensor(
+        [-1 if cap is None else cap], dtype=torch.int64,
+        device=scene.device), mesh.group("data")))
+    return None if cap < 0 else rank_capacity(cap, mesh.size("data"))
 
 
 def resolve_wavefront(scene: Scene, jitter_mode: str = "auto",
                       spp_override: Optional[int] = None):
-    """(wavefront, capacity) for a scene, as the JAX package resolves it.
-
-    ``RT_WAVEFRONT``: "auto" (default) takes the staged wavefront when a
-    capacity is calibrated, else the monolithic render kernel; "1"
-    always takes the wavefront, "0" never.  ``RT_WAVEFRONT_CAP``: "auto"
-    (calibrate, cached in memory and on disk) or a tile count.  Terminal
-    scenes (no diffuse bounce, every kr == 0) and scenes the fused
-    kernels do not take never take the wavefront."""
+    """(wavefront, capacity) of a render call without a forced capacity,
+    as the JAX package resolves it at its defaults: the staged wavefront
+    where the fused kernels take the scene, it bounces and a capacity is
+    calibrated (``_calibrate``), else (False, None)."""
     spp_eff = spp_override if spp_override is not None else scene.spp
     jm = resolve_jitter_mode(scene, jitter_mode, spp_eff)
-    wf_env = os.environ.get("RT_WAVEFRONT", "auto")
-    wavefront = wf_env in ("1", "auto")
-    cap = None
-    cap_env = os.environ.get("RT_WAVEFRONT_CAP", "auto")
-    if wavefront and cap_env:
-        if not (_bouncing(scene) and _fused(scene, jm)):
-            wavefront = False
-        elif cap_env == "auto":
-            from ..ops.wavefront import auto_capacity_tiles
-
-            cap = auto_capacity_tiles(scene, **_kernel_kwargs(scene, jm))
-        else:
-            cap = int(cap_env)
-    if wf_env == "auto" and cap is None:
-        # no staged capacity (the scene never bounces, or its alive
-        # wavefront is about the whole frame): the monolithic kernel
-        wavefront = False
-    return wavefront, cap
+    if megakernel_ineligible_reason(scene, jm) is not None:
+        return False, None
+    cap = _calibrate(scene, jm, pixel_stream(
+        int(scene.camera.width), int(scene.camera.height), scene.device))
+    return cap is not None, cap
 
 
 # (scene, camera) fingerprint -> binned camera plan (ops.binned).  The
@@ -173,51 +180,109 @@ _CAND_PLAN_CACHE_MAX = 8
 def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
                            spp_override: Optional[int] = None,
                            align_tiles: int = 1):
-    """Binned camera-candidate plan of a scene, built on its device once
-    per (scene, camera) and cached.  ``RT_BINNED``: "auto"/"1" (default
-    on), "0" off (returns None); ``RT_BINNED_CHUNK``: candidate lanes
-    per chunk (default 256).  The depth-0 walk of emit and render then
-    tests each tile's candidates instead of the block grid.  None for a
-    scene the fused kernels do not take.  ``align_tiles``: the plan's
-    tiles are padded to a multiple of ``align_tiles`` 8-tile groups, with
-    padding rays at pixel (0, 0), so that its meta rows split evenly over
-    that many data ranks (``parallel.sharded``; the chunk stream, whose
-    starts are global, is shared)."""
-    if os.environ.get("RT_BINNED", "auto") == "0":
-        return None
-    spp_eff = spp_override if spp_override is not None else scene.spp
-    if not _fused(scene, resolve_jitter_mode(scene, jitter_mode, spp_eff)):
-        return None
-    from ..ops.binned import build_camera_candidate_plan, plan_fingerprint
-    from ..ops.megakernel import RAY_TILE, _pad_tiles
+    """Binned camera-candidate plan of a scene (``ops.binned``, chunks of
+    ``binned.CHUNK`` lanes), built on its device once per (scene, camera)
+    and cached; None for a scene the fused kernels do not take.  The
+    depth-0 walk of emit and render then tests each tile's candidates
+    instead of the block grid.  ``align_tiles``: the data ranks of the
+    ``pixel_stream`` the plan is built for, so that its meta rows deal out
+    with the stream (``parallel.sharded``; the chunk stream, whose starts
+    are global, is shared)."""
+    from ..ops.binned import (CHUNK, build_camera_candidate_plan,
+                              plan_fingerprint)
+    from ..ops.megakernel import RAY_TILE
 
-    chunk = int(os.environ.get("RT_BINNED_CHUNK", "256"))
-    fp = (plan_fingerprint(scene.camera, scene.accel, RAY_TILE, 1, chunk),
+    spp_eff = spp_override if spp_override is not None else scene.spp
+    jm = resolve_jitter_mode(scene, jitter_mode, spp_eff)
+    if megakernel_ineligible_reason(scene, jm) is not None:
+        return None
+    fp = (plan_fingerprint(scene.camera, scene.accel, RAY_TILE, 1, CHUNK),
           int(align_tiles))
     if fp in _CAND_PLAN_CACHE:
         plan = _CAND_PLAN_CACHE.pop(fp)
         _CAND_PLAN_CACHE[fp] = plan  # LRU: refresh the insertion order
         return plan
-    w, h = int(scene.camera.width), int(scene.camera.height)
-    xs, ys, _ = _swizzled_grid(w, h, device=scene.device)
-    xs_p, ys_p, _, _ = _pad_tiles(xs, ys)
-    extra = (-(xs_p.shape[0] // RAY_TILE)) % (int(align_tiles) * 8)
-    if extra:
-        xs_p = torch.cat([xs_p, xs_p.new_zeros(extra * RAY_TILE)])
-        ys_p = torch.cat([ys_p, ys_p.new_zeros(extra * RAY_TILE)])
-    plan = build_camera_candidate_plan(scene.camera, xs_p, ys_p, scene.accel,
-                                       RAY_TILE, chunk=chunk)
+    xs, ys, _, _ = pixel_stream(int(scene.camera.width),
+                                int(scene.camera.height), scene.device,
+                                align_tiles)
+    plan = build_camera_candidate_plan(scene.camera, xs, ys, scene.accel,
+                                       RAY_TILE, chunk=CHUNK)
     while len(_CAND_PLAN_CACHE) >= _CAND_PLAN_CACHE_MAX:
         _CAND_PLAN_CACHE.pop(next(iter(_CAND_PLAN_CACHE)))
     _CAND_PLAN_CACHE[fp] = plan
     return plan
 
 
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """How one render call runs (``resolve_route``).  ``name``:
+    "wavefront" (the staged wavefront, kernels A and B, C on overflow),
+    "render" (the monolithic kernel D) or "staged: <reason>" (the staged
+    integrator, with the fused kernels' reason for refusing the scene);
+    ``jitter``: the resolved jitter mode; ``capacity``: the wavefront's
+    alive-tile capacity (a data rank's, under a mesh); ``cand_plan``:
+    the stream's binned plan; ``kwargs``: the kernel wrappers' dialect
+    keyword arguments."""
+
+    name: str
+    jitter: str
+    capacity: Optional[int] = None
+    cand_plan: object = None
+    kwargs: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def staged(self) -> bool:
+        return self.name.startswith("staged")
+
+
+def resolve_route(scene: Scene, stream, jitter_mode: str = "auto",
+                  spp: int = 1, cand_plan=None,
+                  capacity_tiles: Optional[int] = None, mesh=None) -> Route:
+    """The route of one render call of ``scene`` over ``stream``
+    (``pixel_stream``), counted under its name (``route_counts``).
+
+    Where the fused kernels take the scene
+    (``megakernel_ineligible_reason``): the staged wavefront when the
+    scene bounces and has a capacity, else kernel D; both walk the binned
+    plan (``cand_plan``, or the cached one).  The capacity is
+    ``capacity_tiles``, the one way to force it, or else calibrated
+    (``_calibrate``).  Every other scene takes the staged integrator, with
+    one warning per reason, none for a differentiable scene, which has no
+    faster route.  ``mesh``: ``parallel.sharded``'s mesh, over whose data
+    ranks the stream is dealt: the capacity is a rank's share and the
+    plan is built for that many ranks."""
+    jm = resolve_jitter_mode(scene, jitter_mode, spp)
+    with span("rt.dispatch.resolve"):
+        reason = megakernel_ineligible_reason(scene, jm)
+        if reason is not None:
+            if not reason.startswith("differentiable"):
+                from ..utils.logging import warn_once
+
+                warn_once(f"mk-fallback:{reason}",
+                          f"scene falls off the fused kernels ({reason}); "
+                          "rendering via the staged integrator")
+            route = Route(f"staged: {reason}", jm)
+        else:
+            cap = capacity_tiles
+            if cap is None:
+                cap = _calibrate(scene, jm, stream, mesh)
+            if cand_plan is None:
+                cand_plan = resolve_candidate_plan(
+                    scene, jm, spp, 1 if mesh is None else mesh.size("data"))
+            wavefront = _bouncing(scene) and cap is not None
+            route = Route("wavefront" if wavefront else "render", jm,
+                          None if cap is None else int(cap), cand_plan,
+                          _kernel_kwargs(scene, jm))
+        _ROUTES[route.name] = _ROUTES.get(route.name, 0) + 1
+        return route
+
+
 def _tile_map(fn, args, num_rays: int, tile: int):
     """``fn`` over consecutive ray tiles of ``args`` (tensors with leading
     dim ``num_rays``), the tail tile padded with copies of ray 0;
     ``tile <= 0`` is one whole-batch tile.  Results keep ``num_rays``."""
-    tile = num_rays if tile <= 0 else min(tile, num_rays)
+    if tile <= 0 or tile >= num_rays:
+        return fn(args)
     padded = -(-num_rays // tile) * tile
     if padded != num_rays:
         args = tuple(torch.cat([a, a[:1].expand(padded - num_rays,
@@ -241,8 +306,8 @@ def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
     indexed ``min(s + sample_offset, spp - 1)`` as the JAX package does;
     ``"center"``, the pixel center.  Any split of the pixels, and any
     ``ray_tile``, gives the same sums.  ``trace(origins, dirs, seeds) ->
-    (N, 3)`` traces one sample's rays, by default ``trace_rays`` over
-    tiles of ``ray_tile`` rays (``parallel.sharded`` passes its own)."""
+    (N, 3)`` traces one tile of ``ray_tile`` of one sample's rays, by
+    default ``trace_rays`` (``parallel.sharded`` passes its own)."""
     cam = scene.camera
     num_rays = int(xs.shape[0])
     dev = xs.device
@@ -251,15 +316,11 @@ def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
                                   device=dev)
     elif jitter_mode not in ("wang", "center"):
         raise ValueError(f"unknown jitter_mode {jitter_mode!r}")
-    from ..ops.integrator import trace_rays
-
-    def tile_fn(args):
-        o, d, st = args
-        return trace_rays(o, d, st, scene, shared_origin0=cam.is_pinhole)
-
     if trace is None:
+        from ..ops.integrator import trace_rays
+
         def trace(o, d, st):
-            return _tile_map(tile_fn, (o, d, st), num_rays, ray_tile)
+            return trace_rays(o, d, st, scene, shared_origin0=cam.is_pinhole)
 
     accum = torch.zeros(num_rays, 3, device=dev)
     for s in range(int(spp)):
@@ -273,48 +334,40 @@ def accumulate_samples(scene: Scene, xs, ys, spp: int, jitter_mode: str,
         origins, dirs = cam.get_rays(xs.to(torch.float32) + jx,
                                      ys.to(torch.float32) + jy)
         seeds = rnglib.make_rng_seed(xs, ys, s_abs)
-        accum = accum + trace(origins, dirs, seeds)
+        accum = accum + _tile_map(lambda a: trace(*a), (origins, dirs, seeds),
+                                  num_rays, ray_tile)
     return accum
 
 
-def _frame_accum(scene: Scene, xs, ys, spp: int, sample_offset: int,
-                 jitter_mode: str, route: str, cap, cand_plan,
-                 ray_tile: int = DEFAULT_RAY_TILE):
-    """Per-ray radiance SUM over ``spp`` samples, (N, 3) in swizzled
-    order, on ``route`` (``_route``): the staged wavefront, the
-    monolithic render kernel or the staged integrator."""
-    jm = resolve_jitter_mode(scene, jitter_mode, spp)
+def render_stream(scene: Scene, route: Route, xs, ys, spp: int,
+                  sample_offset: int = 0,
+                  ray_tile: int = DEFAULT_RAY_TILE) -> torch.Tensor:
+    """Per-ray radiance SUM over ``spp`` samples of the pixels ``xs``,
+    ``ys``, (N, 3) in their order, on ``route``: the staged wavefront,
+    the monolithic render kernel or the staged integrator (which takes
+    the frame's own pixels, ``_route_rays``)."""
     with span("rt.glue.frame"):
-        if route.startswith("staged"):
-            return accumulate_samples(scene, xs, ys, spp, jm, ray_tile,
-                                      sample_offset)
-        kw = _kernel_kwargs(scene, jm)
-        if route == "wavefront":
+        if route.staged:
+            return accumulate_samples(scene, xs, ys, spp, route.jitter,
+                                      ray_tile, sample_offset)
+        if route.name == "wavefront":
             from ..ops.wavefront import render_tiles_wavefront
 
-            return render_tiles_wavefront(scene, xs, ys, spp, sample_offset,
-                                          capacity_tiles=cap,
-                                          cand_plan=cand_plan, **kw)
+            return render_tiles_wavefront(
+                scene, xs, ys, spp, sample_offset,
+                capacity_tiles=route.capacity, cand_plan=route.cand_plan,
+                **route.kwargs)
         from ..ops.megakernel import render_tiles
 
         return render_tiles(scene, xs, ys, spp, sample_offset,
-                            cand_plan=cand_plan, **kw)
+                            cand_plan=route.cand_plan, **route.kwargs)
 
 
-def _dispatch(scene, jitter_mode, spp, cand_plan, capacity_tiles):
-    """(route, cap, cand_plan) of one render call; the call is counted
-    under its route."""
-    with span("rt.dispatch.resolve"):
-        if capacity_tiles is not None:
-            wavefront, cap = True, int(capacity_tiles)
-        else:
-            wavefront, cap = resolve_wavefront(scene, jitter_mode, spp)
-        if cand_plan is None:
-            cand_plan = resolve_candidate_plan(scene, jitter_mode, spp)
-        route = _route(scene, resolve_jitter_mode(scene, jitter_mode, spp),
-                       wavefront)
-        _ROUTES[route] = _ROUTES.get(route, 0) + 1
-        return route, cap, cand_plan
+def _route_rays(stream, route: Route):
+    """The stream's rays for ``route``: the fused kernels take whole
+    groups, the staged integrator the frame's own ``n`` pixels."""
+    xs, ys, n, _ = stream
+    return (xs[:n], ys[:n]) if route.staged else (xs, ys)
 
 
 def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
@@ -328,25 +381,26 @@ def render_scene_frames(scene: Scene, frames: int, jitter_mode: str = "auto",
     scene the fused kernels do not take, one staged-integrator call
     (the same images as single-frame renders).  ``capacity_tiles``
     forces the wavefront at that capacity where the fused kernels take
-    the scene; ``ray_tile`` as in ``accumulate_samples``."""
+    a bouncing scene; ``ray_tile`` as in ``accumulate_samples``."""
     with span("rt.dispatch.frames"):
-        route, cap, cand_plan = _dispatch(scene, jitter_mode, 1, cand_plan,
-                                          capacity_tiles)
         w, h = scene.camera.width, scene.camera.height
-        xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
-        if route == "wavefront" and cap is not None:
+        stream = pixel_stream(w, h, scene.device)
+        route = resolve_route(scene, stream, jitter_mode, 1, cand_plan,
+                              capacity_tiles)
+        xs, ys = _route_rays(stream, route)
+        if route.name == "wavefront":
             from ..ops.wavefront import render_tiles_wavefront_frames
 
-            jm = resolve_jitter_mode(scene, jitter_mode, 1)
             accum = render_tiles_wavefront_frames(
-                scene, xs, ys, frames, sample_offset, capacity_tiles=cap,
-                cand_plan=cand_plan, **_kernel_kwargs(scene, jm))
+                scene, xs, ys, frames, sample_offset,
+                capacity_tiles=route.capacity, cand_plan=route.cand_plan,
+                **route.kwargs)
         else:
             accum = torch.stack([
-                _frame_accum(scene, xs, ys, 1, int(sample_offset) + f,
-                             jitter_mode, route, cap, cand_plan, ray_tile)
+                render_stream(scene, route, xs, ys, 1,
+                              int(sample_offset) + f, ray_tile)
                 for f in range(int(frames))])
-        return _unswizzle(accum, w, h, hp, wp)
+        return unswizzle(accum, w, h, *stream[3])
 
 
 def render_scene(scene: Scene, jitter_mode: str = "auto",
@@ -359,18 +413,18 @@ def render_scene(scene: Scene, jitter_mode: str = "auto",
     radiance, clipped per sample in the gpu dialect and accumulated in
     sample order per pixel.  ``jitter_mode``: "wang", "reference_cpu"
     (the oracle-parity mode), "center" or "auto" (gpu or spp > 1:
-    "wang", else "center"); ``ray_tile`` as in ``accumulate_samples``."""
+    "wang", else "center"); ``capacity_tiles`` as in
+    ``render_scene_frames``; ``ray_tile`` as in ``accumulate_samples``."""
     spp = spp_override if spp_override is not None else scene.spp
     with span("rt.dispatch.scene"):
-        route, cap, cand_plan = _dispatch(scene, jitter_mode, spp,
-                                          cand_plan, capacity_tiles)
         w, h = scene.camera.width, scene.camera.height
-        xs, ys, (hp, wp) = _swizzled_grid(w, h, device=scene.device)
-        accum = _frame_accum(scene, xs, ys, spp, sample_offset, jitter_mode,
-                             route, cap, cand_plan, ray_tile)
-        img = _unswizzle(accum, w, h, hp, wp)
+        stream = pixel_stream(w, h, scene.device)
+        route = resolve_route(scene, stream, jitter_mode, spp, cand_plan,
+                              capacity_tiles)
+        accum = render_stream(scene, route, *_route_rays(stream, route), spp,
+                              sample_offset, ray_tile)
+        img = unswizzle(accum, w, h, *stream[3])
         return img / float(spp) if normalize else img
-
 
 
 def render_hw1(vertices, normals, camera, light_position, light_color,

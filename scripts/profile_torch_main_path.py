@@ -112,8 +112,8 @@ block, pairs, the CUDA walk's tests and tested blocks); per-CTA clocks
 tiles most gated blocks first against index order, in turns; and, with
 ``--parent``, its wrapper and kernel in the parent's turns.
 ``--render`` profiles kernel D on ``chip_smoke.py`` phase 11's three
-rows (the frog 1080p at depth 8 with the binned plan, as
-``RT_WAVEFRONT=0`` renders it; the terminal frog at depth 4;
+rows (the frog 1080p at depth 8 with the binned plan, through D off
+the dispatch; the terminal frog at depth 4;
 ``cpuonly_mirror`` at 1080p): the kernel alone and without its lights;
 its plain version on the card bounce by bounce (live paths,
 closest-walk and shadow-walk tests by depth; per warp of 32 pixels the
@@ -1353,7 +1353,7 @@ def profile_kernels(parent_dir=None):
     cpu = Frame(cpuonly_scene("cpuonly_mirror", "cuda", W, H),
                 jitter="center")
     _profile_a("gpu binned (headline)", main, True, clocks)
-    _profile_a("gpu flat (RT_BINNED=0)", main, False, clocks)
+    _profile_a("gpu flat (cand_plan=None)", main, False, clocks)
     _profile_a("cpuonly binned (cpuonly_mirror)", cpu, True, clocks)
     _profile_f()
     if parent_dir is not None:
@@ -1544,12 +1544,12 @@ def _render_frames():
     from raytracinginonesemester_tpu_torch.render.renderer import frog_scene
 
     return {
-        "frog depth 8 binned (RT_WAVEFRONT=0)": Frame(
+        "frog depth 8 binned (kernel D off the dispatch)": Frame(
             frog_scene(W, H, device="cuda")),
         "frog terminal depth 4": Frame(
             frog_scene(W, H, max_bounces=4, diffuse_bounce=False,
                        device="cuda")),
-        "cpuonly_mirror (RT_WAVEFRONT=0)": Frame(
+        "cpuonly_mirror (kernel D off the dispatch)": Frame(
             cpuonly_scene("cpuonly_mirror", "cuda", W, H), jitter="center"),
     }
 

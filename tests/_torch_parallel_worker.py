@@ -124,13 +124,10 @@ def main(out_dir):
     run("fast_cpuonly", lambda: render_scene_sharded(
         scene_at("cpuonly_point"), mesh_dp))
     run("uneven", lambda: render_scene_sharded(uneven_scene(), mesh_dp))
-    os.environ["RT_WAVEFRONT"] = "0"
-    run("tp_plain", lambda: render_scene_sharded(
-        spheres, mesh_tp, "reference_cpu", model_axis="model"))
-    os.environ["RT_WAVEFRONT"] = "1"
+    run("tp_plain", lambda: _render_sharded_staged(
+        spheres, mesh_tp, "reference_cpu", 0, spheres.spp, "model"))
     run("tp_compact", lambda: render_scene_sharded(
         spheres, mesh_tp, "reference_cpu", model_axis="model"))
-    os.environ.pop("RT_WAVEFRONT")
     run("tp_cap8", lambda: _render_sharded_staged(
         spheres, mesh_tp, "reference_cpu", 0, spheres.spp, "model",
         compacted=True, capacity=8))

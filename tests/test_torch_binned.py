@@ -150,13 +150,12 @@ def test_refresh_stream_and_fingerprint(scenes):
                                128) != moved_key
 
 
-def test_plan_cache_is_keyed_exactly(scenes, monkeypatch):
+def test_plan_cache_is_keyed_exactly(scenes):
     """``resolve_candidate_plan`` returns the cached plan while the
     scene's camera and planes are the same tensors, unwritten; a new
     tensor or an in-place write builds a new plan."""
     from raytracinginonesemester_tpu_torch.render import renderer as tr
 
-    monkeypatch.setenv("RT_BINNED_CHUNK", "128")
     _, ts = scenes
     plan = tr.resolve_candidate_plan(ts, "wang", 1)
     assert tr.resolve_candidate_plan(ts, "wang", 1) is plan
@@ -211,6 +210,32 @@ def _state_views(st, rng):
     nt = st.shape[0] // 16
     return (np.asarray(st).reshape(nt, 16, -1),
             np.asarray(rng).reshape(nt, 8, -1)[:, 0])
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+def test_pixel_stream_padding_matches_the_plan(scenes, ranks):
+    """``pixel_stream`` for ``ranks`` data ranks holds one tile for each
+    meta row of the plan resolved for as many ranks (whole groups for
+    every rank): the frame's own swizzled pixels, then padding rays at
+    pixel (0, 0); and that plan is the one built on this stream."""
+    from raytracinginonesemester_tpu_torch.render import renderer as tr
+
+    _, ts = scenes
+    xs, ys, n, (hp, wp) = tr.pixel_stream(W, H, ranks=ranks)
+    plan = tr.resolve_candidate_plan(ts, "wang", 1, align_tiles=ranks)
+    tiles = int(plan.meta.shape[0])
+    group = tmk.GROUP_TILES * tmk.RAY_TILE * ranks
+    assert xs.shape == ys.shape == (tiles * tmk.RAY_TILE,)
+    assert xs.shape[0] == tmk.padded_rays(n, ranks)
+    assert xs.shape[0] % group == 0 and 0 <= xs.shape[0] - n < group
+    fx, fy, shape = t_grid(W, H)
+    assert n == hp * wp == fx.shape[0] and (hp, wp) == shape
+    assert torch.equal(xs[:n], fx) and torch.equal(ys[:n], fy)
+    assert not xs[n:].any() and not ys[n:].any()
+    want = tb.build_camera_candidate_plan(ts.camera, xs, ys, ts.accel,
+                                          tmk.RAY_TILE, chunk=tb.CHUNK)
+    assert torch.equal(plan.meta, want.meta)
+    assert torch.equal(plan.stream, want.stream)
 
 
 @pytest.mark.parametrize("chunk", [128, 256])

@@ -167,8 +167,6 @@ def test_ineligible_cpuonly_scenes_raise(case, monkeypatch):
         return torch.zeros(xs.shape[0], 3)
 
     monkeypatch.setattr(renderer, "accumulate_samples", accumulate)
-    monkeypatch.setattr(renderer, "resolve_wavefront",
-                        lambda *a, **k: (False, None))
     one = dataclasses.replace(many, max_bounces=1)
     render_scene(one)
     render_scene(ts, jitter_mode="reference_cpu")

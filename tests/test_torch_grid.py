@@ -1,11 +1,12 @@
-"""The port's pixel stream (``render/renderer.py`` ``_swizzled_grid``):
-the tile-major pixel indices over a tile-padded frame, built on the
-device asked for.
+"""The port's pixel stream (``render/renderer.py`` ``_swizzled_grid`` and
+``pixel_stream``): the tile-major pixel indices over a tile-padded frame,
+built on the device asked for.
 
 On the CPU: bit for bit the numpy construction that the JAX package uses
 (copied below as the oracle), int32 and contiguous, at frame sizes from
 1080p down to a single row, for 16- and 8-pixel tiles.  On the card: the
-build issues no host-to-device copy and gives the CPU's values."""
+stream's build, padding included, makes no host-to-device copy and
+gives the CPU's values."""
 
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from raytracinginonesemester_tpu_torch.render.renderer import _swizzled_grid
+from raytracinginonesemester_tpu_torch.render.renderer import (
+    _swizzled_grid, pixel_stream)
 
 SIZES = [(1920, 1080), (960, 540), (1000, 563), (48, 16), (16, 16), (17, 1)]
 
@@ -55,11 +57,11 @@ def test_cuda_grid_is_built_on_the_card():
     session, and the CPU build's values."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _swizzled_grid(16, 16, device="cuda")
+    pixel_stream(16, 16, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        xs, ys, shape = _swizzled_grid(1920, 1080, device="cuda")
+        xs, ys, n, shape = pixel_stream(1920, 1080, device="cuda")
         torch.cuda.synchronize()
     events = prof.events()
     names = [e.name for e in events]
@@ -69,8 +71,8 @@ def test_cuda_grid_is_built_on_the_card():
     assert any("rt.dispatch.grid" in n for n in names), names
     assert not [n for n in names if "HtoD" in n], names
     assert xs.is_cuda and ys.is_cuda
-    want_xs, want_ys, want_shape = _swizzled_grid(1920, 1080)
-    assert shape == want_shape
+    want_xs, want_ys, want_n, want_shape = pixel_stream(1920, 1080)
+    assert (n, shape) == (want_n, want_shape)
     for got, want in ((xs, want_xs), (ys, want_ys)):
         assert got.dtype == torch.int32 and got.is_contiguous()
         assert torch.equal(got.cpu(), want)

@@ -228,15 +228,13 @@ def two_frog_layouts():
 
 
 @pytest.mark.parametrize("wavefront", ["1", "0"])
-def test_treelet_frames_bit_identical(two_frog_layouts, monkeypatch,
-                                      wavefront):
+def test_treelet_frames_bit_identical(two_frog_layouts, wavefront):
     """Treelet and runs grids give the same frames bit for bit, on the
     staged wavefront (emit and bounce_step at a capacity of 4 tiles) and
-    with ``RT_WAVEFRONT=0`` (the render kernel)."""
+    on the render kernel (the route at this size without a capacity)."""
     from raytracinginonesemester_tpu_torch.render.renderer import (
         render_scene_frames)
 
-    monkeypatch.setenv("RT_WAVEFRONT", wavefront)
     cap = 4 if wavefront == "1" else None
     runs, tree = two_frog_layouts
     a = render_scene_frames(runs, 1, "wang", 0, capacity_tiles=cap)

@@ -253,6 +253,40 @@ def _fields(out):
     return (h.t, h.u, h.v, h.tri_idx, h.hit) + out[1:]
 
 
+def _shard_rule(cap, n_data):
+    """The sharded renderer's per-rank capacity as it was first written
+    (``parallel/sharded.py`` ``_shard_capacity``): the full frame's
+    capacity divided over the data ranks, rounded up to a power of two
+    >= 8."""
+    per = -(-cap // n_data)
+    out = 8
+    while out < per:
+        out *= 2
+    return out
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+def test_rank_capacity_is_the_shard_rule(spheres, monkeypatch, ranks):
+    """``rank_capacity`` is that rule, and ``resolve_route`` over a mesh
+    of ``ranks`` data ranks (no process group: rank 0's broadcast is its
+    own value) takes it of the calibrated capacity, with the plan of the
+    stream padded for as many ranks."""
+    from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
+    from raytracinginonesemester_tpu_torch.ops import wavefront as twf
+    from raytracinginonesemester_tpu_torch.render import renderer as tr
+
+    for cap in (8, 16, 24, 64, 100, 128, 512, 1000):
+        assert twf.rank_capacity(cap, ranks) == _shard_rule(cap, ranks)
+    monkeypatch.setattr(twf, "auto_capacity_tiles", lambda *a, **k: 100)
+    mesh = tsh.Mesh({"data": ranks}, {"data": 0}, {"data": None})
+    stream = tr.pixel_stream(worker.W, worker.H, ranks=ranks)
+    route = tr.resolve_route(spheres, stream, "wang", 1, mesh=mesh)
+    assert route.name == "wavefront"
+    assert route.capacity == _shard_rule(100, ranks)
+    assert (int(route.cand_plan.meta.shape[0]) * tmk.RAY_TILE
+            == int(stream[0].shape[0]))
+
+
 # --- the gloo job --------------------------------------------------------
 
 @pytest.fixture(scope="module")

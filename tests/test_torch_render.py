@@ -23,8 +23,7 @@ from raytracinginonesemester_tpu_torch.ops.megakernel import launch_counts
 from raytracinginonesemester_tpu_torch.ops.wavefront import (
     render_tiles_wavefront_frames as t_frames)
 from raytracinginonesemester_tpu_torch.render.renderer import (
-    _swizzled_grid as t_grid, _unswizzle as t_unswizzle, render_scene,
-    render_scene_frames)
+    _swizzled_grid as t_grid, render_scene, render_scene_frames)
 
 from _torch_parity import REPO, jax_two_frog, one_torch_thread, torch_from_jax
 from conftest import assert_images_close

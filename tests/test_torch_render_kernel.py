@@ -85,11 +85,13 @@ def test_render_tiles_matches_jax(scenes, kind, binned):
 
 def test_render_kernel_equals_the_wavefront(scenes):
     """Kernel D and the wavefront give the same per-pixel sums (the
-    JAX contract: bit-identical), staged or not."""
+    JAX contract: bit-identical), at a capacity of the stream's every
+    tile and below it."""
     _, ts = scenes["bounce"]
     xs, ys, _ = tr._swizzled_grid(W, H)
     d = tmk.render_tiles(ts, xs, ys, SPP, OFFSET)
-    for cap in (None, 4):
+    nt = tmk.padded_rays(xs.shape[0]) // tmk.RAY_TILE
+    for cap in (nt, 4):
         wf = twf.render_tiles_wavefront(ts, xs, ys, SPP, OFFSET,
                                         capacity_tiles=cap)
         torch.testing.assert_close(wf, d, rtol=0, atol=0)
@@ -129,42 +131,50 @@ class _Spy:
         monkeypatch.setattr(module, name, spy)
 
 
-def _route(monkeypatch, ts, frames=1):
+def _route(monkeypatch, ts, frames=1, capacity_tiles=None):
     d = _Spy(monkeypatch, tmk, "render_tiles")
     wf = _Spy(monkeypatch, twf, "render_tiles_wavefront_frames")
-    img = tr.render_scene_frames(ts, frames, "wang", 0)
+    img = tr.render_scene_frames(ts, frames, "wang", 0,
+                                 capacity_tiles=capacity_tiles)
     assert img.shape == (frames, H, W, 3)
     return d.calls, wf.calls
+
+
+# capacity_tiles forced by the case: the stream's 8 tiles, or 4 of them
+FORCED = {"wavefront_off": 8, "staged": 4}
 
 
 @pytest.mark.parametrize("case", ["wavefront_off", "terminal", "no_capacity",
                                   "staged"])
 def test_dispatch_matches_jax(scenes, monkeypatch, case):
-    """``RT_WAVEFRONT=0``, a terminal scene and a scene whose capacity
-    calibration returns None each reach kernel D, as in the JAX
-    package; a calibrated capacity reaches the wavefront."""
-    monkeypatch.setenv("RT_WAVEFRONT_CAP", "auto")
+    """A terminal scene and a scene whose capacity calibration returns
+    None each reach kernel D, as in the JAX package; a capacity forced
+    by ``capacity_tiles`` (the JAX package's ``RT_WAVEFRONT_CAP``)
+    reaches the wavefront, below the stream's tile count ("staged") and
+    at it ("wavefront_off": the port has no switch that turns the
+    wavefront off; a capacity of the whole stream stages nothing)."""
     kind = "terminal" if case == "terminal" else "bounce"
     js, ts = scenes[kind]
-    if case == "wavefront_off":
-        monkeypatch.setenv("RT_WAVEFRONT", "0")
-    if case == "staged":
-        monkeypatch.setenv("RT_WAVEFRONT_CAP", "4")
+    cap = FORCED.get(case)
+    monkeypatch.setenv("RT_WAVEFRONT_CAP", "auto" if cap is None else str(cap))
     want = jr.resolve_wavefront(dataclasses.replace(js, use_pallas=True),
                                 "wang", 1)
-    got = tr.resolve_wavefront(ts, "wang", 1)
-    assert got == want
-    assert got[0] == (case == "staged")
-    d_calls, wf_calls = _route(monkeypatch, ts, frames=2)
-    if case == "staged":
+    route = tr.resolve_route(ts, tr.pixel_stream(W, H), "wang", 1,
+                             capacity_tiles=cap)
+    assert (route.name == "wavefront", route.capacity) == want
+    if cap is None:
+        assert tr.resolve_wavefront(ts, "wang", 1) == want
+    assert want[0] == (cap is not None)
+    d_calls, wf_calls = _route(monkeypatch, ts, 2, cap)
+    if cap is not None:
         assert (d_calls, wf_calls) == (0, 1)
     else:
         assert (d_calls, wf_calls) == (2, 0)  # one D render per frame
 
 
 def test_render_scene_spp_goes_through_the_kernel(scenes, monkeypatch):
-    """spp > 1 without a wavefront is one D call over all samples."""
-    monkeypatch.setenv("RT_WAVEFRONT", "0")
+    """spp > 1 without a wavefront is one D call over all samples: at
+    64x32 the calibration finds no capacity."""
     _, ts = scenes["bounce"]
     d = _Spy(monkeypatch, tmk, "render_tiles")
     img = tr.render_scene(ts, "wang", spp_override=3)

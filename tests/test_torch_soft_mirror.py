@@ -64,7 +64,7 @@ def _staged(ts, offset):
     xs, ys, (hp, wp) = tr._swizzled_grid(W, H)
     acc = tr.accumulate_samples(ts, xs, ys, 1, "center",
                                 sample_offset=offset)
-    return tr._unswizzle(acc, W, H, hp, wp)
+    return tr.unswizzle(acc, W, H, hp, wp)
 
 
 def test_more_than_16_samples_take_the_fused_kernels(soft):

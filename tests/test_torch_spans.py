@@ -208,7 +208,7 @@ def test_gradients_are_the_same_with_the_profiler_on(spheres):
 
 
 @pytest.mark.cuda
-def test_cuda_every_launch_has_its_span(tmp_path, monkeypatch):
+def test_cuda_every_launch_has_its_span():
     """On the card: on the staged wavefront, the monolithic kernel, the
     staged integrator and a training step (whose kernel J launches on
     autograd's device thread), the rt.launch.<key> spans equal, key by
@@ -216,7 +216,6 @@ def test_cuda_every_launch_has_its_span(tmp_path, monkeypatch):
     read the device record sync spans."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
-    monkeypatch.setenv("RT_TORCH_CAP_CACHE", str(tmp_path))
     frog = renderer.frog_scene(width=256, height=144, device="cuda")
 
     def counts():

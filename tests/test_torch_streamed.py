@@ -394,20 +394,6 @@ def test_blockmajor_flag_gives_the_same_image(streamed_image, low_budget,
     np.testing.assert_array_equal(got, base)
 
 
-def test_rt_stream_0_takes_e_with_normals_and_f(streamed_image, low_budget,
-                                                calls, monkeypatch):
-    """``RT_STREAM=0`` over the budget: E with the shading normal and no
-    fused shadows, and F per light (the JAX package's chunked E and F,
-    which compute the same function)."""
-    _, ts, want, _ = streamed_image
-    monkeypatch.setattr(tint, "_STREAM_ENV", False)
-    got = tr.render_scene(ts, "wang").numpy()
-    assert set(calls) == set(RESIDENT)
-    assert all(k["return_normal"] and k["shadow_lights"] is None
-               for k in calls["block_closest"])
-    _close_images(got, want)
-
-
 def test_differentiable_over_budget_takes_the_detached_streamed_mode(
         low_budget, calls, monkeypatch):
     """Over the budget the oracle refuses a differentiable scene in both
