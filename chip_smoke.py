@@ -641,7 +641,9 @@ def soft_jobs(soft):
     then B and C on A's state sorted as the wavefront sorts it, each
     against its plain version (time_kernels' key: job).  A's soft groups:
     the groups and walks its tallies count in one emit, and the share of
-    the groups' sample slots that walk."""
+    the groups' sample slots that walk; B's and C's: the groups and walks
+    that ``bounce_group_counts`` counts in the first call of each, which
+    must equal the plain version's count."""
     from raytracinginonesemester_tpu_torch.ops import megakernel as mk
 
     f = Frame(soft, jitter="center")
@@ -658,6 +660,43 @@ def soft_jobs(soft):
     def states(e, n, w, a, b):
         check_state(e, n, w, *a, *b)
 
+    counted, plain_stats = {}, {}
+
+    def kernel(key, fn):
+        """fn, whose first call's soft groups are kept in counted[key]."""
+        def run():
+            if key in counted:
+                return fn()
+            before = next(iter(mk.bounce_group_counts().values()), (0, 0))
+            out = fn()
+            after = next(iter(mk.bounce_group_counts().values()))
+            counted[key] = (after[0] - before[0], after[1] - before[1])
+            return out
+        return run
+
+    def plain(key, fn):
+        def run(x=None):
+            if x is not None:
+                plain_stats[key] = x
+            return fn(x)
+        return run
+
+    def grouped(key, check):
+        """check, then the kernel's groups against the plain count."""
+        def run(e, n, w, got, want):
+            check(e, n, w, got, want)
+            (groups, walks), p = counted[key], plain_stats[key]
+            log(f"{key}: {groups} groups of {samples} disk samples walk "
+                f"{walks} samples, {walks / max(groups * samples, 1):.5f} "
+                f"of the groups' sample slots; plain {p['groups']} groups, "
+                f"{p['group_walks']} walks")
+            if (groups, walks) != (p["groups"], p["group_walks"]):
+                raise AssertionError(f"{key}: bounce_group_counts "
+                                     f"{(groups, walks)} against the plain "
+                                     f"count ({p['groups']}, "
+                                     f"{p['group_walks']})")
+        return run
+
     where = "32 disk samples a hit, depth 8, diffuse"
     return {
         "cpuonly soft emit binned": (
@@ -666,13 +705,14 @@ def soft_jobs(soft):
             f.np_rays * (8 + 96) + f.scene_bytes(True)),
         "cpuonly soft bounce_step": (
             "bounce_step", f"{f.nt} sorted tiles x 512, {where}",
-            lambda: f.bounce(st_s, rng_s),
-            lambda x=None: f.bounce_plain(st_s, rng_s, x), states,
-            f.np_rays * 192 + f.scene_bytes(False)),
+            kernel("B", lambda: f.bounce(st_s, rng_s)),
+            plain("B", lambda x=None: f.bounce_plain(st_s, rng_s, x)),
+            grouped("B", states), f.np_rays * 192 + f.scene_bytes(False)),
         "cpuonly soft resume": (
             "resume", f"{f.nt} sorted tiles x 512, depths 1..7, {where}",
-            lambda: f.resume(st_s, rng_s),
-            lambda x=None: f.resume_plain(st_s, rng_s, x), check_sums,
+            kernel("C", lambda: f.resume(st_s, rng_s)),
+            plain("C", lambda x=None: f.resume_plain(st_s, rng_s, x)),
+            grouped("C", check_sums),
             f.np_rays * (96 + 12) + f.scene_bytes(False)),
     }
 
@@ -2028,6 +2068,30 @@ def sass_of(prefix):
                    if sec.startswith(prefix))
 
 
+def resource_usage(lib):
+    """{mangled name: its resource line (REG, STACK, SHARED, LOCAL,
+    CONSTANT, ...)} of every function of the built library ``lib``
+    (``cuobjdump --dump-resource-usage``)."""
+    from raytracinginonesemester_tpu_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "--dump-resource-usage", lib],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            name = line[len("Function "):].rstrip(":")
+        elif name and line.startswith("REG:"):
+            out[name] = line
+            name = None
+    return out
+
+
+# the mangled-name prefixes of kernels B and C
+BC_KERNELS = ("_Z18bounce_step_kernel", "_Z13resume_kernel")
+
+
 # the integer division sequence nvcc emits for a runtime divisor (a
 # reciprocal in floating point, refined), or a call to its slow path
 DIVISION = ("MUFU.RCP", "I2F.U32.RP", "I2F.RP", "CALL")
@@ -2931,6 +2995,12 @@ def main():
             if "wgmma" in ln or "arning" in ln:
                 log(f"  ptxas: {ln.strip()}")
     log(f"build: {time.time() - t0:.1f} s for {len(_native.SOURCES)} sources")
+    # B's and C's resources (scripts/time_soft_walks.py --parent holds the
+    # gpu dialect's to a parent tree's)
+    for name, line in sorted(resource_usage(
+            _native.BUILD_LOG["megakernel"]["path"]).items()):
+        if name.startswith(BC_KERNELS):
+            log(f"  resources {name}: {line}")
 
     # --- 3. kernels vs plain versions at 128x64
     errs = {}

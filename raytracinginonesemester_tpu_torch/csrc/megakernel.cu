@@ -42,7 +42,9 @@
 //   block's triangles (walk_groups), then the list kListRays rays a warp
 //   (occluded_coop); emit_finish_kernel shades with the flags.
 // - bounce_step (B): the flat closest hit and the shadow rays are
-//   warp-cooperative, 8 rays to a warp (closest_coop, occluded_coop); its
+//   warp-cooperative, 8 rays to a warp (closest_coop, occluded_coop;
+//   cpuonly, an area light's disk samples of a hit drawn and walked
+//   together as one group, group_visibility, on A's group walk); its
 //   binned oracle depth 0 keeps a lane's own binned walk, 32 rays a warp.
 // - occluded (F), two launches: the rays that pass a slab test are
 //   listed, and the list is walked as emit's is.
@@ -100,6 +102,13 @@ constexpr int kListRays = 4;
 // mirror at 1080p with 32 disk samples: 1, 2 and 4 walk in 17.8, 15.2
 // and 14.8 ms)
 constexpr int kGroupVote = 4;
+// the same for the soft groups of bounce_step and resume
+// (group_visibility), whose warps hold a ray's state beside the group's
+// triangles (measured on the same scene, H100, at full width: with 1, 2
+// and 4 bounce_step takes 6.54-6.66, 5.60-5.80 and 5.27-5.44 ms, resume
+// 7.34-7.39, 5.96-6.00 and 5.96-6.04; 96 registers a thread at 1 and 2,
+// 128 at 4)
+constexpr int kBounceGroupVote = 4;
 // rays a warp of resume_kernel owns (measured on the frog's overflow
 // state: 4 rays a warp 31% faster than 8; on cpuonly_mirror's 2% slower)
 constexpr int kResumeRays = 4;
@@ -144,6 +153,30 @@ struct Shared {
   const float* lights;  // (NL, 8)
   const float* mats;    // (NO, 16)
   float* chunks;        // emit, binned: two (kStageRows, C) chunk buffers
+};
+
+// The soft groups that bounce_step and resume walked (group_visibility)
+// since the library was loaded, on each device: [0] the groups (a ray and
+// area light of a facing hit some of whose disk samples' segments pass a
+// block's slab test), [1] their sample walks (those samples).  Only the
+// cpuonly kernels add to it, one atomicAdd a warp and count
+// (GroupTally::flush); rt_bounce_groups copies it on the card.
+__device__ unsigned long long g_bounce_groups[2];
+
+// A lane's share of g_bounce_groups: the groups of its own rays.
+struct GroupTally {
+  int groups = 0, walks = 0;
+
+  // The warp's counts into g_bounce_groups (every lane of the warp calls
+  // it).
+  __device__ void flush() const {
+    const unsigned g = __reduce_add_sync(kFull, (unsigned)groups);
+    const unsigned w = __reduce_add_sync(kFull, (unsigned)walks);
+    if ((threadIdx.x & 31) == 0 && g) {
+      atomicAdd(&g_bounce_groups[0], (unsigned long long)g);
+      atomicAdd(&g_bounce_groups[1], (unsigned long long)w);
+    }
+  }
 };
 
 // How bounce() walks: the lanes of a warp together (kWarp: bounce_step,
@@ -767,19 +800,20 @@ __device__ __forceinline__ float group_tmax(float tmax) {
 
 // The samples of `enter` (a bit a sample lane; each sample's direction
 // and tmax in smp) that a triangle of block b blocks, on every lane:
-// lane l makes slots l, l + 32, ... from p, kGroupVote of them between
-// votes, and tests each against every sample still in the block.
+// lane l makes slots l, l + 32, ... from p, VOTE of them between votes,
+// and tests each against every sample still in the block.
+template <int VOTE>
 __device__ unsigned block_any_group(const SceneArgs& s, int b, const float* p,
                                     const float4* smp, unsigned enter) {
   const int lane = threadIdx.x & 31;
   const size_t plane = (size_t)s.num_blocks * s.block_size;
   const int base = b * s.block_size;
   unsigned blocked = 0;
-  for (int j0 = 0; j0 < s.block_size && enter; j0 += 32 * kGroupVote) {
-    TriFrom f[kGroupVote];
-    bool live[kGroupVote];
+  for (int j0 = 0; j0 < s.block_size && enter; j0 += 32 * VOTE) {
+    TriFrom f[VOTE];
+    bool live[VOTE];
 #pragma unroll
-    for (int q = 0; q < kGroupVote; ++q) {
+    for (int q = 0; q < VOTE; ++q) {
       const int j = j0 + 32 * q + lane;
       const int jj = j < s.block_size ? j : s.block_size - 1;
       live[q] = j < s.block_size && s.ids[base + jj] >= 0;
@@ -792,7 +826,7 @@ __device__ unsigned block_any_group(const SceneArgs& s, int b, const float* p,
       const float d[3] = {sd.x, sd.y, sd.z};
       bool any = false;
 #pragma unroll
-      for (int q = 0; q < kGroupVote; ++q)
+      for (int q = 0; q < VOTE; ++q)
         any |= live[q] & mt_from(f[q], d, s.det_eps, s.shadow_tmin, sd.w);
       if (any) hit |= 1u << k;
     }
@@ -800,6 +834,38 @@ __device__ unsigned block_any_group(const SceneArgs& s, int b, const float* p,
     blocked |= hit;
     enter &= ~hit;
   }
+  return blocked;
+}
+
+// One group's walk (every lane of the warp calls it): the samples of the
+// lanes that hold one (`mine`; row: p, ld, tmin, dist, tmax, p the same
+// on every lane) walk the union of the blocks their slab tests on [tmin,
+// dist] pass, in ascending order; a sample enters a block only where its
+// own slab test passes, and leaves the walk at the vote after which a
+// triangle blocks it.  smp: the warp's 32 slots of shared memory.  ->
+// the blocked samples, a bit a lane; *walked: the samples that entered a
+// block (whose segment passes some block's slab test).
+template <int VOTE>
+__device__ unsigned walk_group(const SceneArgs& s, const Shared& sh,
+                               float4* smp, const float* p, const float* row,
+                               bool mine, unsigned* walked) {
+  const int lane = threadIdx.x & 31;
+  const float inv[3] = {1.0f / row[3], 1.0f / row[4], 1.0f / row[5]};
+  __syncwarp();  // the last pass's samples are read
+  smp[lane] = make_float4(row[3], row[4], row[5], group_tmax(row[8]));
+  __syncwarp();
+  unsigned live = __ballot_sync(kFull, mine), blocked = 0, entered = 0;
+  for (int b = 0; b < s.num_blocks && live; ++b) {
+    const unsigned enter = __ballot_sync(
+        kFull, ((live >> lane) & 1u) &&
+                   slab(sh.aabb + 6 * b, p, inv, row[6], row[7]));
+    if (!enter) continue;
+    entered |= enter;
+    const unsigned hit = block_any_group<VOTE>(s, b, p, smp, enter);
+    blocked |= hit;
+    live &= ~hit;
+  }
+  *walked = entered;
   return blocked;
 }
 
@@ -828,20 +894,9 @@ __device__ void walk_groups(const SceneArgs& s, const Shared& sh,
       float p[3];  // the hit's point, the same for every sample
 #pragma unroll
       for (int c = 0; c < 3; ++c) p[c] = __shfl_sync(kFull, row[c], 0);
-      const float inv[3] = {1.0f / row[3], 1.0f / row[4], 1.0f / row[5]};
-      __syncwarp();  // the last pass's samples are read
-      smp[lane] = make_float4(row[3], row[4], row[5], group_tmax(row[8]));
-      __syncwarp();
-      unsigned live = __ballot_sync(kFull, mine), blocked = 0;
-      for (int b = 0; b < s.num_blocks && live; ++b) {
-        const unsigned enter = __ballot_sync(
-            kFull, ((live >> lane) & 1u) &&
-                       slab(sh.aabb + 6 * b, p, inv, row[6], row[7]));
-        if (!enter) continue;
-        const unsigned hit = block_any_group(s, b, p, smp, enter);
-        blocked |= hit;
-        live &= ~hit;
-      }
+      unsigned walked;  // counted when the group was listed
+      const unsigned blocked =
+          walk_group<kGroupVote>(s, sh, smp, p, row, mine, &walked);
       if ((blocked >> lane) & 1u) g.flags[entry + k0 + lane] = 1;
     }
   }
@@ -895,6 +950,152 @@ __device__ void disk_sample(uint32_t* rng, float* xo, float* yo) {
     }
   }
   *rng = st;
+}
+
+// The segment from p toward disk sample (dxs, dys) of area light L (tb:
+// the disk basis t, then b), as soft_visibility's sample point and
+// soft_walk's segment make it -> its length d_s; ld: its unit direction.
+__device__ __forceinline__ float disk_segment(const float* L,
+                                              const float* tb, const float* p,
+                                              float dxs, float dys,
+                                              float* ld) {
+  const float radius = L[6];
+  const float stx = (L[0] + (tb[0] * dxs + tb[3] * dys) * radius) - p[0];
+  const float sty = (L[1] + (tb[1] * dxs + tb[4] * dys) * radius) - p[1];
+  const float stz = (L[2] + (tb[2] * dxs + tb[5] * dys) * radius) - p[2];
+  const float d_s = sqrtf(fmaxf(stx * stx + sty * sty + stz * stz, 1e-24f));
+  const float inv_s = 1.0f / d_s;
+  ld[0] = stx * inv_s;
+  ld[1] = sty * inv_s;
+  ld[2] = stz * inv_s;
+  return d_s;
+}
+
+// (a, c) of n lcg steps: lcg applied n times is st -> a * st + c.
+__device__ __forceinline__ void lcg_jump(int n, uint32_t* a, uint32_t* c) {
+  uint32_t ma = 1u, mc = 0u, pa = 1664525u, pc = 1013904223u;
+  for (; n; n >>= 1) {
+    if (n & 1) {
+      ma = pa * ma;
+      mc = pa * mc + pc;
+    }
+    pc = (pa + 1u) * pc;
+    pa = pa * pa;
+  }
+  *a = ma;
+  *c = mc;
+}
+
+// The next n (<= 32) disk samples of one ray, disk_sample's draws one
+// after another from state st, made by the warp together (every lane
+// calls it, st and n the same on every lane).  A draw's attempts are
+// consecutive pairs of lcg steps, so the warp tries 32 at a time: lane l
+// the attempt of steps 2l + 1 and 2l + 2 past the window's state ((ja,
+// jc): lcg_jump(2l + 1)).  A draw ends at its first accepted attempt, or
+// at its 64th with (0, 0) (disk_sample's cap: only where the draw under
+// way entered the window with 32 or more rejected); the ballot of the
+// ends orders the draws, and each ending lane puts its point in the slot
+// of its sample (smp, the warp's 32 slots of shared memory).  -> the
+// state after the n-th draw (its last attempt's second step); lane k < n
+// gets the k-th sample in (*xo, *yo).
+__device__ uint32_t draw_disks(uint32_t st, int n, uint32_t ja, uint32_t jc,
+                               float4* smp, float* xo, float* yo) {
+  const int lane = threadIdx.x & 31;
+  int got = 0, run = 0;  // draws made; rejected attempts of the draw under way
+  __syncwarp();  // the slots' last readers are done
+  while (got < n) {
+    const uint32_t s1 = ja * st + jc;
+    const float x = 2.0f * wang_float(s1) - 1.0f;
+    const uint32_t s2 = lcg(s1);
+    const float y = 2.0f * wang_float(s2) - 1.0f;
+    const float r2 = x * x + y * y;
+    const bool accepted = r2 > 1e-10f && r2 <= 1.0f;
+    unsigned ends = __ballot_sync(kFull, accepted);
+    if (run >= 32) {  // the draw under way makes its 64th attempt at `cap`
+      const int cap = 63 - run;
+      if (!(ends & ((2u << cap) - 1u))) ends |= 1u << cap;
+    }
+    const bool ends_here = (ends >> lane) & 1u;
+    const int k = got + __popc(ends & ((1u << lane) - 1u));
+    if (ends_here && k < n)
+      smp[k] = make_float4(accepted ? x : 0.0f, accepted ? y : 0.0f, 0.0f,
+                           0.0f);
+    const int made = __popc(ends);
+    if (got + made >= n) {
+      const unsigned last = __ballot_sync(kFull, ends_here && k == n - 1);
+      st = __shfl_sync(kFull, s2, __ffs(last) - 1);
+      got = n;
+    } else {
+      st = __shfl_sync(kFull, s2, 31);
+      got += made;
+      run = ends ? __clz(ends) : run + 32;
+    }
+  }
+  __syncwarp();
+  if (lane < n) {
+    *xo = smp[lane].x;
+    *yo = smp[lane].y;
+  }
+  return st;
+}
+
+// soft_visibility<kWarp> of an area light of more than one disk sample
+// (every lane of the warp calls it): the warp takes the rays of its lanes
+// that hit one after another.  It draws a ray's samples, a sample a lane
+// and 32 at a time (draw_disks: the ray's rng ends where its last draw
+// ends, as in the walks one sample at a time), and where the ray faces
+// the light walks them as one group (walk_group, VOTE triangles a lane
+// between votes).  A lane's visibility: its ray's unblocked samples over
+// shadow_samples, the running sum of 1s and 0s of the sample-by-sample
+// walks (both exact below 2^24).  tb: the disk basis t, then b; tally:
+// the lane's groups and their sample walks.
+template <int VOTE>
+__device__ float group_visibility(const SceneArgs& s, const Shared& sh,
+                                  const float* L, const float* p,
+                                  const float* tb, bool facing, bool hit,
+                                  uint32_t* rng, GroupTally* tally) {
+  __shared__ float4 samples[kThreads / 32][32];
+  const int lane = threadIdx.x & 31;
+  float4* smp = samples[threadIdx.x >> 5];
+  const int n_s = s.shadow_samples;
+  uint32_t ja, jc;
+  lcg_jump(2 * lane + 1, &ja, &jc);
+  float vis = 1.0f;
+  for (unsigned todo = __ballot_sync(kFull, hit); todo; todo &= todo - 1) {
+    const int src = __ffs(todo) - 1;
+    float rp[3], rtb[6];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rp[c] = __shfl_sync(kFull, p[c], src);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) rtb[c] = __shfl_sync(kFull, tb[c], src);
+    const bool walks = __shfl_sync(kFull, (int)facing, src) != 0;
+    uint32_t st = __shfl_sync(kFull, *rng, src);
+    int blocked = 0, walked = 0;
+    for (int k0 = 0; k0 < n_s; k0 += 32) {
+      const int n = min(32, n_s - k0);
+      float dxs = 0.0f, dys = 0.0f;
+      st = draw_disks(st, n, ja, jc, smp, &dxs, &dys);
+      if (!walks) continue;  // uniform: a ray facing away walks nothing
+      float row[9] = {rp[0], rp[1], rp[2], 1.0f, 1.0f, 1.0f,
+                      0.0f,  0.0f,  0.0f};
+      const bool mine = lane < n;
+      if (mine) {
+        row[6] = s.shadow_tmin;
+        row[7] = disk_segment(L, rtb, rp, dxs, dys, row + 3);
+        row[8] = row[7] - s.shadow_eps;
+      }
+      unsigned entered;
+      blocked += __popc(walk_group<VOTE>(s, sh, smp, rp, row, mine, &entered));
+      walked += __popc(entered);
+    }
+    if (lane == src) {
+      *rng = st;
+      vis = (float)(n_s - blocked) / (float)n_s;
+      tally->groups += walked > 0;
+      tally->walks += walked;
+    }
+  }
+  return vis;
 }
 
 // A ray's place in emit's launches: its shadow walks counted in the one
@@ -990,20 +1191,14 @@ __device__ void list_group(const SceneArgs& s, const Shared& sh,
                            const float* L, const float* p, const float* tb,
                            bool facing, bool hit, uint32_t* rng,
                            ShadowCtx* c) {
-  const float radius = L[6];
   const int first = c->gid * c->q.rounds + c->round;
   int walks = 0;
   for (int k = 0; k < s.shadow_samples; ++k) {
     float dxs = 0.0f, dys = 0.0f;
     if (hit) disk_sample(rng, &dxs, &dys);
-    const float stx = (L[0] + (tb[0] * dxs + tb[3] * dys) * radius) - p[0];
-    const float sty = (L[1] + (tb[1] * dxs + tb[4] * dys) * radius) - p[1];
-    const float stz = (L[2] + (tb[2] * dxs + tb[5] * dys) * radius) - p[2];
-    const float d_s =
-        sqrtf(fmaxf(stx * stx + sty * sty + stz * stz, 1e-24f));
-    const float inv_s = 1.0f / d_s;
-    const float inv[3] = {1.0f / (stx * inv_s), 1.0f / (sty * inv_s),
-                          1.0f / (stz * inv_s)};
+    float ld[3];
+    const float d_s = disk_segment(L, tb, p, dxs, dys, ld);
+    const float inv[3] = {1.0f / ld[0], 1.0f / ld[1], 1.0f / ld[2]};
     if (c->owner && facing &&
         next_block(s, sh, p, inv, s.shadow_tmin, d_s, 0) < s.num_blocks)
       ++walks;
@@ -1016,14 +1211,15 @@ __device__ void list_group(const SceneArgs& s, const Shared& sh,
 // ShadowVisibility (CPUOnly/raytracer.h:121-168): shadow_samples walks
 // toward disk samples of an area light (the draws advance the ray's rng),
 // one toward a point light's center.  Every lane or thread calls it, the
-// draws advancing the rng of those that hit.  kList lists more than one
-// sample of an area light as a group (list_group).
+// draws advancing the rng of those that hit.  More than one sample of an
+// area light is a group: kList lists it (list_group), kWarp walks it
+// (group_visibility, counted in *tally).
 template <Walk W>
 __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
                                  const float* L, const float* p,
                                  const float* to, const float* ld,
                                  bool facing, bool hit, uint32_t* rng,
-                                 ShadowCtx* c) {
+                                 ShadowCtx* c, GroupTally* tally) {
   const float radius = L[6];
   if (!(radius > 0.0f))
     return soft_walk<W>(s, sh, p, to[0], to[1], to[2], facing, c) / 1.0f;
@@ -1042,11 +1238,16 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
   const float bx = wy * tz - wz * ty;
   const float by = wz * tx - wx * tz;
   const float bz = wx * ty - wy * tx;
-  if constexpr (W == kList) {
+  if constexpr (W == kList || W == kWarp) {
     if (s.shadow_samples > 1) {
       const float tb[6] = {tx, ty, tz, bx, by, bz};
-      list_group(s, sh, L, p, tb, facing, hit, rng, c);
-      return 0.0f;  // kList reads no visibility
+      if constexpr (W == kWarp) {
+        return group_visibility<kBounceGroupVote>(s, sh, L, p, tb, facing,
+                                                  hit, rng, tally);
+      } else {
+        list_group(s, sh, L, p, tb, facing, hit, rng, c);
+        return 0.0f;  // kList reads no visibility
+      }
     }
   }
   float unocc = 0.0f;
@@ -1070,7 +1271,8 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
 // calls it, the flat closest hit and the shadow rays take the
 // warp-cooperative walks, and `live` marks the lanes whose ray bounces
 // (the others find no hit, trace nothing, and the caller drops what they
-// computed).  W = kList: every thread of the CTA calls it, kEmitSplit
+// computed); cpuonly, *tally counts the lane's soft groups.  W = kList:
+// every thread of the CTA calls it, kEmitSplit
 // threads a live ray (*c: its place; `live`: c->owner); the binned walk
 // reads the chunks the CTA stages, split over the ray's threads, the flat
 // one is the warp-cooperative walk of the owners, 8 a warp; all of the
@@ -1084,7 +1286,8 @@ __device__ float soft_visibility(const SceneArgs& s, const Shared& sh,
 template <bool CPU, bool DIFF, Walk W>
 __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
                        Ray& r, int tile, Capture* cap = nullptr,
-                       bool live = true, ShadowCtx* c = nullptr) {
+                       bool live = true, ShadowCtx* c = nullptr,
+                       GroupTally* tally = nullptr) {
   const float* o = r.bo;
   const float* d = r.bd;
   Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
@@ -1139,7 +1342,8 @@ __device__ void bounce(const SceneArgs& s, const Shared& sh, const float* cam,
     bool facing = hit && ndotl > 0.0f && ndotv > 0.0f;
     float vis = 1.0f;
     if constexpr (CPU)  // every lane walks; a miss draws nothing
-      vis = soft_visibility<W>(s, sh, L, p, to, ld, facing, hit, &r.rng, c);
+      vis = soft_visibility<W>(s, sh, L, p, to, ld, facing, hit, &r.rng, c,
+                               tally);
     if (CPU && !hit) continue;  // a miss adds nothing
     bool blocked = false;
     if constexpr (!CPU)
@@ -1424,17 +1628,19 @@ bounce_step_kernel(SceneArgs s, const float* st_in, const int* rng_in,
   if (in_range) load_ray(st_in + so, rng_in + ro, rt, r);
   const bool live = in_range && r.alive > 0.0f;  // dead rays pass
   Capture cap;
+  GroupTally tally;
   if (__any_sync(kFull, live)) {  // warp-uniform
     Ray w = r;
     Capture c;
     bounce<CPU, DIFF, kWarp>(s, sh, s.cam, w,
                              DIFF && s.cand_chunk ? tile : -1,
-                             DIFF ? &c : nullptr, live);
+                             DIFF ? &c : nullptr, live, nullptr, &tally);
     if (live) {
       r = w;
       cap = c;
     }
   }
+  if constexpr (CPU) tally.flush();
   if (!in_range) return;
   store_ray(r, rt, st_out + so, rng_out + ro);
   if (DIFF) {
@@ -1475,13 +1681,16 @@ resume_kernel(SceneArgs s, const float* st_in, const int* rng_in, int n_rays,
     load_ray(st_in + (size_t)tile * kStRows * rt + lane,
              rng_in + (size_t)tile * 8 * rt + lane, rt, r);
   bool live = in_range && r.alive > 0.0f;
+  GroupTally tally;
   for (int depth = 1; depth < max_depth && __any_sync(kFull, live);
        ++depth) {
     Ray w = r;
-    bounce<CPU, false, kWarp>(s, sh, s.cam, w, -1, nullptr, live);
+    bounce<CPU, false, kWarp>(s, sh, s.cam, w, -1, nullptr, live, nullptr,
+                              &tally);
     if (live) r = w;
     live = live && r.alive > 0.0f;
   }
+  if constexpr (CPU) tally.flush();
   if (!in_range) return;
   r_out[gid] = r.rd[0];
   g_out[gid] = r.rd[1];
@@ -1972,6 +2181,16 @@ int rt_occluded(const SceneArgs* s, const float* orig, const float* dir,
   occluded_walk_kernel<<<walk_blocks, kThreads, smem, st>>>(*s, orig, dir,
                                                             tmin, tmax, q);
   return (int)cudaGetLastError();
+}
+
+// g_bounce_groups (the soft groups of bounce_step and resume since the
+// library was loaded, on the current device) into out (2 unsigned 64-bit
+// counts in device memory), on the stream: no copy to the host.
+int rt_bounce_groups(unsigned long long* out, void* stream) {
+  return (int)cudaMemcpyFromSymbolAsync(out, g_bounce_groups,
+                                        sizeof(g_bounce_groups), 0,
+                                        cudaMemcpyDeviceToDevice,
+                                        (cudaStream_t)stream);
 }
 
 const char* rt_error_string(int err) {

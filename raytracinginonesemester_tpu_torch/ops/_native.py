@@ -151,8 +151,10 @@ def _declare(name: str, lib) -> None:
         lib.rt_closest.argtypes = [sp, vp, vp, vp, i, i, vp, i, vp, vp, vp,
                                    vp, vp, vp, vp, vp, vp, vp]
         lib.rt_occluded.argtypes = [sp, vp, vp, vp, vp, i, vp, vp, vp, vp]
+        lib.rt_bounce_groups.argtypes = [vp, vp]
         fns = (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
-               lib.rt_render, lib.rt_closest, lib.rt_occluded)
+               lib.rt_render, lib.rt_closest, lib.rt_occluded,
+               lib.rt_bounce_groups)
     elif name == "block_stream":
         f = ctypes.c_float
         lib.rt_streamed.argtypes = [vp] * 8 + [i] * 5 + [f, i] + [vp] * 6

@@ -58,7 +58,7 @@ __all__ = ["RAY_TILE", "GROUP_TILES", "padded_rays", "SceneRows",
            "bounce_step_tiles_plain", "resume_tiles_plain",
            "render_tiles_plain", "launch_counts", "variant_launch_counts",
            "reset_launch_counts", "shadow_walk_counts",
-           "shadow_group_counts", "DIFF_ROWS"]
+           "shadow_group_counts", "bounce_group_counts", "DIFF_ROWS"]
 
 RAY_TILE = 512
 GROUP_TILES = 8  # tiles a group: every stream is whole groups
@@ -586,23 +586,33 @@ def _hemisphere_plain(state, n):
 
 
 class _Listed:
-    """Kernel A's shadow list as the plain version counts it: ``walks``,
-    the walks whose segment passes some block's slab test (the kernel's
-    single entries and its groups' sample walks), and ``groups``, the
-    (ray, area light) pairs of more than one disk sample with such a
-    walk, each one entry of the kernel's group list."""
+    """The shadow walks as the plain version counts them: ``walks``, the
+    walks whose segment passes some block's slab test (kernel A's single
+    entries and its groups' sample walks), ``groups``, the (ray, area
+    light) pairs of more than one disk sample with such a walk (each one
+    entry of A's group list, or one group that B and C walk), and
+    ``group_walks``, the groups' sample walks."""
 
     def __init__(self):
         self.walks = 0
         self.groups = 0
+        self.group_walks = 0
 
     def add(self, masks, group: bool) -> None:
         """One light's walks, ``masks`` a (R,) bool mask a walk
-        (``_occluded_plain``); ``group``: the kernel lists them as one
+        (``_occluded_plain``); ``group``: the kernels walk them as one
         group a ray."""
-        self.walks += sum(int(m.sum()) for m in masks)
+        walks = sum(int(m.sum()) for m in masks)
+        self.walks += walks
         if group and masks:
             self.groups += int(torch.stack(masks).any(dim=0).sum())
+            self.group_walks += walks
+
+    def count(self, stats) -> None:
+        """Add the counts to ``stats`` (``walks``, ``groups``,
+        ``group_walks``)."""
+        for key in ("walks", "groups", "group_walks"):
+            stats[key] = stats.get(key, 0) + getattr(self, key)
 
 
 def _soft_walks_plain(rows, sh: _Shade, p, rays, facing, listed=None):
@@ -927,8 +937,9 @@ def emit_tiles_plain(rows: SceneRows, xs_p, ys_p, has_work, sample_offset,
     ``has_work`` (nt,) bool (``_has_work``).  ``stats``: optional dict
     whose ``"pairs"`` entry grows by the ray-triangle pairs the kernel
     tests on these inputs (as for every plain version below), and, here,
-    whose ``"walks"`` entry grows by the shadow walks the kernel lists
-    and ``"groups"`` by the groups it lists (``_Listed``)."""
+    whose ``"walks"`` entry grows by the shadow walks the kernel lists,
+    ``"groups"`` by the groups it lists and ``"group_walks"`` by their
+    sample walks (``_Listed``)."""
     sh = _plain_shade(diffuse_bounce, det_eps, tmin, shadow_eps,
                       shadow_tmin, dialect, shadow_samples, jitter)
     np_rays = int(xs_p.shape[0])
@@ -937,8 +948,7 @@ def emit_tiles_plain(rows: SceneRows, xs_p, ys_p, has_work, sample_offset,
     listed = None if stats is None else _Listed()
     _tally(stats, _bounce_plain(rows, st, sh, cand_plan, listed=listed))
     if stats is not None:
-        stats["walks"] = stats.get("walks", 0) + listed.walks
-        stats["groups"] = stats.get("groups", 0) + listed.groups
+        listed.count(stats)
     # tiles no ray of which can hit anything: dead state with a unit
     # direction (a zero one poisons later 1/d) and the miss radiance
     work = has_work.repeat_interleave(RAY_TILE)
@@ -968,24 +978,29 @@ def bounce_step_tiles_plain(rows: SceneRows, state, rng_state,
                             dialect="gpu", shadow_samples=1, diff_out=False,
                             cand_plan=None, stats=None):
     """Plain version of the bounce-step kernel; ``diff_out`` and
-    ``cand_plan`` as in ``bounce_step_tiles``."""
+    ``cand_plan`` as in ``bounce_step_tiles``; ``stats`` as in
+    ``emit_tiles_plain`` (the groups and their walks are what
+    ``bounce_group_counts`` counts)."""
     sh = _plain_shade(diffuse_bounce, det_eps, tmin, shadow_eps,
                       shadow_tmin, dialect, shadow_samples)
     _check_diff(sh, diff_out, cand_plan, state.shape[1])
     nt = state.shape[0] // _ST_ROWS
     st = _unpack(state, rng_state)
     cap = {} if diff_out else None
-    _tally(stats, _bounce_plain(rows, st, sh, cand_plan, cap))
+    listed = None if stats is None else _Listed()
+    _tally(stats, _bounce_plain(rows, st, sh, cand_plan, cap, listed))
+    if stats is not None:
+        listed.count(stats)
     out = _pack(st, nt, state.shape[1])
     return out + (_pack_diff(cap, nt, state.shape[1]),) if diff_out else out
 
 
-def _bounces_plain(rows, st, sh, first_depth, max_bounces):
+def _bounces_plain(rows, st, sh, first_depth, max_bounces, listed=None):
     pairs = 0
     for _ in range(first_depth, int(max_bounces)):
         if not bool((st["alive"] > 0.0).any()):
             break
-        pairs = pairs + _bounce_plain(rows, st, sh)
+        pairs = pairs + _bounce_plain(rows, st, sh, listed=listed)
     return pairs
 
 
@@ -993,13 +1008,17 @@ def resume_tiles_plain(rows: SceneRows, state, rng_state, max_bounces,
                        diffuse_bounce, det_eps=1e-8, tmin=1e-4,
                        shadow_eps=1e-3, shadow_tmin=1e-4, *, dialect="gpu",
                        shadow_samples=1, stats=None):
-    """Plain version of the resume kernel: bounces 1..max_bounces-1."""
+    """Plain version of the resume kernel: bounces 1..max_bounces-1;
+    ``stats`` as in ``bounce_step_tiles_plain``."""
     sh = _plain_shade(diffuse_bounce, det_eps, tmin, shadow_eps,
                       shadow_tmin, dialect, shadow_samples)
     nt = state.shape[0] // _ST_ROWS
     rt = state.shape[1]
     st = _unpack(state, rng_state)
-    _tally(stats, _bounces_plain(rows, st, sh, 1, max_bounces))
+    listed = None if stats is None else _Listed()
+    _tally(stats, _bounces_plain(rows, st, sh, 1, max_bounces, listed))
+    if stats is not None:
+        listed.count(stats)
     return tuple(c.reshape(nt, rt) for c in st["rd"])
 
 
@@ -1220,14 +1239,18 @@ def bounce_step_tiles(scene, state, rng_state, *, det_eps: float = 1e-8,
         _check_cand_plan(cand_plan, scene.camera, nt)
     rows = _scene_rows(scene, scene.accel) if rows is None else rows
     if _device_kind(state) == "cpu":
-        return bounce_step_tiles_plain(
+        stats = {}
+        out = bounce_step_tiles_plain(
             rows, state, rng_state, sh.diffuse_bounce, det_eps, tmin,
             shadow_eps, shadow_tmin, dialect=dialect,
             shadow_samples=shadow_samples, diff_out=diff_out,
-            cand_plan=cand_plan)
+            cand_plan=cand_plan, stats=stats)
+        _bounce_tally(state.device).add(stats)
+        return out
     from ._native import load
 
     lib = load()
+    _bounce_tally(state.device).start(lib)
     state = state.contiguous()
     rng_state = rng_state.contiguous()
     st_out = torch.empty_like(state)
@@ -1260,13 +1283,17 @@ def resume_tiles(scene, state, rng_state, *, det_eps: float = 1e-8,
     _check_rows(state, rng_state)
     rows = _scene_rows(scene, scene.accel) if rows is None else rows
     if _device_kind(state) == "cpu":
-        return resume_tiles_plain(
+        stats = {}
+        out = resume_tiles_plain(
             rows, state, rng_state, scene.max_bounces, sh.diffuse_bounce,
             det_eps, tmin, shadow_eps, shadow_tmin, dialect=dialect,
-            shadow_samples=shadow_samples)
+            shadow_samples=shadow_samples, stats=stats)
+        _bounce_tally(state.device).add(stats)
+        return out
     from ._native import load
 
     lib = load()
+    _bounce_tally(state.device).start(lib)
     state = state.contiguous()
     rng_state = rng_state.contiguous()
     nt = state.shape[0] // _ST_ROWS
@@ -1339,12 +1366,13 @@ _VARIANTS = {"bounce_step[diff]": "diff_launches",
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counters and the shadow-walk tally."""
+    """Zero the launch counters and the shadow-walk and group tallies."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
     for attr in _VARIANTS.values():
         setattr(bounce_step_tiles, attr, 0)
     _WALK_TALLIES.clear()
+    _BOUNCE_TALLIES.clear()
 
 
 def launch_counts() -> dict:
@@ -1424,6 +1452,67 @@ def shadow_group_counts() -> dict:
     listed walk is a group's, the walks over the groups times
     ``shadow_samples`` is the share of a group's samples that walk."""
     return {str(dev): tally.read()[1] for dev, tally in _WALK_TALLIES.items()}
+
+
+# Kernels B's and C's soft groups (the cpuonly (ray, area light) pairs of
+# more than one disk sample that bounce_step and resume walk as one group,
+# where some sample's segment passes a block's slab test; the plain
+# versions count the same) and their sample walks.  The cpuonly kernels
+# add them, one atomic a warp, into a total that stays on the card while
+# the library is loaded (rt_bounce_groups copies it there); a device's
+# tally keeps that total as it was before its first launch after a reset,
+# and a read is the difference, one copy to the host.
+_BOUNCE_TALLIES: dict = {}
+
+
+class _BounceTally:
+    def __init__(self, device):
+        self.device = device
+        self.base = None  # the card's total before the first launch
+        self.plain = torch.zeros(2, dtype=torch.int64)
+
+    def start(self, lib) -> None:
+        """Before a launch on the card: keep the total, once."""
+        if self.base is None:
+            self.base = torch.empty(2, dtype=torch.int64, device=self.device)
+            _raise_on(lib, lib.rt_bounce_groups(_ptr(self.base), _stream()),
+                      "bounce_groups")
+
+    def add(self, stats) -> None:
+        """A plain call's counts."""
+        self.plain += torch.tensor([stats["groups"], stats["group_walks"]])
+
+    def read(self) -> tuple:
+        """(groups, walks)."""
+        counts = self.plain.clone()
+        if self.base is not None:
+            from ._native import load
+
+            lib = load()
+            now = torch.empty_like(self.base)
+            with torch.cuda.device(self.device):
+                _raise_on(lib, lib.rt_bounce_groups(_ptr(now), _stream()),
+                          "bounce_groups")
+            counts += (now - self.base).cpu()
+        groups, walks = counts.tolist()
+        return groups, walks
+
+
+def _bounce_tally(device) -> _BounceTally:
+    key = torch.device(device)
+    if key not in _BOUNCE_TALLIES:
+        _BOUNCE_TALLIES[key] = _BounceTally(key)
+    return _BOUNCE_TALLIES[key]
+
+
+def bounce_group_counts() -> dict:
+    """Kernels B's and C's soft groups (a cpuonly ray and area light of
+    more than one disk sample some of whose segments pass a block's slab
+    test, walked together) and their sample walks since the last reset,
+    by device -> {device: (groups, walks)}: one read from each device,
+    made here and nowhere else.  walks / (groups x ``shadow_samples``) is
+    the share of a group's sample lanes that walk."""
+    return {str(dev): tally.read() for dev, tally in _BOUNCE_TALLIES.items()}
 
 
 reset_launch_counts()

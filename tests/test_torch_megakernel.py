@@ -25,6 +25,7 @@ import jax.numpy as jnp
 from raytracinginonesemester_tpu.ops import megakernel as jmk
 from raytracinginonesemester_tpu.ops.wavefront import bounce_tile_plan
 from raytracinginonesemester_tpu.render.renderer import _swizzled_grid as j_grid
+from raytracinginonesemester_tpu_torch.core import rng as rnglib
 from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
 from raytracinginonesemester_tpu_torch.render.renderer import _swizzled_grid as t_grid
 
@@ -648,19 +649,10 @@ def _group_walk(rows, sh, p, rays, facing, listed=None, seen=None):
     return list(blocked.unbind(1)), torch.tensor(tests)
 
 
-@pytest.mark.parametrize("samples,point,block_size", [
-    (17, False, 512), (32, False, 128), (40, False, 512), (32, True, 512)])
-def test_emit_groups_match_the_plain_walk(samples, point, block_size,
-                                          monkeypatch):
-    """Kernel A's soft groups (an area light's disk samples of a hit
-    listed as one entry and walked together, lanes over the triangles)
-    give every state and rng row of the plain version's walks, one sample
-    at a time, bit for bit, and list the same walks and groups
-    (``stats``): two-frog 48x24 through a 135 mm lens, cpuonly, its two
-    lights of radius 0.15 with 17, 32 or 40 disk samples (40: each group
-    walks in two passes of 32), or an area light and a point light
-    together, whose walks are listed one at a time and walked as
-    ``list_occluded`` walks them."""
+def _soft_two_frog(samples, point, block_size, monkeypatch):
+    """Two-frog 48x24 through a 135 mm lens, cpuonly, its two lights of
+    radius 0.15 with ``samples`` disk samples (or the second a point
+    light) -> (scene, rows, padded xs, ys, the plain kwargs, has_work)."""
     import dataclasses
 
     from raytracinginonesemester_tpu_torch.scene.build import build_scene
@@ -668,7 +660,7 @@ def test_emit_groups_match_the_plain_walk(samples, point, block_size,
         SceneConfig, SceneNodeConfig)
     from raytracinginonesemester_tpu_torch.scene.transform import Transform
 
-    from _torch_parity import list_occluded, two_frog_config
+    from _torch_parity import two_frog_config
 
     monkeypatch.setenv("RT_BLOCK_SIZE", str(block_size))
     cfg = dataclasses.replace(
@@ -689,6 +681,27 @@ def test_emit_groups_match_the_plain_walk(samples, point, block_size,
     sh = tmk._Shade(ts.diffuse_bounce, dialect="cpuonly",
                     shadow_samples=samples)
     work = tmk._has_work(ts, xs_p, ys_p, sh, None, None)
+    return ts, rows, xs_p, ys_p, pkw, work
+
+
+@pytest.mark.parametrize("samples,point,block_size", [
+    (17, False, 512), (32, False, 128), (40, False, 512), (32, True, 512)])
+def test_emit_groups_match_the_plain_walk(samples, point, block_size,
+                                          monkeypatch):
+    """Kernel A's soft groups (an area light's disk samples of a hit
+    listed as one entry and walked together, lanes over the triangles)
+    give every state and rng row of the plain version's walks, one sample
+    at a time, bit for bit, and list the same walks and groups
+    (``stats``): two-frog 48x24 through a 135 mm lens, cpuonly, its two
+    lights of radius 0.15 with 17, 32 or 40 disk samples (40: each group
+    walks in two passes of 32), or an area light and a point light
+    together, whose walks are listed one at a time and walked as
+    ``list_occluded`` walks them."""
+    from _torch_parity import list_occluded
+
+    ts, rows, xs_p, ys_p, pkw, work = _soft_two_frog(samples, point,
+                                                     block_size, monkeypatch)
+    radii = (0.15, 0.0 if point else 0.15)
 
     def emit(stats):
         return tmk.emit_tiles_plain(rows, xs_p, ys_p, work, 0,
@@ -730,6 +743,174 @@ def test_emit_groups_match_the_plain_walk(samples, point, block_size,
     # a group is at most its samples' walks, and lists at least one
     assert (want_stats["groups"] <= sum(x["walks"] for x in seen)
             <= samples * want_stats["groups"])
+
+
+@pytest.mark.parametrize("samples,point", [
+    (17, False), (32, False), (64, False), (32, True)])
+def test_bounce_groups_match_the_plain_walk(samples, point, monkeypatch):
+    """Kernels B's and C's soft groups (``group_visibility``: an area
+    light's disk samples of a hit walked together, lanes over the
+    triangles, A's group walk) give every state and rng row of the plain
+    versions' walks, one sample at a time, bit for bit, and count the
+    same walks and groups (``stats``): B and C on the state that
+    ``emit_tiles_plain`` leaves, two-frog 48x24, cpuonly, two area lights
+    of 17, 32 or 64 disk samples (64: two passes of 32 a group), or an
+    area light and a point light, whose walks stay one at a time."""
+    ts, rows, xs_p, ys_p, pkw, work = _soft_two_frog(samples, point, 512,
+                                                     monkeypatch)
+    st, rng = tmk.emit_tiles_plain(rows, xs_p, ys_p, work, 0,
+                                   ts.diffuse_bounce, **pkw)
+
+    def bounce(stats):
+        return tmk.bounce_step_tiles_plain(rows, st, rng, ts.diffuse_bounce,
+                                           stats=stats, **pkw)
+
+    def resume(stats):
+        return tmk.resume_tiles_plain(rows, st, rng, ts.max_bounces,
+                                      ts.diffuse_bounce, stats=stats, **pkw)
+
+    want = [{}, {}]
+    want_out = [bounce(want[0]), resume(want[1])]
+    seen = []
+
+    def groups(rows_, sh_, p, rays, facing, listed=None):
+        return _group_walk(rows_, sh_, p, rays, facing, listed, seen)
+
+    monkeypatch.setattr(tmk, "_soft_walks_plain", groups)
+    got = [{}, {}]
+    got_out = [bounce(got[0]), resume(got[1])]
+    for g_out, w_out in zip(got_out, want_out):
+        for g, w in zip(g_out, w_out):
+            assert torch.equal(g, w)
+    keys = ("walks", "groups", "group_walks")
+    for g, w in zip(got, want):
+        assert [g[k] for k in keys] == [w[k] for k in keys]
+    lights = 2 - point
+    assert len(seen) >= 2 * lights  # B's lights, then C's, depth by depth
+    assert sum(x["groups"] for x in seen) == (want[0]["groups"]
+                                             + want[1]["groups"]) > 0
+    assert sum(x["blocked"] for x in seen) > 0
+    assert all(x["passes"] == -(-samples // 32) for x in seen)
+    for w in want:  # a group walks from 1 to all of its samples
+        assert w["groups"] <= w["group_walks"] <= samples * w["groups"]
+        assert (w["group_walks"] == w["walks"]) == (not point)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _lcg_jump(n):
+    """``lcg_jump`` of ``csrc/megakernel.cu``: (a, c) of n lcg steps."""
+    a, c, pa, pc = 1, 0, 1664525, 1013904223
+    while n:
+        if n & 1:
+            a, c = (pa * a) & _M32, (pa * c + pc) & _M32
+        pc, pa = ((pa + 1) * pc) & _M32, (pa * pa) & _M32
+        n >>= 1
+    return a, c
+
+
+def _mul32(a, b):
+    """a * b mod 2^32 of uint32 values in int64 tensors (no overflow)."""
+    return (((((a >> 16) * b) & 0xFFFF) << 16) + (a & 0xFFFF) * b) & _M32
+
+
+def _unit(s):
+    """2 * wang_float(s) - 1 in float32, as disk_sample makes it."""
+    return 2.0 * rnglib.wang_hash_float(s) - 1.0
+
+
+def _disk_accept(x, y):
+    r2 = x * x + y * y
+    return (r2 > 1e-10) & (r2 <= 1.0)
+
+
+def _draw_disks(st, n, accept=_disk_accept):
+    """``draw_disks`` of ``csrc/megakernel.cu``, emulated for (R,) rays at
+    once: windows of 32 attempts, lane l's the steps 2l + 1 and 2l + 2
+    past the window's state (``_lcg_jump``), the ballot of the attempts
+    that end a draw (accepted, or a draw's 64th) ordering the samples ->
+    (the states after the n-th draw, (R, n, 2) samples)."""
+    jump = torch.tensor([_lcg_jump(2 * l + 1) for l in range(32)])
+    lanes = torch.arange(32)
+    r = st.shape[0]
+    out = torch.zeros(r, n, 2)
+    got = torch.zeros(r, dtype=torch.int64)
+    run = torch.zeros(r, dtype=torch.int64)
+    while bool((got < n).any()):
+        on = got < n
+        s1 = (_mul32(jump[:, 0][None], st[:, None]) + jump[:, 1]) & _M32
+        s2 = (s1 * 1664525 + 1013904223) & _M32
+        x, y = _unit(s1), _unit(s2)
+        acc = accept(x, y)
+        cap = (63 - run).clamp(0, 31)
+        force = (run >= 32) & ~(acc & (lanes[None] <= cap[:, None])).any(1)
+        ends = acc | (force[:, None] & (lanes[None] == cap[:, None]))
+        k = got[:, None] + ends.cumsum(1) - ends.long()
+        put = ends & (k < n) & on[:, None]
+        pts = torch.stack([torch.where(acc, x, 0.0), torch.where(acc, y, 0.0)],
+                          -1)
+        rr, ll = put.nonzero(as_tuple=True)
+        out[rr, k[rr, ll]] = pts[rr, ll]
+        made = ends.sum(1)
+        fin = on & (got + made >= n)
+        last = (ends & (k == n - 1)).long().argmax(1)
+        last_end = 31 - ends.long().flip(1).argmax(1)
+        st = torch.where(fin, s2.gather(1, last[:, None])[:, 0],
+                         torch.where(on, s2[:, 31], st))
+        run = torch.where(on & ~fin, torch.where(made > 0, 31 - last_end,
+                                                 run + 32), run)
+        got = torch.where(fin, n, torch.where(on, got + made, got))
+    return st, out
+
+
+def _disk_serial(st, n, accept):
+    """disk_sample's draws one after another (``raytracer.h:77-85``, at
+    most 64 rounds a draw, (0, 0) if never accepted) with the acceptance
+    ``accept``, a ray at a time."""
+    states, out = [], torch.zeros(st.shape[0], n, 2)
+    for r, s in enumerate(st.tolist()):
+        for k in range(n):
+            for _ in range(64):
+                s1 = (s * 1664525 + 1013904223) & _M32
+                s2 = (s1 * 1664525 + 1013904223) & _M32
+                s = s2
+                x, y = _unit(torch.tensor(s1)), _unit(torch.tensor(s2))
+                if bool(accept(x, y)):
+                    out[r, k] = torch.stack([x, y])
+                    break
+        states.append(s)
+    return torch.tensor(states), out
+
+
+def test_the_warp_disk_draws_match_the_draws_one_after_another():
+    """``draw_disks`` (a ray's disk samples drawn by a warp, 32 attempts a
+    window) gives the samples and the final rng state of the draws one
+    after another: with the disk's acceptance against
+    ``rnglib.random_in_unit_disk`` called n times (1 to 32 samples, 64
+    rays), and with an acceptance of about 1 in 50, under which draws run
+    past 32 rejections into the next window and reach the 64-round cap,
+    against the scalar loop."""
+    s = torch.randint(0, 2 ** 32, (64,), generator=torch.Generator()
+                      .manual_seed(23))
+    for n in (1, 31, 32):
+        got_st, got = _draw_disks(s, n)
+        st, pts = s, []
+        for _ in range(n):
+            st, v = rnglib.random_in_unit_disk(st)
+            pts.append(v)
+        assert torch.equal(got_st, st)
+        assert torch.equal(got, torch.stack(pts, 1))
+
+    def rare(x, y):
+        return ((x * 1e4).floor() % 50 == 0) & _disk_accept(x, y)
+
+    got_st, got = _draw_disks(s[:16], 32, rare)
+    want_st, want = _disk_serial(s[:16], 32, rare)
+    assert torch.equal(got_st, want_st)
+    assert torch.equal(got, want)
+    capped = (want == 0).all(-1)
+    assert 0 < int(capped.sum()) < capped.numel()  # the cap is reached
 
 
 # --- on the card: each CUDA kernel against its plain version ---------

@@ -8,8 +8,11 @@ light (radius 0.15, diffuse, depth 8; the fused route of scenes of more
 than 16 samples) equal their plain versions exactly; the walk and group
 tallies read twice the plain counts after two emits; and neither the
 tally nor the route counter adds a copy to the host to a render call.
-On both: the headline frog lists the walks it listed before the soft
-groups, and no group."""
+B and C with two lights equal their plain versions exactly and count
+their soft groups as the plain versions do (``bounce_group_counts``),
+with no copy to the host.  On both: the headline frog lists the walks it
+listed before the soft groups, and no group; its B and C count no
+group."""
 
 import dataclasses
 import os
@@ -141,18 +144,9 @@ def test_cuda_the_group_tally_reads_the_plain_groups_without_a_copy():
     assert 0 < stats["groups"] <= stats["walks"] <= 32 * stats["groups"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("samples,point", [(64, False), (32, True)])
-def test_cuda_groups_of_two_lights_match_plain(samples, point):
-    """Kernel A with two lights: two area lights of 64 disk samples (a
-    group walks in two passes of 32, the second light's group after the
-    first's draws), or an area light of 32 and a point light (a group
-    and a single walk in one emit): state and rng equal the plain
-    version's exactly, and the tallies its walks and groups.  (At 40
-    samples 12 radiance values of 131,072 part from the plain version's
-    by an ulp, with or without the groups: PERF.md §7 K2.)"""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+def _two_lights(samples, point, device):
+    """Two-frog at W x H through a 135 mm lens, cpuonly: two area lights
+    of ``samples`` disk samples, or an area light and a point light."""
     from raytracinginonesemester_tpu_torch.scene.config import (
         SceneConfig, SceneNodeConfig)
     from raytracinginonesemester_tpu_torch.scene.transform import Transform
@@ -166,7 +160,22 @@ def test_cuda_groups_of_two_lights_match_plain(samples, point):
     cfg = dataclasses.replace(cfg, lights=[
         {**l, "radius": r, "shadow_samples": samples}
         for l, r in zip(cfg.lights, radii)])
-    ts = build_scene(cfg, device="cuda")
+    return build_scene(cfg, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples,point", [(64, False), (32, True)])
+def test_cuda_groups_of_two_lights_match_plain(samples, point):
+    """Kernel A with two lights: two area lights of 64 disk samples (a
+    group walks in two passes of 32, the second light's group after the
+    first's draws), or an area light of 32 and a point light (a group
+    and a single walk in one emit): state and rng equal the plain
+    version's exactly, and the tallies its walks and groups.  (At 40
+    samples 12 radiance values of 131,072 part from the plain version's
+    by an ulp, with or without the groups: PERF.md §7 K2.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    ts = _two_lights(samples, point, "cuda")
     kw = tmk.megakernel_kwargs(ts, "wang")
     plain_kw = {k: v for k, v in kw.items()
                 if k not in ("jitter", "dialect")}
@@ -186,6 +195,100 @@ def test_cuda_groups_of_two_lights_match_plain(samples, point):
     assert tmk.shadow_walk_counts() == {"cuda:0": stats["walks"]}
     assert tmk.shadow_group_counts() == {"cuda:0": stats["groups"]}
     assert 0 < stats["groups"] < stats["walks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples,point", [(64, False), (32, True)])
+def test_cuda_bounce_groups_of_two_lights_match_plain(samples, point):
+    """Kernels B and C with two lights (two area lights of 64 disk
+    samples, two passes of 32 a group; or an area light of 32 and a point
+    light), on A's state: state, rng and radiance equal the plain
+    versions' exactly, and ``bounce_group_counts()`` reads the groups
+    and sample walks the plain versions count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    ts = _two_lights(samples, point, "cuda")
+    kw = tmk.megakernel_kwargs(ts, "wang")
+    nj = {k: v for k, v in kw.items() if k != "jitter"}
+    plain_kw = {k: v for k, v in nj.items() if k != "dialect"}
+    rows = tmk._scene_rows(ts, ts.accel)
+    xs, ys, _ = tr._swizzled_grid(W, H, device="cuda")
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    st, rng = tmk.emit_tiles(ts, xs_p, ys_p, OFFSET, rows=rows, **kw)
+    b_stats, c_stats = {}, {}
+    b_p = tmk.bounce_step_tiles_plain(rows, st, rng, ts.diffuse_bounce,
+                                      dialect="cpuonly", stats=b_stats,
+                                      **plain_kw)
+    r_p = tmk.resume_tiles_plain(rows, st, rng, ts.max_bounces,
+                                 ts.diffuse_bounce, dialect="cpuonly",
+                                 stats=c_stats, **plain_kw)
+    tmk.reset_launch_counts()
+    b_k = tmk.bounce_step_tiles(ts, st, rng, rows=rows, **nj)
+    r_k = tmk.resume_tiles(ts, st, rng, rows=rows, **nj)
+    for a, b in zip(b_k + r_k, b_p + r_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    groups = b_stats["groups"] + c_stats["groups"]
+    walks = b_stats["group_walks"] + c_stats["group_walks"]
+    assert tmk.bounce_group_counts() == {"cuda:0": (groups, walks)}
+    assert 0 < b_stats["groups"] < b_stats["group_walks"]
+    assert walks <= samples * groups
+
+
+@pytest.mark.cuda
+def test_cuda_the_bounce_group_counter_adds_no_copy_to_a_call():
+    """B's and C's group counter, kept on the card: soft B and C calls
+    (the first after a reset keeps the card's total, on the card) copy
+    nothing to the host in the profiler's session; the read is the one
+    copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    from torch.profiler import ProfilerActivity, profile
+
+    ts = _soft_mirror("cuda")
+    kw = tmk.megakernel_kwargs(ts, "center")
+    nj = {k: v for k, v in kw.items() if k != "jitter"}
+    rows = tmk._scene_rows(ts, ts.accel)
+    xs, ys, _ = tr._swizzled_grid(W, H, device="cuda")
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    st, rng = tmk.emit_tiles(ts, xs_p, ys_p, OFFSET, rows=rows, **kw)
+    tmk.bounce_step_tiles(ts, st, rng, rows=rows, **nj)  # warm: the build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tmk.reset_launch_counts()
+        for _ in range(2):
+            tmk.bounce_step_tiles(ts, st, rng, rows=rows, **nj)
+            tmk.resume_tiles(ts, st, rng, rows=rows, **nj)
+        torch.cuda.synchronize()
+    copies = [e.name for e in prof.events() if "Memcpy DtoH" in e.name]
+    assert not copies, copies
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (groups, walks), = tmk.bounce_group_counts().values()
+        torch.cuda.synchronize()
+    copies = [e.name for e in prof.events() if "Memcpy DtoH" in e.name]
+    assert len(copies) == 1, copies
+    assert 0 < groups <= walks <= 32 * groups
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_the_headline_frog_bounces_count_no_group(device):
+    """The headline frog's B and C (gpu dialect, one point light) walk no
+    soft group: ``bounce_group_counts()`` reads (0, 0), on the card as
+    in the plain versions."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    ts = tr.frog_scene(64, 32, device=device)
+    rows = tmk._scene_rows(ts, ts.accel)
+    xs, ys, _ = tr._swizzled_grid(64, 32, device=device)
+    xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
+    st, rng = tmk.emit_tiles(ts, xs_p, ys_p, OFFSET, rows=rows)
+    tmk.reset_launch_counts()
+    b = tmk.bounce_step_tiles(ts, st, rng, rows=rows)
+    tmk.resume_tiles(ts, st, rng, rows=rows)
+    key = str(torch.device(device)) + (":0" if device == "cuda" else "")
+    assert tmk.bounce_group_counts() == {key: (0, 0)}
+    assert bool((b[0].reshape(-1, 16, b[0].shape[1])[:, 12] > 0).any())
+    tmk.reset_launch_counts()
 
 
 @pytest.mark.parametrize("device", [
@@ -256,3 +359,4 @@ def test_cuda_the_counters_add_no_copy_to_a_call():
     assert copies == reads > 0, (copies, reads)
     assert tr.route_counts() == {"wavefront": 1}
     assert tmk.shadow_walk_counts()["cuda:0"] > 0
+    assert tmk.bounce_group_counts()["cuda:0"][0] > 0
