@@ -82,24 +82,24 @@ Phases, each printed on its own line; any failure raises (exit != 0):
    its plain version and within 1e-5 of each bin's sum of |ct| against
    ``index_add_``, and the albedo recovery of ``tests/test_diff.py``
    (96x54, 60 Adam steps at lr 0.03) below 5% of the first loss;
-10. the large-scene streamed path, ``bench.py --large 1000000``'s
-   workload: the frog at 1920x1080 (spp 1, depth 8, diffuse, ``wang``)
-   with its mesh subdivided 3 levels (1,270,912 triangles), the block
-   grid at 512 lanes (2,483 blocks, over the plane budget: the fused
-   kernels refuse it).  On the pixel-center camera rays (``bench.py:
-   204-207``) G's winners against E's and H's against G's; on their
-   shadow rays to the frog's light as the integrator spawns them (the
-   missed rays' shade points parked at 1e30 with a zero direction, in
-   the same tiles as the hits'), H's flags against I's and no parked ray
-   blocked; on the hits' shadow rays alone, I's flags against F's and
-   against I's full-width flags, exactly; one frame through
-   ``render_scene_frames`` (G and
-   I must launch, E, F, H and A-D must not; ms/frame median of 3 calls),
-   the same frame with ``RT_STREAM_BLOCKMAJOR`` on (H; the frame must be
-   the G/I frame bit for bit), and, off the dispatch, the same frame
-   through kernels A and B (``render_tiles_wavefront_frames``, timed,
-   ``images_close`` to the G/I frame); the host seconds of the
-   subdivision, the grid build and the camera rays' plan;
+10. the large scene, ``bench.py --large 1000000``'s workload: the frog
+   at 1920x1080 (spp 1, depth 8, diffuse, ``wang``) with its mesh
+   subdivided 3 levels (1,270,912 triangles), the block grid at 512
+   lanes (2,483 blocks, over the plane budget, which the fused kernels
+   do not keep: they take it).  On the pixel-center camera rays
+   (``bench.py:204-207``) G's winners against E's and H's against G's;
+   on their shadow rays to the frog's light as the integrator spawns
+   them (the missed rays' shade points parked at 1e30 with a zero
+   direction, in the same tiles as the hits'), H's flags against I's
+   and no parked ray blocked; on the hits' shadow rays alone, I's flags
+   against F's and against I's full-width flags, exactly; one frame
+   through ``render_scene_frames`` (kernels A and B with the binned
+   plan must launch, E-I must not; ms/frame median of 3 calls), the same
+   frame through the staged integrator called on its route directly (G
+   and I must launch, E, F, H and A-D must not; the frame
+   ``images_close`` to the A/B frame), and with ``RT_STREAM_BLOCKMAJOR``
+   on (H; the frame must be the G/I frame bit for bit); the host seconds
+   of the subdivision, the grid build and the camera rays' plan;
 11. each kernel against its plain version at its full-width shapes, both
    timed, with the least time the card could take (bound); E and F on
    the inputs of their first launches in single-frame renders of phase
@@ -1673,8 +1673,8 @@ def large_rays(scene):
 
 
 def check_large(dev, smi):
-    """Phase 10: the large-scene streamed path (module docstring) ->
-    (frame times, launch counts, phase 11's jobs)."""
+    """Phase 10: the large scene (module docstring) -> (frame times,
+    launch counts, phase 11's jobs)."""
     import torch
 
     from raytracinginonesemester_tpu_torch.io.image import quantize
@@ -1684,10 +1684,7 @@ def check_large(dev, smi):
         tile_visit_plan_fast)
     from raytracinginonesemester_tpu_torch.ops.megakernel import (
         RAY_TILE, megakernel_ineligible_reason)
-    from raytracinginonesemester_tpu_torch.ops.wavefront import (
-        auto_capacity_tiles, render_tiles_wavefront_frames)
     from raytracinginonesemester_tpu_torch.render import renderer as tr
-    from raytracinginonesemester_tpu_torch.utils.timing import cuda_time_ms
 
     scene, t_sub, t_grid = large_scene(dev)
     grid = scene.accel
@@ -1700,8 +1697,9 @@ def check_large(dev, smi):
         f"{bk._grid_bytes(*grid.tri_index.shape)}, fits_vmem "
         f"{bk.fits_vmem(grid)}, num_chunks_for {bk.num_chunks_for(grid)}; "
         f"fused kernels: {reason}")
-    if bk.fits_vmem(grid) or reason is None:
-        raise AssertionError("the large scene must be over the plane budget")
+    if bk.fits_vmem(grid) or reason is not None:
+        raise AssertionError("the large scene must be over the plane budget, "
+                             "and the fused kernels must take it")
 
     o, d = large_rays(scene)
     t0 = time.time()
@@ -1749,15 +1747,29 @@ def check_large(dev, smi):
     del e, normal, blocked, blocked_all
 
     label = "large frog 1080p depth 8"
+    ms_ab, img_ab, ab_counts = timed_frames(
+        f"{label} through A and B (the dispatch, binned)", scene, 1, smi,
+        ["emit", "bounce_step"], jitter="wang",
+        never=["closest", "occluded"] + STREAMED + BLOCKMAJOR)
+
+    def staged(scene, frames, jitter, offset):
+        # the staged integrator on its route, as reference_cpu takes it
+        xs, ys, n, (hp, wp) = tr.pixel_stream(W, H, dev)
+        route = tr.Route("staged: called directly", jitter)
+        return torch.stack([tr.unswizzle(tr.render_stream(
+            scene, route, xs[:n], ys[:n], 1, offset + f), W, H, hp, wp)
+            for f in range(frames)])
+
     others = FUSED + ["closest", "occluded"]
     ms_gi, img_gi, gi_counts = timed_frames(
         f"{label} (G and I)", scene, 1, smi, STREAMED, jitter="wang",
-        never=others + BLOCKMAJOR)
+        never=others + BLOCKMAJOR, render=staged)
     integrator._STREAM_BLOCKMAJOR = True
     try:
         ms_h, img_h, h_counts = timed_frames(
             f"{label}, RT_STREAM_BLOCKMAJOR=1 (H)", scene, 1, smi,
-            BLOCKMAJOR, iters=1, jitter="wang", never=others + STREAMED)
+            BLOCKMAJOR, iters=1, jitter="wang", never=others + STREAMED,
+            render=staged)
     finally:
         integrator._STREAM_BLOCKMAJOR = False
     n_diff = int((img_h != img_gi).any(dim=-1).sum())
@@ -1765,27 +1777,9 @@ def check_large(dev, smi):
     if n_diff:
         raise AssertionError("the H frame differs from the G/I frame")
 
-    # off the dispatch, for comparison: the same frame through A and B
-    xs_s, ys_s, _, (hp, wp) = tr.pixel_stream(W, H, dev)
-    cap = auto_capacity_tiles(scene, xs_s, ys_s) or nt
-
-    def ab():
-        acc = render_tiles_wavefront_frames(scene, xs_s, ys_s, 1, 0,
-                                            capacity_tiles=cap)
-        return tr.unswizzle(acc, W, H, hp, wp)
-
-    img_ab = ab()
-    t_ab, ab_counts = counted(
-        f"{label} through A and B off the dispatch (cap={cap})",
-        lambda: cuda_time_ms(ab, warmup=0, iters=3),
-        ["emit", "bounce_step"], never=["closest", "occluded"] + STREAMED
-        + BLOCKMAJOR)
-    ms_ab = t_ab["median_ms"]
     ok, bad, mean = images_close(quantize(img_ab[0].cpu().numpy(), "gpu"),
                                  quantize(img_gi[0].cpu().numpy(), "gpu"))
-    log(f"{label} through A and B (flat scan, off the dispatch): {ms_ab:.3f} "
-        f"ms/frame (median of 3 CUDA-event timings, samples "
-        f"{[round(x, 2) for x in t_ab['samples_ms']]}) vs G/I {ms_gi:.3f} "
+    log(f"{label} through A and B: {ms_ab:.3f} ms/frame vs G/I {ms_gi:.3f} "
         f"and H {ms_h:.3f} ms/frame on {smi}; A/B frame vs G/I frame: "
         f"bad_frac {bad:.5f} mean {mean:.4f}")
     if not ok:
@@ -3104,7 +3098,7 @@ def main():
     check_accum_library(train["j_call"])
     check_accum_library(train["j_vertex_call"])
 
-    # --- 10. the large-scene streamed path (bench.py --large 1000000)
+    # --- 10. the large scene (bench.py --large 1000000)
     large = check_large(dev, smi)
     _sync()
     path_probes = probes.launch_counts()
@@ -3357,7 +3351,7 @@ def main():
         f"reference_cpu {ms_soft:.3f} (fused, auto jitter: "
         f"{ms_soft_fused:.3f}); training, grad-bench config {train['ms_step']:.3f} "
         f"ms/step; large frog (1,270,912 triangles) G/I "
-        f"{large['ms_gi']:.3f}, H {large['ms_h']:.3f}, A/B off the dispatch "
+        f"{large['ms_gi']:.3f}, H {large['ms_h']:.3f}, A/B on the dispatch "
         f"{large['ms_ab']:.3f}; large scene host seconds "
         f"{ {k: round(v, 4) for k, v in large['host_s'].items()} }; "
         f"treelet headline {tl['ms_tree']:.3f} ({tl['blocks']} blocks at "

@@ -1996,13 +1996,45 @@ size_t emit_shared_bytes(const SceneArgs& s) {
          2 * sizeof(float) * kStageRows * (size_t)s.cand_chunk;
 }
 
+constexpr size_t kSharedCap = 227 * 1024;  // a CTA's shared memory
+
+// Whether `kernel` takes `smem` bytes of dynamic shared memory beside its
+// static ones.
+template <typename K>
+cudaError_t shared_fits(K kernel, size_t smem, bool* fits) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  *fits = e == cudaSuccess && smem + fa.sharedSizeBytes <= kSharedCap;
+  return e;
+}
+
+// Whether every launch of A-D takes the scene's shared memory, as each
+// launch sizes it (rt_fused_fits).
+template <bool CPU>
+cudaError_t fused_fit(const SceneArgs& s, bool* fits) {
+  const size_t smem = emit_shared_bytes(s), rows = shared_bytes(s);
+  bool ok[6] = {};
+  cudaError_t e = shared_fits(&emit_kernel<CPU>, smem, &ok[0]);
+  if (e == cudaSuccess) e = shared_fits(&render_kernel<CPU>, smem, &ok[1]);
+  if (e == cudaSuccess) e = shared_fits(&emit_walk_kernel<CPU>, rows, &ok[2]);
+  if (e == cudaSuccess)
+    e = shared_fits(&emit_finish_kernel<CPU>, rows, &ok[3]);
+  if (e == cudaSuccess)
+    e = shared_fits(&bounce_step_kernel<CPU, false, kRaysPerWarp>, rows,
+                    &ok[4]);
+  if (e == cudaSuccess)
+    e = shared_fits(&resume_kernel<CPU, kResumeRays>, rows, &ok[5]);
+  *fits = ok[0] && ok[1] && ok[2] && ok[3] && ok[4] && ok[5];
+  return e;
+}
+
 template <typename K>
 int prepare(K kernel, const SceneArgs& s, size_t smem) {
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
   const size_t total = smem + fa.sharedSizeBytes;  // dynamic + static
-  if (total > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (total > kSharedCap) return (int)cudaErrorInvalidValue;
   if (total > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2191,6 +2223,24 @@ int rt_bounce_groups(unsigned long long* out, void* stream) {
                                         sizeof(g_bounce_groups), 0,
                                         cudaMemcpyDeviceToDevice,
                                         (cudaStream_t)stream);
+}
+
+// Whether kernels A-D take a scene of these sizes on the current device:
+// *fits 1 when every one of their launches holds its shared memory (the
+// staged block AABBs, lights and materials, and, with a binned plan of
+// cand_chunk, the chunk buffers) within a CTA's, else 0.
+int rt_fused_fits(int num_blocks, int n_lights, int n_objects,
+                  int cand_chunk, int cpuonly, int* fits) {
+  SceneArgs s{};
+  s.num_blocks = num_blocks;
+  s.n_lights = n_lights;
+  s.n_objects = n_objects;
+  s.cand_chunk = cand_chunk;
+  bool ok = false;
+  const cudaError_t e =
+      cpuonly ? fused_fit<true>(s, &ok) : fused_fit<false>(s, &ok);
+  *fits = ok;
+  return (int)e;
 }
 
 const char* rt_error_string(int err) {

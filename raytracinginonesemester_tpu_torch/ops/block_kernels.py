@@ -19,7 +19,8 @@ PyTorch/CUDA counterpart of ``raytracinginonesemester_tpu.ops.pallas_kernels``:
   slabs an (I, J) interval gate lets through, in order.
 
 And the plane-budget rule (``fits_vmem``, ``num_chunks_for``) by which
-the JAX package sends a scene to the streamed kernels.
+the JAX package sends a scene to the streamed kernels, and by which the
+port's staged integrator takes G and I over E and F.
 
 Each wrapper launches its hand-written CUDA kernel (E, F in
 ``csrc/megakernel.cu``; G, I, H in ``csrc/block_stream.cu``) for CUDA
@@ -73,12 +74,16 @@ __all__ = ["grid_rows", "block_closest", "block_occluded",
 # --- the plane-budget rule (pallas_kernels.py:66-114 of the JAX package) --
 #
 # On the TPU a grid whose planes exceed this budget cannot stay in the
-# kernels' VMEM, and the JAX package sends it to the streamed kernels; the
-# fused kernels and the oracle refuse it.  The card has no such limit
-# (every kernel reads the planes from global memory through L2), so here
-# this is a dispatch rule, not a memory limit: it is kept so that every
-# scene takes the path the JAX package takes.  A module attribute, so that
-# tests can lower it.
+# kernels' VMEM, and the JAX package sends it to the streamed kernels; its
+# fused kernels and oracle refuse it.  The card has no such limit (every
+# kernel reads the planes from global memory through L2), so the port's
+# fused kernels A-D take such a grid (``megakernel_ineligible_reason``).
+# What the rule decides here is the staged integrator's route, E and F
+# against G and I, and the oracle's: over the budget E's scan, one thread
+# a ray over thousands of blocks, loses to G and I's per-tile walk
+# (27.3 ms against 3.7 for the 1.27M-triangle frog's camera rays on an
+# H100), and the detached mode serves a differentiable scene.  A module
+# attribute, so that tests can lower it.
 _VMEM_TRI_BUDGET_BYTES = 10 * 1024 * 1024
 
 

@@ -13,9 +13,9 @@ A grid over the plane budget (``block_kernels.fits_vmem``, the JAX
 package's rule) takes the streamed kernels G and I instead (H with
 ``RT_STREAM_BLOCKMAJOR=1``), in every mode.  This is the path for scenes
 the fused kernels (``ops.megakernel``) do not take: ``reference_cpu``
-jitter, gpu ``center`` jitter, cpuonly scenes with more than 16 shadow
-samples, scenes over the plane budget, scenes without a block grid (brute
-force, ``ops.intersect``) and differentiable scenes.
+jitter, gpu ``center`` jitter, scenes without a block grid (brute force,
+``ops.intersect``) and differentiable scenes; a scene over the plane
+budget takes it only for one of those reasons.
 
 Differentiable scenes (``Scene.differentiable``) run a fixed number of
 bounces, with no host read of the alive flags, in one of three modes:
@@ -220,7 +220,8 @@ def make_bounce_step(scene, model_axis=None, oracle=None):
     if scene.accel is not None:
         rows = grid_rows(scene.accel)
         # over the plane budget, the streamed kernels (the JAX package's
-        # rule, integrator.py:182-194 there)
+        # rule, integrator.py:182-194 there): E's one-thread-a-ray scan
+        # loses to G and I's per-tile walk over thousands of blocks
         grid_chunks = num_chunks_for(scene.accel)
         streamed = grid_chunks > 1
         # the streamed kernels return no normal, and the detached mode

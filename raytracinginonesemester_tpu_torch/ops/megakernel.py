@@ -118,18 +118,47 @@ def _shadow_entries(scene) -> int:
         scene.dialect == "cpuonly")
 
 
+_FITS = {}  # (device, blocks, lights, objects, dialect) -> bool
+
+
+def _shared_memory_fits(scene) -> bool:
+    """Whether kernels A-D can stage ``scene``'s block AABBs, lights and
+    materials, and the binned walk's chunk buffers, in a CTA's shared
+    memory: asked once of the library that sizes their launches
+    (``rt_fused_fits``) on the card; the CPU's plain versions have no
+    such limit."""
+    if scene.accel.aabb.device.type != "cuda":
+        return True
+    from ._native import load
+    from .binned import CHUNK
+
+    dev = scene.accel.aabb.device
+    key = (dev.index, scene.accel.num_blocks, scene.lights.num_lights,
+           int(scene.materials.kd.shape[0]), scene.dialect)
+    if key not in _FITS:
+        lib, fits = load(), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _raise_on(lib, lib.rt_fused_fits(
+                key[1], key[2], key[3], CHUNK, int(scene.dialect == "cpuonly"),
+                ctypes.byref(fits)), "fused_fits")
+        _FITS[key] = bool(fits.value)
+    return _FITS[key]
+
+
 def megakernel_ineligible_reason(scene, jitter_mode: str):
     """Why the fused kernels do not take a scene (None = they do), in
-    the JAX package's words, but for its soft-shadow sample bound, which
-    the port replaces by kernel A's int32 shadow list; the renderer then
-    takes the staged integrator and warns once with this reason."""
-    from .block_kernels import fits_vmem
-
+    the JAX package's words, but for two of its rules: its soft-shadow
+    sample bound, which the port replaces by kernel A's int32 shadow
+    list, and its plane budget (``block_kernels.fits_vmem``), a limit of
+    the TPU's VMEM: kernels A-D read the planes from global memory, and
+    what binds them is the block AABBs they stage in shared memory
+    (about 8,400 blocks).  The renderer then takes the staged integrator
+    and warns once with this reason."""
     if scene.accel is None:
         return "no block-grid accel (accel=None)"
-    if not fits_vmem(scene.accel):
-        # the plane-budget rule: a dispatch rule on the card
-        return "triangle planes exceed the kernel VMEM budget"
+    if not _shared_memory_fits(scene):
+        return (f"{scene.accel.num_blocks} blocks' AABBs exceed the fused "
+                "kernels' shared memory")
     if getattr(scene, "differentiable", False):
         return "differentiable scene (staged integrator only)"
     if scene.dialect == "gpu":

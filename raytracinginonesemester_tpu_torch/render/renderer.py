@@ -9,7 +9,10 @@ wavefront (``ops.wavefront``) or the monolithic render kernel
 every other scene renders through the staged integrator
 (``accumulate_samples`` -> ``ops.integrator.trace_rays``: kernels E and
 F, or G and I for a scene over the plane budget), with a one-time
-warning that names the reason.
+warning that names the reason.  The plane budget is the JAX package's
+dispatch rule, a limit of the TPU's VMEM: the fused kernels take a grid
+over it, so a scene over it renders on the staged integrator only for
+another reason (``reference_cpu`` jitter, a differentiable scene).
 Differentiable scenes render there too, without a warning (the fused
 kernels have no gradient): through kernel B's oracle rows and kernel J
 in the backward pass (``ops.integrator``).  ``render_hw1`` is the HW1
@@ -33,7 +36,8 @@ from ..utils.timing import span
 
 __all__ = ["render_scene", "render_scene_frames", "render_hw1", "Route",
            "resolve_route", "resolve_wavefront", "route_counts",
-           "reset_route_counts", "resolve_candidate_plan",
+           "reset_route_counts", "plan_counts", "reset_plan_counts",
+           "resolve_candidate_plan",
            "resolve_jitter_mode", "pixel_stream", "unswizzle",
            "render_stream", "accumulate_samples", "DEFAULT_RAY_TILE",
            "frog_scene", "entry"]
@@ -138,8 +142,9 @@ def _calibrate(scene: Scene, jm: str, stream, mesh=None) -> Optional[int]:
     m = padded_rays(n)  # the frame's own groups, whatever the ranks
 
     def calibrated():
-        return auto_capacity_tiles(scene, xs[:m], ys[:m],
-                                   **_kernel_kwargs(scene, jm))
+        with span("rt.dispatch.calibrate"):
+            return auto_capacity_tiles(scene, xs[:m], ys[:m],
+                                       **_kernel_kwargs(scene, jm))
 
     if mesh is None:
         return calibrated()
@@ -176,6 +181,21 @@ def resolve_wavefront(scene: Scene, jitter_mode: str = "auto",
 _CAND_PLAN_CACHE: dict = {}
 _CAND_PLAN_CACHE_MAX = 8
 
+# the binned plans built since the last reset, and their size as
+# ``binned.candidate_plan_stats`` reads it once a build: the chunks and the
+# padded depth-0 (ray, candidate) pairs that a frame's emit walks
+_PLANS = {"plans": 0, "chunks": 0, "padded_pairs": 0}
+
+
+def plan_counts() -> dict:
+    """Binned plans built since the last reset (``_PLANS``): ``plans``,
+    and the ``chunks`` and ``padded_pairs`` they hold in all."""
+    return dict(_PLANS)
+
+
+def reset_plan_counts() -> None:
+    _PLANS.update(plans=0, chunks=0, padded_pairs=0)
+
 
 def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
                            spp_override: Optional[int] = None,
@@ -189,7 +209,7 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
     with the stream (``parallel.sharded``; the chunk stream, whose starts
     are global, is shared)."""
     from ..ops.binned import (CHUNK, build_camera_candidate_plan,
-                              plan_fingerprint)
+                              candidate_plan_stats, plan_fingerprint)
     from ..ops.megakernel import RAY_TILE
 
     spp_eff = spp_override if spp_override is not None else scene.spp
@@ -205,8 +225,13 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
     xs, ys, _, _ = pixel_stream(int(scene.camera.width),
                                 int(scene.camera.height), scene.device,
                                 align_tiles)
-    plan = build_camera_candidate_plan(scene.camera, xs, ys, scene.accel,
-                                       RAY_TILE, chunk=CHUNK)
+    with span("rt.dispatch.plan"):
+        plan = build_camera_candidate_plan(scene.camera, xs, ys, scene.accel,
+                                           RAY_TILE, chunk=CHUNK)
+        stats = candidate_plan_stats(plan, RAY_TILE)
+    _PLANS["plans"] += 1
+    _PLANS["chunks"] += stats["chunks"]
+    _PLANS["padded_pairs"] += stats["padded_pairs"]
     while len(_CAND_PLAN_CACHE) >= _CAND_PLAN_CACHE_MAX:
         _CAND_PLAN_CACHE.pop(next(iter(_CAND_PLAN_CACHE)))
     _CAND_PLAN_CACHE[fp] = plan

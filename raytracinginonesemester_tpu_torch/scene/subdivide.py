@@ -5,9 +5,11 @@ triangle splits at its edge midpoints into 4 coplanar children, so the
 surface (and the image, up to shading-normal interpolation) is unchanged
 while the triangle count grows 4x per level.  This is how scenes larger
 than the kernels' plane budget are made from a real mesh (``bench.py
---large``): the frog subdivided 3 levels is 1,270,912 triangles, which the
-staged integrator renders through the streamed kernels G and I
-(``ops.block_kernels``).
+--large``): the frog subdivided 3 levels is 1,270,912 triangles, over the
+plane budget (``ops.block_kernels.fits_vmem``): ``render_scene_frames``
+renders it through the fused kernels A and B, and the staged integrator
+(``reference_cpu`` jitter, differentiable scenes) through the streamed
+kernels G and I.
 
 Vertex normals at the midpoints are the average of the edge endpoints'
 normals, left un-normalised: the renderer normalises the interpolated

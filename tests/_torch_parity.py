@@ -6,7 +6,10 @@ PyTorch port (``tests/test_torch_*.py``).
 both packages render the very same block-grid planes.  The scene
 builders make the two-frog test scene of ``tests/test_megakernel.py``
 for either package, and ``grad_scene`` the JAX grad-bench scene.  ``one_torch_thread`` keeps the port's tests to one
-PyTorch thread.
+PyTorch thread.  ``assert_images_close`` compares two quantized images,
+``staged_image`` renders a scene on the staged integrator whatever its
+route, ``regridded`` subdivides a scene's mesh; none imports JAX, so the
+card's test files use them too.
 """
 
 from __future__ import annotations
@@ -35,6 +38,55 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def assert_images_close(ours: np.ndarray, golden: np.ndarray, max_bad_frac=2e-3,
+                        max_mean=0.5, context=""):
+    """Quantized-image comparison tolerant of last-ulp float divergence.
+
+    Compares uint8 images: at most ``max_bad_frac`` of channel samples may
+    differ by more than 1 step, and the mean absolute difference must stay
+    under ``max_mean`` steps.
+    """
+    assert ours.shape == golden.shape, f"{context}: shape {ours.shape} vs {golden.shape}"
+    diff = np.abs(ours.astype(np.int32) - golden.astype(np.int32))
+    bad_frac = float((diff > 1).mean())
+    mean = float(diff.mean())
+    assert bad_frac <= max_bad_frac and mean <= max_mean, (
+        f"{context}: bad_frac={bad_frac:.5f} (limit {max_bad_frac}), "
+        f"mean={mean:.4f} (limit {max_mean}), max={diff.max()}"
+    )
+
+
+def staged_image(scene, jitter_mode, sample_offset=0):
+    """The port's staged integrator's spp-1 image of ``scene`` (G and I
+    over the plane budget), called on its route directly: the fused
+    kernels take a grid over the budget, so the renderer's own dispatch
+    does not come here for the wang or auto jitter."""
+    from raytracinginonesemester_tpu_torch.render import renderer as tr
+
+    w, h = scene.camera.width, scene.camera.height
+    xs, ys, n, (hp, wp) = tr.pixel_stream(w, h, scene.device)
+    route = tr.Route("staged: called directly",
+                     tr.resolve_jitter_mode(scene, jitter_mode, 1))
+    accum = tr.render_stream(scene, route, xs[:n], ys[:n], 1, sample_offset)
+    return tr.unswizzle(accum, w, h, hp, wp)
+
+
+def regridded(scene, levels):
+    """``scene`` with its mesh subdivided ``levels`` times and the block
+    grid rebuilt at 512 lanes, as ``chip_smoke.py`` ``large_scene`` and
+    the benchmark's ``render_subdivided`` entry build the large frog."""
+    from raytracinginonesemester_tpu_torch.ops.accel import build_block_grid
+    from raytracinginonesemester_tpu_torch.scene.subdivide import (
+        subdivide_geometry)
+
+    geom = (subdivide_geometry(scene.geometry, levels) if levels
+            else scene.geometry)
+    grid = build_block_grid(geom.vertices, geom.num_triangles,
+                            block_size=512, normals=geom.normals,
+                            obj_ids=geom.obj_id)
+    return dataclasses.replace(scene, geometry=geom, accel=grid)
 
 
 def scene_to_numpy(scene):

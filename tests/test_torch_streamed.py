@@ -46,7 +46,8 @@ from raytracinginonesemester_tpu_torch.render import renderer as tr
 from raytracinginonesemester_tpu_torch.scene import subdivide as tsub
 
 from _torch_parity import (REPO, jax_two_frog,  # noqa: F401
-                           one_torch_thread, torch_from_jax, ulp_close)
+                           one_torch_thread, staged_image, torch_from_jax,
+                           ulp_close)
 from conftest import assert_images_close
 
 UV_ATOL = 2e-4  # kernel E's measured bound on the frog (ROADMAP section 3)
@@ -368,9 +369,11 @@ def streamed_image():
 def test_over_budget_scene_renders_through_g_and_i(streamed_image,
                                                    low_budget, calls):
     js, ts, want, reason = streamed_image
-    assert tmk.megakernel_ineligible_reason(ts, "wang") == reason
+    # the JAX package refuses the grid to its fused kernels; the port's
+    # take it, and its staged integrator walks it with G and I
     assert "VMEM budget" in reason
-    got = tr.render_scene(ts, "wang").numpy()
+    assert tmk.megakernel_ineligible_reason(ts, "wang") is None
+    got = staged_image(ts, "wang").numpy()
     assert set(calls) == set(STREAMED)
     _close_images(got, want)
     assert want.std() > 0.05
@@ -387,9 +390,9 @@ def _close_images(got, want):
 def test_blockmajor_flag_gives_the_same_image(streamed_image, low_budget,
                                               calls, monkeypatch):
     _, ts, _, _ = streamed_image
-    base = tr.render_scene(ts, "wang").numpy()
+    base = staged_image(ts, "wang").numpy()
     monkeypatch.setattr(tint, "_STREAM_BLOCKMAJOR", True)
-    got = tr.render_scene(ts, "wang").numpy()
+    got = staged_image(ts, "wang").numpy()
     assert set(calls) == set(STREAMED + BLOCKMAJOR)
     np.testing.assert_array_equal(got, base)
 
@@ -468,7 +471,7 @@ def cpuonly_image(request):
 def no_fused(monkeypatch):
     """Kernels A-D (emit, bounce_step, resume, render) raise if called."""
     def fused(*a, **k):
-        raise AssertionError("a fused kernel ran for an over-budget scene")
+        raise AssertionError("a fused kernel ran on the staged route")
 
     monkeypatch.setattr(tmk, "render_tiles", fused)
     for name in ("emit_tiles", "bounce_step_tiles", "resume_tiles"):
@@ -485,9 +488,10 @@ def test_cpuonly_over_budget_renders_through_g_and_i(cpuonly_image,
     assert ts.dialect == js.dialect == "cpuonly"
     assert ts.lights.shadow_samples == js.lights.shadow_samples == (
         (4,) if name == "area" else (1,))
-    assert tmk.megakernel_ineligible_reason(ts, "auto") == reason
     assert "VMEM budget" in reason
-    got = tr.render_scene(ts, "auto").numpy()
+    assert tmk.megakernel_ineligible_reason(
+        ts, tr.resolve_jitter_mode(ts, "auto", 1)) is None
+    got = staged_image(ts, "auto").numpy()
     assert set(calls) == set(STREAMED)
     _close_images(got, want)
     assert want.std() > 0.05
