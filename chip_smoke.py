@@ -443,7 +443,8 @@ def cpuonly_scene(name, device, width=None, height=None, **light):
 
 class Frame:
     """One scene at one resolution: the padded tile stream, both depth-0
-    plans and the keyword arguments of its kernels and plain versions."""
+    plans (the binned one ordered front to back, as the renderer walks
+    it) and the keyword arguments of its kernels and plain versions."""
 
     def __init__(self, scene, jitter="wang", chunk=256):
         import torch
@@ -463,9 +464,10 @@ class Frame:
         self.plan = mk.camera_tile_plan(scene.camera, self.xs, self.ys,
                                         scene.accel)
         t0 = time.time()
-        self.cand = binned.build_camera_candidate_plan(
-            scene.camera, self.xs, self.ys, scene.accel, mk.RAY_TILE,
-            chunk=chunk)
+        self.cand = binned.order_front_to_back(
+            binned.build_camera_candidate_plan(
+                scene.camera, self.xs, self.ys, scene.accel, mk.RAY_TILE,
+                chunk=chunk), scene.camera)
         torch.cuda.synchronize()
         self.plan_s = time.time() - t0
         self.kw = mk.megakernel_kwargs(scene, jitter)

@@ -35,7 +35,9 @@
 //   lies in one tile; a tile without work writes its dead rows before it
 //   stages anything; the binned walk reads the tile's chunks from shared
 //   memory, double-buffered with cp.async, split over four threads a ray,
-//   closest_binned_cta; the flat walk is closest_coop, 8 rays a warp),
+//   a warp stopping at the first chunk behind its rays' hits in a plan
+//   ordered front to back, closest_binned_cta; the flat walk is
+//   closest_coop, 8 rays a warp),
 //   keeps them and lists the shadow rays that pass a slab test (cpuonly,
 //   an area light's disk samples as one group); emit_walk_kernel, a grid
 //   that fills the card, walks the groups a warp each, lanes over a
@@ -86,6 +88,9 @@ constexpr int kCandRows = 16;
 // rows 0-11 of a candidate chunk (9 planes, id, home, slot), the ones
 // emit stages in shared memory
 constexpr int kStageRows = 12;
+// the row of a candidate's near bound (a plan ordered front to back; 0 in
+// any other plan)
+constexpr int kNearRow = 12;
 constexpr int kThreads = 128;
 constexpr float kInvPi = 0.31830988618f;
 constexpr float kInv2Pi = 0.15915494309f;
@@ -133,7 +138,8 @@ struct SceneArgs {
   const int* obj;       // (L, B) object id
   const float* aabb;    // (L, 8) min xyz, max xyz, 0, 0
   const int* cand_meta;      // (nt, 8) first chunk, chunk count (binned)
-  const float* cand_stream;  // (chunks * 16, C) planes, id, home, slot
+  const float* cand_stream;  // (chunks * 16, C) planes, id, home, slot,
+                             // near bound
   int n_lights;
   int n_objects;
   int num_blocks;
@@ -162,6 +168,13 @@ struct Shared {
 // cpuonly kernels add to it, one atomicAdd a warp and count
 // (GroupTally::flush); rt_bounce_groups copies it on the card.
 __device__ unsigned long long g_bounce_groups[2];
+
+// The depth-0 binned walks of emit and render (closest_binned_cta) since
+// the library was loaded, on each device, in warp-chunks (a warp's rays
+// and one chunk of their tile): [0] the chunks the plans schedule, [1]
+// the ones tested (the others lie behind all of the warp's hits).  One
+// atomicAdd a warp and count; rt_binned_chunks copies it on the card.
+__device__ unsigned long long g_binned_chunks[2];
 
 // A lane's share of g_bounce_groups: the groups of its own rays.
 struct GroupTally {
@@ -300,6 +313,17 @@ __device__ void stage_chunk(const SceneArgs& s, int c, float* dst) {
   cp_async_commit();
 }
 
+// Whether each ray of the warp, SPLIT neighbouring threads a ray, has a
+// best t (the least of its threads' t) below `bound` (every lane of the
+// warp calls it).
+template <int SPLIT>
+__device__ __forceinline__ bool warp_in_front(float t, float bound) {
+#pragma unroll
+  for (int off = 1; off < SPLIT; off <<= 1)
+    t = fminf(t, __shfl_xor_sync(kFull, t, off));
+  return __all_sync(kFull, t < bound);
+}
+
 // closest_binned() for the threads of a CTA together (every thread calls
 // it), SPLIT neighbouring threads a ray (emit: kEmitSplit; the render:
 // kRenderSplit): thread `sub` of a ray tests the groups of four
@@ -308,6 +332,17 @@ __device__ void stage_chunk(const SceneArgs& s, int c, float* dst) {
 // of the ray end with the first (t, id) minimum in walk order, the
 // sequential walk's winner (the take rule keeps a later equal (t, id)
 // out).
+//
+// In a plan ordered front to back (ops/binned.py order_front_to_back) a
+// tile's near bounds (row 12) ascend, and no camera ray's t of a
+// candidate is below its bound.  A warp whose rays' best t are all below
+// a chunk's bound (its lane 0's) skips the chunk's tests, and every later
+// chunk's, since the bounds only rise and the best t only fall; it still
+// takes part in the staging and the barriers.  A skipped candidate's t
+// is above the best t of its ray, so the winner, its t, u, v and slot
+// are the walk's without the cut.  The CTA leaves the walk when each of
+// its warps skips.  In any other plan row 12 is 0 and nothing is
+// skipped.  The warp's scheduled and tested chunks go to g_binned_chunks.
 template <int SPLIT>
 __device__ Hit closest_binned_cta(const SceneArgs& s, const Shared& sh,
                                   int tile, const float* o, const float* d) {
@@ -316,45 +351,69 @@ __device__ Hit closest_binned_cta(const SceneArgs& s, const Shared& sh,
   const int count = s.cand_meta[8 * tile + 1];
   const int words = kStageRows * c_w;
   const int sub = threadIdx.x % SPLIT;
+  // chunk c's bound: near[c * kCandRows * c_w]
+  const float* near =
+      s.cand_stream + ((size_t)first * kCandRows + kNearRow) * c_w;
   Hit h{kF32Max, 0.0f, 0.0f, -1, 0};
   int pos = kIntMax;  // the taken candidate's place in walk order
-  if (count > 0) stage_chunk(s, first, sh.chunks);
+  int tested = 0;
+  bool skip = false;  // the warp skips chunk c
+  if (count > 0) {
+    stage_chunk(s, first, sh.chunks);
+    skip = warp_in_front<SPLIT>(h.t, near[0]);
+  }
   for (int c = 0; c < count; ++c) {
     const float* rows = sh.chunks + (c & 1) * words;
+    float next = 0.0f;  // chunk c + 1's bound
     if (c + 1 < count) {
+      next = near[(size_t)(c + 1) * kCandRows * c_w];
       stage_chunk(s, first + c + 1, sh.chunks + ((c + 1) & 1) * words);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // chunk c is in
-    const int quads = c_w / 4 * 4;
-    for (int j = 4 * sub; j < quads; j += 4 * SPLIT) {
-      const float window = h.t;
-      float t[4], u[4], v[4];
+    if (!skip) {
+      ++tested;
+      const int quads = c_w / 4 * 4;
+      for (int j = 4 * sub; j < quads; j += 4 * SPLIT) {
+        const float window = h.t;
+        float t[4], u[4], v[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        t[q] = mt(rows + j + q, c_w, s.det_eps, o, d, s.tmin, window, &u[q],
-                  &v[q]);
+        for (int q = 0; q < 4; ++q)
+          t[q] = mt(rows + j + q, c_w, s.det_eps, o, d, s.tmin, window,
+                    &u[q], &v[q]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int id = (int)rows[9 * c_w + j + q];  // exact integers in f32
+        for (int q = 0; q < 4; ++q) {
+          const int id = (int)rows[9 * c_w + j + q];  // exact integers in f32
+          const Hit was = h;
+          if (id >= 0)
+            take(h, t[q], u[q], v[q], id, (int)rows[11 * c_w + j + q]);
+          if (h.id != was.id || h.t != was.t) pos = c * c_w + j + q;
+        }
+      }
+      for (int j = quads + sub; j < c_w; j += SPLIT) {
+        const int id = (int)rows[9 * c_w + j];
+        if (id < 0) continue;
+        float u, v;
+        const float t =
+            mt(rows + j, c_w, s.det_eps, o, d, s.tmin, h.t, &u, &v);
         const Hit was = h;
-        if (id >= 0)
-          take(h, t[q], u[q], v[q], id, (int)rows[11 * c_w + j + q]);
-        if (h.id != was.id || h.t != was.t) pos = c * c_w + j + q;
+        take(h, t, u, v, id, (int)rows[11 * c_w + j]);
+        if (h.id != was.id || h.t != was.t) pos = c * c_w + j;
       }
     }
-    for (int j = quads + sub; j < c_w; j += SPLIT) {
-      const int id = (int)rows[9 * c_w + j];
-      if (id < 0) continue;
-      float u, v;
-      const float t = mt(rows + j, c_w, s.det_eps, o, d, s.tmin, h.t, &u, &v);
-      const Hit was = h;
-      take(h, t, u, v, id, (int)rows[11 * c_w + j]);
-      if (h.id != was.id || h.t != was.t) pos = c * c_w + j;
+    if (c + 1 < count) skip = warp_in_front<SPLIT>(h.t, next);
+    // chunk c's buffer is free for chunk c + 2; leave when every warp
+    // skips chunk c + 1, with its copy drained
+    if (__syncthreads_and(skip)) {
+      cp_async_wait<0>();
+      break;
     }
-    __syncthreads();  // chunk c's buffer is free for chunk c + 2
+  }
+  if ((threadIdx.x & 31) == 0 && count > 0) {  // tested is warp-uniform
+    atomicAdd(&g_binned_chunks[0], (unsigned long long)count);
+    atomicAdd(&g_binned_chunks[1], (unsigned long long)tested);
   }
   // the ray's threads are SPLIT neighbouring lanes: a xor tree
 #pragma unroll
@@ -2221,6 +2280,17 @@ int rt_occluded(const SceneArgs* s, const float* orig, const float* dir,
 int rt_bounce_groups(unsigned long long* out, void* stream) {
   return (int)cudaMemcpyFromSymbolAsync(out, g_bounce_groups,
                                         sizeof(g_bounce_groups), 0,
+                                        cudaMemcpyDeviceToDevice,
+                                        (cudaStream_t)stream);
+}
+
+// g_binned_chunks (the warp-chunks of emit's and render's depth-0 binned
+// walks since the library was loaded, scheduled and tested, on the
+// current device) into out (2 unsigned 64-bit counts in device memory),
+// on the stream: no copy to the host.
+int rt_binned_chunks(unsigned long long* out, void* stream) {
+  return (int)cudaMemcpyFromSymbolAsync(out, g_binned_chunks,
+                                        sizeof(g_binned_chunks), 0,
                                         cudaMemcpyDeviceToDevice,
                                         (cudaStream_t)stream);
 }

@@ -152,10 +152,11 @@ def _declare(name: str, lib) -> None:
                                    vp, vp, vp, vp, vp, vp, vp]
         lib.rt_occluded.argtypes = [sp, vp, vp, vp, vp, i, vp, vp, vp, vp]
         lib.rt_bounce_groups.argtypes = [vp, vp]
+        lib.rt_binned_chunks.argtypes = [vp, vp]
         lib.rt_fused_fits.argtypes = [i, i, i, i, i, vp]
         fns = (lib.rt_emit, lib.rt_bounce_step, lib.rt_resume,
                lib.rt_render, lib.rt_closest, lib.rt_occluded,
-               lib.rt_bounce_groups, lib.rt_fused_fits)
+               lib.rt_bounce_groups, lib.rt_binned_chunks, lib.rt_fused_fits)
     elif name == "block_stream":
         f = ctypes.c_float
         lib.rt_streamed.argtypes = [vp] * 8 + [i] * 5 + [f, i] + [vp] * 6

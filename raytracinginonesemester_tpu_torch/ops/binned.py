@@ -15,7 +15,9 @@ chunk:
 - row 10: the home row (grid slot // (block_size // nq));
 - row 11: the flat grid slot (block * block_size + lane), which the
   port's kernels read winner attributes by;
-- rows 12-15: zero.
+- row 12: zero, or, in a plan ordered front to back
+  (``order_front_to_back``), each candidate's near bound;
+- rows 13-15: zero.
 
 Rows 0-10 equal the JAX layout.  The build runs on the plan's device
 with tensor ops (the JAX build is host numpy with a loop over tiles).
@@ -24,7 +26,10 @@ The emit and render kernels walk a tile's chunks instead of the block
 grid at depth 0; the (t, global id) take rule makes the winner
 independent of visit order, and the plan is a conservative superset of
 every jittered camera ray's candidates, so images equal the block
-walk's.
+walk's.  The renderer walks its plans front to back: each tile's
+candidates sorted by their near bound, so that the emit and render
+kernels can stop a warp's walk at the first chunk behind all of its
+rays' hits, with the same winners.
 """
 
 from __future__ import annotations
@@ -34,14 +39,21 @@ import weakref
 
 import torch
 
-__all__ = ["CAND_ROWS", "CandidatePlan", "build_camera_candidate_plan",
-           "candidate_plan_stats", "plan_candidate_gids", "refresh_stream",
+__all__ = ["CAND_ROWS", "NEAR_ROW", "CandidatePlan",
+           "build_camera_candidate_plan", "candidate_plan_stats",
+           "order_front_to_back", "plan_candidate_gids", "refresh_stream",
            "plan_fingerprint", "plan_matches_camera"]
 
 CAND_ROWS = 16
 # candidate lanes a chunk of the renderer's plans
 CHUNK = 256
 _ID_ROW, _HOME_ROW, _SLOT_ROW = 9, 10, 11
+# the row of a candidate's near bound in a plan ordered front to back
+NEAR_ROW = 12
+# the near bound's relative margin: a camera ray's Moller-Trumbore t of a
+# candidate is not below its distance to the candidate's AABB by more
+# than rounding, far less than this
+NEAR_MARGIN = 1e-3
 # tiles per slab-test batch of the build: bounds each (tiles, T)
 # temporary at a few million elements
 _BUILD_PAIRS = 1 << 23
@@ -228,6 +240,45 @@ def build_camera_candidate_plan(camera, xs_p, ys_p, grid, ray_tile: int,
     return CandidatePlan(stream=_stream_rows(slots, flat_tri, ids_flat, qs),
                          meta=meta, chunk=int(chunk), total_chunks=int(tc),
                          camera=_TensorsKey((), _camera_tensors(camera)))
+
+
+def order_front_to_back(plan: CandidatePlan, camera) -> CandidatePlan:
+    """``plan`` with each tile's live candidates in ascending order of a
+    near bound, which row 12 holds: the distance from ``camera.center``
+    to the triangle's AABB (from rows 0-8), times ``1 - NEAR_MARGIN``.
+    Camera rays start at the centre with unit directions, so no camera
+    ray's t of a candidate is below its bound, and a chunk's bound (its
+    lane 0's) is at most every later lane's of the tile.  Padding lanes
+    keep the end of a tile's last chunk with a bound of +inf, as does a
+    triangle whose bound is NaN (it cannot be hit).  ``meta``, each
+    tile's rows 0-11 as a set, and the chunk count are the plan's."""
+    c, tc = plan.chunk, plan.total_chunks
+    lanes = plan.stream.reshape(tc, CAND_ROWS, c).permute(0, 2, 1).reshape(
+        tc * c, CAND_ROWS)
+    dev = lanes.device
+    v0 = lanes[:, 0:3]
+    p1 = v0 + lanes[:, 3:6]
+    p2 = v0 + lanes[:, 6:9]
+    lo = torch.minimum(torch.minimum(v0, p1), p2)
+    hi = torch.maximum(torch.maximum(v0, p1), p2)
+    centre = camera.center.to(dev, torch.float32)
+    gap = torch.clamp(torch.maximum(lo - centre, centre - hi), min=0.0)
+    near = torch.sqrt((gap * gap).sum(dim=1)) * (1.0 - NEAR_MARGIN)
+    live = (lanes[:, _ID_ROW] >= 0) & ~near.isnan()
+    near = torch.where(live, near, float("inf"))
+    # a chunk's group: its tile's (a tile's chunks are contiguous), so
+    # that a stable sort by (group, bound) keeps each tile in its chunks
+    starts = torch.zeros(tc, dtype=torch.bool, device=dev)
+    starts[0] = True
+    starts[plan.meta[plan.meta[:, 1] > 0, 0].to(torch.int64)] = True
+    group = torch.cumsum(starts, 0).repeat_interleave(c)
+    order = torch.sort(near, stable=True).indices
+    order = order[torch.sort(group[order], stable=True).indices]
+    out = lanes[order]
+    out[:, NEAR_ROW] = near[order]
+    stream = out.reshape(tc, c, CAND_ROWS).permute(0, 2, 1).reshape(
+        tc * CAND_ROWS, c).contiguous()
+    return dataclasses.replace(plan, stream=stream)
 
 
 def candidate_plan_stats(plan: CandidatePlan, ray_tile: int) -> dict:

@@ -58,7 +58,8 @@ __all__ = ["RAY_TILE", "GROUP_TILES", "padded_rays", "SceneRows",
            "bounce_step_tiles_plain", "resume_tiles_plain",
            "render_tiles_plain", "launch_counts", "variant_launch_counts",
            "reset_launch_counts", "shadow_walk_counts",
-           "shadow_group_counts", "bounce_group_counts", "DIFF_ROWS"]
+           "shadow_group_counts", "bounce_group_counts",
+           "binned_chunk_counts", "DIFF_ROWS"]
 
 RAY_TILE = 512
 GROUP_TILES = 8  # tiles a group: every stream is whole groups
@@ -1218,6 +1219,7 @@ def emit_tiles(scene, xs, ys, sample_offset=0, *, det_eps: float = 1e-8,
     flags = torch.empty(np_rays * rounds, dtype=torch.uint8, device=dev)
     hits = torch.empty(5 * np_rays, dtype=torch.float32, device=dev)
     args = _scene_args(rows, sh, cand_plan)
+    _card_tally(dev, "binned_chunks").start(lib)
     with span("rt.launch.emit"):
         err = lib.rt_emit(ctypes.byref(args), _ptr(xs), _ptr(ys), _ptr(hw),
                           np_rays, RAY_TILE, int(sample_offset),
@@ -1274,12 +1276,13 @@ def bounce_step_tiles(scene, state, rng_state, *, det_eps: float = 1e-8,
             shadow_eps, shadow_tmin, dialect=dialect,
             shadow_samples=shadow_samples, diff_out=diff_out,
             cand_plan=cand_plan, stats=stats)
-        _bounce_tally(state.device).add(stats)
+        _card_tally(state.device, "bounce_groups").add(
+            stats["groups"], stats["group_walks"])
         return out
     from ._native import load
 
     lib = load()
-    _bounce_tally(state.device).start(lib)
+    _card_tally(state.device, "bounce_groups").start(lib)
     state = state.contiguous()
     rng_state = rng_state.contiguous()
     st_out = torch.empty_like(state)
@@ -1317,12 +1320,13 @@ def resume_tiles(scene, state, rng_state, *, det_eps: float = 1e-8,
             rows, state, rng_state, scene.max_bounces, sh.diffuse_bounce,
             det_eps, tmin, shadow_eps, shadow_tmin, dialect=dialect,
             shadow_samples=shadow_samples, stats=stats)
-        _bounce_tally(state.device).add(stats)
+        _card_tally(state.device, "bounce_groups").add(
+            stats["groups"], stats["group_walks"])
         return out
     from ._native import load
 
     lib = load()
-    _bounce_tally(state.device).start(lib)
+    _card_tally(state.device, "bounce_groups").start(lib)
     state = state.contiguous()
     rng_state = rng_state.contiguous()
     nt = state.shape[0] // _ST_ROWS
@@ -1375,6 +1379,7 @@ def render_tiles(scene, xs, ys, spp: int, sample_offset=0, *,
         outs = [torch.empty(nt, RAY_TILE, dtype=torch.float32,
                             device=xs.device) for _ in range(3)]
         args = _scene_args(rows, sh, cand_plan)
+        _card_tally(xs.device, "binned_chunks").start(lib)
         with span("rt.launch.render"):
             err = lib.rt_render(ctypes.byref(args), _ptr(xs), _ptr(ys),
                                 _ptr(hw), np_rays, RAY_TILE, int(spp),
@@ -1395,13 +1400,14 @@ _VARIANTS = {"bounce_step[diff]": "diff_launches",
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counters and the shadow-walk and group tallies."""
+    """Zero the launch counters and the shadow-walk, group and chunk
+    tallies."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
     for attr in _VARIANTS.values():
         setattr(bounce_step_tiles, attr, 0)
     _WALK_TALLIES.clear()
-    _BOUNCE_TALLIES.clear()
+    _CARD_TALLIES.clear()
 
 
 def launch_counts() -> dict:
@@ -1483,36 +1489,44 @@ def shadow_group_counts() -> dict:
     return {str(dev): tally.read()[1] for dev, tally in _WALK_TALLIES.items()}
 
 
-# Kernels B's and C's soft groups (the cpuonly (ray, area light) pairs of
-# more than one disk sample that bounce_step and resume walk as one group,
-# where some sample's segment passes a block's slab test; the plain
-# versions count the same) and their sample walks.  The cpuonly kernels
-# add them, one atomic a warp, into a total that stays on the card while
-# the library is loaded (rt_bounce_groups copies it there); a device's
-# tally keeps that total as it was before its first launch after a reset,
-# and a read is the difference, one copy to the host.
-_BOUNCE_TALLIES: dict = {}
+# Totals the kernels add on the card, one atomic a warp and count, kept
+# while the library is loaded and copied on the card by an rt_* function
+# of two counts; a device's tally keeps the total as it was before its
+# first launch after a reset, and a read is the difference, one copy to
+# the host:
+# - "bounce_groups" (rt_bounce_groups): kernels B's and C's soft groups
+#   (the cpuonly (ray, area light) pairs of more than one disk sample that
+#   bounce_step and resume walk as one group, where some sample's segment
+#   passes a block's slab test) and their sample walks; the plain versions
+#   add the same counts on the host;
+# - "binned_chunks" (rt_binned_chunks): the warp-chunks of emit's and
+#   render's depth-0 binned walks (closest_binned_cta), scheduled and
+#   tested; counted on the card alone.
+_CARD_TALLIES: dict = {}
 
 
-class _BounceTally:
-    def __init__(self, device):
+class _CardTally:
+    def __init__(self, device, name):
         self.device = device
+        self.copy = f"rt_{name}"
         self.base = None  # the card's total before the first launch
         self.plain = torch.zeros(2, dtype=torch.int64)
+
+    def _read(self, lib, out) -> None:
+        _raise_on(lib, getattr(lib, self.copy)(_ptr(out), _stream()),
+                  self.copy)
 
     def start(self, lib) -> None:
         """Before a launch on the card: keep the total, once."""
         if self.base is None:
             self.base = torch.empty(2, dtype=torch.int64, device=self.device)
-            _raise_on(lib, lib.rt_bounce_groups(_ptr(self.base), _stream()),
-                      "bounce_groups")
+            self._read(lib, self.base)
 
-    def add(self, stats) -> None:
+    def add(self, a: int, b: int) -> None:
         """A plain call's counts."""
-        self.plain += torch.tensor([stats["groups"], stats["group_walks"]])
+        self.plain += torch.tensor([a, b])
 
     def read(self) -> tuple:
-        """(groups, walks)."""
         counts = self.plain.clone()
         if self.base is not None:
             from ._native import load
@@ -1520,18 +1534,21 @@ class _BounceTally:
             lib = load()
             now = torch.empty_like(self.base)
             with torch.cuda.device(self.device):
-                _raise_on(lib, lib.rt_bounce_groups(_ptr(now), _stream()),
-                          "bounce_groups")
+                self._read(lib, now)
             counts += (now - self.base).cpu()
-        groups, walks = counts.tolist()
-        return groups, walks
+        return tuple(counts.tolist())
 
 
-def _bounce_tally(device) -> _BounceTally:
-    key = torch.device(device)
-    if key not in _BOUNCE_TALLIES:
-        _BOUNCE_TALLIES[key] = _BounceTally(key)
-    return _BOUNCE_TALLIES[key]
+def _card_tally(device, name: str) -> _CardTally:
+    key = (torch.device(device), name)
+    if key not in _CARD_TALLIES:
+        _CARD_TALLIES[key] = _CardTally(key[0], name)
+    return _CARD_TALLIES[key]
+
+
+def _card_counts(name: str) -> dict:
+    return {str(dev): tally.read()
+            for (dev, n), tally in _CARD_TALLIES.items() if n == name}
 
 
 def bounce_group_counts() -> dict:
@@ -1541,7 +1558,19 @@ def bounce_group_counts() -> dict:
     by device -> {device: (groups, walks)}: one read from each device,
     made here and nowhere else.  walks / (groups x ``shadow_samples``) is
     the share of a group's sample lanes that walk."""
-    return {str(dev): tally.read() for dev, tally in _BOUNCE_TALLIES.items()}
+    return _card_counts("bounce_groups")
+
+
+def binned_chunk_counts() -> dict:
+    """The warp-chunks (a warp's 8 rays and one chunk of their tile's
+    binned plan) of emit's and render's depth-0 binned walks since the
+    last reset, by device -> {device: (scheduled, tested)}: one read from
+    each device, made here and nowhere else.  A warp skips the chunks
+    behind all of its rays' hits in a plan ordered front to back
+    (``binned.order_front_to_back``); tested / scheduled is the share of
+    the plans' work walked.  The kernels count on the card alone: the
+    plain versions walk every candidate and count nothing here."""
+    return _card_counts("binned_chunks")
 
 
 reset_launch_counts()

@@ -201,15 +201,18 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
                            spp_override: Optional[int] = None,
                            align_tiles: int = 1):
     """Binned camera-candidate plan of a scene (``ops.binned``, chunks of
-    ``binned.CHUNK`` lanes), built on its device once per (scene, camera)
-    and cached; None for a scene the fused kernels do not take.  The
-    depth-0 walk of emit and render then tests each tile's candidates
-    instead of the block grid.  ``align_tiles``: the data ranks of the
-    ``pixel_stream`` the plan is built for, so that its meta rows deal out
-    with the stream (``parallel.sharded``; the chunk stream, whose starts
-    are global, is shared)."""
+    ``binned.CHUNK`` lanes), built on its device once per (scene, camera),
+    ordered front to back (``order_front_to_back``) and cached; None for a
+    scene the fused kernels do not take.  The depth-0 walk of emit and
+    render then tests each tile's candidates instead of the block grid,
+    and stops a warp at the first chunk behind all of its rays' hits.
+    ``align_tiles``: the data ranks of the ``pixel_stream`` the plan is
+    built for, so that its meta rows deal out with the stream
+    (``parallel.sharded``; the chunk stream, whose starts are global, is
+    shared)."""
     from ..ops.binned import (CHUNK, build_camera_candidate_plan,
-                              candidate_plan_stats, plan_fingerprint)
+                              candidate_plan_stats, order_front_to_back,
+                              plan_fingerprint)
     from ..ops.megakernel import RAY_TILE
 
     spp_eff = spp_override if spp_override is not None else scene.spp
@@ -226,8 +229,9 @@ def resolve_candidate_plan(scene: Scene, jitter_mode: str = "auto",
                                 int(scene.camera.height), scene.device,
                                 align_tiles)
     with span("rt.dispatch.plan"):
-        plan = build_camera_candidate_plan(scene.camera, xs, ys, scene.accel,
-                                           RAY_TILE, chunk=CHUNK)
+        plan = order_front_to_back(
+            build_camera_candidate_plan(scene.camera, xs, ys, scene.accel,
+                                        RAY_TILE, chunk=CHUNK), scene.camera)
         stats = candidate_plan_stats(plan, RAY_TILE)
     _PLANS["plans"] += 1
     _PLANS["chunks"] += stats["chunks"]

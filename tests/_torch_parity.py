@@ -8,8 +8,9 @@ builders make the two-frog test scene of ``tests/test_megakernel.py``
 for either package, and ``grad_scene`` the JAX grad-bench scene.  ``one_torch_thread`` keeps the port's tests to one
 PyTorch thread.  ``assert_images_close`` compares two quantized images,
 ``staged_image`` renders a scene on the staged integrator whatever its
-route, ``regridded`` subdivides a scene's mesh; none imports JAX, so the
-card's test files use them too.
+route, ``regridded`` subdivides a scene's mesh, ``warp_chunk_counts``
+counts the chunks the kernels' depth-0 binned walk skips; none imports
+JAX, so the card's test files use them too.
 """
 
 from __future__ import annotations
@@ -287,3 +288,57 @@ def poisoned_padding(scene, pad=3):
                              + 10 ** 6).to(g.tri_index.dtype)
     g.obj[n0:, :12] = 0
     return padded
+
+
+def warp_chunk_counts(cand_plan, o, d, alive, det_eps, tmin, warp_rays=8):
+    """The warp-chunks (``warp_rays`` rays of a tile and one chunk of its
+    binned plan) that ``closest_binned_cta`` of ``csrc/megakernel.cu``
+    (emit's and render's depth-0 walk, 8 rays a warp) schedules and tests,
+    for the arguments of the port's ``megakernel._closest_binned_plain``
+    -> a (2,) int64 tensor (scheduled, tested).  Each warp of a tile with
+    a live ray is scheduled each of the tile's chunks, and tests one
+    unless every ray of the warp has a least t over the tile's earlier
+    chunks (F32_MAX: none, and a dead ray's) below the chunk's near bound
+    (row 12 of its lane 0, ``binned.order_front_to_back``)."""
+    import torch
+
+    from raytracinginonesemester_tpu_torch.ops import binned
+    from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
+
+    c, n = cand_plan.chunk, tmk.RAY_TILE
+    stream = cand_plan.stream.reshape(-1, binned.CAND_ROWS, c).cpu()
+    o, d = tuple(x.cpu() for x in o), tuple(x.cpu() for x in d)
+    alive = alive.cpu()
+    tmin = tmin.cpu() if torch.is_tensor(tmin) else tmin
+    counts = torch.zeros(2, dtype=torch.int64)
+    for ti, (start, cnt) in enumerate(cand_plan.meta[:, :2].tolist()):
+        sub = ti * n + alive[ti * n:(ti + 1) * n].nonzero().squeeze(1)
+        if cnt == 0 or sub.numel() == 0:
+            continue
+        rows = stream[start:start + cnt]  # (cnt, 16, c)
+        tri = tuple(rows[:, k].reshape(1, cnt * c) for k in range(9))
+        live = (rows[:, 9] >= 0).reshape(1, cnt * c)
+        least = torch.full((n, cnt), tmk.F32_MAX)
+        for ch in tmk._chunks(sub, cnt * c):
+            tm = tmin[ch, None] if torch.is_tensor(tmin) else tmin
+            t, _, _ = tmk._mt(tuple(x[ch, None] for x in o),
+                              tuple(x[ch, None] for x in d), tri, det_eps,
+                              tm, tmk.F32_MAX)
+            t = torch.where(live, t, tmk.F32_MAX)
+            least[ch - ti * n] = t.reshape(-1, cnt, c).amin(dim=2)
+        before = torch.cat((torch.full((n, 1), tmk.F32_MAX),
+                            least.cummin(dim=1).values[:, :-1]), dim=1)
+        behind = (before < rows[:, binned.NEAR_ROW, 0]).reshape(
+            -1, warp_rays, cnt).all(dim=1)
+        counts += torch.tensor([behind.numel(), int((~behind).sum())])
+    return counts
+
+
+def counting_binned_walk(walk, into):
+    """``walk`` (with the signature of ``megakernel._closest_binned_plain``)
+    that also adds each call's ``warp_chunk_counts`` to the (2,) tensor
+    ``into``."""
+    def counted(*args):
+        into.add_(warp_chunk_counts(*args))
+        return walk(*args)
+    return counted

@@ -3,7 +3,9 @@
 The plan is built on the device with torch ops; its tile metadata and
 stream rows 0-10 (planes, global id, home row) must equal the JAX
 package's host build exactly, and row 11 must hold each candidate's
-grid slot.  The binned emit must give the block walk's winners: alive
+grid slot.  The renderer's plans are ordered front to back: each tile's
+candidates the same, sorted by a near bound (row 12) that no camera
+ray's t of the candidate is below.  The binned emit must give the block walk's winners: alive
 flags, radiance and every alive lane's state and rng bit for bit, and
 the JAX binned emit (Pallas interpret mode) within the emit tolerance
 of ``test_torch_megakernel.py`` (4 ulp or 5e-5, with alive and rng rows
@@ -53,6 +55,115 @@ def _torch_plan(ts, chunk, w=W, h=H):
     xs_p, ys_p = _torch_stream(ts, w, h)
     return tb.build_camera_candidate_plan(ts.camera, xs_p, ys_p, ts.accel,
                                           tmk.RAY_TILE, chunk=chunk)
+
+
+def _tile_lanes(plan):
+    """Each tile's (lanes, CAND_ROWS) rows in walk order."""
+    stream = plan.stream.reshape(plan.total_chunks, tb.CAND_ROWS, plan.chunk)
+    return [stream[s:s + c].permute(0, 2, 1).reshape(-1, tb.CAND_ROWS)
+            for s, c in plan.meta[:, :2].tolist()]
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_front_to_back_order_keeps_each_tiles_candidates(scenes, chunk):
+    """The ordered plan has the built plan's meta and chunk count; each
+    tile holds the same rows 0-11 (as a multiset: live ids are unique and
+    padding lanes equal); row 12 ascends within a tile, padding last at
+    +inf, and is the distance from the camera's centre to the candidate's
+    AABB less ``NEAR_MARGIN`` of it (0 in the built plan)."""
+    _, ts = scenes
+    built = _torch_plan(ts, chunk)
+    ordered = tb.order_front_to_back(built, ts.camera)
+    assert ordered.total_chunks == built.total_chunks
+    assert torch.equal(ordered.meta, built.meta)
+    assert ordered.camera == built.camera
+    assert not built.stream.reshape(-1, tb.CAND_ROWS, chunk)[:, 12:].any()
+    centre = ts.camera.center.to(torch.float64)
+    tiles = 0
+    for a, b in zip(_tile_lanes(built), _tile_lanes(ordered)):
+        if not a.numel():
+            continue
+        tiles += 1
+        by_id = lambda x: x[torch.sort(x[:, 9], stable=True).indices, :12]
+        assert torch.equal(by_id(a), by_id(b))
+        near = b[:, tb.NEAR_ROW]
+        assert bool((near[1:] >= near[:-1]).all())
+        live = b[:, 9] >= 0
+        assert bool(torch.isinf(near[~live]).all())
+        assert bool(live[:int(live.sum())].all())
+        v = b[live, :9].to(torch.float64).reshape(-1, 3, 3)
+        pts = torch.stack((v[:, 0], v[:, 0] + v[:, 1], v[:, 0] + v[:, 2]), 1)
+        gap = torch.clamp(torch.maximum(pts.amin(1) - centre,
+                                        centre - pts.amax(1)), min=0.0)
+        want = gap.norm(dim=1) * (1.0 - tb.NEAR_MARGIN)
+        torch.testing.assert_close(near[live].to(torch.float64), want,
+                                   rtol=1e-5, atol=1e-7)
+    assert tiles > 1
+
+
+def _port_scene(name):
+    """A scene of the port on the CPU at its own size: a JSON scene of
+    ``tests/assets/scenes``, or the terminal frog at 1920x1080."""
+    import os
+
+    from raytracinginonesemester_tpu_torch.render import renderer as tr
+    from raytracinginonesemester_tpu_torch.scene.build import build_scene
+    from raytracinginonesemester_tpu_torch.scene.config import (
+        load_scene_config)
+
+    if name == "frog_1080p_terminal":
+        return tr.frog_scene(1920, 1080, max_bounces=4, diffuse_bounce=False,
+                             device="cpu")
+    path = os.path.join(os.path.dirname(__file__), "assets", "scenes",
+                        f"{name}.json")
+    return build_scene(load_scene_config(path), scene_path=path,
+                       device="cpu")
+
+
+@pytest.mark.parametrize("scene", ["two_frog", "cpuonly_mirror",
+                                   "gpu_cornell", "frog_1080p_terminal"])
+def test_near_bound_is_conservative(scenes, scene):
+    """For every (ray, candidate) pair of a tile, at the four extreme
+    jitters of [-0.5, 0.5] and at the Wang jitter, the plain
+    Moller-Trumbore t is at least the candidate's near bound, or a miss:
+    on the two-frog scene, on the cpuonly mirror scene, on the Cornell box
+    (walls of 550 units, seen at a slant, and the camera 800 units off)
+    and on the terminal frog at 1920x1080, the benchmark's headline
+    frame."""
+    ts = scenes[1] if scene == "two_frog" else _port_scene(scene)
+    w, h = int(ts.camera.width), int(ts.camera.height)
+    plan = tb.order_front_to_back(_torch_plan(ts, 128, w, h), ts.camera)
+    xs_p, ys_p = _torch_stream(ts, w, h)
+    rows = tmk._scene_rows(ts, ts.accel)
+    cam = rows.cam
+    nt = int(plan.meta.shape[0])
+    work = torch.ones(nt, dtype=torch.bool)
+    dirs = [tmk._primary_state(rows, xs_p, ys_p, 0, "wang", work)["bd"]]
+    for jx in (-0.5, 0.5):
+        for jy in (-0.5, 0.5):
+            px, py = xs_p.float() + jx, ys_p.float() + jy
+            r = [(cam[3 + k] + px * cam[6 + k] + py * cam[9 + k]) - cam[k]
+                 for k in range(3)]
+            n = torch.sqrt(r[0] * r[0] + r[1] * r[1] + r[2] * r[2])
+            dirs.append([c / n for c in r])
+    hits = 0
+    for ti, lanes in enumerate(_tile_lanes(plan)):
+        lanes = lanes[lanes[:, 9] >= 0]
+        if not lanes.numel():
+            continue
+        tri = tuple(lanes[:, q][None] for q in range(9))
+        near = lanes[:, tb.NEAR_ROW][None]
+        rays = torch.arange(ti * tmk.RAY_TILE, (ti + 1) * tmk.RAY_TILE)
+        for d in dirs:
+            for ch in tmk._chunks(rays, lanes.shape[0]):
+                o = tuple(cam[k].expand(ch.numel(), 1) for k in range(3))
+                t, _, _ = tmk._mt(o, tuple(c[ch, None] for c in d), tri,
+                                  1e-8, 0.0, tmk.F32_MAX)
+                hit = t < tmk.F32_MAX
+                hits += int(hit.sum())
+                assert bool((t[hit] >= near.expand_as(t)[hit]).all()), (
+                    f"tile {ti}: a hit in front of its bound")
+    assert hits > 0
 
 
 @pytest.mark.parametrize("chunk", [128, 256])
@@ -217,7 +328,8 @@ def test_pixel_stream_padding_matches_the_plan(scenes, ranks):
     """``pixel_stream`` for ``ranks`` data ranks holds one tile for each
     meta row of the plan resolved for as many ranks (whole groups for
     every rank): the frame's own swizzled pixels, then padding rays at
-    pixel (0, 0); and that plan is the one built on this stream."""
+    pixel (0, 0); and that plan is the one built on this stream, ordered
+    front to back."""
     from raytracinginonesemester_tpu_torch.render import renderer as tr
 
     _, ts = scenes
@@ -232,8 +344,8 @@ def test_pixel_stream_padding_matches_the_plan(scenes, ranks):
     assert n == hp * wp == fx.shape[0] and (hp, wp) == shape
     assert torch.equal(xs[:n], fx) and torch.equal(ys[:n], fy)
     assert not xs[n:].any() and not ys[n:].any()
-    want = tb.build_camera_candidate_plan(ts.camera, xs, ys, ts.accel,
-                                          tmk.RAY_TILE, chunk=tb.CHUNK)
+    want = tb.order_front_to_back(tb.build_camera_candidate_plan(
+        ts.camera, xs, ys, ts.accel, tmk.RAY_TILE, chunk=tb.CHUNK), ts.camera)
     assert torch.equal(plan.meta, want.meta)
     assert torch.equal(plan.stream, want.stream)
 

@@ -26,6 +26,7 @@ from raytracinginonesemester_tpu.ops import megakernel as jmk
 from raytracinginonesemester_tpu.ops.wavefront import bounce_tile_plan
 from raytracinginonesemester_tpu.render.renderer import _swizzled_grid as j_grid
 from raytracinginonesemester_tpu_torch.core import rng as rnglib
+from raytracinginonesemester_tpu_torch.ops import binned
 from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
 from raytracinginonesemester_tpu_torch.render.renderer import _swizzled_grid as t_grid
 
@@ -386,7 +387,8 @@ def test_cooperative_walk_matches_the_plain_walk(block_size, dialect,
 _SPLIT = 4  # kEmitSplit: the threads of a ray in emit's closest walk
 
 
-def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin, split=_SPLIT):
+def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin, chunks=None,
+                        split=_SPLIT):
     """``closest_binned_cta<split>`` of ``csrc/megakernel.cu``, emulated
     for every tile at once: the tile's chunks in order, each chunk's
     candidates four at a time (a width that is not a multiple of 4 ends
@@ -394,7 +396,11 @@ def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin, split=_SPLIT):
     at the window its own running best t had before it and takes it in
     order by the (t, id) rule (a take in order keeps the group's first
     (t, id) minimum, which is what is taken here); the ray's threads then
-    keep the first (t, id) minimum in walk order."""
+    keep the first (t, id) minimum in walk order.  A warp (32 // split
+    rays) skips a chunk when each of its rays' best t (the least of its
+    threads') is below the chunk's near bound (row 12 of lane 0);
+    ``chunks`` grows by the warp-chunks scheduled and tested, as
+    ``_torch_parity.warp_chunk_counts`` counts them."""
     r, dev = d[0].shape[0], d[0].device
     best = tmk._Best(r, dev)
     c = cand_plan.chunk
@@ -410,6 +416,9 @@ def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin, split=_SPLIT):
     tile_of = rays // tmk.RAY_TILE
     oc = tuple(x[rays, None] for x in o)
     dc = tuple(x[rays, None] for x in d)
+    warp_rays = _LANES // split
+    warps = tmk.RAY_TILE // warp_rays  # a tile's
+    counts = torch.zeros(2, dtype=torch.int64)
     quads = c // 4 * 4
     groups = [(j, 4, (j // 4) % split) for j in range(0, quads, 4)]
     groups += [(j, 1, (j - quads) % split) for j in range(quads, c)]
@@ -421,6 +430,17 @@ def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin, split=_SPLIT):
     bp = torch.full((split, n), tmk._INT_MAX, dtype=torch.int64)
     for k in range(int(meta[tiles, 1].max())):
         on = (k < meta[tile_of, 1]).nonzero().squeeze(1)  # a k-th chunk
+        # the warps' votes: a warp skips the chunk when each of its rays
+        # (a dead ray's best t is F32_MAX) has a best t below its bound
+        bound = stream[meta[tile_of[on], 0] + k, binned.NEAR_ROW, 0]
+        front = (bt[:, on].amin(dim=0) < bound).to(torch.int64)
+        warp = rays[on] // warp_rays
+        behind = torch.zeros(r // warp_rays, dtype=torch.int64).index_add_(
+            0, warp, front) == warp_rays
+        walked = [t for t in tiles if k < meta[t, 1]]
+        counts[0] += len(walked) * warps
+        counts[1] += len(walked) * warps - int(behind.sum())
+        on = on[~behind[warp]]
         rows = stream[meta[tile_of[on], 0] + k]  # (n, 16, c)
         # t, u, v do not depend on the window: test the chunk once
         # without one, then apply each group's window to t
@@ -462,6 +482,8 @@ def _cta_closest_binned(cand_plan, o, d, alive, det_eps, tmin, split=_SPLIT):
     ar = torch.arange(n)
     best.t[rays], best.u[rays], best.v[rays] = bt[w, ar], bu[w, ar], bv[w, ar]
     best.id[rays], best.slot[rays] = bi[w, ar], bs[w, ar]
+    if chunks is not None:
+        chunks += counts
     return best
 
 
@@ -473,7 +495,9 @@ def test_emit_walks_match_the_plain_walk(block_size, chunk, dialect,
     version's sequential walk, bit for bit: at 512-triangle blocks the
     binned walk of staged chunks split over a ray's four threads (four
     candidates a window; a chunk width of 126 ends with two one at a
-    time), at 128 the flat walk
+    time) on a plan ordered front to back, its warps skipping the chunks
+    behind their rays' hits (the warp-chunks it schedules and tests are
+    the plain count's, and some are skipped), at 128 the flat walk
     (``closest_coop``), and at both the shadow rays listed and the list
     walked 8 rays to a warp by ``occluded_coop``.  Two-frog 48x24 through a
     135 mm lens (a tile sees part of the frog: ~12k candidates, not the
@@ -487,7 +511,8 @@ def test_emit_walks_match_the_plain_walk(block_size, chunk, dialect,
         SceneConfig, SceneNodeConfig)
     from raytracinginonesemester_tpu_torch.scene.transform import Transform
 
-    from _torch_parity import list_occluded, two_frog_config
+    from _torch_parity import (counting_binned_walk, list_occluded,
+                               two_frog_config)
 
     monkeypatch.setenv("RT_BLOCK_SIZE", str(block_size))
     cfg = dataclasses.replace(
@@ -505,8 +530,10 @@ def test_emit_walks_match_the_plain_walk(block_size, chunk, dialect,
     xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
     pkw = {k: v for k, v in tmk.megakernel_kwargs(ts, "wang").items()
            if k != "jitter"}
-    plan = chunk and binned.build_camera_candidate_plan(
-        ts.camera, xs_p, ys_p, ts.accel, tmk.RAY_TILE, chunk=chunk)
+    plan = chunk and binned.order_front_to_back(
+        binned.build_camera_candidate_plan(ts.camera, xs_p, ys_p, ts.accel,
+                                           tmk.RAY_TILE, chunk=chunk),
+        ts.camera)
     sh = tmk._Shade(ts.diffuse_bounce, dialect=dialect,
                     shadow_samples=samples)
     work = tmk._has_work(ts, xs_p, ys_p, sh, None, plan)
@@ -514,6 +541,8 @@ def test_emit_walks_match_the_plain_walk(block_size, chunk, dialect,
     def emit():
         return tmk.emit_tiles_plain(rows, xs_p, ys_p, work, 0,
                                     ts.diffuse_bounce, cand_plan=plan, **pkw)
+
+    counts = [torch.zeros(2, dtype=torch.int64) for _ in range(2)]
 
     shadows = []
     real_occ = tmk._occluded_plain
@@ -524,8 +553,11 @@ def test_emit_walks_match_the_plain_walk(block_size, chunk, dialect,
         shadows.append((int(a[4].sum()), int(got[0].sum())))
         return got
 
+    monkeypatch.setattr(tmk, "_closest_binned_plain", counting_binned_walk(
+        tmk._closest_binned_plain, counts[0]))
     want = emit()
-    monkeypatch.setattr(tmk, "_closest_binned_plain", _cta_closest_binned)
+    monkeypatch.setattr(tmk, "_closest_binned_plain",
+                        lambda *a: _cta_closest_binned(*a, chunks=counts[1]))
     monkeypatch.setattr(tmk, "_closest_plain", _coop_closest)
     monkeypatch.setattr(tmk, "_occluded_plain", walk)
     got = emit()
@@ -533,6 +565,9 @@ def test_emit_walks_match_the_plain_walk(block_size, chunk, dialect,
         assert torch.equal(g, w)
     assert len(shadows) == samples * rows.lights.shape[0]
     assert all(f > 0 for f, _ in shadows) and sum(b for _, b in shadows) > 0
+    assert torch.equal(counts[0], counts[1])
+    if plan:
+        assert 0 < int(counts[0][1]) < int(counts[0][0])
 
 
 # --- kernel A's soft groups, emulated on the CPU --------------------

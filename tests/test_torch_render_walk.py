@@ -38,7 +38,8 @@ from raytracinginonesemester_tpu_torch.ops import megakernel as tmk
 from raytracinginonesemester_tpu_torch.render.renderer import (
     _swizzled_grid as t_grid)
 
-from _torch_parity import REPO, one_torch_thread  # noqa: F401
+from _torch_parity import (REPO, counting_binned_walk,  # noqa: F401
+                           one_torch_thread)
 from test_torch_megakernel import (_coop_closest, _coop_occluded,
                                    _cta_closest_binned)
 
@@ -119,7 +120,10 @@ def _scene(dialect, terminal, monkeypatch):
 def test_render_walk_matches_the_plain_walk(dialect, terminal, binned_plan,
                                             spp, offset, monkeypatch):
     """D's walks and its warp-uniform depth loop give the plain version's
-    r, g, b sums bit for bit."""
+    r, g, b sums bit for bit; its binned depth 0 walks a plan ordered
+    front to back, its warps skipping the chunks behind their paths'
+    hits, and schedules and tests the warp-chunks that
+    ``_torch_parity.warp_chunk_counts`` counts."""
     ts = _scene(dialect, terminal, monkeypatch)
     rows = tmk._scene_rows(ts, ts.accel)
     assert rows.block_size == 128
@@ -134,10 +138,13 @@ def test_render_walk_matches_the_plain_walk(dialect, terminal, binned_plan,
     assert is_terminal == terminal
     xs, ys, _ = t_grid(W, H)
     xs_p, ys_p, _, _ = tmk._pad_tiles(xs, ys)
-    plan = (binned.build_camera_candidate_plan(
-        ts.camera, xs_p, ys_p, ts.accel, tmk.RAY_TILE, chunk=126)
+    plan = (binned.order_front_to_back(binned.build_camera_candidate_plan(
+        ts.camera, xs_p, ys_p, ts.accel, tmk.RAY_TILE, chunk=126), ts.camera)
         if binned_plan else None)
     work = tmk._has_work(ts, xs_p, ys_p, sh, None, plan)
+    chunks = [torch.zeros(2, dtype=torch.int64) for _ in range(2)]
+    monkeypatch.setattr(tmk, "_closest_binned_plain", counting_binned_walk(
+        tmk._closest_binned_plain, chunks[0]))
     want = tmk.render_tiles_plain(
         rows, xs_p, ys_p, work, spp, offset, ts.max_bounces, terminal,
         ts.diffuse_bounce, jitter=jitter, cand_plan=plan,
@@ -158,7 +165,7 @@ def test_render_walk_matches_the_plain_walk(dialect, terminal, binned_plan,
         return blocked, tests
 
     monkeypatch.setattr(tmk, "_closest_binned_plain", counted(
-        "binned", functools.partial(_cta_closest_binned,
+        "binned", functools.partial(_cta_closest_binned, chunks=chunks[1],
                                     split=RENDER_SPLIT)))
     monkeypatch.setattr(tmk, "_closest_plain",
                         counted("closest", _coop_closest))
@@ -169,6 +176,9 @@ def test_render_walk_matches_the_plain_walk(dialect, terminal, binned_plan,
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert calls["binned" if binned_plan else "closest"] >= spp
+    assert torch.equal(chunks[0], chunks[1])
+    if binned_plan:
+        assert 0 < int(chunks[0][1]) < int(chunks[0][0])
     assert calls["shadow"] > 0 and calls["blocked"] > 0
     assert (warp_depths > 0) == (not terminal)
     assert 0.0 < float(want[0].max())
